@@ -1,0 +1,62 @@
+"""Importing the PyTorch port must need neither JAX nor imageio nor triton,
+touch no CUDA context and build no kernel.
+
+The card's machine has no JAX, flax, orbax or imageio, and this one has no
+triton: a module-level import of any of them breaks the port there.  From
+the JAX package the port may import only ``probav_tpu.config`` (stdlib
+only).  Kernels are built at their first launch, never at import.
+"""
+
+import subprocess
+import sys
+
+SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "imageio", "triton"):
+    sys.modules[name] = None          # any import of them now fails
+import importlib, pkgutil
+import torch
+import probav_tpu_torch
+
+def _fail(name):
+    raise ImportError(f"could not import {name}")
+
+for m in pkgutil.walk_packages(probav_tpu_torch.__path__,
+                               "probav_tpu_torch.", onerror=_fail):
+    importlib.import_module(m.name)
+jax_pkg = sorted(n for n in sys.modules
+                 if n == "probav_tpu" or n.startswith("probav_tpu."))
+assert jax_pkg == ["probav_tpu", "probav_tpu.config"], jax_pkg
+assert not torch.cuda.is_initialized(), "an import initialized CUDA"
+from probav_tpu_torch.ops import _build
+assert _build.library.cache_info().currsize == 0, "kernels built at import"
+print("IMPORT_SAFE")
+"""
+
+
+def test_port_imports_without_jax_imageio_triton_or_cuda():
+    r = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
+                       timeout=300, text=True)
+    assert r.returncode == 0, r.stderr
+    assert "IMPORT_SAFE" in r.stdout
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without a
+    card (this machine), and equally from a directory holding nothing else
+    of the repository."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+    if torch.cuda.is_available():
+        import pytest
+        pytest.skip("a CUDA device is present")
+    src = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(src, lone)
+    for script in (src, lone):
+        r = subprocess.run([sys.executable, str(script)], capture_output=True,
+                           timeout=300, text=True, cwd=tmp_path)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
