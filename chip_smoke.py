@@ -17,7 +17,12 @@ Phases, each printing its result:
 5. serve: ``probav_tpu_torch.serve.main()`` on a synthetic tree (16 scenes
    of 64 patches; 2 scenes for TTA-20) at bf16 and float32, with and
    without --tta, and --plain at both; PNG names, launch counts and the
-   float32 kernel-vs-plain agreement (within one count) are checked.
+   float32 kernel-vs-plain agreement (within one count) are checked.  Each
+   CLI run is one cold run: a fresh model, first calls included;
+6. warm: ``Resolver.resolve_all`` on the same 16 scenes at bf16 and
+   float32, kernels and plain, after a warm-up resolve: the median and
+   range of 5 timed runs (``probav_tpu_torch.tools.profile_serve`` adds
+   the device-time breakdown).
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
@@ -50,6 +55,7 @@ N_PATCH, HW, T = 128, 22, 9
 C, CMID, CDEC = 32, 256, 25
 PARAMS = 535_267
 SERVE_SCENES, TTA_SCENES = 16, 2
+WARM_REPEATS = 5
 
 
 def log(msg):
@@ -157,10 +163,8 @@ def phase_kernels(torch, ts, dev, card):
 
 
 def phase_model(torch, dev, card):
-    from probav_tpu.config import Config
     from probav_tpu_torch.models.wdsr import build_model
 
-    cfg = Config.from_file(CFG)
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.uniform(4000, 12000, (N_PATCH, HW, HW, T, 1))
                         .astype(np.float32), device=dev)
@@ -168,7 +172,7 @@ def phase_model(torch, dev, card):
         dn = str(dtype).split(".")[1]
         outs = {}
         for fused in (True, False):
-            m = build_model(cfg, "NIR", dtype=dtype, fused_stack=fused,
+            m = build_model(CFG, "NIR", dtype=dtype, fused_stack=fused,
                             generator=torch.Generator().manual_seed(0))
             n = sum(p.numel() for p in m.parameters())
             if n != PARAMS:
@@ -209,24 +213,20 @@ def write_tree(root, name, patches, params_npz):
 
 
 def phase_serve(torch, ts, dev, card):
-    from probav_tpu.config import Config
     from probav_tpu_torch import serve
     from probav_tpu_torch.convert import save_npz
     from probav_tpu_torch.infer.resolver import MODEL_CHUNK
     from probav_tpu_torch.models.wdsr import build_model
+    from probav_tpu_torch.tools.profile_serve import synthetic_patches
     from probav_tpu_torch.utils.png import read_png
 
-    cfg = Config.from_file(CFG)
-    rng = np.random.default_rng(0)
-    patches = rng.uniform(4000, 12000, (SERVE_SCENES, 64, T, 1, HW, HW)) \
-        .astype(np.float32)
-    blocks = cfg.num_res_blocks
+    patches = synthetic_patches(SERVE_SCENES)
+    model = build_model(CFG, "NIR", generator=torch.Generator().manual_seed(0))
+    blocks = len(model.block_names)
     results, launches = {}, None
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "params.npz")
-        save_npz(npz, build_model(
-            cfg, "NIR", generator=torch.Generator().manual_seed(0))
-            .state_dict())
+        save_npz(npz, model.state_dict())
         trees = {"full": (write_tree(tmp, "full", patches, npz),
                           SERVE_SCENES, 1),
                  "tta": (write_tree(tmp, "tta", patches[:TTA_SCENES], npz),
@@ -264,7 +264,8 @@ def phase_serve(torch, ts, dev, card):
             results[name] = imgs
             os.rename(outdir, outdir + "_" + name.replace(" ", "_"))
             log(f"serve {name}: {scenes} scenes, {got['seg_fwd']} launches "
-                f"of each kernel, resolve {scenes / res['resolve_s']:.3f} "
+                f"of each kernel; one cold run (fresh model, first calls "
+                f"included): resolve {scenes / res['resolve_s']:.3f} "
                 f"scenes/s, CLI end to end {scenes / wall:.3f} scenes/s "
                 f"[{card}]")
     diff = np.abs(results["f32"] - results["f32 plain"]).max()
@@ -277,6 +278,26 @@ def phase_serve(torch, ts, dev, card):
             f"{float((dlt > 0).mean()) * 100:.3f}% of pixels differ")
     log(f"serve f32 kernels vs f32 plain: max {int(diff)} counts")
     return launches
+
+
+def phase_warm(torch, dev, card):
+    """Warm resolve throughput on the serve phase's scenes, laid out as
+    the CLI lays them out: one warm-up resolve, then WARM_REPEATS timed
+    ones per variant; prints the median and the range."""
+    from probav_tpu_torch.serve import model_layout
+    from probav_tpu_torch.tools.profile_serve import (VARIANTS,
+                                                      make_resolver,
+                                                      synthetic_patches,
+                                                      warm_rates)
+
+    patches = model_layout(synthetic_patches(SERVE_SCENES))
+    for name, dtype, fused in VARIANTS:
+        rates = warm_rates(make_resolver(CFG, dtype, fused, dev), patches,
+                           WARM_REPEATS)
+        torch.cuda.empty_cache()
+        log(f"warm resolve {name}: {SERVE_SCENES} scenes, median of "
+            f"{WARM_REPEATS} {statistics.median(rates):.3f} scenes/s "
+            f"(min {min(rates):.3f}, max {max(rates):.3f}) [{card}]")
 
 
 def main():
@@ -308,6 +329,7 @@ def main():
     rows = phase_kernels(torch, ts, dev, card)
     phase_model(torch, dev, card)
     launches = phase_serve(torch, ts, dev, card)
+    phase_warm(torch, dev, card)
 
     replaces = {"seg_fwd": "probav_tpu/ops/pallas_tstack.py:244",
                 "conv_fwd": "probav_tpu/ops/pallas_tstack.py:290"}

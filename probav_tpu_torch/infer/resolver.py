@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from probav_tpu.config import BAND_OFFSETS
+from probav_tpu_torch.ops.patches import reconstruct_from_patches
 from probav_tpu_torch.utils.png import write_png
 
 # Patches per model call: bounds the live activations (the plain stack's
@@ -79,13 +80,8 @@ class Resolver:
 
     def _paste(self, pred: torch.Tensor, group: int) -> torch.Tensor:
         """[G*P, p, p, C] -> [G, S, S, C], row-major tile paste."""
-        p, c = pred.shape[1], pred.shape[-1]
-        grid = self.scene_size // p
-        if grid * p != self.scene_size or pred.shape[0] != group * grid ** 2:
-            raise ValueError(f"{pred.shape[0]} tiles of {p} px do not make "
-                             f"{group} scenes of {self.scene_size} px")
-        y = pred.reshape(group, grid, grid, p, p, c).permute(0, 1, 3, 2, 4, 5)
-        return y.reshape(group, self.scene_size, self.scene_size, c)
+        return reconstruct_from_patches(
+            pred.reshape((group, -1) + pred.shape[1:]), self.scene_size)
 
     @torch.inference_mode()
     def resolve_scene(self, patches: np.ndarray) -> np.ndarray:

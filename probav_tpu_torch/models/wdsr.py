@@ -21,6 +21,7 @@ leaves them to XLA.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -164,8 +165,12 @@ class WDSRConv3D(nn.Module):
 def build_model(cfg, band: str, dtype: torch.dtype = torch.float32,
                 fused_stack: bool = True, device=None,
                 generator: Optional[torch.Generator] = None) -> WDSRConv3D:
-    """The flagship model a Config describes, for one band (mirrors
-    ``probav_tpu.models.build_model`` for model_type "wdsr")."""
+    """The flagship model a Config (or the path of a ``.cfg`` file)
+    describes, for one band (mirrors ``probav_tpu.models.build_model`` for
+    model_type "wdsr")."""
+    if isinstance(cfg, (str, os.PathLike)):
+        from probav_tpu.config import Config
+        cfg = Config.from_file(cfg)
     mean, std = cfg.band_stats(band)
     return WDSRConv3D(
         scale=cfg.scale, num_filters=cfg.num_filters,

@@ -20,10 +20,13 @@ def depth_to_space(x: torch.Tensor, scale: int) -> torch.Tensor:
 
 
 def reconstruct_from_patches(patches: torch.Tensor, out_size: int):
-    """[nPatches, p, p, C] -> [out_size, out_size, C], row-major paste."""
-    n, p, _, c = patches.shape
+    """[..., nPatches, p, p, C] -> [..., out_size, out_size, C], row-major
+    paste; leading dimensions (e.g. a group of scenes) are kept."""
+    *lead, n, p, _, c = patches.shape
     grid = out_size // p
     if grid * grid != n or grid * p != out_size:
         raise ValueError(f"{n} patches of {p} px do not tile {out_size}")
-    x = patches.reshape(grid, grid, p, p, c).permute(0, 2, 1, 3, 4)
-    return x.reshape(out_size, out_size, c)
+    k = len(lead)
+    x = patches.reshape(*lead, grid, grid, p, p, c)
+    x = x.permute(*range(k), k, k + 2, k + 1, k + 3, k + 4)
+    return x.reshape(*lead, out_size, out_size, c)

@@ -42,6 +42,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def model_layout(patches) -> np.ndarray:
+    """[S, P, T, C, h, w] resolver input -> the model's [S, P, h, w, T, C]
+    (test.py:84-85), as a strided view that the resolver copies to the
+    device as it is."""
+    return np.asarray(patches, dtype=np.float32).transpose(0, 1, 4, 5, 2, 3)
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns {"written": paths, "resolve_s": seconds}."""
     opt = parse_args(argv)
@@ -61,9 +68,7 @@ def main(argv=None) -> dict:
     path = os.path.join(cfg.stage_dir("resolverDir"),
                         f"{opt.totest}patchesLR_{opt.band}.npy")
     logger.info("loading %s", path)
-    # [S, P, T, C, h, w] -> [S, P, h, w, T, C] (test.py:84-85)
-    patches = np.asarray(np.load(path, allow_pickle=True),
-                         dtype=np.float32).transpose(0, 1, 4, 5, 2, 3)
+    patches = model_layout(np.load(path, allow_pickle=True))
 
     dtype = torch.bfloat16 if opt.bf16 else torch.float32
     model = build_model(cfg, opt.band, dtype=dtype,

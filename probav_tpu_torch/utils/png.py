@@ -1,8 +1,7 @@
 """Grayscale PNG codec in the standard library (zlib + struct).
 
 Replaces ``probav_tpu/utils/io.py``'s imageio-based ``write_png`` for the
-submission format (uint16 grayscale), and reads 8- and 16-bit grayscale
-PNGs back.
+submission format (uint16 grayscale), and reads that format back.
 """
 
 from __future__ import annotations
@@ -38,47 +37,9 @@ def write_png(path: str, img: np.ndarray) -> None:
                 _chunk(b"IEND", b""))
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
-def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    pos = 0
-    for y in range(h):
-        ftype = data[pos]
-        line = np.frombuffer(data, np.uint8, stride, pos + 1).astype(np.int32)
-        pos += 1 + stride
-        if ftype == 0:
-            cur = line
-        elif ftype == 2:
-            cur = (line + prev) & 0xFF
-        else:                                     # Sub, Average, Paeth
-            cur = line.copy()
-            for i in range(stride):
-                a = int(cur[i - bpp]) if i >= bpp else 0
-                b = int(prev[i])
-                if ftype == 1:
-                    pred = a
-                elif ftype == 3:
-                    pred = (a + b) // 2
-                elif ftype == 4:
-                    pred = _paeth(a, b, int(prev[i - bpp]) if i >= bpp else 0)
-                else:
-                    raise ValueError(f"bad PNG filter type {ftype}")
-                cur[i] = (cur[i] + pred) & 0xFF
-        out[y] = cur
-        prev = cur
-    return out
-
-
 def read_png(path: str) -> np.ndarray:
-    """Read an 8- or 16-bit grayscale, non-interlaced PNG."""
+    """Read back what ``write_png`` writes: a 16-bit grayscale,
+    non-interlaced PNG whose scanlines are all unfiltered (type 0)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIG:
@@ -98,11 +59,12 @@ def read_png(path: str) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = hdr
-    if color != 0 or depth not in (8, 16) or interlace != 0:
-        raise ValueError(f"{path}: only non-interlaced 8/16-bit grayscale "
-                         f"is supported (depth {depth}, color type {color})")
-    bpp = depth // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
-    if depth == 8:
-        return rows
-    return rows.view(">u2").astype(np.uint16).reshape(h, w)
+    if color != 0 or depth != 16 or interlace != 0:
+        raise ValueError(f"{path}: only non-interlaced 16-bit grayscale is "
+                         f"supported (depth {depth}, color type {color})")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = raw.reshape(h, 1 + 2 * w)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered scanlines (type "
+                         f"{int(rows[:, 0].max())}) are not supported")
+    return rows[:, 1:].copy().view(">u2").astype(np.uint16)

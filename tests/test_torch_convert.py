@@ -46,6 +46,17 @@ def test_flagship_parameter_count():
     assert sum(p.numel() for p in m.parameters()) == 535_267
 
 
+def test_build_model_from_a_cfg_path_equals_from_a_config():
+    gen = lambda: torch.Generator().manual_seed(3)        # noqa: E731
+    a = build_model(FLAGSHIP, "NIR", generator=gen())
+    b = build_model(Config.from_file(FLAGSHIP), "NIR", generator=gen())
+    assert (a.mean, a.std, a.block_names) == (b.mean, b.std, b.block_names)
+    sa, sb = a.state_dict(), b.state_dict()
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+
+
 def test_keys_and_shapes_equal_jax_init_tree():
     """Every flax parameter of the flagship has a port counterpart of the
     same shape (JAX layout kept), and nothing else exists."""

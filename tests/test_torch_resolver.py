@@ -76,6 +76,19 @@ def test_reconstruct_from_patches_matches_jax():
         np.asarray(jax_paste(jnp.asarray(p), 20)))
 
 
+def test_reconstruct_from_patches_keeps_a_group_dimension():
+    p = np.random.default_rng(3).normal(size=(3, 16, 5, 5, 2)) \
+        .astype(np.float32)
+    got = reconstruct_from_patches(torch.from_numpy(p), 20).numpy()
+    assert got.shape == (3, 20, 20, 2)
+    for g in range(3):
+        np.testing.assert_array_equal(got[g],
+                                      np.asarray(jax_paste(jnp.asarray(p[g]),
+                                                           20)))
+    with pytest.raises(ValueError, match="do not tile"):
+        reconstruct_from_patches(torch.from_numpy(p[:, :15]), 20)
+
+
 def test_submission_names_match_jax_with_removed_sets(tmp_path):
     (tmp_path / "pre").mkdir()
     (tmp_path / "pre" / "removedTrainSetsNIR.txt").write_text(

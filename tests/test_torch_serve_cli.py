@@ -3,6 +3,8 @@ against the JAX Resolver + write_submission on the same parameters, and
 its PNG codec against imageio."""
 
 import os
+import struct
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ from probav_tpu.models import build_model as jax_build_model
 from probav_tpu.utils.io import read_png as imageio_read_png
 from probav_tpu_torch import serve
 from probav_tpu_torch.convert import flatten_tree
+from probav_tpu_torch.utils import png
 from probav_tpu_torch.utils.png import read_png, write_png
 from synthetic_data import write_cfg
 
@@ -73,6 +76,20 @@ def test_serve_cli_refuses_cuda_without_a_card(tree, monkeypatch):
         serve.main(["--cfg", cfgp, "--band", "NIR", "--params", npz])
 
 
+def test_profile_serve_warm_rates_on_the_cpu(tree):
+    """The warm-throughput helpers that chip_smoke.py and
+    tools/profile_serve share: a warm-up resolve, then timed repeats."""
+    from probav_tpu_torch.tools import profile_serve
+    cfgp = tree[0]
+    patches = serve.model_layout(profile_serve.synthetic_patches(1))
+    assert patches.shape == (1, 64, 22, 22, 9, 1)
+    assert 4000 <= patches.min() and patches.max() <= 12000
+    r = profile_serve.make_resolver(cfgp, "float32", True, "cpu")
+    assert r.scene_size == 16 * 3 * 8
+    rates = profile_serve.warm_rates(r, patches, 2)
+    assert len(rates) == 2 and all(x > 0 for x in rates)
+
+
 def test_png_round_trip_against_imageio(tmp_path):
     r = np.random.default_rng(41)
     img = r.integers(0, 65536, (37, 53)).astype(np.uint16)
@@ -84,8 +101,19 @@ def test_png_round_trip_against_imageio(tmp_path):
     # clipped before the cast, as the JAX writer does (2**16 -> 65535)
     write_png(path, np.array([[70000.0, -3.0]]))
     np.testing.assert_array_equal(read_png(path), [[65535, 0]])
-    # and it reads what imageio writes (filtered 8- and 16-bit gray)
-    import imageio.v2 as iio
-    for arr in (img, (img >> 8).astype(np.uint8)):
-        iio.imwrite(path, arr)
-        np.testing.assert_array_equal(read_png(path), arr)
+
+
+@pytest.mark.parametrize("depth,ftype", [(8, 0), (16, 2)],
+                         ids=["8-bit", "filtered"])
+def test_png_reader_refuses_what_the_writer_never_writes(tmp_path, depth,
+                                                         ftype):
+    """The reader covers only the writer's format (16-bit gray, filter 0);
+    anything else raises rather than decoding wrongly."""
+    raw = bytes([ftype]) + bytes(2 * depth // 8)          # one 2-px row
+    ihdr = struct.pack(">IIBBBBB", 2, 1, depth, 0, 0, 0, 0)
+    path = tmp_path / "x.png"
+    path.write_bytes(png._SIG + png._chunk(b"IHDR", ihdr) +
+                     png._chunk(b"IDAT", zlib.compress(raw)) +
+                     png._chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="not supported|only"):
+        read_png(str(path))
