@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card, end to end.
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,22 +7,37 @@ Phases, each printing its result:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the CUDA kernels of probav_tpu_torch/csrc, compiled with nvcc;
-3. kernels: seg_fwd and conv_fwd against their plain PyTorch versions at
-   the flagship serving shapes (128 patches of 22x22x9, channels
-   32/256/25) in float32 (TF32 off) and bf16, with median CUDA-event
-   times of both; a 64-filter shape (64/512/51) is checked for parity;
+3. kernels: seg_fwd, conv_fwd and blk_bwd against their plain PyTorch
+   versions at the flagship shapes (128 patches of 22x22x9, channels
+   32/256/25: N = 557,568 rows) in float32 (TF32 off) and bf16, with
+   median CUDA-event times of kernel, plain version and, where one PyTorch
+   call computes the same function, that call (conv_fwd: F.conv3d); the
+   64-filter widths (64/512/51) are checked for parity; blk_bwd is fed
+   dyadic inputs (probav_tpu_torch/tools/dyadic.py) on which both versions
+   take the same relu and rounding decisions;
 4. model: the flagship cfg/p16t9c85r12.cfg model from a seeded init,
    535,267 parameters, forward of the kernel stack against the plain
    stack on 128 patches;
-5. serve: ``probav_tpu_torch.serve.main()`` on a synthetic tree (16 scenes
-   of 64 patches; 2 scenes for TTA-20) at bf16 and float32, with and
-   without --tta, and --plain at both; PNG names, launch counts and the
-   float32 kernel-vs-plain agreement (within one count) are checked.  Each
-   CLI run is one cold run: a fresh model, first calls included;
-6. warm: ``Resolver.resolve_all`` on the same 16 scenes at bf16 and
-   float32, kernels and plain, after a warm-up resolve: the median and
-   range of 5 timed runs (``probav_tpu_torch.tools.profile_serve`` adds
-   the device-time breakdown).
+5. stack gradient: autograd through the 12-block kernel stack (forward
+   kernels, blk_bwd backward) against autograd through the plain twins,
+   float32 and bf16, every block parameter's gradient compared; at bf16
+   also against blk_bwd_plain on the same forward, and, as a witness that
+   the gap is rounding, against that chain in float32;
+6. serve: ``probav_tpu_torch.serve.main()`` on a synthetic tree at bf16 and
+   float32, with and without --tta, and --plain at both; PNG names, launch
+   counts and the float32 kernel-vs-plain agreement (within one count) are
+   checked.  Each CLI run is one cold run;
+7. warm resolve: ``Resolver.resolve_all`` at bf16 and float32, kernels and
+   plain: the median and range of timed runs after a warm-up;
+8. train: ``probav_tpu_torch.train`` (through ``main(argv)``) on a
+   synthetic stage-5 tree at batch 128, bf16 and float32, kernels and
+   --plain: launch counts (12 of each kernel per step, 0 with --plain), a
+   falling loss, checkpoints, and a restart that resumes at the right
+   step; then one train step of the float32 kernel model against the
+   float32 plain model from the same init on the same batch (loss,
+   gradients, parameters after the update); then the warm
+   train throughput of the four variants (probav_tpu_torch.tools.
+   profile_train adds the device-time breakdown).
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
@@ -56,6 +71,52 @@ C, CMID, CDEC = 32, 256, 25
 PARAMS = 535_267
 SERVE_SCENES, TTA_SCENES = 16, 2
 WARM_REPEATS = 5
+# blk_bwd on dyadic inputs (same relu and rounding decisions in both
+# versions, so only summation order differs): dx 2e-5 of max|ref| at
+# float32 (as the forward kernels), one bf16 step (2**-8) plus margin at
+# bf16, where dx is stored in bf16; the seven outputs' weight grads are
+# float32 sums of identical operands over 557,568 rows in another order:
+# 1e-4 relative at both dtypes.
+BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
+BWD_GRAD_TOL = 1e-4
+BWD_NAMES = ("dx", "dwc", "dw1", "db1", "dw2", "db2", "dbc")
+# Stack gradients through 12 blocks with random weights, as a norm-wise
+# relative error ||got - ref|| / ||ref|| per leaf.
+# - float32, against autograd through the plain twins (their own forward).
+#   The two forwards differ by summation order (~1e-6 relative, growing
+#   over the blocks), so a z within that of zero takes the other relu-
+#   derivative branch in the backward: ~1e-6 of a block's 143 million z
+#   values, each moving one dz element by a whole (W2 dd).  The sums over
+#   557,568 rows then move by about sqrt(flips / (N / 2)) of their norm,
+#   ~1.5e-3 for db1 (the per-kernel checks, on dyadic inputs, take no such
+#   branch): 5e-3.
+# - bf16, against blk_bwd_plain chained over the same forward activations
+#   (x_i, d_i of the kernel forward).  An independent bf16 forward differs
+#   by bf16 roundings, ~1e-2 relative, which flips ~1% of the relu
+#   derivatives and moves db1 by ~10% (measured 0.106, printed below as
+#   the independent comparison, held only to 0.25 against wiring faults);
+#   on the same forward only summation order differs, but each block's
+#   dx is rounded to bf16 (2**-8) in both after sums in another order, so
+#   the cotangent reaching the first blocks differs by an ulp on many
+#   elements; the bias gradients (db2 = sum of dd over 557,568 rows) sum
+#   such elements with cancellation, so their norm-wise error is about
+#   one ulp of an element, not of the sum (measured 1.08e-2 for block 0's
+#   db2): 3e-2.  The witness that this gap is rounding: blk_bwd_plain
+#   chained in float32 over the same forward (no bf16 rounding point) is
+#   a reference from which the kernel and the bf16 plain chain must stand
+#   equally far, leaf by leaf; a kernel fault of the gap's size would put
+#   the kernel further off: at most 1.5x the plain chain's distance, plus
+#   1e-4 for leaves that neither rounds.
+STACK_TOL = {"float32": 5e-3, "bfloat16": 3e-2}
+STACK_BF16_INDEPENDENT_TOL = 0.25
+STACK_BF16_WITNESS = (1.5, 1e-4)
+# The train phase: 768 training patches (6 steps of 128 per epoch), 160
+# validation patches (a full batch and a ragged one of 32).
+TRAIN_N, VAL_N, TRAIN_EPOCHS = 768, 160, 4
+WARM_TRAIN_STEPS = 5
+# H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES = 3.35e12
 
 
 def log(msg):
@@ -71,24 +132,24 @@ def card_line():
     return r.stdout.strip().splitlines()[0]
 
 
-def timed_pair(torch, plain_fn, kern_fn, reps=20):
-    """Median CUDA-event ms of plain_fn and kern_fn, run in turns."""
-    for fn in (plain_fn, kern_fn):
+def timed(torch, *fns, reps=20):
+    """Median CUDA-event ms of each of fns, after one warm-up call each;
+    the functions run in turns, in reversed order every other round."""
+    for fn in fns:
         fn()
     torch.cuda.synchronize()
-    times = {"plain": [], "kernel": []}
+    times = [[] for _ in fns]
     for i in range(reps):
-        order = [("plain", plain_fn), ("kernel", kern_fn)]
-        for name, fn in (order if i % 2 == 0 else order[::-1]):
+        order = list(enumerate(fns))
+        for j, fn in (order if i % 2 == 0 else order[::-1]):
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
             fn()
             e.record()
             e.synchronize()
-            times[name].append(s.elapsed_time(e))
-    return (statistics.median(times["kernel"]),
-            statistics.median(times["plain"]))
+            times[j].append(s.elapsed_time(e))
+    return [statistics.median(t) for t in times]
 
 
 def stack_inputs(torch, dev, dtype, n, c, cmid, cdec, seed):
@@ -116,8 +177,56 @@ def check(name, got, ref, tol):
     return err, scale
 
 
+def rel_l2(got, ref):
+    ref = ref.double()
+    return float((got.double() - ref).norm() / ref.norm())
+
+
+def bound(dtype, flops, nbytes):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_costs(name, n, c, cmid, cdec, itemsize):
+    """(FLOP, bytes) of one launch: each input read once, each output
+    written once (biases and weight grads in float32)."""
+    if name == "seg_fwd":
+        return (2 * n * (c * cmid + cmid * cdec),
+                itemsize * (n * (c + cdec) + c * cmid + cmid * cdec) +
+                4 * (cmid + cdec))
+    if name == "conv_fwd":
+        return (2 * n * 27 * cdec * c,
+                itemsize * (n * (cdec + 2 * c) + 27 * cdec * c) + 4 * c)
+    grads = 27 * cdec * c + c * cmid + cmid * cdec + cmid + cdec + c
+    return (2 * n * (2 * 27 * cdec * c + cmid * (3 * c + 2 * cdec)),
+            itemsize * (n * (3 * c + cdec) + c * cmid + cmid * cdec +
+                        27 * cdec * c) + 4 * (cmid + grads))
+
+
 def phase_kernels(torch, ts, dev, card):
+    """Parity and times of the three kernels; returns {(name, dtype):
+    row} with the numbers of the JSON summary."""
+    import torch.nn.functional as F
+
+    from probav_tpu_torch.tools.dyadic import blk_bwd_inputs
+
+    n = N_PATCH * HW * HW * T
     rows = {}
+
+    def row(name, dn, err, ms, pms, lms):
+        size = 4 if dn == "float32" else 2
+        flops, nbytes = kernel_costs(name, n, C, CMID, CDEC, size)
+        bms, by = bound(dn, flops, nbytes)
+        rows[(name, dn)] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                library_ms=lms, bound_ms=bms, bound_by=by)
+        lib = "none" if lms is None else f"{lms:.4f} ms"
+        log(f"kernel {name} {dn} [N={n}, {C}/{CMID}/{CDEC}]: kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, library call {lib}, bound "
+            f"{bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB) [{card}]")
+
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         x, (w1, b1, w2, b2, wc, bc) = stack_inputs(
@@ -127,26 +236,50 @@ def phase_kernels(torch, ts, dev, card):
         torch.cuda.synchronize()
         err, scale = check(f"seg_fwd {dn}", d,
                            ts.seg_fwd_plain(x2, w1, b1, w2, b2), TOL[dn])
-        ms, pms = timed_pair(torch,
-                             lambda: ts.seg_fwd_plain(x2, w1, b1, w2, b2),
-                             lambda: ts.seg_fwd(x2, w1, b1, w2, b2))
-        rows[("seg_fwd", dn)] = (err, ms, pms)
-        log(f"kernel seg_fwd {dn} [{N_PATCH * HW * HW * T}, {C}->{CMID}->"
-            f"{CDEC}]: max|diff| {err:.3e} (max|ref| {scale:.3e}, tol "
-            f"{TOL[dn]:g}); kernel {ms:.4f} ms, plain {pms:.4f} ms "
-            f"[{card}]")
+        log(f"kernel seg_fwd {dn}: max|diff| {err:.3e} (max|ref| "
+            f"{scale:.3e}, tol {TOL[dn]:g})")
+        pms, ms = timed(torch, lambda: ts.seg_fwd_plain(x2, w1, b1, w2, b2),
+                        lambda: ts.seg_fwd(x2, w1, b1, w2, b2))
+        row("seg_fwd", dn, err, ms, pms, None)
+
         d5 = d.reshape(x.shape[:-1] + (CDEC,))
         out = ts.conv_fwd(d5, x, wc, bc)
         torch.cuda.synchronize()
         err, scale = check(f"conv_fwd {dn}", out,
                            ts.conv_fwd_plain(d5, x, wc, bc), TOL[dn])
-        ms, pms = timed_pair(torch,
-                             lambda: ts.conv_fwd_plain(d5, x, wc, bc),
-                             lambda: ts.conv_fwd(d5, x, wc, bc))
-        rows[("conv_fwd", dn)] = (err, ms, pms)
-        log(f"kernel conv_fwd {dn} [{N_PATCH}x{HW}x{HW}x{T}, {CDEC}->{C}]: "
-            f"max|diff| {err:.3e} (max|ref| {scale:.3e}, tol {TOL[dn]:g}); "
-            f"kernel {ms:.4f} ms, plain {pms:.4f} ms [{card}]")
+        log(f"kernel conv_fwd {dn}: max|diff| {err:.3e} (max|ref| "
+            f"{scale:.3e}, tol {TOL[dn]:g})")
+        pms, ms = timed(torch, lambda: ts.conv_fwd_plain(d5, x, wc, bc),
+                        lambda: ts.conv_fwd(d5, x, wc, bc))
+        # The library call: one cuDNN conv in the working dtype with bias,
+        # on channels-last input (no residual add).
+        dcl = d5.permute(0, 4, 1, 2, 3)                    # NDHWC storage
+        wcl = wc.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        lms, = timed(torch, lambda: F.conv3d(dcl, wcl, bc, padding=1))
+        row("conv_fwd", dn, err, ms, pms, lms)
+
+        # blk_bwd: the seven outputs on dyadic inputs (see BWD_TOL).
+        args = blk_bwd_inputs((N_PATCH, HW, HW, T), C, CMID, CDEC, seed=3,
+                              device=dev, dtype=dtype)
+        got = ts.blk_bwd(*args)
+        torch.cuda.synchronize()
+        want = ts.blk_bwd_plain(*args)
+        errs = []
+        for name, a, b in zip(BWD_NAMES, got, want):
+            tol = BWD_TOL[dn] if name == "dx" else BWD_GRAD_TOL
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"blk_bwd {dn} {name}: {a.shape} "
+                                     f"{a.dtype} vs {b.shape} {b.dtype}")
+            errs.append(check(f"blk_bwd {dn} {name}", a, b, tol)[0])
+        log(f"kernel blk_bwd {dn}: max|diff| " + ", ".join(
+            f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, errs)) +
+            f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|)")
+        pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
+                        lambda: ts.blk_bwd(*args), reps=10)
+        row("blk_bwd", dn, errs[0], ms, pms, None)
+        del got, want, args
+
         # The 64-filter model's widths (c_dec 51 > C_out 32 buckets).
         x, (w1, b1, w2, b2, wc, bc) = stack_inputs(
             torch, dev, dtype, 16, 64, 512, 51, seed=2)
@@ -157,9 +290,115 @@ def phase_kernels(torch, ts, dev, card):
         dw5 = dw.reshape(x.shape[:-1] + (51,))
         e2, _ = check(f"conv_fwd 64/512/51 {dn}", ts.conv_fwd(dw5, x, wc, bc),
                       ts.conv_fwd_plain(dw5, x, wc, bc), TOL[dn])
+        args = blk_bwd_inputs((16, HW, HW, T), 64, 512, 51, seed=4,
+                              device=dev, dtype=dtype)
+        e3 = [check(f"blk_bwd 64/512/51 {dn} {k}", a, b,
+                    BWD_TOL[dn] if k == "dx" else BWD_GRAD_TOL)[0]
+              for k, a, b in zip(BWD_NAMES, ts.blk_bwd(*args),
+                                 ts.blk_bwd_plain(*args))]
         log(f"kernel parity at 64/512/51 {dn}: seg_fwd {e1:.3e}, conv_fwd "
-            f"{e2:.3e}")
+            f"{e2:.3e}, blk_bwd " + ", ".join(
+                f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, e3)))
+        torch.cuda.empty_cache()
     return rows
+
+
+def chain_blk_bwd_plain(ts, gy, xs, ds, blocks, dtype):
+    """[dx, then per block dw1, db1, dw2, db2, dwc, dbc]: blk_bwd_plain
+    chained from the last block to the first over the saved forward
+    activations xs, ds, every operand cast to dtype (float32 leaves no
+    bf16 rounding point), each gradient returned in its leaf's dtype."""
+    g, out = gy.to(dtype), [None] * (6 * len(blocks))
+    for i in reversed(range(len(blocks))):
+        w1, b1, w2, b2, wc, bc = (t.to(dtype) for t in blocks[i])
+        g, dwc, dw1, db1, dw2, db2, dbc = ts.blk_bwd_plain(
+            g, xs[i].to(dtype), ds[i].to(dtype), w1, b1, w2, wc)
+        out[6 * i:6 * i + 6] = [t.to(gy.dtype) if dtype == gy.dtype else t
+                                for t in (dw1, db1, dw2, db2, dwc, dbc)]
+    return [g] + out
+
+
+def phase_stack_grad(torch, ts, dev, card):
+    """Autograd through the 12-block kernel stack against the plain stack,
+    at the flagship width on 128 patches (see STACK_TOL)."""
+    names = ["x"] + [f"{i}.{k}" for i in range(12)
+                     for k in ("w1", "b1", "w2", "b2", "wc", "bc")]
+
+    def worst(got, want):
+        errs = {k: rel_l2(a, b) for k, a, b in zip(names, got, want)}
+        k = max(errs, key=lambda n: errs[n] if np.isfinite(errs[n])
+                else np.inf)
+        return k, errs[k]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        blocks = []
+        for i in range(12):
+            _, blk = stack_inputs(torch, dev, dtype, 1, C, CMID, CDEC,
+                                  seed=10 + i)
+            blocks.append(tuple(t.requires_grad_() for t in blk))
+        x, _ = stack_inputs(torch, dev, dtype, N_PATCH, C, CMID, CDEC,
+                            seed=9)
+        x.requires_grad_()
+        leaves = [x] + [t for blk in blocks for t in blk]
+        gy = torch.randn(x.shape, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(8)
+                         ).to(dtype)
+        ts.reset_launches()
+        got = torch.autograd.grad(ts.stack_apply_5d(x, blocks), leaves, gy)
+        torch.cuda.synchronize()
+        counts = dict(ts.LAUNCHES)
+        if counts != {"seg_fwd": 12, "conv_fwd": 12, "blk_bwd": 12}:
+            raise AssertionError(f"stack gradient {dn}: launches {counts}")
+
+        # Autograd through the plain twins, with their own forward.
+        ref = x
+        for w1, b1, w2, b2, wc, bc in blocks:
+            d = ts.seg_fwd_plain(ref.reshape(-1, C), w1, b1, w2, b2)
+            ref = ts.conv_fwd_plain(d.reshape(ref.shape[:-1] + (CDEC,)), ref,
+                                    wc, bc)
+        indep = worst(got, torch.autograd.grad(ref, leaves, gy))
+        del ref, d
+        msg = (f"stack gradient {dn}: 12 blocks, {N_PATCH} patches, "
+               f"{len(names)} leaves; worst ||got-ref||/||ref|| against "
+               f"autograd through the plain stack {indep[0]} {indep[1]:.3e}")
+        if dtype == torch.float32:
+            key, err, tol = *indep, STACK_TOL[dn]
+        else:
+            if not indep[1] <= STACK_BF16_INDEPENDENT_TOL:
+                raise AssertionError(msg)
+            # blk_bwd_plain over the kernel forward's x_i and d_i, in the
+            # working dtype and, as the witness, in float32.
+            with torch.no_grad():
+                flat = [t.detach() for t in leaves[1:]]
+                bl = [flat[i:i + 6] for i in range(0, len(flat), 6)]
+                _, xs, ds = ts.stack_forward(x.detach(), bl, keep=True)
+                want = chain_blk_bwd_plain(ts, gy, xs, ds, bl, dtype)
+                exact = chain_blk_bwd_plain(ts, gy, xs, ds, bl, torch.float32)
+                del xs, ds
+            key, err = worst(got, want)
+            ratio, floor = STACK_BF16_WITNESS
+            e_k = {k: rel_l2(a, b) for k, a, b in zip(names, got, exact)}
+            e_p = {k: rel_l2(a, b) for k, a, b in zip(names, want, exact)}
+            off = [k for k in names if not e_k[k] <= ratio * e_p[k] + floor]
+            wk = max(e_k, key=e_k.get)
+            msg += (f" (tol {STACK_BF16_INDEPENDENT_TOL:g}); against "
+                    f"blk_bwd_plain on the same forward {key} {err:.3e}; "
+                    f"witness, against the float32 chain: kernel worst {wk} "
+                    f"{e_k[wk]:.3e} (plain bf16 there {e_p[wk]:.3e}), "
+                    f"largest ratio kernel/plain "
+                    f"{max(e_k[k] / max(e_p[k], 1e-30) for k in names):.3f}")
+            if off:
+                raise AssertionError(
+                    f"{msg}: kernel beyond {ratio:g} x plain + {floor:g} "
+                    "at " + ", ".join(f"{k} {e_k[k]:.3e} vs {e_p[k]:.3e}"
+                                      for k in off[:6]))
+            tol = STACK_TOL[dn]
+        if not np.isfinite(err) or err > tol:
+            raise AssertionError(f"{msg}: {key} {err:.3e} > {tol:g}")
+        log(f"{msg} (tol {tol:g}) [{card}]")
+        del got, blocks, x, gy
+        torch.cuda.empty_cache()
 
 
 def phase_model(torch, dev, card):
@@ -189,26 +428,33 @@ def phase_model(torch, dev, card):
             f"tol {MODEL_TOL[dn]:g}) [{card}]")
 
 
-def write_tree(root, name, patches, params_npz):
-    """A cfg copy whose directories point into root/name."""
-    base = os.path.join(root, name)
-    data = os.path.join(base, "data")
-    os.makedirs(os.path.join(data, "resolverDir"))
-    np.save(os.path.join(data, "resolverDir", "TESTpatchesLR_NIR.npy"),
-            patches)
-    dirs = {"raw_data": os.path.join(base, "raw"), "preprocessing_out": data,
-            "model_out": os.path.join(base, "model"),
-            "train_out": os.path.join(base, "trainout"),
-            "test_out": os.path.join(base, "testout")}
+def write_cfg(base, **overrides):
+    """base/p16t9c85r12.cfg: a copy of CFG whose directories point into
+    base (preprocessing_out is base/data), with the given keys replaced."""
+    keys = {"raw_data": "raw", "preprocessing_out": "data",
+            "model_out": "model", "train_out": "trainout",
+            "test_out": "testout"}
+    values = {k: os.path.join(base, v) for k, v in keys.items()}
+    values.update(overrides)
     lines = []
     with open(CFG) as f:
         for line in f:
             key = line.split("=", 1)[0].strip()
-            lines.append(f"{key}={dirs[key]}\n" if key in dirs else line)
+            lines.append(f"{key}={values[key]}\n" if key in values else line)
     cfg = os.path.join(base, "p16t9c85r12.cfg")
     with open(cfg, "w") as f:
         f.writelines(lines)
-    return ["--cfg", cfg, "--band", "NIR", "--totest", "TEST",
+    return cfg
+
+
+def write_tree(root, name, patches, params_npz):
+    """The serve CLI's arguments over a cfg copy in root/name whose
+    resolverDir holds patches."""
+    base = os.path.join(root, name)
+    os.makedirs(os.path.join(base, "data", "resolverDir"))
+    np.save(os.path.join(base, "data", "resolverDir",
+                         "TESTpatchesLR_NIR.npy"), patches)
+    return ["--cfg", write_cfg(base), "--band", "NIR", "--totest", "TEST",
             "--params", params_npz]
 
 
@@ -254,7 +500,7 @@ def phase_serve(torch, ts, dev, card):
             chunks = sum(-(-min(group, scenes - s) * 64 * repeats //
                            MODEL_CHUNK) for s in range(0, scenes, group))
             per = 0 if "plain" in name else blocks * chunks
-            if got != {"seg_fwd": per, "conv_fwd": per}:
+            if got != {"seg_fwd": per, "conv_fwd": per, "blk_bwd": 0}:
                 raise AssertionError(f"{name}: launches {got}, expected "
                                      f"{per} of each")
             imgs = np.stack([read_png(os.path.join(outdir, n))
@@ -300,6 +546,188 @@ def phase_warm(torch, dev, card):
             f"(min {min(rates):.3f}, max {max(rates):.3f}) [{card}]")
 
 
+def write_train_tree(root, name, epochs):
+    """A cfg copy whose directories point into root/name, with ``epochs``,
+    over a synthetic stage-5 tree (TRAIN_N training and VAL_N validation
+    patches, HR as pickled masked arrays as the pipeline writes them)."""
+    from probav_tpu_torch.tools.profile_train import synthetic_batch
+
+    base = os.path.join(root, name)
+    aug = os.path.join(base, "data", "augmentedPatchesDir")
+    if not os.path.isdir(aug):
+        os.makedirs(aug)
+        lr, hr, mask = synthetic_batch(TRAIN_N + VAL_N, seed=1)
+        for split, sl in (("TRAIN", slice(0, TRAIN_N)),
+                          ("TRAINVAL", slice(TRAIN_N, None))):
+            np.save(os.path.join(aug, f"{split}patchesLR_NIR.npy"), lr[sl])
+            np.ma.masked_array(hr[sl], mask=mask[sl] == 0).dump(
+                os.path.join(aug, f"{split}patchesHR_NIR.npy"))
+    model = os.path.join(base, "model")
+    return (write_cfg(base, epochs=epochs),
+            os.path.join(model, "ckpt_p16t9c85r12", "NIR"),
+            os.path.join(model, "logs_p16t9c85r12", "NIR"))
+
+
+def train_losses(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [r["value"] for r in recs if r["tag"] == "Train loss"]
+
+
+def phase_train(torch, ts, dev, card):
+    """The train CLI at batch 128; returns the launch counts of the bf16
+    kernel run (the production configuration: the main path)."""
+    from probav_tpu_torch.train import cli
+
+    steps_per_epoch = TRAIN_N // 128
+    val_batches = -(-VAL_N // 128)
+    blocks = 12
+    launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [("bf16", ["--bf16"]), ("f32", []),
+                ("bf16 plain", ["--bf16", "--plain"]),
+                ("f32 plain", ["--plain"])]
+        for name, flags in runs:
+            tree = name.replace(" ", "_")
+            # The bf16 kernel run trains half its epochs, then a restart
+            # with the full count resumes from the checkpoint.
+            legs = ([TRAIN_EPOCHS // 2, TRAIN_EPOCHS] if name == "bf16"
+                    else [TRAIN_EPOCHS // 2])
+            ts.reset_launches()
+            t0 = time.perf_counter()
+            done = 0
+            for epochs in legs:
+                cfg, ckpt_dir, log_dir = write_train_tree(tmp, tree, epochs)
+                args = ["--cfg", cfg, "--band", "NIR",
+                        "--eval-step", str(steps_per_epoch),
+                        "--device", str(dev)] + flags
+                res = cli.main(args)["NIR"]
+                if res["steps"] != epochs * steps_per_epoch:
+                    raise AssertionError(f"train {name}: {res['steps']} "
+                                         f"steps after {epochs} epochs")
+                ckpts = sorted(os.listdir(ckpt_dir))
+                if ckpts[-1] != f"step_{res['steps']:08d}.pt" or \
+                        len(ckpts) > 5:
+                    raise AssertionError(f"train {name}: checkpoints "
+                                         f"{ckpts}")
+                done = epochs
+            wall = time.perf_counter() - t0
+            got = dict(ts.LAUNCHES)
+            # Each leg: steps of training plus one validation pass per
+            # epoch and a final one, each of val_batches forwards.
+            steps = done * steps_per_epoch
+            evals = sum(e - s + 1 for s, e in
+                        zip([0] + legs[:-1], legs)) * val_batches
+            want = ({"seg_fwd": 0, "conv_fwd": 0, "blk_bwd": 0}
+                    if "plain" in name else
+                    {"seg_fwd": blocks * (steps + evals),
+                     "conv_fwd": blocks * (steps + evals),
+                     "blk_bwd": blocks * steps})
+            if got != want:
+                raise AssertionError(f"train {name}: launches {got}, "
+                                     f"expected {want}")
+            losses = train_losses(log_dir)
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"train {name}: losses {losses}")
+            if name == "bf16":
+                launches = got
+            log(f"train {name}: {steps} steps at batch 128 in {len(legs)} "
+                f"run(s) (resumed at step "
+                f"{legs[0] * steps_per_epoch if len(legs) > 1 else 0}), "
+                f"launches {got}; train loss {losses[0]:.3f} -> "
+                f"{losses[-1]:.3f}; val cPSNR {res['val_psnr']:.3f}; "
+                f"{wall:.1f} s cold, first calls included [{card}]")
+    return launches
+
+
+def phase_train_step(torch, ts, dev, card):
+    """One train step of the float32 kernel model against the float32
+    plain model from the same init on the same batch.
+
+    The loss agrees to 1e-5 relative (the forward stacks differ by
+    summation order, ~1e-6).  The gradients, taken first at the same
+    init and batch, agree leaf by leaf norm-wise to STACK_TOL at float32,
+    for the reason given there.  Parameters are compared in units of the
+    learning rate: nadam's first update is +-1.47 lr for any gradient
+    element well above its eps, so the two agree to a tiny fraction of lr
+    except where a gradient element's sign differs between the two
+    paths, which can only happen for elements within the paths' gradient
+    difference (~1e-4 relative) of zero: at most 1e-3 of the parameters
+    may differ by more than 0.01 lr."""
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.tools.profile_train import (make_trainer,
+                                                      synthetic_batch)
+
+    cfg = Config.from_file(CFG)
+    batch = tuple(torch.as_tensor(a, device=dev)
+                  for a in synthetic_batch(cfg.batch_size, seed=2))
+    out, grads = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fused in (True, False):
+            tr = make_trainer(cfg, "float32", fused, dev,
+                              os.path.join(tmp, str(fused)))
+            grads[fused] = tr.loss_and_grads(*batch)[2]
+            ts.reset_launches()
+            loss, metric = tr.train_step(*batch)
+            torch.cuda.synchronize()
+            per = 12 if fused else 0
+            if ts.LAUNCHES != {"seg_fwd": per, "conv_fwd": per,
+                               "blk_bwd": per}:
+                raise AssertionError(f"one train step, fused={fused}: "
+                                     f"launches {ts.LAUNCHES}")
+            out[fused] = (float(loss), float(metric),
+                          {k: v.detach().clone()
+                           for k, v in tr.params.items()})
+            tr.logger_.close()
+            del tr
+    lr = cfg.learning_rate
+    (lk, mk, pk), (lp, mp, pp) = out[True], out[False]
+    if not abs(lk - lp) <= 1e-5 * abs(lp) or not abs(mk - mp) <= 1e-4:
+        raise AssertionError(f"one step: loss {lk} vs {lp}, cPSNR {mk} "
+                             f"vs {mp}")
+    gerr = {k: rel_l2(grads[True][k], grads[False][k]) for k in grads[True]}
+    gk = max(gerr, key=lambda k: gerr[k] if np.isfinite(gerr[k]) else np.inf)
+    if not gerr[gk] <= STACK_TOL["float32"]:
+        raise AssertionError(f"one step: gradient {gk} ||got-ref||/||ref|| "
+                             f"{gerr[gk]:.3e} > {STACK_TOL['float32']:g}")
+    diffs = torch.cat([(pk[k] - pp[k]).abs().flatten() / lr for k in pk])
+    share = float((diffs > 0.01).float().mean())
+    if share > 1e-3:
+        raise AssertionError(f"one step: {share:.2e} of the params differ "
+                             "by more than 0.01 lr")
+    log(f"train step f32 kernels vs plain (one step, batch "
+        f"{cfg.batch_size}): loss {lk:.6f} vs {lp:.6f}; cPSNR {mk:.4f} vs "
+        f"{mp:.4f}; gradients of {len(gerr)} leaves, worst "
+        f"||got-ref||/||ref|| {gk} {gerr[gk]:.3e} (tol "
+        f"{STACK_TOL['float32']:g}); params max "
+        f"|diff| {float(diffs.max()):.3e} lr, {share:.2e} of {diffs.numel()} "
+        f"beyond 0.01 lr [{card}]")
+
+
+def phase_train_warm(torch, dev, card):
+    """Warm train-step throughput, timed as profile_train times it."""
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.tools.profile_train import (VARIANTS, make_trainer,
+                                                      synthetic_batch,
+                                                      warm_step_rates)
+
+    cfg = Config.from_file(CFG)
+    batch = tuple(torch.as_tensor(a, device=dev)
+                  for a in synthetic_batch(cfg.batch_size))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, dtype, fused in VARIANTS:
+            tr = make_trainer(cfg, dtype, fused, dev,
+                              os.path.join(tmp, name.replace(" ", "_")))
+            rates = warm_step_rates(tr, batch, WARM_TRAIN_STEPS)
+            tr.logger_.close()
+            del tr
+            torch.cuda.empty_cache()
+            log(f"warm train {name}: batch {cfg.batch_size}, median of "
+                f"{WARM_TRAIN_STEPS} steps {statistics.median(rates):.1f} "
+                f"patches/s (min {min(rates):.1f}, max {max(rates):.1f}) "
+                f"[{card}]")
+
+
 def main():
     import torch
 
@@ -324,25 +752,37 @@ def main():
              or "spill" in ln]
     print("\n".join(ptxas), file=sys.stderr)
     log(f"build: {os.path.relpath(path, ROOT)} in {secs:.1f} s (nvcc "
-        f"{' '.join(_build.NVCC_FLAGS)})")
+        f"{' '.join(_build.NVCC_FLAGS)}, one process per source)")
 
     rows = phase_kernels(torch, ts, dev, card)
     phase_model(torch, dev, card)
-    launches = phase_serve(torch, ts, dev, card)
+    phase_stack_grad(torch, ts, dev, card)
+    serve_launches = phase_serve(torch, ts, dev, card)
     phase_warm(torch, dev, card)
+    train_launches = phase_train(torch, ts, dev, card)
+    phase_train_step(torch, ts, dev, card)
+    phase_train_warm(torch, dev, card)
 
     replaces = {"seg_fwd": "probav_tpu/ops/pallas_tstack.py:244",
-                "conv_fwd": "probav_tpu/ops/pallas_tstack.py:290"}
+                "conv_fwd": "probav_tpu/ops/pallas_tstack.py:290",
+                "blk_bwd": "probav_tpu/ops/pallas_tstack.py:388"}
+    sources = {"seg_fwd": "probav_tpu_torch/csrc/tstack.cu",
+               "conv_fwd": "probav_tpu_torch/csrc/tstack.cu",
+               "blk_bwd": "probav_tpu_torch/csrc/blk_bwd.cu"}
+    # seg_fwd and conv_fwd are counted on the serve path, blk_bwd on the
+    # train path (the path that runs it); each path's counts were reset
+    # just before it ran.
+    launches = {"seg_fwd": serve_launches["seg_fwd"],
+                "conv_fwd": serve_launches["conv_fwd"],
+                "blk_bwd": train_launches["blk_bwd"]}
     kernels = []
-    for name in ("seg_fwd", "conv_fwd"):
-        err, ms, pms = rows[(name, "bfloat16")]
+    for name in ("seg_fwd", "conv_fwd", "blk_bwd"):
         if launches[name] <= 0:
-            raise AssertionError(f"{name} never launched on the serve path")
+            raise AssertionError(f"{name} never launched on its path")
         kernels.append({"name": name, "route": "cuda",
-                        "source": "probav_tpu_torch/csrc/tstack.cu",
-                        "replaces": replaces[name],
-                        "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": pms})
+                        "source": sources[name], "replaces": replaces[name],
+                        "launches": launches[name],
+                        **rows[(name, "bfloat16")]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,6 +8,10 @@ back.  The port's modules carry the flax names and the flax layouts
 (``kernel_v [kh, kw, (kt,) I, O]``, ``wn_g``, ``bias``), so the mapping is
 a renaming: ``"resBlock_0/expand/kernel_v"`` is ``"resBlock_0.expand.
 kernel_v"``.
+
+An optax adam/nadam state (its ``count``, ``mu`` and ``nu`` trees) maps to
+the port's optimizer state and back the same way, so a JAX checkpoint can
+go on training in the port.
 """
 
 from __future__ import annotations
@@ -65,3 +69,59 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
 
 def save_npz(path: str, state: Mapping[str, torch.Tensor]) -> None:
     np.savez(path, **to_flat(state))
+
+
+def _adam_part(opt_state):
+    """The (count, mu, nu) element of an optax adam/nadam state: the
+    ``ScaleByAdamState`` itself, a chain tuple holding it, or the same as
+    plain dicts/lists (an orbax restore without a target)."""
+    if isinstance(opt_state, Mapping):
+        if {"count", "mu", "nu"} <= set(opt_state):
+            return opt_state
+        opt_state = list(opt_state.values())
+    if {"count", "mu", "nu"} <= set(getattr(opt_state, "_fields", ())):
+        return {k: getattr(opt_state, k) for k in ("count", "mu", "nu")}
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            try:
+                return _adam_part(part)
+            except ValueError:
+                pass
+    raise ValueError("no optax adam state (count, mu, nu) found")
+
+
+def opt_state_from_optax(opt_state) -> dict:
+    """An optax adam/nadam state -> the port's optimizer state
+    (``probav_tpu_torch.train.optim``): count, and mu/nu keyed like the
+    port's parameters."""
+    adam = _adam_part(opt_state)
+    return {"count": torch.tensor(int(np.asarray(adam["count"])),
+                                  dtype=torch.int32),
+            "mu": to_state_dict(adam["mu"]), "nu": to_state_dict(adam["nu"])}
+
+
+def opt_state_to_optax(state: Mapping, like=None):
+    """The port's optimizer state -> optax's.
+
+    Without ``like``: ``{"count": int32, "mu": tree, "nu": tree}`` of numpy
+    arrays (the flax tree layout).  With ``like`` (an optax state of the
+    same optimizer, e.g. ``optax.nadam(lr).init(params)``): that structure
+    with its adam part replaced, and any schedule count set to ``count``."""
+    count = np.asarray(int(state["count"]), np.int32)
+    tree = {"count": count, "mu": to_tree(state["mu"]),
+            "nu": to_tree(state["nu"])}
+    if like is None:
+        return tree
+
+    def fill(node):
+        fields = getattr(node, "_fields", None)    # a NamedTuple state
+        if fields is None:
+            return (tuple(fill(n) for n in node)
+                    if isinstance(node, tuple) else node)
+        if {"count", "mu", "nu"} <= set(fields):
+            return node._replace(**tree)
+        if "count" in fields:                       # ScaleByScheduleState
+            return node._replace(count=count)
+        return node
+
+    return fill(like)

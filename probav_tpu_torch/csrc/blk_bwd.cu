@@ -1,0 +1,1004 @@
+// Hand-written Hopper kernels for the backward of one WDSR-B block.
+//
+// Replaces the TPU kernel blk_bwd (probav_tpu/ops/pallas_tstack.py:388,
+// body _blk_bwd_kernel :327), which computes in one pass, for the block
+// out = x + bc + conv3d_SAME(d, wc), d = W2^T relu(W1^T x + b1) + b2:
+//
+//   dd  = conv-transpose of gy over the 27 taps        [N, c_dec]
+//   dWc = sum_q d(q + tap) gy(q)^T,  dbc = sum_q gy(q)
+//   z   = W1^T x + b1 (recomputed), dz = relu'(z) * (W2 dd)
+//   dx  = W1 dz + gy
+//   dW1 = sum x dz^T, dW2 = sum relu(z) dd^T, db1 = sum dz, db2 = sum dd
+//
+// Activations stay in the model's channels-last [B, H, W, T, C] layout, so
+// a block is [N, C] rows; the TPU kernel's [C, ext] lane layout, interior
+// mask and halo margins are not ported.  One entry point, probav_blk_bwd,
+// launches four kernels on the caller's stream:
+//
+//   1. dd: the 3^3 SAME conv of tstack.cu without bias or residual, fed gy
+//      and the taps flipped with their channel axes swapped (the wrapper
+//      prepares them, as pallas_tstack._pack_wc_bwd does).  bf16 runs on
+//      the tensor cores.  dd is rounded to the working dtype and makes one
+//      round trip through device memory (2 * N * c_dec elements, 56 MB at
+//      bf16 on the flagship train step), where the TPU kernel keeps it in
+//      VMEM: one kernel cannot hold the conv halo, the 27-tap weights and
+//      the expand/decay weights and partials together.
+//   2. wgrad: dWc, a sum over positions of d (shifted by the tap) times gy.
+//   3. seg_bwd: everything else: z recomputed, dz, dx, dW1, dW2 and the
+//      bias grads.  The wide z / dz [N, c_mid] never reach device memory.
+//   4. reduce: the weight-gradient partials.
+//
+// Kernels 2 and 3 come in two versions each, chosen from the dtype and the
+// widths: bf16 at c_in, c_dec <= 32 and c_mid <= 256 (the flagship's
+// 32/256/25) runs on the tensor cores (wgrad_mma_kernel,
+// seg_bwd_mma_kernel: mma.sync m16n8k16, float32 sums); float32, and bf16
+// at wider widths (the 64-filter model's 64/512/51), run on the CUDA cores
+// (wgrad_kernel, seg_bwd_kernel: bf16 data widened to float32, whose
+// products of bf16 values are exact), so every width has a kernel.
+//
+// Reductions across blocks: kernels 2 and 3 run a persistent grid of G
+// blocks; each block owns one float32 slot of the partial buffer and sums
+// into it over all its tiles, in registers written once at the end (the
+// wgrad kernels, seg_bwd_mma) or in the slot itself (seg_bwd), with no
+// atomics.  Kernel 4 sums the G slots in a fixed order, so a run is
+// deterministic, as the per-tile partials of pallas_tstack.py:445-449 are.
+//
+// What bounds it on an H100: per row 2 * 27 * c_dec * c_out FLOP each for
+// dd and dWc, and 2 * c_mid * (3 c_in + 2 c_dec) for the z recompute, W2 dd,
+// W1 dz, dW1 and dW2: in all 161,152 FLOP per row at the flagship
+// 32/256/25 (89.9 GFLOP per launch at N = 557,568) against ~89 elements
+// read and 32 written per row: compute-bound,
+// 1.34 ms at the 67 TFLOP/s float32 peak and 91 us at the 989 TFLOP/s bf16
+// peak.  This version keeps the wide activation out of device memory and
+// the bf16 products on the tensor cores; it does not pipeline its staging
+// (no cp.async / TMA) and uses mma.sync, not wgmma, which is later work.
+//
+// Rounding points (pallas_tstack.py:356-379): dd summed in float32 then
+// rounded; dz from float32 W2 dd, masked by z > 0 on the float32 z, then
+// rounded; h = relu(z) rounded; dx = W1 dz + gy in float32, stored in the
+// working dtype; all weight partials float32.
+
+#include "common.cuh"
+
+namespace {
+
+using probav::from_f;
+using probav::round_to;
+using probav::to_f;
+
+constexpr int BWD_ROWS = 128;   // rows per seg_bwd tile = threads per block
+constexpr int BWD_MCH = 32;     // middle channels per seg_bwd chunk
+constexpr int BWD_MS = BWD_MCH + 1;   // dz / h tile row stride (odd)
+constexpr int WG_THREADS = 256;       // wgrad threads per block
+
+// Layout of one partial slot (floats), also the layout of the reduced
+// output: dWc [27][c_dec][c_out] | dW1 [c_in][c_mid] | dW2 [c_mid][c_dec]
+// | db1 [c_mid] | db2 [c_dec] | dbc [c_in].
+struct Slot {
+  long w1, w2, b1, b2, bc, len;   // dWc starts at 0
+  __host__ __device__ Slot(int c_in, int c_mid, int c_dec) {
+    w1 = 27L * c_dec * c_in;
+    w2 = w1 + (long)c_in * c_mid;
+    b1 = w2 + (long)c_mid * c_dec;
+    b2 = b1 + c_mid;
+    bc = b2 + c_dec;
+    len = bc + c_in;
+  }
+};
+
+// ------------------------------------------------------------------------ //
+// wgrad: dWc[tap][c][o] = sum_q d[q + off(tap)][c] * gy[q][o]                //
+// CDB c's (stride 32) and COB o's per thread and tap.                      //
+// ------------------------------------------------------------------------ //
+
+template <typename T, int CDB, int COB>
+__global__ void __launch_bounds__(WG_THREADS)
+wgrad_kernel(const T* __restrict__ d, const T* __restrict__ gy,
+             float* __restrict__ part, long slot_len, int B, int H, int W,
+             int Tn, int c_dec, int c_out) {
+  constexpr int COP = COB * 8;           // gy row stride in smem
+  extern __shared__ __align__(16) float smem[];
+  const int hs = c_dec | 1;              // odd halo channel stride
+  const int W2 = W + 2, T2 = Tn + 2, WT = W * Tn;
+  float* gys = smem;                     // [WT][COP]
+  float* halo = gys + WT * COP;          // [W2][T2][hs]
+  const int halo_floats = W2 * T2 * hs;
+
+  const int tid = threadIdx.x;
+  const int oq = tid % 8, cg = tid / 8;  // o's oq*COB.., c's cg + 32 i
+  const int dh = blockIdx.y;
+  int cidx[CDB];
+#pragma unroll
+  for (int i = 0; i < CDB; ++i) {
+    const int c = cg + 32 * i;
+    cidx[i] = c < c_dec ? c : c_dec - 1;   // clamp: never stored
+  }
+  float acc[9][CDB][COB];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int i = 0; i < CDB; ++i)
+#pragma unroll
+      for (int u = 0; u < COB; ++u) acc[t][i][u] = 0.f;
+
+  for (long item = blockIdx.x; item < (long)B * H; item += gridDim.x) {
+    const int h = (int)(item % H);
+    const int hh = h + dh - 1;
+    if (hh < 0 || hh >= H) continue;     // uniform over the block
+    __syncthreads();                     // previous item fully consumed
+    const long gsrc = item * WT * c_out;
+    for (int e = tid; e < WT * COP; e += WG_THREADS) {
+      const int p = e / COP, o = e % COP;
+      gys[e] = o < c_out ? to_f(gy[gsrc + (long)p * c_out + o]) : 0.f;
+    }
+    const long dsrc = (item + dh - 1) * WT * c_dec;
+    for (int e = tid; e < halo_floats; e += WG_THREADS) {
+      const int c = e % hs, wt = e / hs;
+      const int ti = wt % T2, wi = wt / T2;
+      float v = 0.f;
+      if (c < c_dec && wi >= 1 && wi <= W && ti >= 1 && ti <= Tn)
+        v = to_f(d[dsrc + ((long)(wi - 1) * Tn + (ti - 1)) * c_dec + c]);
+      halo[e] = v;
+    }
+    __syncthreads();
+
+    int pw = 0, pt = 0;
+    for (int p = 0; p < WT; ++p) {
+      float gv[COB];
+      const float4* g4 = reinterpret_cast<const float4*>(gys + p * COP +
+                                                         oq * COB);
+#pragma unroll
+      for (int u = 0; u < COB / 4; ++u) {
+        const float4 v = g4[u];
+        gv[4 * u] = v.x; gv[4 * u + 1] = v.y;
+        gv[4 * u + 2] = v.z; gv[4 * u + 3] = v.w;
+      }
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int dw = t / 3, dt = t % 3;
+        const float* dv = halo + ((pw + dw) * T2 + pt + dt) * hs;
+#pragma unroll
+        for (int i = 0; i < CDB; ++i) {
+          const float v = dv[cidx[i]];
+#pragma unroll
+          for (int u = 0; u < COB; ++u)
+            acc[t][i][u] = fmaf(v, gv[u], acc[t][i][u]);
+        }
+      }
+      if (++pt == Tn) { pt = 0; ++pw; }
+    }
+  }
+
+  float* out = part + blockIdx.x * slot_len;
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int i = 0; i < CDB; ++i) {
+      const int c = cg + 32 * i;
+      if (c >= c_dec) continue;
+#pragma unroll
+      for (int u = 0; u < COB; ++u) {
+        const int o = oq * COB + u;
+        if (o < c_out)
+          out[((long)(dh * 9 + t) * c_dec + c) * c_out + o] = acc[t][i][u];
+      }
+    }
+}
+
+template <typename T, int CDB, int COB>
+cudaError_t launch_wgrad(const void* d, const void* gy, float* part,
+                         long slot_len, int G, int B, int H, int W, int Tn,
+                         int c_dec, int c_out, cudaStream_t s) {
+  const size_t smem = sizeof(float) * ((size_t)W * Tn * COB * 8 +
+                                       (size_t)(W + 2) * (Tn + 2) * (c_dec | 1));
+  auto kern = wgrad_kernel<T, CDB, COB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(G, 3), WG_THREADS, smem, s>>>(
+      static_cast<const T*>(d), static_cast<const T*>(gy), part, slot_len, B,
+      H, W, Tn, c_dec, c_out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_wgrad(const void* d, const void* gy, float* part,
+                           long slot_len, int G, int B, int H, int W, int Tn,
+                           int c_dec, int c_out, cudaStream_t s) {
+  const bool cd32 = c_dec <= 32, co32 = c_out <= 32;
+  if (cd32 && co32)
+    return launch_wgrad<T, 1, 4>(d, gy, part, slot_len, G, B, H, W, Tn, c_dec,
+                                 c_out, s);
+  if (cd32)
+    return launch_wgrad<T, 1, 8>(d, gy, part, slot_len, G, B, H, W, Tn, c_dec,
+                                 c_out, s);
+  if (co32)
+    return launch_wgrad<T, 2, 4>(d, gy, part, slot_len, G, B, H, W, Tn, c_dec,
+                                 c_out, s);
+  return launch_wgrad<T, 2, 8>(d, gy, part, slot_len, G, B, H, W, Tn, c_dec,
+                               c_out, s);
+}
+
+// ------------------------------------------------------------------------ //
+// wgrad, bf16 on the tensor cores, for c_dec, c_out <= 32: per (b, h) row, //
+// dWc[tap] += d_shifted^T gy as mma with K over the row's positions.  The   //
+// positions are taken on the zero-padded (W+2) x (T+2) grid, where every    //
+// tap is one uniform shift; gy is zero on the pad, so the padded positions  //
+// add nothing.  Each block walks a contiguous run of (b, h) rows and keeps  //
+// the d rows h-1, h, h+1 in a ring of three transposed ([channel]           //
+// [position]) rows, so one new d row and the gy row are staged per step.    //
+// Warp w of 9 owns the taps (dh, dw) = (w / 3, w % 3) and dt = 0..2, with   //
+// their 3 x 32 x 32 sums in registers across the block's rows.             //
+// ------------------------------------------------------------------------ //
+
+constexpr int WGM_WARPS = 9;
+constexpr int WGM_MARG = 16;   // zero margin (positions) around each d row
+
+__device__ __forceinline__ uint32_t ld2_bf16(const __nv_bfloat16* p) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+  return (uint32_t)u[0] | ((uint32_t)u[1] << 16);
+}
+
+__global__ void __launch_bounds__(WGM_WARPS * 32)
+wgrad_mma_kernel(const __nv_bfloat16* __restrict__ d,
+                 const __nv_bfloat16* __restrict__ gy,
+                 float* __restrict__ part, long slot_len, int B, int H,
+                 int W, int Tn, int c_dec, int c_out, int npk) {
+  using probav::lds32;
+  using probav::mma_bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int GS = npk + 8;                    // gy^T row stride
+  const int DS = npk + 2 * WGM_MARG;         // d^T row stride
+  __nv_bfloat16* gT = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [32][GS]
+  __nv_bfloat16* dT = gT + 32 * GS;                          // [3][32][DS]
+  // Offset (w * T + t) of padded position Pm - MARG, or -1 on the pad.
+  int* pos = reinterpret_cast<int*>(dT + 3 * 32 * DS);       // [DS]
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int T2 = Tn + 2, np = (W + 2) * T2, WT = W * Tn;
+  const int dh = warp / 3, dw = warp % 3;
+  for (int pm = tid; pm < DS; pm += blockDim.x) {
+    const int P = pm - WGM_MARG;
+    const int wp = P >= 0 ? P / T2 : 0, tp = P >= 0 ? P % T2 : 0;
+    pos[pm] = (P >= 0 && P < np && wp >= 1 && wp <= W && tp >= 1 &&
+               tp <= Tn) ? (wp - 1) * Tn + (tp - 1) : -1;
+  }
+
+  float acc[3][2][4][4];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        acc[t][m][nt][0] = acc[t][m][nt][1] = acc[t][m][nt][2] =
+            acc[t][m][nt][3] = 0.f;
+
+  // Ring slot of d row hh (h - 1 .. h + 1 are in three distinct slots).
+  auto ring = [](int hh) { return (hh % 3 + 3) % 3; };
+  // Stage d row hh of image b (zeros outside 0..H-1) into its ring slot.
+  auto stage_d = [&](long b, int hh) {
+    __nv_bfloat16* dst = dT + ring(hh) * 32 * DS;
+    const bool in = hh >= 0 && hh < H;
+    const __nv_bfloat16* src = d + (b * H + (in ? hh : 0)) * WT * c_dec;
+    for (int e = tid; e < DS * 32; e += blockDim.x) {
+      const int c = e % 32, pm = e / 32;
+      const int p = pos[pm];
+      dst[c * DS + pm] =
+          (in && p >= 0 && c < c_dec) ? src[(long)p * c_dec + c] : zero;
+    }
+  };
+
+  const long items = (long)B * H;
+  const long per = (items + gridDim.x - 1) / gridDim.x;
+  const long i0 = blockIdx.x * per;
+  const long i1 = i0 + per < items ? i0 + per : items;
+  __syncthreads();   // pos ready
+  for (long item = i0; item < i1; ++item) {
+    const long b = item / H;
+    const int h = (int)(item % H);
+    __syncthreads();   // previous item consumed
+    if (item == i0 || h == 0) {
+      stage_d(b, h - 1);
+      stage_d(b, h);
+    }
+    stage_d(b, h + 1);
+    const __nv_bfloat16* gsrc = gy + item * WT * c_out;
+    for (int e = tid; e < npk * 32; e += blockDim.x) {
+      const int o = e % 32, P = e / 32;
+      const int p = pos[P + WGM_MARG];
+      gT[o * GS + P] =
+          (p >= 0 && o < c_out) ? gsrc[(long)p * c_out + o] : zero;
+    }
+    __syncthreads();
+    const int hh = h + dh - 1;
+    if (hh < 0 || hh >= H) continue;   // a zero d row
+    const __nv_bfloat16* dr = dT + ring(hh) * 32 * DS;
+
+#pragma unroll 1
+    for (int kk = 0; kk < npk / 16; ++kk) {
+      const int k0 = kk * 16 + 2 * q;
+      uint32_t bf[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const __nv_bfloat16* Bp = gT + (nt * 8 + g) * GS + k0;
+        bf[nt][0] = lds32(Bp);
+        bf[nt][1] = lds32(Bp + 8);
+      }
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const int off = (dw - 1) * T2 + (t - 1);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const __nv_bfloat16* A =
+              dr + (m * 16 + g) * DS + WGM_MARG + k0 + off;
+          const uint32_t a[4] = {ld2_bf16(A), ld2_bf16(A + 8 * DS),
+                                 ld2_bf16(A + 8), ld2_bf16(A + 8 * DS + 8)};
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[t][m][nt], a, bf[nt][0], bf[nt][1]);
+        }
+      }
+    }
+  }
+
+  float* out = part + blockIdx.x * slot_len;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = m * 16 + g + (i < 2 ? 0 : 8);
+          const int o = nt * 8 + 2 * q + (i & 1);
+          const int tap = dh * 9 + dw * 3 + t;
+          if (c < c_dec && o < c_out)
+            out[((long)tap * c_dec + c) * c_out + o] = acc[t][m][nt][i];
+        }
+}
+
+// Launches the tensor-core wgrad when its tiles fit; returns
+// cudaErrorNotSupported (nothing launched) when they do not.
+cudaError_t launch_wgrad_mma(const void* d, const void* gy, float* part,
+                             long slot_len, int G, int B, int H, int W,
+                             int Tn, int c_dec, int c_out, cudaStream_t s) {
+  const int npk = ((W + 2) * (Tn + 2) + 15) / 16 * 16;
+  const size_t smem = sizeof(__nv_bfloat16) *
+                          ((size_t)32 * (npk + 8) + 96 * (npk + 2 * WGM_MARG)) +
+                      sizeof(int) * (npk + 2 * WGM_MARG);
+  if (c_dec > 32 || c_out > 32 || smem > 227 * 1024)
+    return cudaErrorNotSupported;
+  auto kern = wgrad_mma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<G, WGM_WARPS * 32, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(d),
+      static_cast<const __nv_bfloat16*>(gy), part, slot_len, B, H, W, Tn,
+      c_dec, c_out, npk);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------ //
+// seg_bwd: x, dd, gy [n, *] -> dx [n, c_in] and the dW1/dW2/db1/db2/dbc      //
+// partials.  CI, CD: register widths (>= c_in, c_dec, multiples of 4).     //
+// ------------------------------------------------------------------------ //
+
+template <typename T, int CI, int CD>
+__global__ void __launch_bounds__(BWD_ROWS)
+seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
+               const T* __restrict__ gy, const T* __restrict__ w1,
+               const float* __restrict__ b1, const T* __restrict__ w2,
+               T* __restrict__ dx, float* __restrict__ part, long slot_len,
+               int n, int c_in, int c_mid, int c_dec) {
+  constexpr int RS = (CI > CD ? CI : CD) + 1;   // odd row stride
+  constexpr int MQ = BWD_MCH / 4;               // 4-wide j groups per chunk
+  constexpr int T1 = CI / 4 * MQ;               // dW1 4x4 tiles per chunk
+  constexpr int T2 = MQ * (CD / 4);             // dW2 4x4 tiles per chunk
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                             // [R][RS]  x, later dx
+  float* ds = xs + BWD_ROWS * RS;               // [R][RS]  dd
+  float* zs = ds + BWD_ROWS * RS;               // [R][MS]  dz
+  float* hs = zs + BWD_ROWS * BWD_MS;           // [R][MS]  h = relu(z)
+  float* w1c = hs + BWD_ROWS * BWD_MS;          // [MCH][CI]  w1 transposed
+  float* w2c = w1c + BWD_MCH * CI;              // [MCH][CD]
+  float* b1c = w2c + BWD_MCH * CD;              // [MCH]
+  float* red = b1c + BWD_MCH;                   // [R]  dbc reduction
+
+  const int tid = threadIdx.x;
+  const Slot sl(c_in, c_mid, c_dec);
+  float* slot = part + blockIdx.x * slot_len;
+  for (long e = sl.w1 + tid; e < sl.bc; e += BWD_ROWS) slot[e] = 0.f;
+  __syncthreads();
+
+  // c_in divides BWD_ROWS (checked by the entry point), so in the
+  // coalesced epilogue this thread always meets channel tid % c_in.
+  float dbc_acc = 0.f;
+  const long tiles = ((long)n + BWD_ROWS - 1) / BWD_ROWS;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long row0 = tile * BWD_ROWS;
+    const int nrows = (int)min((long)BWD_ROWS, (long)n - row0);
+    __syncthreads();   // previous tile's epilogue done with xs
+    for (int e = tid; e < BWD_ROWS * CI; e += BWD_ROWS) {
+      const int r = e / CI, k = e % CI;
+      xs[r * RS + k] =
+          (r < nrows && k < c_in) ? to_f(x[(row0 + r) * c_in + k]) : 0.f;
+    }
+    for (int e = tid; e < BWD_ROWS * CD; e += BWD_ROWS) {
+      const int r = e / CD, c = e % CD;
+      ds[r * RS + c] =
+          (r < nrows && c < c_dec) ? to_f(dd[(row0 + r) * c_dec + c]) : 0.f;
+    }
+    __syncthreads();
+    float xr[CI], dr[CD], dxa[CI];
+#pragma unroll
+    for (int k = 0; k < CI; ++k) { xr[k] = xs[tid * RS + k]; dxa[k] = 0.f; }
+#pragma unroll
+    for (int c = 0; c < CD; ++c) dr[c] = ds[tid * RS + c];
+
+    for (int j0 = 0; j0 < c_mid; j0 += BWD_MCH) {
+      __syncthreads();   // previous chunk's sums done with zs, hs, w1c
+      for (int e = tid; e < BWD_MCH * CI; e += BWD_ROWS) {
+        const int k = e / BWD_MCH, j = e % BWD_MCH;
+        w1c[j * CI + k] = (k < c_in && j0 + j < c_mid)
+                              ? to_f(w1[(long)k * c_mid + j0 + j]) : 0.f;
+      }
+      for (int e = tid; e < BWD_MCH * CD; e += BWD_ROWS) {
+        const int j = e / CD, c = e % CD;
+        w2c[e] = (c < c_dec && j0 + j < c_mid)
+                     ? to_f(w2[(long)(j0 + j) * c_dec + c]) : 0.f;
+      }
+      if (tid < BWD_MCH) b1c[tid] = j0 + tid < c_mid ? b1[j0 + tid] : 0.f;
+      __syncthreads();
+
+      // One row per thread: z, W2 dd, dz, h for the chunk; dx += W1 dz.
+      // Padded channels have zero weights and bias: dz and h are 0 there.
+      for (int jj = 0; jj < BWD_MCH; jj += 4) {
+        float z[4], g[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) { z[q] = b1c[jj + q]; g[q] = 0.f; }
+#pragma unroll
+        for (int k = 0; k < CI; k += 4) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 w =
+                *reinterpret_cast<const float4*>(w1c + (jj + q) * CI + k);
+            z[q] = fmaf(xr[k], w.x, z[q]);
+            z[q] = fmaf(xr[k + 1], w.y, z[q]);
+            z[q] = fmaf(xr[k + 2], w.z, z[q]);
+            z[q] = fmaf(xr[k + 3], w.w, z[q]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < CD; c += 4) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 w =
+                *reinterpret_cast<const float4*>(w2c + (jj + q) * CD + c);
+            g[q] = fmaf(dr[c], w.x, g[q]);
+            g[q] = fmaf(dr[c + 1], w.y, g[q]);
+            g[q] = fmaf(dr[c + 2], w.z, g[q]);
+            g[q] = fmaf(dr[c + 3], w.w, g[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float dz = z[q] > 0.f ? round_to<T>(g[q]) : 0.f;
+          zs[tid * BWD_MS + jj + q] = dz;
+          hs[tid * BWD_MS + jj + q] = round_to<T>(fmaxf(z[q], 0.f));
+          const float4* w4 =
+              reinterpret_cast<const float4*>(w1c + (jj + q) * CI);
+#pragma unroll
+          for (int k = 0; k < CI / 4; ++k) {
+            const float4 w = w4[k];
+            dxa[4 * k] = fmaf(dz, w.x, dxa[4 * k]);
+            dxa[4 * k + 1] = fmaf(dz, w.y, dxa[4 * k + 1]);
+            dxa[4 * k + 2] = fmaf(dz, w.z, dxa[4 * k + 2]);
+            dxa[4 * k + 3] = fmaf(dz, w.w, dxa[4 * k + 3]);
+          }
+        }
+      }
+      __syncthreads();
+
+      // Weight sums over the tile's rows, 4x4 outputs per thread and tile.
+      for (int t = tid; t < T1 + T2; t += BWD_ROWS) {
+        const bool first = t < T1;
+        const int tt = first ? t : t - T1;
+        // dW1: a = x[:, 4kq..], b = dz[:, 4jq..];  dW2: a = h, b = dd.
+        const int aq = first ? tt / MQ : tt / (CD / 4);
+        const int bq = first ? tt % MQ : tt % (CD / 4);
+        const float* A = first ? xs + 4 * aq : hs + 4 * aq;
+        const int as = first ? RS : BWD_MS;
+        const float* Bm = first ? zs + 4 * bq : ds + 4 * bq;
+        const int bs = first ? BWD_MS : RS;
+        float acc[4][4], bsum[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          bsum[i] = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        }
+        for (int r = 0; r < nrows; ++r) {
+          float a[4], b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a[i] = A[r * as + i];
+            b[i] = Bm[r * bs + i];
+            bsum[i] += b[i];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        if (first) {          // acc[i][j]: dW1[4aq + i][j0 + 4bq + j]
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int k = 4 * aq + i, jm = j0 + 4 * bq + j;
+              if (k < c_in && jm < c_mid)
+                slot[sl.w1 + (long)k * c_mid + jm] += acc[i][j];
+            }
+          if (aq == 0)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (j0 + 4 * bq + j < c_mid)
+                slot[sl.b1 + j0 + 4 * bq + j] += bsum[j];
+        } else {              // acc[i][j]: dW2[j0 + 4aq + i][4bq + j]
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int jm = j0 + 4 * aq + i, c = 4 * bq + j;
+              if (jm < c_mid && c < c_dec)
+                slot[sl.w2 + (long)jm * c_dec + c] += acc[i][j];
+            }
+          if (aq == 0 && j0 == 0)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (4 * bq + j < c_dec) slot[sl.b2 + 4 * bq + j] += bsum[j];
+        }
+      }
+    }
+
+    // Epilogue through shared memory: dx = W1 dz + gy, coalesced.
+    __syncthreads();   // the last chunk's sums are done with xs
+#pragma unroll
+    for (int k = 0; k < CI; ++k) xs[tid * RS + k] = dxa[k];
+    __syncthreads();
+    const long base = row0 * c_in;
+    for (int e = tid; e < nrows * c_in; e += BWD_ROWS) {
+      const int r = e / c_in, k = e % c_in;
+      const float g = to_f(gy[base + e]);
+      dbc_acc += g;
+      dx[base + e] = from_f<T>(xs[r * RS + k] + g);
+    }
+  }
+
+  // dbc: the BWD_ROWS / c_in threads of each channel, summed in order.
+  __syncthreads();
+  red[tid] = dbc_acc;
+  __syncthreads();
+  if (tid < c_in) {
+    float s = 0.f;
+    for (int i = tid; i < BWD_ROWS; i += c_in) s += red[i];
+    slot[sl.bc + tid] = s;
+  }
+}
+
+template <typename T, int CI, int CD>
+cudaError_t launch_seg_bwd(const void* x, const void* dd, const void* gy,
+                           const void* w1, const float* b1, const void* w2,
+                           void* dx, float* part, long slot_len, int G, int n,
+                           int c_in, int c_mid, int c_dec, cudaStream_t s) {
+  constexpr int RS = (CI > CD ? CI : CD) + 1;
+  const size_t smem =
+      sizeof(float) * ((size_t)2 * BWD_ROWS * RS + 2 * BWD_ROWS * BWD_MS +
+                       BWD_MCH * (CI + CD + 1) + BWD_ROWS);
+  auto kern = seg_bwd_kernel<T, CI, CD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<G, BWD_ROWS, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dd),
+      static_cast<const T*>(gy), static_cast<const T*>(w1), b1,
+      static_cast<const T*>(w2), static_cast<T*>(dx), part, slot_len, n, c_in,
+      c_mid, c_dec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_seg_bwd(const void* x, const void* dd, const void* gy,
+                             const void* w1, const float* b1, const void* w2,
+                             void* dx, float* part, long slot_len, int G,
+                             int n, int c_in, int c_mid, int c_dec,
+                             cudaStream_t s) {
+  const bool ci32 = c_in <= 32, cd32 = c_dec <= 32;
+  if (ci32 && cd32)
+    return launch_seg_bwd<T, 32, 32>(x, dd, gy, w1, b1, w2, dx, part,
+                                     slot_len, G, n, c_in, c_mid, c_dec, s);
+  if (ci32)
+    return launch_seg_bwd<T, 32, 64>(x, dd, gy, w1, b1, w2, dx, part,
+                                     slot_len, G, n, c_in, c_mid, c_dec, s);
+  if (cd32)
+    return launch_seg_bwd<T, 64, 32>(x, dd, gy, w1, b1, w2, dx, part,
+                                     slot_len, G, n, c_in, c_mid, c_dec, s);
+  return launch_seg_bwd<T, 64, 64>(x, dd, gy, w1, b1, w2, dx, part, slot_len,
+                                   G, n, c_in, c_mid, c_dec, s);
+}
+
+// ------------------------------------------------------------------------ //
+// seg_bwd, bf16 on the tensor cores (mma.sync.m16n8k16, float32 sums), for  //
+// c_in, c_dec <= 32 and c_mid <= 256 (the flagship's 32/256/25).            //
+//                                                                          //
+// A tile is 128 rows; each of the 8 warps owns 16 of them.  Phase A, per    //
+// warp and 16 middle channels at a time: z = x W1 + b1 and W2 dd come out   //
+// of the mma in the C layout, dz and h = relu(z) are rounded to bf16 in     //
+// registers and, since two adjacent C tiles are one A fragment, feed       //
+// dx += dz W1^T at once; dz and h are also stored transposed ([j][row]) in  //
+// shared memory.  Phase B, block-wide: dW1 += x^T dz and dW2 += h^T dd as   //
+// mma over the tile's 128 rows (K), from the transposed tiles, into        //
+// accumulators that stay in registers across all of the block's tiles      //
+// (warp w owns 8 of the 64 16x8 output tiles of each).  No RMW, no atomics. //
+// ------------------------------------------------------------------------ //
+
+constexpr int SBM_ROWS = 128;            // rows per tile
+constexpr int SBM_WARPS = 8;
+constexpr int SBM_RSP = SBM_ROWS + 8;    // transposed-tile row stride (bf16)
+constexpr int SBM_CIP = 40;              // [j][c] weight row stride (bf16)
+constexpr int SBM_CMP = 256 + 8;         // [c][j] weight row stride (bf16)
+
+__global__ void __launch_bounds__(SBM_WARPS * 32)
+seg_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ dd,
+                   const __nv_bfloat16* __restrict__ gy,
+                   const __nv_bfloat16* __restrict__ w1,
+                   const float* __restrict__ b1,
+                   const __nv_bfloat16* __restrict__ w2,
+                   __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
+                   long slot_len, int n, int c_in, int c_mid, int c_dec) {
+  using probav::lds32;
+  using probav::mma_bf16;
+  using probav::pack_bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* xT = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dT = xT + 32 * SBM_RSP;          // dd^T [32][RSP]
+  __nv_bfloat16* zT = dT + 32 * SBM_RSP;          // dz^T [256][RSP]
+  __nv_bfloat16* hT = zT + 256 * SBM_RSP;         // h^T  [256][RSP]
+  __nv_bfloat16* w1T = hT + 256 * SBM_RSP;        // [256][CIP]  w1[c][j]
+  __nv_bfloat16* w2s = w1T + 256 * SBM_CIP;       // [256][CIP]  w2[j][c]
+  __nv_bfloat16* w1n = w2s + 256 * SBM_CIP;       // [32][CMP]   w1[c][j]
+  float* b1s = reinterpret_cast<float*>(w1n + 32 * SBM_CMP);   // [256]
+  float* red = b1s + 256;                                       // [8][32]
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int c_mid16 = (c_mid + 15) / 16 * 16;
+
+  for (int e = tid; e < 256 * 32; e += blockDim.x) {
+    const int j = e / 32, c = e % 32;
+    const bool jin = j < c_mid;
+    w1T[j * SBM_CIP + c] = (jin && c < c_in) ? w1[(long)c * c_mid + j] : zero;
+    w2s[j * SBM_CIP + c] = (jin && c < c_dec) ? w2[(long)j * c_dec + c]
+                                               : zero;
+    w1n[c * SBM_CMP + j] = (jin && c < c_in) ? w1[(long)c * c_mid + j] : zero;
+  }
+  for (int j = tid; j < 256; j += blockDim.x) b1s[j] = j < c_mid ? b1[j] : 0.f;
+
+  float acc1[2][4][4], acc2[2][4][4];   // dW1 (mt, nt), dW2 (mt, nt) tiles
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc1[a][b][i] = acc2[a][b][i] = 0.f;
+  float db1a = 0.f, db2a = 0.f, dbca[4][2] = {};
+
+  const int rw = warp * 16;             // this warp's rows in the tile
+  const long tiles = ((long)n + SBM_ROWS - 1) / SBM_ROWS;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long row0 = tile * SBM_ROWS;
+    const int nrows = (int)min((long)SBM_ROWS, (long)n - row0);
+    __syncthreads();   // weights staged / previous tile's phase B done
+    for (int e = tid; e < SBM_ROWS * 32; e += blockDim.x) {
+      const int r = e / 32, c = e % 32;
+      const bool rin = r < nrows;
+      xT[c * SBM_RSP + r] =
+          (rin && c < c_in) ? x[(row0 + r) * c_in + c] : zero;
+      dT[c * SBM_RSP + r] =
+          (rin && c < c_dec) ? dd[(row0 + r) * c_dec + c] : zero;
+    }
+    __syncthreads();
+
+    // Phase A.  A fragments of x and dd (rows rw + g, rw + g + 8).
+    uint32_t ax[2][4], ad[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int c0 = kk * 16 + 2 * q;
+      const __nv_bfloat16* X = xT + rw + g;
+      const __nv_bfloat16* D = dT + rw + g;
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {          // columns c0 (+8)
+        const int c = c0 + 8 * hi;
+        ax[kk][2 * hi] = pack_bf16(__bfloat162float(X[c * SBM_RSP]),
+                                   __bfloat162float(X[(c + 1) * SBM_RSP]));
+        ax[kk][2 * hi + 1] =
+            pack_bf16(__bfloat162float(X[c * SBM_RSP + 8]),
+                      __bfloat162float(X[(c + 1) * SBM_RSP + 8]));
+        ad[kk][2 * hi] = pack_bf16(__bfloat162float(D[c * SBM_RSP]),
+                                   __bfloat162float(D[(c + 1) * SBM_RSP]));
+        ad[kk][2 * hi + 1] =
+            pack_bf16(__bfloat162float(D[c * SBM_RSP + 8]),
+                      __bfloat162float(D[(c + 1) * SBM_RSP + 8]));
+      }
+    }
+    float dxa[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      dxa[t][0] = dxa[t][1] = dxa[t][2] = dxa[t][3] = 0.f;
+
+    for (int s = 0; s < c_mid16 / 16; ++s) {
+      uint32_t adz[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int n0 = s * 16 + half * 8;
+        float z[4] = {0.f, 0.f, 0.f, 0.f}, gg[4] = {0.f, 0.f, 0.f, 0.f};
+        const __nv_bfloat16* wz = w1T + (n0 + g) * SBM_CIP + 2 * q;
+        const __nv_bfloat16* wg = w2s + (n0 + g) * SBM_CIP + 2 * q;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          mma_bf16(z, ax[kk], lds32(wz + kk * 16), lds32(wz + kk * 16 + 8));
+          mma_bf16(gg, ad[kk], lds32(wg + kk * 16), lds32(wg + kk * 16 + 8));
+        }
+        const int j = n0 + 2 * q;
+        const float bb0 = b1s[j], bb1 = b1s[j + 1];
+        z[0] += bb0; z[1] += bb1; z[2] += bb0; z[3] += bb1;
+        float dz[4], h[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dz[i] = z[i] > 0.f ? round_to<__nv_bfloat16>(gg[i]) : 0.f;
+          h[i] = fmaxf(z[i], 0.f);
+        }
+        adz[2 * half] = pack_bf16(dz[0], dz[1]);
+        adz[2 * half + 1] = pack_bf16(dz[2], dz[3]);
+        const int r = rw + g;
+        zT[j * SBM_RSP + r] = __float2bfloat16_rn(dz[0]);
+        zT[(j + 1) * SBM_RSP + r] = __float2bfloat16_rn(dz[1]);
+        zT[j * SBM_RSP + r + 8] = __float2bfloat16_rn(dz[2]);
+        zT[(j + 1) * SBM_RSP + r + 8] = __float2bfloat16_rn(dz[3]);
+        hT[j * SBM_RSP + r] = __float2bfloat16_rn(h[0]);
+        hT[(j + 1) * SBM_RSP + r] = __float2bfloat16_rn(h[1]);
+        hT[j * SBM_RSP + r + 8] = __float2bfloat16_rn(h[2]);
+        hT[(j + 1) * SBM_RSP + r + 8] = __float2bfloat16_rn(h[3]);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const __nv_bfloat16* wb = w1n + (t * 8 + g) * SBM_CMP + s * 16 + 2 * q;
+        mma_bf16(dxa[t], adz, lds32(wb), lds32(wb + 8));
+      }
+    }
+
+    // dx = W1 dz + gy, summed in float32, stored in bf16; dbc sums gy.
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rw + g + (i < 2 ? 0 : 8);
+        const int c = t * 8 + 2 * q + (i & 1);
+        if (r < nrows && c < c_in) {
+          const long idx = (row0 + r) * c_in + c;
+          const float gv = __bfloat162float(gy[idx]);
+          dbca[t][i & 1] += gv;
+          dx[idx] = __float2bfloat16_rn(dxa[t][i] + gv);
+        }
+      }
+    __syncthreads();   // zT, hT complete
+
+    // Phase B: K = the tile's 128 rows.
+#pragma unroll 1
+    for (int kk = 0; kk < SBM_ROWS / 16; ++kk) {
+      const int k0 = kk * 16 + 2 * q;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {     // x^T rows c = mt*16 + g (+8)
+        const __nv_bfloat16* A = xT + (mt * 16 + g) * SBM_RSP + k0;
+        a[mt][0] = lds32(A);
+        a[mt][1] = lds32(A + 8 * SBM_RSP);
+        a[mt][2] = lds32(A + 8);
+        a[mt][3] = lds32(A + 8 * SBM_RSP + 8);
+      }
+#pragma unroll
+      for (int nl = 0; nl < 4; ++nl) {     // dz^T rows j = nt*8 + g
+        const int nt = warp * 4 + nl;
+        if (nt * 8 >= c_mid16) break;
+        const __nv_bfloat16* Bp = zT + (nt * 8 + g) * SBM_RSP + k0;
+        const uint32_t b0 = lds32(Bp), b1v = lds32(Bp + 8);
+        mma_bf16(acc1[0][nl], a[0], b0, b1v);
+        mma_bf16(acc1[1][nl], a[1], b0, b1v);
+      }
+      uint32_t bd[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {     // dd^T rows c = nt*8 + g
+        const __nv_bfloat16* Bp = dT + (nt * 8 + g) * SBM_RSP + k0;
+        bd[nt][0] = lds32(Bp);
+        bd[nt][1] = lds32(Bp + 8);
+      }
+#pragma unroll
+      for (int ml = 0; ml < 2; ++ml) {     // h^T rows j = mt*16 + g (+8)
+        const int mt = warp * 2 + ml;
+        if (mt * 16 >= c_mid16) break;
+        const __nv_bfloat16* A = hT + (mt * 16 + g) * SBM_RSP + k0;
+        uint32_t ah[4] = {lds32(A), lds32(A + 8 * SBM_RSP), lds32(A + 8),
+                          lds32(A + 8 * SBM_RSP + 8)};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc2[ml][nt], ah, bd[nt][0], bd[nt][1]);
+      }
+    }
+    // Bias sums over the tile's rows (zero beyond nrows), pairs of rows
+    // at a time into four independent sums, combined in a fixed order.
+    auto rowsum = [&](const __nv_bfloat16* row) {
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int r = 0; r < SBM_ROWS; r += 2) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(row + r));
+        s4[(r / 2) % 4] += v.x + v.y;
+      }
+      return (s4[0] + s4[1]) + (s4[2] + s4[3]);
+    };
+    if (tid < c_mid) db1a += rowsum(zT + tid * SBM_RSP);
+    if (tid < c_dec) db2a += rowsum(dT + tid * SBM_RSP);
+  }
+
+  // Write this block's partial slot: every entry of dW1..dbc.
+  const Slot sl(c_in, c_mid, c_dec);
+  float* slot = part + blockIdx.x * slot_len;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = g + (i < 2 ? 0 : 8), cc = 2 * q + (i & 1);
+#pragma unroll
+    for (int nl = 0; nl < 4; ++nl)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int c = mt * 16 + rr, j = (warp * 4 + nl) * 8 + cc;
+        if (c < c_in && j < c_mid)
+          slot[sl.w1 + (long)c * c_mid + j] = acc1[mt][nl][i];
+      }
+#pragma unroll
+    for (int ml = 0; ml < 2; ++ml)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int j = (warp * 2 + ml) * 16 + rr, c = nt * 8 + cc;
+        if (j < c_mid && c < c_dec)
+          slot[sl.w2 + (long)j * c_dec + c] = acc2[ml][nt][i];
+      }
+  }
+  if (tid < c_mid) slot[sl.b1 + tid] = db1a;
+  if (tid < c_dec) slot[sl.b2 + tid] = db2a;
+  // dbc: sum the 8 row groups (lanes g) of each warp, then the warps.
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float v = dbca[t][u];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[warp * 32 + t * 8 + 2 * q + u] = v;
+    }
+  __syncthreads();
+  if (tid < c_in) {
+    float sum = 0.f;
+    for (int w = 0; w < SBM_WARPS; ++w) sum += red[w * 32 + tid];
+    slot[sl.bc + tid] = sum;
+  }
+}
+
+cudaError_t launch_seg_bwd_mma(const void* x, const void* dd, const void* gy,
+                               const void* w1, const float* b1,
+                               const void* w2, void* dx, float* part,
+                               long slot_len, int G, int n, int c_in,
+                               int c_mid, int c_dec, cudaStream_t s) {
+  const size_t smem =
+      sizeof(__nv_bfloat16) * ((size_t)(2 * 32 + 2 * 256) * SBM_RSP +
+                               2 * 256 * SBM_CIP + 32 * SBM_CMP) +
+      sizeof(float) * (256 + SBM_WARPS * 32);
+  auto kern = seg_bwd_mma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  using B16 = __nv_bfloat16;
+  kern<<<G, SBM_WARPS * 32, smem, s>>>(
+      static_cast<const B16*>(x), static_cast<const B16*>(dd),
+      static_cast<const B16*>(gy), static_cast<const B16*>(w1), b1,
+      static_cast<const B16*>(w2), static_cast<B16*>(dx), part, slot_len, n,
+      c_in, c_mid, c_dec);
+  return cudaGetLastError();
+}
+
+// out[i] = sum over g of part[g][i], g in order.
+__global__ void reduce_partials_kernel(const float* __restrict__ part,
+                                       float* __restrict__ out, int G,
+                                       long len) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < len;
+       i += (long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int g = 0; g < G; ++g) s += part[(long)g * len + i];
+    out[i] = s;
+  }
+}
+
+template <typename T>
+cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
+                    const void* wflip, const void* w1, const float* b1,
+                    const void* w2, void* dd, void* dx, float* part,
+                    float* out, int G, int B, int H, int W, int Tn, int c_in,
+                    int c_mid, int c_dec, cudaStream_t s) {
+  const Slot sl(c_in, c_mid, c_dec);
+  const int n = B * H * W * Tn;
+  cudaError_t err = probav::conv_dispatch(dtype, false, gy, nullptr, wflip,
+                                          nullptr, dd, B, H, W, Tn, c_in,
+                                          c_dec, s);
+  if (err != cudaSuccess) return err;
+  err = cudaErrorNotSupported;
+  if (dtype == 1)
+    err = launch_wgrad_mma(d, gy, part, sl.len, G, B, H, W, Tn, c_dec, c_in,
+                           s);
+  if (err == cudaErrorNotSupported)
+    err = dispatch_wgrad<T>(d, gy, part, sl.len, G, B, H, W, Tn, c_dec, c_in,
+                            s);
+  if (err != cudaSuccess) return err;
+  // bf16 at widths the tensor-core kernel covers (the flagship's) takes
+  // it; other widths and float32 run on the CUDA cores.
+  if (dtype == 1 && c_in <= 32 && c_dec <= 32 && c_mid <= 256)
+    err = launch_seg_bwd_mma(x, dd, gy, w1, b1, w2, dx, part, sl.len, G, n,
+                             c_in, c_mid, c_dec, s);
+  else
+    err = dispatch_seg_bwd<T>(x, dd, gy, w1, b1, w2, dx, part, sl.len, G, n,
+                              c_in, c_mid, c_dec, s);
+  if (err != cudaSuccess) return err;
+  const long blocks = (sl.len + 255) / 256;
+  reduce_partials_kernel<<<(int)(blocks < 1024 ? blocks : 1024), 256, 0, s>>>(
+      part, out, G, sl.len);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16.  gy, x [B,H,W,T,c_in], d [B,H,W,T,
+// c_dec], w1 [c_in, c_mid], w2 [c_mid, c_dec] and the scratch dd [B,H,W,T,
+// c_dec] and output dx [B,H,W,T,c_in] in that dtype; wflip [3,3,3,c_in,
+// c_dec] in that dtype is wc [3,3,3,c_dec,c_in] flipped in its three tap
+// axes with its channel axes swapped; b1 float32.  part: float32 scratch
+// of G slots; out: float32 [slot_len] in the Slot layout above.  c_in up
+// to 64 and dividing 128; c_dec up to 64.
+int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
+                   const void* wflip, const void* w1, const void* b1,
+                   const void* w2, void* dd, void* dx, void* part, void* out,
+                   int G, int B, int H, int W, int Tn, int c_in, int c_mid,
+                   int c_dec, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || Tn < 1 || G < 1 || c_in < 1 || c_in > 64 ||
+      BWD_ROWS % c_in != 0 || c_dec < 1 || c_dec > 64 || c_mid < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b1f = static_cast<const float*>(b1);
+  float* pf = static_cast<float*>(part);
+  float* of = static_cast<float*>(out);
+  if (dtype == 0)
+    return (int)blk_bwd<float>(0, gy, x, d, wflip, w1, b1f, w2, dd, dx, pf,
+                               of, G, B, H, W, Tn, c_in, c_mid, c_dec, s);
+  if (dtype == 1)
+    return (int)blk_bwd<__nv_bfloat16>(1, gy, x, d, wflip, w1, b1f, w2, dd,
+                                       dx, pf, of, G, B, H, W, Tn, c_in,
+                                       c_mid, c_dec, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

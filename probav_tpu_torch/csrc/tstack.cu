@@ -41,11 +41,14 @@
 // every entry point launches on the given stream and returns
 // cudaGetLastError() (or the error of the call that failed first).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cstdint>
+#include "common.cuh"
 
 namespace {
+
+using probav::lds32;
+using probav::mma_bf16;
+using probav::pack_bf16;
+using probav::sm_count;
 
 constexpr int SEG_ROWS = 256;   // rows per seg_fwd block = threads per block
 constexpr int SEG_MCH = 64;     // middle channels staged per chunk
@@ -192,7 +195,7 @@ __host__ __device__ inline int conv_halo_stride(int c_dec) {
   return c_dec | 1;   // odd: neighbouring positions hit different banks
 }
 
-template <int CO>
+template <int CO, bool RES>
 __global__ void __launch_bounds__(CONV_POS)
 conv_fwd_kernel(const float* __restrict__ d, const float* __restrict__ x,
                 const float* __restrict__ wc, const float* __restrict__ bc,
@@ -261,7 +264,7 @@ conv_fwd_kernel(const float* __restrict__ d, const float* __restrict__ x,
   }
 
   // Epilogue through shared memory so that x is read and out written with
-  // coalesced accesses: out = acc + bc + x.
+  // coalesced accesses: out = acc + bc + x (RES), else out = acc.
   __syncthreads();
   constexpr int OS = conv_out_stride<CO>();
   if (live) {
@@ -272,11 +275,12 @@ conv_fwd_kernel(const float* __restrict__ d, const float* __restrict__ x,
   const long r0 = ((long)bh * WT + p0) * c_out;
   for (int e = tid; e < np * c_out; e += blockDim.x) {
     const int r = e / c_out, o = e % c_out;
-    out[r0 + e] = buf[r * OS + o] + bc[o] + x[r0 + e];
+    const float v = buf[r * OS + o];
+    out[r0 + e] = RES ? v + bc[o] + x[r0 + e] : v;
   }
 }
 
-template <int CO>
+template <int CO, bool RES>
 cudaError_t launch_conv(const void* d, const void* x, const void* wc,
                         const void* bc, void* out, int B, int H, int W, int Tn,
                         int c_dec, int c_out, cudaStream_t stream) {
@@ -286,7 +290,7 @@ cudaError_t launch_conv(const void* d, const void* x, const void* wc,
   const int outbuf = threads * conv_out_stride<CO>();
   const size_t smem =
       sizeof(float) * ((size_t)9 * c_dec * CO + (halo > outbuf ? halo : outbuf));
-  auto kern = conv_fwd_kernel<CO>;
+  auto kern = conv_fwd_kernel<CO, RES>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -298,54 +302,25 @@ cudaError_t launch_conv(const void* d, const void* x, const void* wc,
   return cudaGetLastError();
 }
 
+template <bool RES>
 cudaError_t dispatch_conv(const void* d, const void* x, const void* wc,
                           const void* bc, void* out, int B, int H, int W,
                           int Tn, int c_dec, int c_out, cudaStream_t s) {
   if (c_out <= 32)
-    return launch_conv<32>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s);
-  return launch_conv<64>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s);
+    return launch_conv<32, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out,
+                                s);
+  return launch_conv<64, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s);
 }
 
 // ------------------------------------------------------------------------ //
-// bf16 on the tensor cores: mma.sync.m16n8k16, float32 accumulators.         //
-// Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"): with      //
-// g = lane / 4 and q = lane % 4, A (16x16, row-major) holds rows g and g+8,  //
-// columns 2q, 2q+1 and 2q+8, 2q+9; B (16x8, column-major) holds rows 2q,     //
-// 2q+1 and 2q+8, 2q+9 of column g; C (16x8) holds rows g and g+8, columns    //
-// 2q, 2q+1.  So the C tiles of two adjacent 8-column blocks are exactly the  //
-// A fragment of the 16-wide k-step they form, which lets seg_fwd feed its    //
-// expand output into the decay product without leaving registers.            //
+// bf16 on the tensor cores (mma.sync.m16n8k16, fragment layouts in          //
+// common.cuh).  The C tiles of two adjacent 8-column blocks are exactly the //
+// A fragment of the 16-wide k-step they form, which lets seg_fwd feed its   //
+// expand output into the decay product without leaving registers.          //
 // ------------------------------------------------------------------------ //
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 constexpr int MMA_WARPS = 4;     // warps per block of seg_fwd_mma_kernel
 constexpr int CONV_WARPS = 8;    // warps per block of conv_fwd_mma_kernel
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 132;
-  return sms;
-}
 
 // seg_fwd, bf16.  Each warp takes 16-row tiles; the expand product
 // z = x W1 (K = 16*KS1) is made 8 middle channels at a time, + b1, relu,
@@ -494,7 +469,7 @@ cudaError_t dispatch_seg_mma(const void* x, const void* w1, const void* b1,
 // (PER_DH) where all 27 would not fit (64/64 channels).  Each warp owns up
 // to MT m-tiles of 16 positions and keeps their accumulators in registers
 // across all taps.
-template <int KS, int NT, bool PER_DH>
+template <int KS, int NT, bool PER_DH, bool RES>
 __global__ void __launch_bounds__(CONV_WARPS * 32)
 conv_fwd_mma_kernel(const __nv_bfloat16* __restrict__ d,
                     const __nv_bfloat16* __restrict__ x,
@@ -598,7 +573,7 @@ conv_fwd_mma_kernel(const __nv_bfloat16* __restrict__ d,
       }
     }
 
-    // out = acc + bc + x, summed in float32, stored in bf16.
+    // out = acc + bc + x (RES) or acc, summed in float32, stored in bf16.
     const long row0 = bh * WT;
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
@@ -611,8 +586,9 @@ conv_fwd_mma_kernel(const __nv_bfloat16* __restrict__ d,
           const int o = t * 8 + 2 * q + (i & 1);
           if (o < c_out) {
             const long idx = (row0 + p) * c_out + o;
-            out[idx] = __float2bfloat16_rn(acc[m][t][i] + bc[o] +
-                                           __bfloat162float(x[idx]));
+            out[idx] = __float2bfloat16_rn(
+                RES ? acc[m][t][i] + bc[o] + __bfloat162float(x[idx])
+                    : acc[m][t][i]);
           }
         }
       }
@@ -620,7 +596,7 @@ conv_fwd_mma_kernel(const __nv_bfloat16* __restrict__ d,
   }
 }
 
-template <int KS, int NT>
+template <int KS, int NT, bool RES>
 cudaError_t launch_conv_mma(const void* d, const void* x, const void* wc,
                             const void* bc, void* out, int B, int H, int W,
                             int Tn, int c_dec, int c_out, cudaStream_t s) {
@@ -629,7 +605,7 @@ cudaError_t launch_conv_mma(const void* d, const void* x, const void* wc,
   const size_t smem = sizeof(__nv_bfloat16) *
                       ((size_t)(PER_DH ? 9 : 27) * 8 * NT * CSP +
                        (size_t)(W + 2) * (Tn + 2) * CSP);
-  auto kern = conv_fwd_mma_kernel<KS, NT, PER_DH>;
+  auto kern = conv_fwd_mma_kernel<KS, NT, PER_DH, RES>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -644,20 +620,43 @@ cudaError_t launch_conv_mma(const void* d, const void* x, const void* wc,
   return cudaGetLastError();
 }
 
+template <bool RES>
 cudaError_t dispatch_conv_mma(const void* d, const void* x, const void* wc,
                               const void* bc, void* out, int B, int H, int W,
                               int Tn, int c_dec, int c_out, cudaStream_t s) {
   const bool cd32 = c_dec <= 32, co32 = c_out <= 32;
   if (cd32 && co32)
-    return launch_conv_mma<2, 4>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s);
+    return launch_conv_mma<2, 4, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
+                                      c_out, s);
   if (cd32)
-    return launch_conv_mma<2, 8>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s);
+    return launch_conv_mma<2, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
+                                      c_out, s);
   if (co32)
-    return launch_conv_mma<4, 4>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s);
-  return launch_conv_mma<4, 8>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s);
+    return launch_conv_mma<4, 4, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
+                                      c_out, s);
+  return launch_conv_mma<4, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
+                                    c_out, s);
 }
 
 }  // namespace
+
+cudaError_t probav::conv_dispatch(int dtype, bool residual, const void* d,
+                                  const void* x, const void* wc,
+                                  const void* bc, void* out, int B, int H,
+                                  int W, int Tn, int c_dec, int c_out,
+                                  cudaStream_t s) {
+  if (dtype == 0)
+    return residual ? dispatch_conv<true>(d, x, wc, bc, out, B, H, W, Tn,
+                                          c_dec, c_out, s)
+                    : dispatch_conv<false>(d, x, wc, bc, out, B, H, W, Tn,
+                                           c_dec, c_out, s);
+  if (dtype == 1)
+    return residual ? dispatch_conv_mma<true>(d, x, wc, bc, out, B, H, W, Tn,
+                                              c_dec, c_out, s)
+                    : dispatch_conv_mma<false>(d, x, wc, bc, out, B, H, W, Tn,
+                                               c_dec, c_out, s);
+  return cudaErrorInvalidValue;
+}
 
 extern "C" {
 
@@ -689,14 +688,9 @@ int probav_conv_fwd(int dtype, const void* d, const void* x, const void* wc,
       c_out > 64)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_conv(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                     c_out, s);
-  if (dtype == 1)
-    return (int)dispatch_conv_mma(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                  c_out, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)probav::conv_dispatch(dtype, true, d, x, wc, bc, out, B, H, W,
+                                    Tn, c_dec, c_out,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 const char* probav_error_string(int err) {

@@ -23,7 +23,7 @@ from typing import Iterable, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from probav_tpu.config import BAND_OFFSETS
+from probav_tpu_torch.config import BAND_OFFSETS
 from probav_tpu_torch.ops.patches import reconstruct_from_patches
 from probav_tpu_torch.utils.png import write_png
 

@@ -169,7 +169,7 @@ def build_model(cfg, band: str, dtype: torch.dtype = torch.float32,
     describes, for one band (mirrors ``probav_tpu.models.build_model`` for
     model_type "wdsr")."""
     if isinstance(cfg, (str, os.PathLike)):
-        from probav_tpu.config import Config
+        from probav_tpu_torch.config import Config
         cfg = Config.from_file(cfg)
     mean, std = cfg.band_stats(band)
     return WDSRConv3D(

@@ -1,8 +1,9 @@
 """Build the CUDA kernels of ``probav_tpu_torch/csrc`` and bind them.
 
-The sources are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-which ``ctypes`` loads.  The library lands in ``probav_tpu_torch/_build/``
+The sources are compiled at first use with ``nvcc``, one process per
+source, all started together, and linked into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), which
+``ctypes`` loads.  The library lands in ``probav_tpu_torch/_build/``
 under a name keyed by a hash of the sources and flags, so an edited source
 is rebuilt and an unchanged one is reused.  Nothing here runs at import.
 """
@@ -23,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,11 +33,18 @@ SIGNATURES = {
     "probav_seg_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, d, x, wc, bc, out, B, H, W, T, c_dec, c_out, stream
     "probav_conv_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, gy, x, d, wflip, w1, b1, w2, dd, dx, part, out,
+    # G, B, H, W, T, c_in, c_mid, c_dec, stream
+    "probav_blk_bwd": [_I] + [_P] * 11 + [_I] * 8 + [_P],
 }
 
 
 def sources():
     return sorted(SRC_DIR.glob("*.cu"))
+
+
+def headers():
+    return sorted(SRC_DIR.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -51,7 +59,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libprobav_kernels_{h.hexdigest()[:16]}.so"
@@ -68,23 +76,37 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
     if out.exists() and not verbose:
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources()]
+    nvcc = nvcc_path()
     flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
-    # Compile to a private name, then rename: a concurrent build never sees
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    # Build in a private directory, then rename the library into place: a
+    # concurrent build never sees a half-written one.
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
+    report = []
     try:
-        r = subprocess.run([nvcc_path(), *flags, "-o", tmp, *cu],
-                           capture_output=True, text=True)
+        objs = [tmp / (src.stem + ".o") for src in sources()]
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        failed = []
+        for src, p in zip(sources(), procs):
+            text = p.communicate()[0]
+            report.append(text)
+            if p.returncode != 0:
+                failed.append(f"nvcc {src.name} ({p.returncode}):\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = tmp / "lib.so"
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+                            *map(str, objs)], capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        os.replace(tmp, out)
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, time.perf_counter() - t0, r.stdout + r.stderr
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, time.perf_counter() - t0, "".join(report)
 
 
 @functools.cache

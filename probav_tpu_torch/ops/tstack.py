@@ -1,17 +1,27 @@
-"""The WDSR-B block stack forward, on hand-written CUDA kernels.
+"""The WDSR-B block stack, forward and backward, on hand-written CUDA kernels.
 
-Port of the forward half of ``probav_tpu/ops/pallas_tstack.py``.  Each
-block is two kernels (``csrc/tstack.cu``):
+Port of ``probav_tpu/ops/pallas_tstack.py``.  Each block's forward is two
+kernels (``csrc/tstack.cu``), its backward one entry point
+(``csrc/blk_bwd.cu``):
 
 - ``seg_fwd``:  x [N, C] -> d [N, C_dec], the 1x1x1 expand C -> C_mid, relu
   and 1x1x1 decay C_mid -> C_dec, without storing the wide activation
   (replaces ``pallas_tstack.seg_fwd``);
 - ``conv_fwd``: the 3^3 SAME conv of d plus bias plus the residual x
-  (replaces ``pallas_tstack.conv_fwd``).
+  (replaces ``pallas_tstack.conv_fwd``);
+- ``blk_bwd``: the whole block's backward, recomputing the wide
+  activation: dx and every weight gradient (replaces
+  ``pallas_tstack.blk_bwd``).
+
+With grad enabled, ``stack_apply_5d`` runs the blocks under one
+``torch.autograd.Function`` (the counterpart of ``fused_stack_t``'s
+custom VJP): its forward saves each block's input x_i and decay output d_i,
+its backward runs ``blk_bwd`` for the blocks in reverse order.
 
 float32 runs on the CUDA cores with exact float32 products; bf16 runs on
-the tensor cores (``mma.sync``) with float32 accumulation.  Both round
-where the TPU kernels round.
+the tensor cores (``mma.sync``) with float32 accumulation (blk_bwd at the
+flagship's widths; at wider ones its bf16 runs on the CUDA cores).  Both
+round where the TPU kernels round.
 
 The TPU kernels' transposed ``[C, ext]`` lane-shift layout (``Geom``, the
 interior mask, halo margins, ``to_t``/``from_t``, the scan loop forms and
@@ -30,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 # Kernel launches since the counts were last reset (plain runs not counted).
-LAUNCHES = {"seg_fwd": 0, "conv_fwd": 0}
+LAUNCHES = {"seg_fwd": 0, "conv_fwd": 0, "blk_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -64,6 +74,37 @@ def conv_fwd_plain(d, x, wc, bc):
     y = F.conv3d(d.float().permute(0, 4, 1, 2, 3), w, padding=1)
     y = y.permute(0, 2, 3, 4, 1)
     return (y + bc.float() + x.float()).to(dt)
+
+
+def blk_bwd_plain(gy, x, d, w1, b1, w2, wc):
+    """The backward of one block out = x + bc + conv(d, wc), d = seg(x).
+
+    gy, x [B,H,W,T,C], d [B,H,W,T,C_dec] in the working dtype (x's).
+    Returns (dx [B,H,W,T,C] in that dtype, dwc [3,3,3,C_dec,C], dw1
+    [C,C_mid], db1, dw2 [C_mid,C_dec], db2, dbc), the weight grads in
+    float32.  Sums in float32 with the rounding points of the TPU kernel
+    (pallas_tstack.py:356-379): dd, dz and relu(z) are rounded to the
+    working dtype, dx is stored in it.
+    """
+    dt = x.dtype
+    c = x.shape[-1]
+    c_dec = d.shape[-1]
+    g5 = gy.to(dt).float()
+    gc = g5.permute(0, 4, 1, 2, 3)                        # [B, C, H, W, T]
+    w = wc.to(dt).float().permute(4, 3, 0, 1, 2)          # [C, C_dec, k^3]
+    dd5 = F.conv_transpose3d(gc, w, padding=1).to(dt).float()
+    dwc = torch.nn.grad.conv3d_weight(
+        d.float().permute(0, 4, 1, 2, 3), w.shape, gc, padding=1)
+    dwc = dwc.permute(2, 3, 4, 1, 0)                      # [k^3, C_dec, C]
+    x2 = x.reshape(-1, c).float()
+    dd2 = dd5.permute(0, 2, 3, 4, 1).reshape(-1, c_dec)
+    w1f, w2f = w1.to(dt).float(), w2.to(dt).float()
+    z = torch.matmul(x2, w1f) + b1.float()
+    dz = torch.where(z > 0, torch.matmul(dd2, w2f.t()), 0.0).to(dt).float()
+    dx = (torch.matmul(dz, w1f.t()) + g5.reshape(-1, c)).to(dt)
+    h = torch.relu(z).to(dt).float()
+    return (dx.reshape(x.shape), dwc, torch.matmul(x2.t(), dz), dz.sum(0),
+            torch.matmul(h.t(), dd2), dd2.sum(0), g5.reshape(-1, c).sum(0))
 
 
 # ---------------------------------------------------------------------- #
@@ -155,14 +196,117 @@ def conv_fwd(d, x, wc, bc):
     return out
 
 
+def blk_bwd(gy, x, d, w1, b1, w2, wc):
+    """Backward of one block; the arguments and results of
+    ``blk_bwd_plain``.  Weights are cast to x's dtype and b1 to float32,
+    as the TPU kernel's caller does (pallas_tstack.py:441-443)."""
+    if x.device.type == "cpu":
+        return blk_bwd_plain(gy, x, d, w1, b1, w2, wc)
+    from probav_tpu_torch.ops import _build
+    _check_input("blk_bwd x", x)
+    _check_input("blk_bwd gy", gy, x.dtype)
+    _check_input("blk_bwd d", d, x.dtype)
+    b, h, w, t, c = x.shape
+    c_mid, c_dec = w2.shape
+    if gy.shape != x.shape or d.shape[:4] != x.shape[:4] or \
+            w1.shape != (c, c_mid) or b1.shape != (c_mid,) or \
+            d.shape[4] != c_dec or wc.shape != (3, 3, 3, c_dec, c):
+        raise ValueError(f"blk_bwd: shapes gy {tuple(gy.shape)} x "
+                         f"{tuple(x.shape)} d {tuple(d.shape)} w1 "
+                         f"{tuple(w1.shape)} b1 {tuple(b1.shape)} w2 "
+                         f"{tuple(w2.shape)} wc {tuple(wc.shape)}")
+    if c > 64 or 128 % c or c_dec > 64:
+        raise ValueError(f"blk_bwd: C must divide 128 and C, C_dec be up "
+                         f"to 64, got {c}/{c_dec}")
+    w1 = w1.to(x.dtype).contiguous()
+    w2 = w2.to(x.dtype).contiguous()
+    b1 = b1.float().contiguous()
+    # The conv transpose is the SAME conv of gy with the taps flipped and
+    # the channel axes swapped (pallas_tstack._pack_wc_bwd).
+    wflip = wc.to(x.dtype).flip(0, 1, 2).transpose(3, 4).contiguous()
+    for name, tt in (("w1", w1), ("b1", b1), ("w2", w2), ("wc", wflip)):
+        if tt.device != x.device:
+            raise ValueError(f"blk_bwd {name} on {tt.device}, x on {x.device}")
+    groups = 2 * torch.cuda.get_device_properties(x.device) \
+        .multi_processor_count
+    slot = 27 * c_dec * c + c * c_mid + c_mid * c_dec + c_mid + c_dec + c
+    dd = torch.empty(d.shape, dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    part = torch.empty((groups, slot), dtype=torch.float32, device=x.device)
+    out = torch.empty(slot, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    err = lib.probav_blk_bwd(
+        _DTYPE_CODE[x.dtype], gy.data_ptr(), x.data_ptr(), d.data_ptr(),
+        wflip.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        dd.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
+        groups, b, h, w, t, c, c_mid, c_dec, _stream(x))
+    _build.check(err, "blk_bwd")
+    LAUNCHES["blk_bwd"] += 1
+    dwc, dw1, dw2, db1, db2, dbc = torch.split(
+        out, [27 * c_dec * c, c * c_mid, c_mid * c_dec, c_mid, c_dec, c])
+    return (dx, dwc.view(3, 3, 3, c_dec, c), dw1.view(c, c_mid), db1,
+            dw2.view(c_mid, c_dec), db2, dbc)
+
+
+def stack_forward(x, blocks, keep):
+    """(out, xs, ds): run the blocks on the kernels; with ``keep``, xs and
+    ds hold each block's input x_i and decay output d_i (what the
+    backward needs), else they are empty."""
+    h = x.contiguous()
+    xs, ds = [], []
+    for w1, b1, w2, b2, wc, bc in blocks:
+        d = seg_fwd(h.reshape(-1, h.shape[-1]), w1, b1, w2, b2)
+        d = d.reshape(h.shape[:-1] + (w2.shape[1],))
+        if keep:
+            xs.append(h)
+            ds.append(d)
+        h = conv_fwd(d, h, wc, bc)
+    return h, xs, ds
+
+
+class _Stack(torch.autograd.Function):
+    """All blocks as one autograd node (pallas_tstack.py:463-504): the
+    forward saves x_i and d_i of each block, the backward runs blk_bwd for
+    the blocks in reverse order and returns each weight gradient cast to
+    that weight's dtype (pallas_tstack.py:498-500), so at bf16 they round
+    there before autograd widens them to the float32 parameters."""
+
+    @staticmethod
+    def forward(ctx, x, *flat):
+        blocks = [flat[i:i + 6] for i in range(0, len(flat), 6)]
+        h, xs, ds = stack_forward(x, blocks, keep=True)
+        ctx.save_for_backward(*xs, *ds, *flat)
+        ctx.nblk = len(blocks)
+        return h
+
+    @staticmethod
+    def backward(ctx, gy):
+        n = ctx.nblk
+        saved = ctx.saved_tensors
+        xs, ds, flat = saved[:n], saved[n:2 * n], saved[2 * n:]
+        gy = gy.to(xs[0].dtype).contiguous()
+        grads = [None] * len(flat)
+        for i in reversed(range(n)):
+            w1, b1, w2, b2, wc, bc = flat[6 * i:6 * i + 6]
+            gy, dwc, dw1, db1, dw2, db2, dbc = blk_bwd(
+                gy, xs[i], ds[i], w1, b1, w2, wc)
+            grads[6 * i:6 * i + 6] = (
+                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(b2.dtype), dwc.to(wc.dtype), dbc.to(bc.dtype))
+        return (gy, *grads)
+
+
 def stack_apply_5d(x5d, blocks):
     """Apply the WDSR-B blocks to x [B, H, W, T, C] (pallas_tstack.py:618).
 
     blocks: per-block effective params (w1 [C, C_mid], b1, w2 [C_mid,
     C_dec], b2, wc [3,3,3,C_dec,C], bc), already in the compute dtype.
+    With grad enabled and any input requiring it, the stack is one
+    autograd node whose backward runs ``blk_bwd``; otherwise (serving,
+    ``torch.inference_mode``) nothing is saved.
     """
-    h = x5d.contiguous()
-    for w1, b1, w2, b2, wc, bc in blocks:
-        d = seg_fwd(h.reshape(-1, h.shape[-1]), w1, b1, w2, b2)
-        h = conv_fwd(d.reshape(h.shape[:-1] + (w2.shape[1],)), h, wc, bc)
-    return h
+    flat = [t for blk in blocks for t in blk]
+    if torch.is_grad_enabled() and (
+            x5d.requires_grad or any(t.requires_grad for t in flat)):
+        return _Stack.apply(x5d, *flat)
+    return stack_forward(x5d, blocks, keep=False)[0]

@@ -54,7 +54,7 @@ def main(argv=None) -> dict:
     opt = parse_args(argv)
     import torch
 
-    from probav_tpu.config import Config
+    from probav_tpu_torch.config import Config
     from probav_tpu_torch.convert import load_npz
     from probav_tpu_torch.infer.resolver import (Resolver, load_removed_sets,
                                                  write_submission)

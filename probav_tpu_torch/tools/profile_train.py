@@ -1,0 +1,179 @@
+"""Warm train-step throughput of the port, and where its device time goes.
+
+    python3 -m probav_tpu_torch.tools.profile_train [--cfg CFG] \\
+        [--steps 10] [--out chiprun_out]
+
+For bf16 and float32, each with the hand-written stack kernels (forward
+and ``blk_bwd``) and with the plain stack, it builds the cfg's model from
+a seeded init (``torch.Generator`` seed 0) and a ``ModelTrainer`` with the
+cfg's optimizer and loss, and feeds it one synthetic batch of the cfg's
+``batch_size`` patches (numpy seed 0; see ``synthetic_batch``), already
+on the device.
+The first step is a warm-up: it pays the kernel build, cuDNN's algorithm
+choice and lazy module loading.  ``--steps`` more steps are timed one by
+one on the host clock, each ending in ``torch.cuda.synchronize()``; their
+median patches/s is the warm throughput.  One more step runs under
+``torch.profiler``: the device time of each kernel and memcpy and their
+sum (device busy); the idle share is 1 - busy / the median step time.  A
+JSON summary goes to ``<out>/profile_train.json``.  Needs a CUDA card;
+float32 runs with TF32 off.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import tempfile
+import time
+
+import numpy as np
+
+VARIANTS = (("bf16 kernels", "bfloat16", True),
+            ("bf16 plain", "bfloat16", False),
+            ("f32 kernels", "float32", True),
+            ("f32 plain", "float32", False))
+
+
+def synthetic_batch(n: int, seed: int = 0, hr_clear: float = 0.9):
+    """(lr [n,22,22,9,1], hr [n,48,48,1], mask [n,48,48,1]) float32: LR
+    frames are noisy copies of a smooth scene with values in 4000-12000;
+    HR is the 3x nearest upscale of the scene's centre (the 16x16 patch),
+    so the model has something to learn; ``hr_clear`` of the HR pixels are
+    clear (mask 1)."""
+    r = np.random.default_rng(seed)
+    base = r.uniform(4000, 12000, (n, 22, 22))
+    k = np.ones(3) / 3
+    for ax in (1, 2):
+        base = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), ax,
+                                   base)
+    lr = base[..., None, None] + r.normal(0, 100, (n, 22, 22, 9, 1))
+    hr = np.kron(base[:, 3:19, 3:19], np.ones((3, 3)))[..., None]
+    mask = (r.uniform(size=hr.shape) < hr_clear)
+    return (lr.astype(np.float32), hr.astype(np.float32),
+            mask.astype(np.float32))
+
+
+def make_trainer(cfg, dtype: str, fused: bool, device, workdir: str,
+                 band: str = "NIR"):
+    """A ModelTrainer over the cfg's model from torch.Generator seed 0,
+    with the cfg's optimizer and loss; checkpoints and logs in workdir."""
+    import torch
+
+    from probav_tpu_torch.models.wdsr import build_model
+    from probav_tpu_torch.ops.shift_loss import ShiftCompensatedLosses
+    from probav_tpu_torch.train.optim import build_optimizer
+    from probav_tpu_torch.train.trainer import ModelTrainer
+
+    model = build_model(cfg, band, dtype=getattr(torch, dtype),
+                        fused_stack=fused,
+                        generator=torch.Generator().manual_seed(0))
+    target = cfg.hr_patch_size
+    losses = ShiftCompensatedLosses(target_shape=(target, target, 1))
+    trainer = ModelTrainer(
+        model, losses.by_name(cfg.loss), losses.cpsnr,
+        build_optimizer(cfg.optimizer, cfg.learning_rate),
+        ckpt_dir=os.path.join(workdir, "ckpt"),
+        log_dir=os.path.join(workdir, "logs"),
+        loss_weighted_fn=losses.weighted(cfg.loss), device=device)
+    trainer.init_state()
+    return trainer
+
+
+def warm_step_rates(trainer, batch, steps: int) -> list:
+    """patches/s of ``steps`` train steps on ``batch`` (device tensors),
+    each timed alone to its synchronize, after one warm-up step."""
+    import torch
+
+    trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        rates.append(len(batch[0]) / (time.perf_counter() - t0))
+    return rates
+
+
+def device_breakdown(trainer, batch):
+    """(wall ms, device-busy ms, [(ms, kernel name, count)] by time) of
+    one train step under torch.profiler, after a profiled warm-up step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    rows = sorted(((dev_us(e) / 1e3, e.key, e.count)
+                   for e in prof.key_averages()
+                   if dev_us(e) > 0 and "CUDA" in str(e.device_type)),
+                  reverse=True)
+    return wall, sum(r[0] for r in rows), rows
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--cfg", default="cfg/p16t9c85r12.cfg")
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--out", default="chiprun_out")
+    opt = p.parse_args(argv)
+    import torch
+
+    from probav_tpu_torch.config import Config
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_train needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    os.makedirs(opt.out, exist_ok=True)
+    cfg = Config.from_file(opt.cfg)
+    n = cfg.batch_size
+    batch = tuple(torch.as_tensor(a, device="cuda")
+                  for a in synthetic_batch(n))
+    summary = {}
+    for name, dtype, fused in VARIANTS:
+        with tempfile.TemporaryDirectory() as tmp:
+            tr = make_trainer(cfg, dtype, fused, "cuda", tmp)
+            rates = warm_step_rates(tr, batch, opt.steps)
+            wall, busy, rows = device_breakdown(tr, batch)
+            tr.logger_.close()
+        med = statistics.median(rates)
+        idle = 1 - busy / (1e3 * n / med)
+        summary[name] = dict(rates=rates, median=med, profiled_wall_ms=wall,
+                             device_busy_ms=busy, idle=idle,
+                             top=[(t, k[:90], c) for t, k, c in rows[:16]])
+        print(f"== {name}: train step at batch {n}, patches/s "
+              f"{['%.1f' % x for x in rates]} median {med:.1f}; device "
+              f"busy {busy:.2f} ms, idle {100 * idle:.1f}% of the median "
+              f"step (profiled wall {wall:.2f} ms) [{card}]", flush=True)
+        for t, k, c in rows[:16]:
+            print(f"   {t:9.3f} ms  {100 * t / busy:5.1f}%  x{c:<5d} "
+                  f"{k[:100]}", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    with open(os.path.join(opt.out, "profile_train.json"), "w") as f:
+        json.dump(dict(card=card, batch=n, runs=summary), f,
+                  indent=1)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -2,9 +2,10 @@
 touch no CUDA context and build no kernel.
 
 The card's machine has no JAX, flax, orbax or imageio, and this one has no
-triton: a module-level import of any of them breaks the port there.  From
-the JAX package the port may import only ``probav_tpu.config`` (stdlib
-only).  Kernels are built at their first launch, never at import.
+triton: a module-level import of any of them breaks the port there.  The
+port imports nothing of the JAX package, not even its stdlib-only modules
+(it keeps its own copy of ``config``).  Kernels are built at their first
+launch, never at import.
 """
 
 import subprocess
@@ -26,7 +27,7 @@ for m in pkgutil.walk_packages(probav_tpu_torch.__path__,
     importlib.import_module(m.name)
 jax_pkg = sorted(n for n in sys.modules
                  if n == "probav_tpu" or n.startswith("probav_tpu."))
-assert jax_pkg == ["probav_tpu", "probav_tpu.config"], jax_pkg
+assert jax_pkg == [], jax_pkg
 assert not torch.cuda.is_initialized(), "an import initialized CUDA"
 from probav_tpu_torch.ops import _build
 assert _build.library.cache_info().currsize == 0, "kernels built at import"
@@ -60,3 +61,30 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                            timeout=300, text=True, cwd=tmp_path)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    """Imports inside functions too (the runtime check above sees only
+    module-level ones): every import statement of probav_tpu_torch/**.py
+    and chip_smoke.py, read from the source."""
+    import ast
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    files = sorted((root / "probav_tpu_torch").rglob("*.py")) + \
+        [root / "chip_smoke.py"]
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "probav_tpu")
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in banned:
+                    found.append(f"{path.relative_to(root)}: {name}")
+    assert len(files) > 20
+    assert found == []

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from probav_tpu_torch.ops import tstack as ts
+from probav_tpu_torch.tools.dyadic import blk_bwd_inputs
 
 torch.set_num_threads(1)
 
@@ -55,6 +56,21 @@ def test_wrappers_refuse_other_devices_without_fallback():
     with pytest.raises(ValueError, match="CUDA"):
         ts.conv_fwd(torch.empty((B, H, W, T, CDEC), device="meta"),
                     torch.empty((B, H, W, T, C), device="meta"), wc, bc)
+    meta = lambda c: torch.empty((B, H, W, T, c), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ts.blk_bwd(meta(C), meta(C), meta(CDEC), w1, b1, w2, wc)
+
+
+def test_blk_bwd_on_cpu_is_the_plain_twin_uncounted():
+    w1, b1, w2, b2, wc, bc = params(C, CMID, CDEC)
+    g = torch.Generator().manual_seed(1)
+    gy, x = (torch.randn(B, H, W, T, C, generator=g) for _ in range(2))
+    d = torch.randn(B, H, W, T, CDEC, generator=g)
+    before = dict(ts.LAUNCHES)
+    got = ts.blk_bwd(gy, x, d, w1, b1, w2, wc)
+    want = ts.blk_bwd_plain(gy, x, d, w1, b1, w2, wc)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ts.LAUNCHES == before
 
 
 @pytest.fixture
@@ -103,3 +119,62 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
     with pytest.raises(ValueError, match="up to 64"):
         big = params(72, CMID, CDEC, device=cuda)
         ts.seg_fwd(torch.randn(20, 72, device=cuda), *big[:4])
+
+
+# blk_bwd outputs: dx, dwc, dw1, db1, dw2, db2, dbc.
+BWD_NAMES = ("dx", "dwc", "dw1", "db1", "dw2", "db2", "dbc")
+
+
+def blk_bwd_tolerances(dtype):
+    """On the dyadic inputs (probav_tpu_torch/tools/dyadic.py) both
+    versions take the same relu and bf16-rounding decisions, so what
+    differs is summation order: dx 2e-5 of max|ref| at float32, one bf16
+    step (2**-8) plus margin at bf16, where dx is stored in bf16; the
+    weight grads, float32 sums of identical operands over every row in
+    another order, 1e-4 at both dtypes."""
+    dx = 2e-5 if dtype == torch.float32 else 8e-3
+    return {n: (dx if n == "dx" else 1e-4) for n in BWD_NAMES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,c,cmid,cdec", [
+    ((3, 7, 6, 5), C, CMID, CDEC), ((3, 7, 6, 5), 32, 100, 40),
+    ((2, 22, 22, 9), 32, 256, 25), ((2, 22, 22, 9), 64, 512, 51),
+    ((128, 22, 22, 9), 32, 256, 25)],
+    ids=["small", "cmid100", "flagship_b2", "wide_b2", "flagship_b128"])
+def test_blk_bwd_matches_plain_on_card(cuda, dtype, shape, c, cmid, cdec):
+    gy, x, d, w1, b1, w2, wc = blk_bwd_inputs(shape, c, cmid, cdec, seed=5,
+                                              device=cuda, dtype=dtype)
+    before = ts.LAUNCHES["blk_bwd"]
+    got = ts.blk_bwd(gy, x, d, w1, b1, w2, wc)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["blk_bwd"] == before + 1
+    want = ts.blk_bwd_plain(gy, x, d, w1, b1, w2, wc)
+    tol = blk_bwd_tolerances(dtype)
+    assert got[0].dtype == dtype
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert a.shape == b.shape, name
+        assert max_rel(a, b) < tol[name], (name, max_rel(a, b))
+
+
+@pytest.mark.cuda
+def test_stack_autograd_on_card_matches_plain_stack(cuda):
+    """Gradients through the kernel stack's autograd node against autograd
+    through the plain blocks, float32, 3 blocks."""
+    blocks = [tuple(t.requires_grad_() for t in params(
+        32, 256, 25, seed=s, device=cuda)) for s in (3, 4, 5)]
+    x = torch.randn(2, 9, 8, 9, 32, device=cuda, requires_grad=True)
+    y = ts.stack_apply_5d(x, blocks)
+    gy = torch.randn_like(y)
+    leaves = [x] + [t for blk in blocks for t in blk]
+    got = torch.autograd.grad(y, leaves, gy)
+    ref = x
+    for w1, b1, w2, b2, wc, bc in blocks:
+        d = ts.seg_fwd_plain(ref.reshape(-1, 32), w1, b1, w2, b2)
+        ref = ts.conv_fwd_plain(d.reshape(ref.shape[:-1] + (25,)), ref, wc,
+                                bc)
+    want = torch.autograd.grad(ref, leaves, gy)
+    for a, b in zip(got, want):
+        assert max_rel(a, b) < 1e-4

@@ -7,6 +7,7 @@ The CUDA kernels themselves are held against the same plain versions on
 the card (tests/test_torch_kernels.py and chip_smoke.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -110,3 +111,78 @@ def test_conv_fwd_plain_matches_jax_reference():
     got = ts.conv_fwd_plain(*(torch.from_numpy(a) for a in (d, x, wc, bc)))
     assert got.shape == x.shape
     assert max_rel(got, ref) < F32_TOL
+
+
+# ---------------------------------------------------------------------- #
+# backward: blk_bwd_plain and the stack's autograd node                   #
+# ---------------------------------------------------------------------- #
+
+GRAD_TOL = 1e-4         # relative, of max|ref|: sums in another order
+
+
+def jax_stack_vjp(x, blocks, gy, dtype=jnp.float32):
+    """(dx, per-block grads) of the JAX fused stack (Pallas interpreted)."""
+    def f(x, blocks):
+        return jts.stack_apply_5d(x, blocks, target_rows=18, target_ch=6)
+    _, vjp = jax.vjp(f, jnp.asarray(x, dtype), to_jax(blocks, dtype))
+    return vjp(jnp.asarray(gy, dtype))
+
+
+def port_stack_grads(x, blocks, gy, dtype=torch.float32):
+    xt = torch.from_numpy(x).to(dtype).requires_grad_()
+    bt = [tuple(t.requires_grad_() for t in blk)
+          for blk in to_torch(blocks, dtype)]
+    y = ts.stack_apply_5d(xt, bt)
+    leaves = [xt] + [t for blk in bt for t in blk]
+    return torch.autograd.grad(y, leaves, torch.from_numpy(gy).to(dtype))
+
+
+def test_blk_bwd_plain_matches_jax_blk_bwd_vjp():
+    """One block: the JAX VJP of the fused stack is blk_bwd (its backward
+    runs exactly one blk_bwd kernel); blk_bwd_plain gets x, d = seg(x) and
+    the cotangent directly."""
+    blocks = make_blocks(21, CDEC, 1)
+    x, gy = make_x(22), make_x(23)
+    dx_j, (g_j,) = jax_stack_vjp(x, blocks, gy)
+    w1, b1, w2, b2, wc, bc = to_torch(blocks)[0]
+    xt = torch.from_numpy(x)
+    d = ts.seg_fwd_plain(xt.reshape(-1, C), w1, b1, w2, b2) \
+        .reshape(B, H, W, T, CDEC)
+    dx, dwc, dw1, db1, dw2, db2, dbc = ts.blk_bwd_plain(
+        torch.from_numpy(gy), xt, d, w1, b1, w2, wc)
+    assert max_rel(dx, dx_j) < GRAD_TOL
+    for got, ref in ((dw1, g_j[0]), (db1, g_j[1]), (dw2, g_j[2]),
+                     (db2, g_j[3]), (dwc, g_j[4]), (dbc, g_j[5])):
+        assert got.shape == ref.shape
+        assert max_rel(got, ref) < GRAD_TOL
+
+
+@pytest.mark.parametrize("cdec", [CDEC, 12], ids=["cdec7", "cdec12_gt_c"])
+def test_stack_grads_match_jax_fused_stack(cdec):
+    blocks = make_blocks(31, cdec, NBLK)
+    x, gy = make_x(32), make_x(33)
+    dx_j, g_j = jax_stack_vjp(x, blocks, gy)
+    got = port_stack_grads(x, blocks, gy)
+    assert max_rel(got[0], dx_j) < GRAD_TOL
+    ref = [np.asarray(a) for blk in g_j for a in blk]
+    for g, r in zip(got[1:], ref):
+        assert g.dtype == torch.float32 and tuple(g.shape) == r.shape
+        assert max_rel(g, r) < GRAD_TOL
+
+
+@pytest.mark.parametrize("cdec", [CDEC, 12], ids=["cdec7", "cdec12_gt_c"])
+def test_stack_grads_bf16_match_jax_fused_stack(cdec):
+    """bf16: cotangents and weight grads rounded to bf16 where
+    pallas_tstack.py rounds them (dd, dz, relu(z), dx, and each weight
+    grad cast to its weight's dtype).  Elements near a relu threshold or a
+    bf16 rounding tie may differ by one bf16 step, which three blocks
+    carry on: 3e-2 of max|ref|."""
+    blocks = make_blocks(41, cdec, NBLK)
+    x, gy = make_x(42), make_x(43)
+    dx_j, g_j = jax_stack_vjp(x, blocks, gy, jnp.bfloat16)
+    got = port_stack_grads(x, blocks, gy, torch.bfloat16)
+    ref = [np.asarray(dx_j, np.float32)] + \
+        [np.asarray(a, np.float32) for blk in g_j for a in blk]
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        assert max_rel(g.float(), r) < 3e-2
