@@ -7,14 +7,16 @@ Phases, each printing its result:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the CUDA kernels of probav_tpu_torch/csrc, compiled with nvcc;
-3. kernels: seg_fwd, conv_fwd and blk_bwd against their plain PyTorch
-   versions at the flagship shapes (128 patches of 22x22x9, channels
-   32/256/25: N = 557,568 rows) in float32 (TF32 off) and bf16, with
-   median CUDA-event times of kernel, plain version and, where one PyTorch
-   call computes the same function, that call (conv_fwd: F.conv3d); the
-   64-filter widths (64/512/51) are checked for parity; blk_bwd is fed
-   dyadic inputs (probav_tpu_torch/tools/dyadic.py) on which both versions
-   take the same relu and rounding decisions;
+3. kernels: seg_fwd, conv_fwd, blk_bwd and wide_bwd against their plain
+   PyTorch versions at the flagship shapes (128 patches of 22x22x9,
+   channels 32/256/25: N = 557,568 rows) in float32 (TF32 off) and bf16,
+   and the shift-table kernels (float32 only) at the train step's 128
+   patches of 48x48, with median CUDA-event times of kernel, plain version
+   and, where one PyTorch call computes the same function, that call
+   (conv_fwd: F.conv3d); the 64-filter widths (64/512/51) are checked for
+   parity; blk_bwd and wide_bwd are fed dyadic inputs and the shift tables
+   integer planes (probav_tpu_torch/tools/dyadic.py), on which both
+   versions take the same relu, sign and rounding decisions;
 4. model: the flagship cfg/p16t9c85r12.cfg model from a seeded init,
    535,267 parameters, forward of the kernel stack against the plain
    stack on 128 patches;
@@ -30,17 +32,23 @@ Phases, each printing its result:
 7. warm resolve: ``Resolver.resolve_all`` at bf16 and float32, kernels and
    plain: the median and range of timed runs after a warm-up;
 8. train: ``probav_tpu_torch.train`` (through ``main(argv)``) on a
-   synthetic stage-5 tree at batch 128, bf16 and float32, kernels and
-   --plain: launch counts (12 of each kernel per step, 0 with --plain), a
-   falling loss, checkpoints, and a restart that resumes at the right
-   step; then one train step of the float32 kernel model against the
-   float32 plain model from the same init on the same batch (loss,
-   gradients, parameters after the update); then the warm
-   train throughput of the four variants (probav_tpu_torch.tools.
-   profile_train adds the device-time breakdown).
+   synthetic stage-5 tree at batch 128, bf16 and float32, with the "t"
+   kernel stack, with ``--fused-stack flat`` and with --plain: launch
+   counts (12 of each stack kernel per step with "t", 12 of wide_bwd with
+   "flat", none with --plain), a falling loss, checkpoints, and a restart
+   that resumes at the right step; then one float32 train step from the
+   same init on the same batch for each of: the "t" stack, the "flat"
+   stack, build_model(fused_block=True) and the "t" stack with the loss
+   and metric on the shift-table kernels, each against its plain
+   counterpart (loss, metric, gradients; for "t" also the parameters
+   after the update); then the warm train throughput of the variants of
+   probav_tpu_torch.tools.profile_train (which adds the device-time
+   breakdown).
 
-The line before the last is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}.  Any failure raises, and the script exits
+Before each path runs, every kernel's launch count is set to 0; the counts
+read after it are checked, and those of the path that runs a kernel are
+its ``launches`` in the kernels' JSON summary, the line before the last.
+The last line is {"ok": true, "device": {...}}.  Any failure raises, and the script exits
 non-zero without that line.  Without CUDA it exits 1 at once.
 """
 
@@ -80,6 +88,7 @@ WARM_REPEATS = 5
 BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 BWD_GRAD_TOL = 1e-4
 BWD_NAMES = ("dx", "dwc", "dw1", "db1", "dw2", "db2", "dbc")
+WIDE_NAMES = ("dx", "dw1", "db1", "dw2", "db2")
 # Stack gradients through 12 blocks with random weights, as a norm-wise
 # relative error ||got - ref|| / ||ref|| per leaf.
 # - float32, against autograd through the plain twins (their own forward).
@@ -107,9 +116,19 @@ BWD_NAMES = ("dx", "dwc", "dw1", "db1", "dw2", "db2", "dbc")
 #   equally far, leaf by leaf; a kernel fault of the gap's size would put
 #   the kernel further off: at most 1.5x the plain chain's distance, plus
 #   1e-4 for leaves that neither rounds.
+# The same bound holds the flat and fused_block stacks against the plain
+# one and, at float32 on one train step, the kernel loss against the
+# unfold loss: there a residual within a rounding of 0 may take the other
+# L1 sign, moving one pixel's d/dpred by 2 / (B * N_clear).
 STACK_TOL = {"float32": 5e-3, "bfloat16": 3e-2}
 STACK_BF16_INDEPENDENT_TOL = 0.25
 STACK_BF16_WITNESS = (1.5, 1e-4)
+# The shift tables on integer planes (same residuals in both versions):
+# the table to 3e-5 and d/dpred to 1e-4 elementwise relative, plus 1e-6
+# of max|ref| absolute for d/dpred (tests/test_pallas.py holds the TPU
+# kernels to these); B = 128 patches of 48x48, border 3.
+SHIFT_TOL = {"shift_table_fwd": (3e-5, 0.0), "shift_table_bwd": (1e-4, 1e-6)}
+SHIFT_B, SHIFT_HW, SHIFT_BORDER = 128, 48, 3
 # The train phase: 768 training patches (6 steps of 128 per epoch), 160
 # validation patches (a full batch and a ragged one of 32).
 TRAIN_N, VAL_N, TRAIN_EPOCHS = 768, 160, 4
@@ -121,6 +140,26 @@ PEAK_BYTES = 3.35e12
 
 def log(msg):
     print(msg, flush=True)
+
+
+def kernel_modules():
+    from probav_tpu_torch.ops import shift_table, tstack, wide_block
+    return tstack, wide_block, shift_table
+
+
+def reset_launches():
+    for mod in kernel_modules():
+        mod.reset_launches()
+
+
+def launches():
+    """The launch count of every kernel since the last reset."""
+    return {k: v for mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
+
+
+def expect(**counts):
+    """The launch counts of every kernel: ``counts``, and 0 for the rest."""
+    return {k: counts.get(k, 0) for k in launches()}
 
 
 def card_line():
@@ -192,6 +231,11 @@ def bound(dtype, flops, nbytes):
 def kernel_costs(name, n, c, cmid, cdec, itemsize):
     """(FLOP, bytes) of one launch: each input read once, each output
     written once (biases and weight grads in float32)."""
+    if name == "wide_bwd":
+        grads = c * cmid + cmid * cdec + cmid + cdec
+        return (2 * n * cmid * (3 * c + 2 * cdec),
+                itemsize * (n * (2 * c + cdec) + c * cmid + cmid * cdec) +
+                4 * (cmid + grads))
     if name == "seg_fwd":
         return (2 * n * (c * cmid + cmid * cdec),
                 itemsize * (n * (c + cdec) + c * cmid + cmid * cdec) +
@@ -205,26 +249,69 @@ def kernel_costs(name, n, c, cmid, cdec, itemsize):
                         27 * cdec * c) + 4 * (cmid + grads))
 
 
+def shift_costs(name, b, hw, border):
+    """(FLOP, bytes) of one shift-table launch, float32: per pixel and
+    shift the forward takes the three window sums (4 FLOP) and |r| or r^2
+    with its sum (5); the backward takes those sums, r, phi and sum(phi m)
+    (10), then r, phi and the shift's term into d/dpred (10).  Bytes: the
+    three planes and the [B, S] table (forward) or the three planes, g and
+    d/dpred (backward)."""
+    s = (2 * border + 1) ** 2
+    work = b * s * (hw - 2 * border) ** 2
+    if name == "shift_table_fwd":
+        return 9 * work, 4 * (3 * b * hw * hw + b * s)
+    return 20 * work, 4 * (4 * b * hw * hw + b * s)
+
+
+def check_outputs(label, names, got, want, tol_of):
+    """check() each named output pair, with its shape and dtype; returns
+    the max|diff| of each."""
+    errs = []
+    for name, a, b in zip(names, got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{label} {name}: {a.shape} {a.dtype} vs "
+                                 f"{b.shape} {b.dtype}")
+        errs.append(check(f"{label} {name}", a, b, tol_of(name))[0])
+    return errs
+
+
+def check_rel(name, got, ref, rtol, atol_frac):
+    """Elementwise |got - ref| <= rtol |ref| + atol_frac max|ref|; returns
+    max|diff|."""
+    diff = (got - ref).abs()
+    lim = rtol * ref.abs() + atol_frac * float(ref.abs().max())
+    if not bool(diff.isfinite().all()) or bool((diff > lim).any()):
+        k = int((diff - lim).nan_to_num(float("inf")).argmax())
+        raise AssertionError(f"{name}: |diff| {float(diff.flatten()[k]):.3e}"
+                             f" at ref {float(ref.flatten()[k]):.6e} beyond "
+                             f"rtol {rtol:g}, atol {atol_frac:g} max|ref|")
+    return float(diff.max())
+
+
 def phase_kernels(torch, ts, dev, card):
-    """Parity and times of the three kernels; returns {(name, dtype):
-    row} with the numbers of the JSON summary."""
+    """Parity and times of the six kernels; returns {(name, dtype): row}
+    with the numbers of the JSON summary."""
     import torch.nn.functional as F
 
-    from probav_tpu_torch.tools.dyadic import blk_bwd_inputs
+    from probav_tpu_torch.ops import shift_table as st
+    from probav_tpu_torch.ops import wide_block as wb
+    from probav_tpu_torch.tools.dyadic import (blk_bwd_inputs,
+                                               shift_table_inputs,
+                                               wide_bwd_inputs)
 
     n = N_PATCH * HW * HW * T
     rows = {}
 
-    def row(name, dn, err, ms, pms, lms):
+    def row(name, dn, err, ms, pms, lms, costs=None, shape=None):
         size = 4 if dn == "float32" else 2
-        flops, nbytes = kernel_costs(name, n, C, CMID, CDEC, size)
+        flops, nbytes = costs or kernel_costs(name, n, C, CMID, CDEC, size)
         bms, by = bound(dn, flops, nbytes)
         rows[(name, dn)] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                 library_ms=lms, bound_ms=bms, bound_by=by)
         lib = "none" if lms is None else f"{lms:.4f} ms"
-        log(f"kernel {name} {dn} [N={n}, {C}/{CMID}/{CDEC}]: kernel "
-            f"{ms:.4f} ms, plain {pms:.4f} ms, library call {lib}, bound "
-            f"{bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
+        log(f"kernel {name} {dn} [{shape or f'N={n}, {C}/{CMID}/{CDEC}'}]: "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library call {lib}, "
+            f"bound {bms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB) [{card}]")
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -262,23 +349,34 @@ def phase_kernels(torch, ts, dev, card):
         # blk_bwd: the seven outputs on dyadic inputs (see BWD_TOL).
         args = blk_bwd_inputs((N_PATCH, HW, HW, T), C, CMID, CDEC, seed=3,
                               device=dev, dtype=dtype)
+        tol_of = lambda k: BWD_TOL[dn] if k == "dx" else BWD_GRAD_TOL
         got = ts.blk_bwd(*args)
         torch.cuda.synchronize()
-        want = ts.blk_bwd_plain(*args)
-        errs = []
-        for name, a, b in zip(BWD_NAMES, got, want):
-            tol = BWD_TOL[dn] if name == "dx" else BWD_GRAD_TOL
-            if a.shape != b.shape or a.dtype != b.dtype:
-                raise AssertionError(f"blk_bwd {dn} {name}: {a.shape} "
-                                     f"{a.dtype} vs {b.shape} {b.dtype}")
-            errs.append(check(f"blk_bwd {dn} {name}", a, b, tol)[0])
+        errs = check_outputs(f"blk_bwd {dn}", BWD_NAMES, got,
+                             ts.blk_bwd_plain(*args), tol_of)
         log(f"kernel blk_bwd {dn}: max|diff| " + ", ".join(
             f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, errs)) +
             f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|)")
         pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
                         lambda: ts.blk_bwd(*args), reps=10)
         row("blk_bwd", dn, errs[0], ms, pms, None)
-        del got, want, args
+        del got, args
+
+        # wide_bwd: its five outputs on dyadic inputs, the tolerances of
+        # blk_bwd (see BWD_TOL).
+        args = wide_bwd_inputs(n, C, CMID, CDEC, seed=5, device=dev,
+                               dtype=dtype)
+        got = wb.wide_bwd(*args)
+        torch.cuda.synchronize()
+        errs = check_outputs(f"wide_bwd {dn}", WIDE_NAMES, got,
+                             wb.wide_bwd_plain(*args), tol_of)
+        log(f"kernel wide_bwd {dn}: max|diff| " + ", ".join(
+            f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, errs)) +
+            f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|)")
+        pms, ms = timed(torch, lambda: wb.wide_bwd_plain(*args),
+                        lambda: wb.wide_bwd(*args), reps=10)
+        row("wide_bwd", dn, errs[0], ms, pms, None)
+        del got, args
 
         # The 64-filter model's widths (c_dec 51 > C_out 32 buckets).
         x, (w1, b1, w2, b2, wc, bc) = stack_inputs(
@@ -292,14 +390,46 @@ def phase_kernels(torch, ts, dev, card):
                       ts.conv_fwd_plain(dw5, x, wc, bc), TOL[dn])
         args = blk_bwd_inputs((16, HW, HW, T), 64, 512, 51, seed=4,
                               device=dev, dtype=dtype)
-        e3 = [check(f"blk_bwd 64/512/51 {dn} {k}", a, b,
-                    BWD_TOL[dn] if k == "dx" else BWD_GRAD_TOL)[0]
-              for k, a, b in zip(BWD_NAMES, ts.blk_bwd(*args),
-                                 ts.blk_bwd_plain(*args))]
+        e3 = check_outputs(f"blk_bwd 64/512/51 {dn}", BWD_NAMES,
+                           ts.blk_bwd(*args), ts.blk_bwd_plain(*args),
+                           tol_of)
+        args = wide_bwd_inputs(16 * HW * HW * T, 64, 512, 51, seed=6,
+                               device=dev, dtype=dtype)
+        e4 = check_outputs(f"wide_bwd 64/512/51 {dn}", WIDE_NAMES,
+                           wb.wide_bwd(*args), wb.wide_bwd_plain(*args),
+                           tol_of)
         log(f"kernel parity at 64/512/51 {dn}: seg_fwd {e1:.3e}, conv_fwd "
             f"{e2:.3e}, blk_bwd " + ", ".join(
-                f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, e3)))
+                f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, e3)) +
+            ", wide_bwd " + ", ".join(
+                f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, e4)))
+        del args
         torch.cuda.empty_cache()
+
+    # The shift tables, float32 only: both kinds checked on integer planes
+    # (see SHIFT_TOL); the L1 kind, the train step's loss, timed.
+    hr, m, p, g = shift_table_inputs(SHIFT_B, SHIFT_HW, SHIFT_BORDER, seed=7,
+                                     device=dev)
+    shape = f"B={SHIFT_B}, {SHIFT_HW}x{SHIFT_HW}, border {SHIFT_BORDER}"
+    calls = {"shift_table_fwd": (st.shift_table_fwd, st.shift_table_fwd_plain,
+                                 (hr, m, p)),
+             "shift_table_bwd": (st.shift_table_bwd, st.shift_table_bwd_plain,
+                                 (hr, m, p, g))}
+    for name, (kern, plain, ins) in calls.items():
+        rtol, atol = SHIFT_TOL[name]
+        errs = {}
+        for sq in (False, True):
+            got = kern(*ins, SHIFT_BORDER, sq)
+            torch.cuda.synchronize()
+            errs[sq] = check_rel(f"{name} {'l2' if sq else 'l1'}", got,
+                                 plain(*ins, SHIFT_BORDER, sq), rtol, atol)
+        log(f"kernel {name}: max|diff| l1 {errs[False]:.3e}, l2 "
+            f"{errs[True]:.3e} (rtol {rtol:g}, atol {atol:g} max|ref|)")
+        pms, ms = timed(torch, lambda: plain(*ins, SHIFT_BORDER, False),
+                        lambda: kern(*ins, SHIFT_BORDER, False))
+        row(name, "float32", max(errs.values()), ms, pms, None,
+            costs=shift_costs(name, SHIFT_B, SHIFT_HW, SHIFT_BORDER),
+            shape=shape)
     return rows
 
 
@@ -344,11 +474,11 @@ def phase_stack_grad(torch, ts, dev, card):
         gy = torch.randn(x.shape, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(8)
                          ).to(dtype)
-        ts.reset_launches()
+        reset_launches()
         got = torch.autograd.grad(ts.stack_apply_5d(x, blocks), leaves, gy)
         torch.cuda.synchronize()
-        counts = dict(ts.LAUNCHES)
-        if counts != {"seg_fwd": 12, "conv_fwd": 12, "blk_bwd": 12}:
+        counts = launches()
+        if counts != expect(seg_fwd=12, conv_fwd=12, blk_bwd=12):
             raise AssertionError(f"stack gradient {dn}: launches {counts}")
 
         # Autograd through the plain twins, with their own forward.
@@ -458,7 +588,7 @@ def write_tree(root, name, patches, params_npz):
             "--params", params_npz]
 
 
-def phase_serve(torch, ts, dev, card):
+def phase_serve(torch, dev, card):
     from probav_tpu_torch import serve
     from probav_tpu_torch.convert import save_npz
     from probav_tpu_torch.infer.resolver import MODEL_CHUNK
@@ -469,7 +599,7 @@ def phase_serve(torch, ts, dev, card):
     patches = synthetic_patches(SERVE_SCENES)
     model = build_model(CFG, "NIR", generator=torch.Generator().manual_seed(0))
     blocks = len(model.block_names)
-    results, launches = {}, None
+    results, main_counts = {}, None
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "params.npz")
         save_npz(npz, model.state_dict())
@@ -485,13 +615,13 @@ def phase_serve(torch, ts, dev, card):
         for name, tree, flags in runs:
             args, scenes, repeats = trees[tree]
             outdir = os.path.join(tmp, tree, "testout_p16t9c85r12")
-            ts.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             res = serve.main(args + flags + ["--device", str(dev)])
             wall = time.perf_counter() - t0
-            got = dict(ts.LAUNCHES)
+            got = launches()
             if name == "bf16":
-                launches = got          # the production run: main path
+                main_counts = got       # the production run: main path
             names = sorted(os.listdir(outdir))
             want = [f"imgset{1306 + i:04d}.png" for i in range(scenes)]
             if names != want or len(res["written"]) != scenes:
@@ -500,7 +630,7 @@ def phase_serve(torch, ts, dev, card):
             chunks = sum(-(-min(group, scenes - s) * 64 * repeats //
                            MODEL_CHUNK) for s in range(0, scenes, group))
             per = 0 if "plain" in name else blocks * chunks
-            if got != {"seg_fwd": per, "conv_fwd": per, "blk_bwd": 0}:
+            if got != expect(seg_fwd=per, conv_fwd=per):
                 raise AssertionError(f"{name}: launches {got}, expected "
                                      f"{per} of each")
             imgs = np.stack([read_png(os.path.join(outdir, n))
@@ -523,7 +653,7 @@ def phase_serve(torch, ts, dev, card):
         log(f"drift {a} vs {b}: max {int(dlt.max())} counts, "
             f"{float((dlt > 0).mean()) * 100:.3f}% of pixels differ")
     log(f"serve f32 kernels vs f32 plain: max {int(diff)} counts")
-    return launches
+    return main_counts
 
 
 def phase_warm(torch, dev, card):
@@ -574,26 +704,30 @@ def train_losses(log_dir):
     return [r["value"] for r in recs if r["tag"] == "Train loss"]
 
 
-def phase_train(torch, ts, dev, card):
+def phase_train(torch, dev, card):
     """The train CLI at batch 128; returns the launch counts of the bf16
-    kernel run (the production configuration: the main path)."""
+    runs of the "t" tier (the production configuration: the main path)
+    and of the "flat" tier (the path that runs wide_bwd), by run name."""
     from probav_tpu_torch.train import cli
 
     steps_per_epoch = TRAIN_N // 128
     val_batches = -(-VAL_N // 128)
     blocks = 12
-    launches = None
+    main_paths = {}
     with tempfile.TemporaryDirectory() as tmp:
+        flat = ["--fused-stack", "flat"]
         runs = [("bf16", ["--bf16"]), ("f32", []),
+                ("bf16 flat", ["--bf16"] + flat), ("f32 flat", flat),
                 ("bf16 plain", ["--bf16", "--plain"]),
                 ("f32 plain", ["--plain"])]
         for name, flags in runs:
             tree = name.replace(" ", "_")
-            # The bf16 kernel run trains half its epochs, then a restart
+            # The bf16 kernel runs train half their epochs, then a restart
             # with the full count resumes from the checkpoint.
-            legs = ([TRAIN_EPOCHS // 2, TRAIN_EPOCHS] if name == "bf16"
+            legs = ([TRAIN_EPOCHS // 2, TRAIN_EPOCHS]
+                    if name in ("bf16", "bf16 flat")
                     else [TRAIN_EPOCHS // 2])
-            ts.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             done = 0
             for epochs in legs:
@@ -612,42 +746,62 @@ def phase_train(torch, ts, dev, card):
                                          f"{ckpts}")
                 done = epochs
             wall = time.perf_counter() - t0
-            got = dict(ts.LAUNCHES)
+            got = launches()
             # Each leg: steps of training plus one validation pass per
-            # epoch and a final one, each of val_batches forwards.
+            # epoch and a final one, each of val_batches forwards (the
+            # flat tier's forward is plain PyTorch).
             steps = done * steps_per_epoch
             evals = sum(e - s + 1 for s, e in
                         zip([0] + legs[:-1], legs)) * val_batches
-            want = ({"seg_fwd": 0, "conv_fwd": 0, "blk_bwd": 0}
-                    if "plain" in name else
-                    {"seg_fwd": blocks * (steps + evals),
-                     "conv_fwd": blocks * (steps + evals),
-                     "blk_bwd": blocks * steps})
+            if "plain" in name:
+                want = expect()
+            elif "flat" in name:
+                want = expect(wide_bwd=blocks * steps)
+            else:
+                want = expect(seg_fwd=blocks * (steps + evals),
+                              conv_fwd=blocks * (steps + evals),
+                              blk_bwd=blocks * steps)
             if got != want:
                 raise AssertionError(f"train {name}: launches {got}, "
                                      f"expected {want}")
             losses = train_losses(log_dir)
             if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
                 raise AssertionError(f"train {name}: losses {losses}")
-            if name == "bf16":
-                launches = got
+            if len(legs) > 1:
+                main_paths[name] = got
             log(f"train {name}: {steps} steps at batch 128 in {len(legs)} "
                 f"run(s) (resumed at step "
                 f"{legs[0] * steps_per_epoch if len(legs) > 1 else 0}), "
                 f"launches {got}; train loss {losses[0]:.3f} -> "
                 f"{losses[-1]:.3f}; val cPSNR {res['val_psnr']:.3f}; "
                 f"{wall:.1f} s cold, first calls included [{card}]")
-    return launches
+    return main_paths
 
 
-def phase_train_step(torch, ts, dev, card):
-    """One train step of the float32 kernel model against the float32
-    plain model from the same init on the same batch.
+# The one-step float32 train checks: (name, stack tier, fused_block,
+# use_kernel, the variant it is held to, its launches per step).
+STEP_KERNELS = dict(seg_fwd=12, conv_fwd=12, blk_bwd=12)
+STEP_VARIANTS = (
+    ("plain", "off", False, False, None, {}),
+    ("t kernels", "t", False, False, "plain", STEP_KERNELS),
+    ("flat", "flat", False, False, "plain", dict(wide_bwd=12)),
+    ("fused_block", "off", True, False, "plain", dict(wide_bwd=12)),
+    ("t kernels, kernel loss", "t", False, True, "t kernels",
+     dict(STEP_KERNELS, shift_table_fwd=2, shift_table_bwd=1)))
+
+
+def phase_train_step(torch, dev, card):
+    """One float32 train step of each of STEP_VARIANTS from the same init
+    on the same batch, held to its reference variant; returns the launch
+    counts of the kernel-loss step (the path of the shift-table kernels).
 
     The loss agrees to 1e-5 relative (the forward stacks differ by
-    summation order, ~1e-6).  The gradients, taken first at the same
-    init and batch, agree leaf by leaf norm-wise to STACK_TOL at float32,
-    for the reason given there.  Parameters are compared in units of the
+    summation order, ~1e-6; with the kernel loss the model is the same
+    and the tables differ by summation order), the cPSNR metric to 1e-4
+    (1e-5 relative for the kernel loss).  The gradients, taken first at
+    the same init and batch, agree leaf by leaf norm-wise to STACK_TOL at
+    float32, for the reason given there.  For the "t" kernels the
+    parameters after the update are compared with plain in units of the
     learning rate: nadam's first update is +-1.47 lr for any gradient
     element well above its eps, so the two agree to a tiny fraction of lr
     except where a gradient element's sign differs between the two
@@ -661,47 +815,62 @@ def phase_train_step(torch, ts, dev, card):
     cfg = Config.from_file(CFG)
     batch = tuple(torch.as_tensor(a, device=dev)
                   for a in synthetic_batch(cfg.batch_size, seed=2))
-    out, grads = {}, {}
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for fused in (True, False):
-            tr = make_trainer(cfg, "float32", fused, dev,
-                              os.path.join(tmp, str(fused)))
-            grads[fused] = tr.loss_and_grads(*batch)[2]
-            ts.reset_launches()
+        for name, tier, fused_block, use_kernel, _, per in STEP_VARIANTS:
+            tr = make_trainer(cfg, "float32", tier, dev,
+                              os.path.join(tmp, name.replace(" ", "_")),
+                              use_kernel=use_kernel, fused_block=fused_block)
+            grads = tr.loss_and_grads(*batch)[2]
+            reset_launches()
             loss, metric = tr.train_step(*batch)
             torch.cuda.synchronize()
-            per = 12 if fused else 0
-            if ts.LAUNCHES != {"seg_fwd": per, "conv_fwd": per,
-                               "blk_bwd": per}:
-                raise AssertionError(f"one train step, fused={fused}: "
-                                     f"launches {ts.LAUNCHES}")
-            out[fused] = (float(loss), float(metric),
-                          {k: v.detach().clone()
-                           for k, v in tr.params.items()})
+            counts = launches()
+            if counts != expect(**per):
+                raise AssertionError(f"one train step, {name}: launches "
+                                     f"{counts}, expected {expect(**per)}")
+            out[name] = dict(loss=float(loss), metric=float(metric),
+                             grads=grads, counts=counts,
+                             params={k: v.detach().clone()
+                                     for k, v in tr.params.items()})
             tr.logger_.close()
             del tr
-    lr = cfg.learning_rate
-    (lk, mk, pk), (lp, mp, pp) = out[True], out[False]
-    if not abs(lk - lp) <= 1e-5 * abs(lp) or not abs(mk - mp) <= 1e-4:
-        raise AssertionError(f"one step: loss {lk} vs {lp}, cPSNR {mk} "
-                             f"vs {mp}")
-    gerr = {k: rel_l2(grads[True][k], grads[False][k]) for k in grads[True]}
-    gk = max(gerr, key=lambda k: gerr[k] if np.isfinite(gerr[k]) else np.inf)
-    if not gerr[gk] <= STACK_TOL["float32"]:
-        raise AssertionError(f"one step: gradient {gk} ||got-ref||/||ref|| "
-                             f"{gerr[gk]:.3e} > {STACK_TOL['float32']:g}")
-    diffs = torch.cat([(pk[k] - pp[k]).abs().flatten() / lr for k in pk])
-    share = float((diffs > 0.01).float().mean())
-    if share > 1e-3:
-        raise AssertionError(f"one step: {share:.2e} of the params differ "
-                             "by more than 0.01 lr")
-    log(f"train step f32 kernels vs plain (one step, batch "
-        f"{cfg.batch_size}): loss {lk:.6f} vs {lp:.6f}; cPSNR {mk:.4f} vs "
-        f"{mp:.4f}; gradients of {len(gerr)} leaves, worst "
-        f"||got-ref||/||ref|| {gk} {gerr[gk]:.3e} (tol "
-        f"{STACK_TOL['float32']:g}); params max "
-        f"|diff| {float(diffs.max()):.3e} lr, {share:.2e} of {diffs.numel()} "
-        f"beyond 0.01 lr [{card}]")
+    lr, tol = cfg.learning_rate, STACK_TOL["float32"]
+    for name, _, _, use_kernel, ref, _ in STEP_VARIANTS:
+        if ref is None:
+            continue
+        a, b = out[name], out[ref]
+        mtol = 1e-5 * abs(b["metric"]) if use_kernel else 1e-4
+        if not abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]) or \
+                not abs(a["metric"] - b["metric"]) <= mtol:
+            raise AssertionError(f"one step, {name} vs {ref}: loss "
+                                 f"{a['loss']} vs {b['loss']}, cPSNR "
+                                 f"{a['metric']} vs {b['metric']}")
+        gerr = {k: rel_l2(a["grads"][k], b["grads"][k]) for k in a["grads"]}
+        gk = max(gerr, key=lambda k: gerr[k] if np.isfinite(gerr[k])
+                 else np.inf)
+        if not gerr[gk] <= tol:
+            raise AssertionError(f"one step, {name} vs {ref}: gradient {gk} "
+                                 f"||got-ref||/||ref|| {gerr[gk]:.3e} > "
+                                 f"{tol:g}")
+        msg = (f"train step f32 {name} vs {ref} (one step, batch "
+               f"{cfg.batch_size}, launches {a['counts']}): loss "
+               f"{a['loss']:.6f} vs {b['loss']:.6f}; cPSNR "
+               f"{a['metric']:.4f} vs {b['metric']:.4f}; gradients of "
+               f"{len(gerr)} leaves, worst ||got-ref||/||ref|| {gk} "
+               f"{gerr[gk]:.3e} (tol {tol:g})")
+        if name == "t kernels":
+            pk, pp = a["params"], b["params"]
+            diffs = torch.cat([(pk[k] - pp[k]).abs().flatten() / lr
+                               for k in pk])
+            share = float((diffs > 0.01).float().mean())
+            if share > 1e-3:
+                raise AssertionError(f"one step: {share:.2e} of the params "
+                                     "differ by more than 0.01 lr")
+            msg += (f"; params max |diff| {float(diffs.max()):.3e} lr, "
+                    f"{share:.2e} of {diffs.numel()} beyond 0.01 lr")
+        log(f"{msg} [{card}]")
+    return out["t kernels, kernel loss"]["counts"]
 
 
 def phase_train_warm(torch, dev, card):
@@ -715,9 +884,10 @@ def phase_train_warm(torch, dev, card):
     batch = tuple(torch.as_tensor(a, device=dev)
                   for a in synthetic_batch(cfg.batch_size))
     with tempfile.TemporaryDirectory() as tmp:
-        for name, dtype, fused in VARIANTS:
-            tr = make_trainer(cfg, dtype, fused, dev,
-                              os.path.join(tmp, name.replace(" ", "_")))
+        for name, dtype, tier, use_kernel in VARIANTS:
+            tr = make_trainer(cfg, dtype, tier, dev,
+                              os.path.join(tmp, name.replace(" ", "_")),
+                              use_kernel=use_kernel)
             rates = warm_step_rates(tr, batch, WARM_TRAIN_STEPS)
             tr.logger_.close()
             del tr
@@ -757,32 +927,37 @@ def main():
     rows = phase_kernels(torch, ts, dev, card)
     phase_model(torch, dev, card)
     phase_stack_grad(torch, ts, dev, card)
-    serve_launches = phase_serve(torch, ts, dev, card)
+    serve_launches = phase_serve(torch, dev, card)
     phase_warm(torch, dev, card)
-    train_launches = phase_train(torch, ts, dev, card)
-    phase_train_step(torch, ts, dev, card)
+    train_launches = phase_train(torch, dev, card)
+    loss_launches = phase_train_step(torch, dev, card)
     phase_train_warm(torch, dev, card)
 
-    replaces = {"seg_fwd": "probav_tpu/ops/pallas_tstack.py:244",
-                "conv_fwd": "probav_tpu/ops/pallas_tstack.py:290",
-                "blk_bwd": "probav_tpu/ops/pallas_tstack.py:388"}
-    sources = {"seg_fwd": "probav_tpu_torch/csrc/tstack.cu",
-               "conv_fwd": "probav_tpu_torch/csrc/tstack.cu",
-               "blk_bwd": "probav_tpu_torch/csrc/blk_bwd.cu"}
+    # (name, source, the TPU kernel it replaces, the path whose counts
+    # are its launches: each path's counts were reset just before it ran).
     # seg_fwd and conv_fwd are counted on the serve path, blk_bwd on the
-    # train path (the path that runs it); each path's counts were reset
-    # just before it ran.
-    launches = {"seg_fwd": serve_launches["seg_fwd"],
-                "conv_fwd": serve_launches["conv_fwd"],
-                "blk_bwd": train_launches["blk_bwd"]}
+    # bf16 train CLI run, wide_bwd on the bf16 --fused-stack flat run, the
+    # shift tables on the float32 train step with the kernel loss.
+    table = (
+        ("seg_fwd", "tstack.cu", "pallas_tstack.py:244", serve_launches),
+        ("conv_fwd", "tstack.cu", "pallas_tstack.py:290", serve_launches),
+        ("blk_bwd", "blk_bwd.cu", "pallas_tstack.py:388",
+         train_launches["bf16"]),
+        ("wide_bwd", "blk_bwd.cu", "pallas_wide_block.py:110",
+         train_launches["bf16 flat"]),
+        ("shift_table_fwd", "shift_loss.cu", "pallas_shift_loss.py:108",
+         loss_launches),
+        ("shift_table_bwd", "shift_loss.cu", "pallas_shift_loss.py:126",
+         loss_launches))
     kernels = []
-    for name in ("seg_fwd", "conv_fwd", "blk_bwd"):
-        if launches[name] <= 0:
+    for name, src, tpu, counts in table:
+        if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on its path")
+        dn = "float32" if name.startswith("shift") else "bfloat16"
         kernels.append({"name": name, "route": "cuda",
-                        "source": sources[name], "replaces": replaces[name],
-                        "launches": launches[name],
-                        **rows[(name, "bfloat16")]})
+                        "source": "probav_tpu_torch/csrc/" + src,
+                        "replaces": "probav_tpu/ops/" + tpu,
+                        "launches": counts[name], **rows[(name, dn)]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -57,6 +57,22 @@
 // rounded; dz from float32 W2 dd, masked by z > 0 on the float32 z, then
 // rounded; h = relu(z) rounded; dx = W1 dz + gy in float32, stored in the
 // working dtype; all weight partials float32.
+//
+// A second entry point, probav_wide_bwd, replaces the TPU kernel _bwd of
+// probav_tpu/ops/pallas_wide_block.py:110 (body _bwd_kernel :78): the
+// backward of the flat [N, C] expand -> relu -> decay segment alone, for
+// `--fused-stack flat` and WDSRBlock(fused=True).  Given x, W1, b1, W2 and
+// dy it recomputes z and returns dx = W1 dz (no residual) and dW1, db1,
+// dW2, db2 (db2 = sum dy).  It is seg_bwd_kernel with WIDE set: the same
+// CUDA-core tiles and per-block partial slots (in a layout without dWc and
+// dbc) and the same fixed-order reduce, but dz and relu(z) stay float32 as
+// in _bwd_kernel, so bf16 takes this kernel too and not seg_bwd_mma, whose
+// A fragments would round dz to bf16.  The TPU row tiling (_pick_tile,
+// _pad_rows) is a VMEM rule and is not ported: any N is taken.  Bound on
+// an H100 at the flagship N = 557,568, 32/256/25: 2 N c_mid (3 c_in +
+// 2 c_dec) = 41.7 GFLOP against ~89 elements per row moved, so operations:
+// 0.62 ms at the float32 CUDA-core peak.  Its float32 products at bf16 run
+// on the CUDA cores as well, which is what this first version accepts.
 
 #include "common.cuh"
 
@@ -73,16 +89,17 @@ constexpr int WG_THREADS = 256;       // wgrad threads per block
 
 // Layout of one partial slot (floats), also the layout of the reduced
 // output: dWc [27][c_dec][c_out] | dW1 [c_in][c_mid] | dW2 [c_mid][c_dec]
-// | db1 [c_mid] | db2 [c_dec] | dbc [c_in].
+// | db1 [c_mid] | db2 [c_dec] | dbc [c_in].  Without `conv` (the wide
+// block's backward) there is no dWc and no dbc.
 struct Slot {
   long w1, w2, b1, b2, bc, len;   // dWc starts at 0
-  __host__ __device__ Slot(int c_in, int c_mid, int c_dec) {
-    w1 = 27L * c_dec * c_in;
+  __host__ __device__ Slot(int c_in, int c_mid, int c_dec, bool conv = true) {
+    w1 = conv ? 27L * c_dec * c_in : 0;
     w2 = w1 + (long)c_in * c_mid;
     b1 = w2 + (long)c_mid * c_dec;
     b2 = b1 + c_mid;
     bc = b2 + c_dec;
-    len = bc + c_in;
+    len = bc + (conv ? c_in : 0);
   }
 };
 
@@ -385,9 +402,11 @@ cudaError_t launch_wgrad_mma(const void* d, const void* gy, float* part,
 // ------------------------------------------------------------------------ //
 // seg_bwd: x, dd, gy [n, *] -> dx [n, c_in] and the dW1/dW2/db1/db2/dbc      //
 // partials.  CI, CD: register widths (>= c_in, c_dec, multiples of 4).     //
+// WIDE (the wide block's backward): no gy, dx = W1 dz, no dbc, and dz and  //
+// relu(z) are not rounded to T.                                            //
 // ------------------------------------------------------------------------ //
 
-template <typename T, int CI, int CD>
+template <typename T, int CI, int CD, bool WIDE>
 __global__ void __launch_bounds__(BWD_ROWS)
 seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
                const T* __restrict__ gy, const T* __restrict__ w1,
@@ -409,12 +428,12 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
   float* red = b1c + BWD_MCH;                   // [R]  dbc reduction
 
   const int tid = threadIdx.x;
-  const Slot sl(c_in, c_mid, c_dec);
+  const Slot sl(c_in, c_mid, c_dec, !WIDE);
   float* slot = part + blockIdx.x * slot_len;
   for (long e = sl.w1 + tid; e < sl.bc; e += BWD_ROWS) slot[e] = 0.f;
   __syncthreads();
 
-  // c_in divides BWD_ROWS (checked by the entry point), so in the
+  // c_in divides BWD_ROWS (checked by the blk_bwd entry point), so in the
   // coalesced epilogue this thread always meets channel tid % c_in.
   float dbc_acc = 0.f;
   const long tiles = ((long)n + BWD_ROWS - 1) / BWD_ROWS;
@@ -486,9 +505,11 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float dz = z[q] > 0.f ? round_to<T>(g[q]) : 0.f;
+          const float dz = z[q] > 0.f ? (WIDE ? g[q] : round_to<T>(g[q]))
+                                      : 0.f;
+          const float h = fmaxf(z[q], 0.f);
           zs[tid * BWD_MS + jj + q] = dz;
-          hs[tid * BWD_MS + jj + q] = round_to<T>(fmaxf(z[q], 0.f));
+          hs[tid * BWD_MS + jj + q] = WIDE ? h : round_to<T>(h);
           const float4* w4 =
               reinterpret_cast<const float4*>(w1c + (jj + q) * CI);
 #pragma unroll
@@ -565,7 +586,7 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
       }
     }
 
-    // Epilogue through shared memory: dx = W1 dz + gy, coalesced.
+    // Epilogue through shared memory: dx = W1 dz (+ gy), coalesced.
     __syncthreads();   // the last chunk's sums are done with xs
 #pragma unroll
     for (int k = 0; k < CI; ++k) xs[tid * RS + k] = dxa[k];
@@ -573,11 +594,16 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
     const long base = row0 * c_in;
     for (int e = tid; e < nrows * c_in; e += BWD_ROWS) {
       const int r = e / c_in, k = e % c_in;
-      const float g = to_f(gy[base + e]);
-      dbc_acc += g;
-      dx[base + e] = from_f<T>(xs[r * RS + k] + g);
+      if constexpr (WIDE) {
+        dx[base + e] = from_f<T>(xs[r * RS + k]);
+      } else {
+        const float g = to_f(gy[base + e]);
+        dbc_acc += g;
+        dx[base + e] = from_f<T>(xs[r * RS + k] + g);
+      }
     }
   }
+  if constexpr (WIDE) return;
 
   // dbc: the BWD_ROWS / c_in threads of each channel, summed in order.
   __syncthreads();
@@ -590,7 +616,7 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
   }
 }
 
-template <typename T, int CI, int CD>
+template <typename T, int CI, int CD, bool WIDE>
 cudaError_t launch_seg_bwd(const void* x, const void* dd, const void* gy,
                            const void* w1, const float* b1, const void* w2,
                            void* dx, float* part, long slot_len, int G, int n,
@@ -599,7 +625,7 @@ cudaError_t launch_seg_bwd(const void* x, const void* dd, const void* gy,
   const size_t smem =
       sizeof(float) * ((size_t)2 * BWD_ROWS * RS + 2 * BWD_ROWS * BWD_MS +
                        BWD_MCH * (CI + CD + 1) + BWD_ROWS);
-  auto kern = seg_bwd_kernel<T, CI, CD>;
+  auto kern = seg_bwd_kernel<T, CI, CD, WIDE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -611,7 +637,7 @@ cudaError_t launch_seg_bwd(const void* x, const void* dd, const void* gy,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool WIDE = false>
 cudaError_t dispatch_seg_bwd(const void* x, const void* dd, const void* gy,
                              const void* w1, const float* b1, const void* w2,
                              void* dx, float* part, long slot_len, int G,
@@ -619,16 +645,20 @@ cudaError_t dispatch_seg_bwd(const void* x, const void* dd, const void* gy,
                              cudaStream_t s) {
   const bool ci32 = c_in <= 32, cd32 = c_dec <= 32;
   if (ci32 && cd32)
-    return launch_seg_bwd<T, 32, 32>(x, dd, gy, w1, b1, w2, dx, part,
-                                     slot_len, G, n, c_in, c_mid, c_dec, s);
+    return launch_seg_bwd<T, 32, 32, WIDE>(x, dd, gy, w1, b1, w2, dx, part,
+                                           slot_len, G, n, c_in, c_mid,
+                                           c_dec, s);
   if (ci32)
-    return launch_seg_bwd<T, 32, 64>(x, dd, gy, w1, b1, w2, dx, part,
-                                     slot_len, G, n, c_in, c_mid, c_dec, s);
+    return launch_seg_bwd<T, 32, 64, WIDE>(x, dd, gy, w1, b1, w2, dx, part,
+                                           slot_len, G, n, c_in, c_mid,
+                                           c_dec, s);
   if (cd32)
-    return launch_seg_bwd<T, 64, 32>(x, dd, gy, w1, b1, w2, dx, part,
-                                     slot_len, G, n, c_in, c_mid, c_dec, s);
-  return launch_seg_bwd<T, 64, 64>(x, dd, gy, w1, b1, w2, dx, part, slot_len,
-                                   G, n, c_in, c_mid, c_dec, s);
+    return launch_seg_bwd<T, 64, 32, WIDE>(x, dd, gy, w1, b1, w2, dx, part,
+                                           slot_len, G, n, c_in, c_mid,
+                                           c_dec, s);
+  return launch_seg_bwd<T, 64, 64, WIDE>(x, dd, gy, w1, b1, w2, dx, part,
+                                         slot_len, G, n, c_in, c_mid, c_dec,
+                                         s);
 }
 
 // ------------------------------------------------------------------------ //
@@ -933,6 +963,14 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part,
   }
 }
 
+cudaError_t reduce_partials(const float* part, float* out, int G, long len,
+                            cudaStream_t s) {
+  const long blocks = (len + 255) / 256;
+  reduce_partials_kernel<<<(int)(blocks < 1024 ? blocks : 1024), 256, 0, s>>>(
+      part, out, G, len);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
                     const void* wflip, const void* w1, const float* b1,
@@ -962,10 +1000,20 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
     err = dispatch_seg_bwd<T>(x, dd, gy, w1, b1, w2, dx, part, sl.len, G, n,
                               c_in, c_mid, c_dec, s);
   if (err != cudaSuccess) return err;
-  const long blocks = (sl.len + 255) / 256;
-  reduce_partials_kernel<<<(int)(blocks < 1024 ? blocks : 1024), 256, 0, s>>>(
-      part, out, G, sl.len);
-  return cudaGetLastError();
+  return reduce_partials(part, out, G, sl.len, s);
+}
+
+template <typename T>
+cudaError_t wide_bwd(const void* x, const void* w1, const float* b1,
+                     const void* w2, const void* dy, void* dx, float* part,
+                     float* out, int G, int n, int c_in, int c_mid, int c_dec,
+                     cudaStream_t s) {
+  const Slot sl(c_in, c_mid, c_dec, false);
+  cudaError_t err = dispatch_seg_bwd<T, true>(x, dy, nullptr, w1, b1, w2, dx,
+                                              part, sl.len, G, n, c_in, c_mid,
+                                              c_dec, s);
+  if (err != cudaSuccess) return err;
+  return reduce_partials(part, out, G, sl.len, s);
 }
 
 }  // namespace
@@ -998,6 +1046,31 @@ int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
     return (int)blk_bwd<__nv_bfloat16>(1, gy, x, d, wflip, w1, b1f, w2, dd,
                                        dx, pf, of, G, B, H, W, Tn, c_in,
                                        c_mid, c_dec, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  x [n, c_in], w1 [c_in, c_mid], w2
+// [c_mid, c_dec], dy [n, c_dec] and the output dx [n, c_in] in that dtype;
+// b1 float32.  part: float32 scratch of G slots; out: float32 dW1 [c_in]
+// [c_mid] | dW2 [c_mid][c_dec] | db1 [c_mid] | db2 [c_dec].  c_in and
+// c_dec up to 64.
+int probav_wide_bwd(int dtype, const void* x, const void* w1, const void* b1,
+                    const void* w2, const void* dy, void* dx, void* part,
+                    void* out, int G, int n, int c_in, int c_mid, int c_dec,
+                    void* stream) {
+  if (n < 1 || G < 1 || c_in < 1 || c_in > 64 || c_dec < 1 || c_dec > 64 ||
+      c_mid < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b1f = static_cast<const float*>(b1);
+  float* pf = static_cast<float*>(part);
+  float* of = static_cast<float*>(out);
+  if (dtype == 0)
+    return (int)wide_bwd<float>(x, w1, b1f, w2, dy, dx, pf, of, G, n, c_in,
+                                c_mid, c_dec, s);
+  if (dtype == 1)
+    return (int)wide_bwd<__nv_bfloat16>(x, w1, b1f, w2, dy, dx, pf, of, G, n,
+                                        c_in, c_mid, c_dec, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,24 +12,51 @@ Submodule names equal the flax ones (``mainConv1``, ``resBlock_<i>``,
 ``convReducer_<k>``, ``upscaleConv1``, ``residConv<k>``), so a converted
 flax parameter tree loads by name (``probav_tpu_torch.convert``).
 
-With ``fused_stack`` the blocks run through the hand-written kernels of
-``ops/tstack.py`` (their plain versions on the CPU); otherwise through
-``WDSRBlock``, whose 1x1x1 convs are ordinary convolutions.  The convs
-outside the stack are plain ``F.conv3d``/``F.conv2d``, as the JAX package
-leaves them to XLA.
+The block stack has three tiers, ``fused_stack``:
+
+- ``"t"`` (the default, the production tier): the blocks run through the
+  hand-written kernels of ``ops/tstack.py``, forward and backward;
+- ``"flat"``: one autograd node around the stack (``ops/block_stack.py``),
+  a plain forward and the ``wide_bwd`` kernel in each block's backward;
+- ``"off"``: ``WDSRBlock`` modules, whose 1x1x1 convs are ordinary
+  convolutions, or with ``fused_block`` the expand -> relu -> decay of each
+  block as ``ops/wide_block.fused_expand_decay`` (``wide_bwd`` backward).
+
+On the CPU every kernel is replaced by its plain version.  The parameter
+tree is the same in every tier.  A bool is accepted for the tier with the
+meaning it had in this package before tiers existed: ``True`` is ``"t"``
+and ``False`` is ``"off"``.  This differs from the JAX package, where
+``fused_stack=True`` means the flat stack; ``stack_tier`` normalises.  The
+convs outside the stack are plain ``F.conv3d``/``F.conv2d``, as the JAX
+package leaves them to XLA.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from probav_tpu_torch.models.layers import WNConv, reflect_pad
+from probav_tpu_torch.ops.block_stack import fused_block_stack
 from probav_tpu_torch.ops.patches import depth_to_space
 from probav_tpu_torch.ops.tstack import stack_apply_5d
+from probav_tpu_torch.ops.wide_block import fused_expand_decay
+
+STACK_TIERS = ("off", "flat", "t")
+
+
+def stack_tier(fused_stack: Union[bool, str]) -> str:
+    """The stack tier of a ``fused_stack`` argument: "off", "flat" or "t";
+    True is "t" and False "off" (not the JAX package's True = flat)."""
+    if isinstance(fused_stack, bool):
+        return "t" if fused_stack else "off"
+    if fused_stack not in STACK_TIERS:
+        raise ValueError(f"fused_stack {fused_stack!r}: one of "
+                         f"{STACK_TIERS} or a bool")
+    return fused_stack
 
 
 def reduction_schedule(num_img: int, kernel_t: int) -> Sequence[dict]:
@@ -61,13 +88,16 @@ def reduction_schedule(num_img: int, kernel_t: int) -> Sequence[dict]:
 
 class WDSRBlock(nn.Module):
     """WDSR-B residual block: 1x1x1 expand (relu) -> 1x1x1 decay -> k^3
-    conv -> add the input."""
+    conv -> add the input.  ``fused`` runs expand -> relu -> decay as
+    ``fused_expand_decay`` (backward on the ``wide_bwd`` kernel)."""
 
     def __init__(self, num_filters: int, exp_rate: int, decay_rate: float,
                  kernel_size: Tuple[int, int, int],
                  dtype: torch.dtype = torch.float32, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fused: bool = False):
         super().__init__()
+        self.fused = fused
         f = num_filters
         c_mid, c_dec = f * exp_rate, int(f * decay_rate)
         kw = dict(dtype=dtype, device=device, generator=generator)
@@ -89,32 +119,44 @@ class WDSRBlock(nn.Module):
                 kc.to(d), bc.to(d))
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
-        return self.conv(self.decay(self.expand(x_in))) + x_in
+        if self.fused:
+            w1, b1, w2, b2 = self.effective_params()[:4]
+            c = x_in.shape[-1]
+            y = fused_expand_decay(x_in.reshape(-1, c).to(self.dtype), w1, b1,
+                                   w2, b2)
+            x = y.reshape(x_in.shape[:-1] + (w2.shape[1],))
+        else:
+            x = self.decay(self.expand(x_in))
+        return self.conv(x) + x_in
 
 
 class WDSRConv3D(nn.Module):
     """Flagship WDSR-B 3D fusion net.  Call with [B, H, W, T, C] and an
-    optional ``norm = [mean, std]`` tensor (the band statistics as data)."""
+    optional ``norm = [mean, std]`` tensor (the band statistics as data).
+    ``fused_stack``: the stack tier (module docstring); ``fused_block``
+    applies in the "off" tier only."""
 
     def __init__(self, scale: int = 3, num_filters: int = 32,
                  kernel_size: Tuple[int, int, int] = (3, 3, 3),
                  num_res_blocks: int = 12, exp_rate: int = 8,
                  decay_rate: float = 0.8, num_img_lr: int = 9,
                  patch_size_lr: int = 16, mean: float = 0.0, std: float = 1.0,
-                 dtype: torch.dtype = torch.float32, fused_stack: bool = True,
-                 in_channels: int = 1, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 dtype: torch.dtype = torch.float32,
+                 fused_stack: Union[bool, str] = "t", in_channels: int = 1,
+                 device=None, generator: Optional[torch.Generator] = None,
+                 fused_block: bool = False):
         super().__init__()
         self.scale, self.num_img_lr = scale, num_img_lr
         self.patch_size_lr = patch_size_lr
         self.mean, self.std = mean, std
-        self.dtype, self.fused_stack = dtype, fused_stack
+        self.dtype, self.fused_stack = dtype, stack_tier(fused_stack)
         f, k = num_filters, tuple(kernel_size)
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.mainConv1 = WNConv(in_channels, f, k, "SAME", "relu", **kw)
         self.block_names = [f"resBlock_{i}" for i in range(num_res_blocks)]
         for name in self.block_names:
-            setattr(self, name, WDSRBlock(f, exp_rate, decay_rate, k, **kw))
+            setattr(self, name, WDSRBlock(f, exp_rate, decay_rate, k, **kw,
+                                          fused=fused_block))
         self.schedule = reduction_schedule(num_img_lr, k[2])
         for s, step in enumerate(self.schedule):
             setattr(self, f"convReducer_{s + 1}",
@@ -142,8 +184,10 @@ class WDSRConv3D(nn.Module):
     def _main_path(self, x: torch.Tensor) -> torch.Tensor:
         x = self.mainConv1(x)
         blocks = [getattr(self, n) for n in self.block_names]
-        if self.fused_stack:
+        if self.fused_stack == "t":
             x = stack_apply_5d(x, [b.effective_params() for b in blocks])
+        elif self.fused_stack == "flat":
+            x = fused_block_stack(x, [b.effective_params() for b in blocks])
         else:
             for b in blocks:
                 x = b(x)
@@ -163,11 +207,12 @@ class WDSRConv3D(nn.Module):
 
 
 def build_model(cfg, band: str, dtype: torch.dtype = torch.float32,
-                fused_stack: bool = True, device=None,
-                generator: Optional[torch.Generator] = None) -> WDSRConv3D:
+                fused_stack: Union[bool, str] = "t", device=None,
+                generator: Optional[torch.Generator] = None,
+                fused_block: bool = False) -> WDSRConv3D:
     """The flagship model a Config (or the path of a ``.cfg`` file)
     describes, for one band (mirrors ``probav_tpu.models.build_model`` for
-    model_type "wdsr")."""
+    model_type "wdsr"; ``fused_stack`` as in ``WDSRConv3D``)."""
     if isinstance(cfg, (str, os.PathLike)):
         from probav_tpu_torch.config import Config
         cfg = Config.from_file(cfg)
@@ -179,7 +224,7 @@ def build_model(cfg, band: str, dtype: torch.dtype = torch.float32,
         decay_rate=cfg.decay_rate, num_img_lr=cfg.num_low_res_imgs,
         patch_size_lr=cfg.patch_size, mean=mean, std=std, dtype=dtype,
         fused_stack=fused_stack, in_channels=1 if cfg.is_grayscale else 3,
-        device=device, generator=generator)
+        device=device, generator=generator, fused_block=fused_block)
 
 
 def input_shape(cfg, batch: int = 1) -> Tuple[int, ...]:

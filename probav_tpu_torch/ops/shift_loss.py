@@ -5,9 +5,12 @@ For every translation (i, j) of the ground truth within a +-border window,
 the prediction's centre crop is bias-corrected by the brightness offset
 b = sum(HR - SR*M) / sum(M) and masked, and a masked L1 or L2 is taken;
 losses keep the best shift.  All (2*border + 1)^2 = 49 shifts are one
-batched computation.  The JAX package runs this as plain XLA on the train
-step (its Pallas table kernels are opt-in and TPU-only), so this is plain
-PyTorch.
+batched computation, plain PyTorch by default as the JAX package runs plain
+XLA.  With ``use_kernel`` (the counterpart of JAX's opt-in ``use_pallas``)
+the [S, B] table and its gradient come from the hand-written CUDA kernels
+of ``ops/shift_table.py`` wherever ``shift_table.supports`` holds
+(grayscale square patches); other shapes take the plain path, as JAX's
+``_maybe_pallas`` does.
 
 Reference quirks kept: the ground truth enters the residual UNMASKED
 (occluded HR pixels add |HR| while the prediction is zeroed there), and the
@@ -25,22 +28,27 @@ from typing import Tuple
 
 import torch
 
+from probav_tpu_torch.ops import shift_table
+
 
 class ShiftCompensatedLosses:
     """The shift-compensated losses over [B, H, W, C] HR/mask/pred batches.
 
     ``target_shape`` is the HR patch shape, ``crop_border`` the per-side
-    shift allowance, ``bit_depth`` sets the dynamic range of cPSNR.
+    shift allowance, ``bit_depth`` sets the dynamic range of cPSNR;
+    ``use_kernel`` takes the per-shift tables from the CUDA kernels.
     """
 
     def __init__(self, target_shape: Tuple[int, int, int] = (96, 96, 1),
-                 crop_border: int = 3, bit_depth: int = 16):
+                 crop_border: int = 3, bit_depth: int = 16,
+                 use_kernel: bool = False):
         self.th, self.tw, self.tc = target_shape
         self.border = crop_border
         self.max_shift = 2 * crop_border
         self.num_bytes = float(2 ** bit_depth - 1)
         self.ch = self.th - self.max_shift
         self.cw = self.tw - self.max_shift
+        self.use_kernel = use_kernel
 
     def _shift_stack(self, x: torch.Tensor) -> torch.Tensor:
         """[B,H,W,C] -> [S,B,ch,cw,C] float32: all (max_shift+1)^2 crops,
@@ -70,17 +78,25 @@ class ShiftCompensatedLosses:
         r = r.abs() if kind == "l1" else r.square()
         return r.sum(dim=(2, 3, 4)) / total
 
+    def _table(self, kind: str, hr, mask, pred):
+        """Per-shift table [S, B]: the kernels' with ``use_kernel`` where
+        they apply (``_maybe_pallas`` of the JAX package), else plain."""
+        if self.use_kernel and shift_table.supports(hr, self.border):
+            return shift_table.per_shift_table(kind, hr, mask, pred,
+                                               self.border)
+        return self._per_shift(kind, hr, mask, pred)
+
     def l1(self, hr, mask, pred):
         """Shift-compensated L1: scalar."""
-        return self._per_shift("l1", hr, mask, pred).min(dim=0).values.mean()
+        return self._table("l1", hr, mask, pred).min(dim=0).values.mean()
 
     def l2(self, hr, mask, pred):
         """Shift-compensated L2: scalar."""
-        return self._per_shift("l2", hr, mask, pred).min(dim=0).values.mean()
+        return self._table("l2", hr, mask, pred).min(dim=0).values.mean()
 
     def cpsnr(self, hr, mask, pred):
         """Shift-compensated cPSNR: per-sample [B] vector."""
-        l2 = self._per_shift("l2", hr, mask, pred)
+        l2 = self._table("l2", hr, mask, pred)
         val = 10.0 * (torch.log(self.num_bytes ** 2 / l2) / math.log(10.0))
         return val.max(dim=0).values
 
@@ -95,7 +111,7 @@ class ShiftCompensatedLosses:
         """Per-sample [B] variant (min over shifts, no batch mean):
         ``mean(per_sample(...)) == by_name(...)``."""
         self.by_name(name)
-        return lambda hr, mask, pred: self._per_shift(
+        return lambda hr, mask, pred: self._table(
             name, hr, mask, pred).min(dim=0).values
 
     def weighted(self, name: str):

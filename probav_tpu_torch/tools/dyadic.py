@@ -1,4 +1,5 @@
-"""Inputs for holding ``blk_bwd`` against its plain twin exactly.
+"""Inputs for holding ``blk_bwd``, ``wide_bwd`` and the shift-table kernels
+against their plain twins exactly.
 
 The block backward takes two discontinuous decisions per element: the relu
 derivative (z > 0) and, at bf16, the rounding of dd, dz and relu(z) to
@@ -19,6 +20,17 @@ both well inside float32's 24-bit significand; W2 dd sits on a 2**-15
 grid and stays exact while |dd| stays below ~80, which these inputs keep
 (dd is a sum of 864 terms of mean 0; its spread is ~2.4).  Every grid
 value is exact in bf16, and so is the rounding of an exact value.
+
+``wide_bwd`` (the flat expand -> relu -> decay backward) takes the same
+decision, z > 0, and keeps dz in float32: with x and dy on the grid of x
+above and w1, b1, w2 on theirs, z (|z| <= 32.25 at 64 input channels, on a
+2**-10 grid) and W2 dy (|W2 dy| <= 25.5 at 51 output channels, on a 2**-9
+grid) are exact in any order at every width the kernel takes.
+
+The shift tables decide sign(r) for the L1 backward.  With integer planes
+below 2**12 and a 0/1 mask, the window sums of m, hr and p*m (at most
+42 * 42 * 4095 < 2**24) are exact in any order, so the bias, one division
+of exact numbers, and every residual r are the same in both versions.
 """
 
 from __future__ import annotations
@@ -43,3 +55,28 @@ def blk_bwd_inputs(shape, c, cmid, cdec, seed=0, device="cpu",
             t(grid(r, shape + (cdec,), 32, 4)), t(grid(r, (c, cmid), 16, 6)),
             t(grid(r, (cmid,), 16, 6)), t(grid(r, (cmid, cdec), 8, 5)),
             t(grid(r, (3, 3, 3, cdec, c), 8, 6)))
+
+
+def wide_bwd_inputs(n, c, cmid, cdec, seed=0, device="cpu",
+                    dtype=torch.float32):
+    """(x [n, c], w1, b1, w2, dy [n, cdec]) on the grids above."""
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device, dtype)
+    return (t(grid(r, (n, c), 32, 4)), t(grid(r, (c, cmid), 16, 6)),
+            t(grid(r, (cmid,), 16, 6)), t(grid(r, (cmid, cdec), 8, 5)),
+            t(grid(r, (n, cdec), 32, 4)))
+
+
+def shift_table_inputs(b, size=48, border=3, clear=0.8, seed=0,
+                       device="cpu"):
+    """(hr, m, p [b, size, size], g [b, (2 border + 1)**2]) float32: hr and
+    p integers in [0, 4095], m 1 on ``clear`` of the pixels, hr zeroed
+    where m is 0 (with the occluded truth kept, the bias term makes every
+    clear L1 residual one sign), g normal."""
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    m = r.uniform(size=(b, size, size)) < clear
+    hr = r.integers(0, 4096, (b, size, size)) * m
+    p = r.integers(0, 4096, (b, size, size))
+    g = r.normal(size=(b, (2 * border + 1) ** 2))
+    return t(hr), t(m), t(p), t(g)

@@ -3,12 +3,14 @@
     python3 -m probav_tpu_torch.tools.profile_train [--cfg CFG] \\
         [--steps 10] [--out chiprun_out]
 
-For bf16 and float32, each with the hand-written stack kernels (forward
-and ``blk_bwd``) and with the plain stack, it builds the cfg's model from
-a seeded init (``torch.Generator`` seed 0) and a ``ModelTrainer`` with the
-cfg's optimizer and loss, and feeds it one synthetic batch of the cfg's
-``batch_size`` patches (numpy seed 0; see ``synthetic_batch``), already
-on the device.
+For each variant of ``VARIANTS`` (bf16 and float32 each with the "t"
+kernel stack, forward and ``blk_bwd``, with the plain stack and with the
+"flat" stack, whose backward runs ``wide_bwd``; and bf16 "t" with the loss
+and metric tables on the shift-table kernels) it builds the cfg's model
+from a seeded init (``torch.Generator`` seed 0) and a ``ModelTrainer``
+with the cfg's optimizer and loss, and feeds it one synthetic batch of the
+cfg's ``batch_size`` patches (numpy seed 0; see ``synthetic_batch``),
+already on the device.
 The first step is a warm-up: it pays the kernel build, cuDNN's algorithm
 choice and lazy module loading.  ``--steps`` more steps are timed one by
 one on the host clock, each ending in ``torch.cuda.synchronize()``; their
@@ -31,10 +33,14 @@ import time
 
 import numpy as np
 
-VARIANTS = (("bf16 kernels", "bfloat16", True),
-            ("bf16 plain", "bfloat16", False),
-            ("f32 kernels", "float32", True),
-            ("f32 plain", "float32", False))
+# (name, dtype, stack tier, loss tables on the kernels)
+VARIANTS = (("bf16 kernels", "bfloat16", "t", False),
+            ("bf16 plain", "bfloat16", "off", False),
+            ("f32 kernels", "float32", "t", False),
+            ("f32 plain", "float32", "off", False),
+            ("bf16 flat", "bfloat16", "flat", False),
+            ("f32 flat", "float32", "flat", False),
+            ("bf16 kernels, kernel loss", "bfloat16", "t", True))
 
 
 def synthetic_batch(n: int, seed: int = 0, hr_clear: float = 0.9):
@@ -56,10 +62,13 @@ def synthetic_batch(n: int, seed: int = 0, hr_clear: float = 0.9):
             mask.astype(np.float32))
 
 
-def make_trainer(cfg, dtype: str, fused: bool, device, workdir: str,
-                 band: str = "NIR"):
-    """A ModelTrainer over the cfg's model from torch.Generator seed 0,
-    with the cfg's optimizer and loss; checkpoints and logs in workdir."""
+def make_trainer(cfg, dtype: str, tier, device, workdir: str,
+                 band: str = "NIR", use_kernel: bool = False,
+                 fused_block: bool = False):
+    """A ModelTrainer over the cfg's model from torch.Generator seed 0 with
+    stack tier ``tier`` (``fused_block`` in the "off" tier), with the cfg's
+    optimizer and loss (``use_kernel``: its tables on the shift-table
+    kernels); checkpoints and logs in workdir."""
     import torch
 
     from probav_tpu_torch.models.wdsr import build_model
@@ -68,10 +77,11 @@ def make_trainer(cfg, dtype: str, fused: bool, device, workdir: str,
     from probav_tpu_torch.train.trainer import ModelTrainer
 
     model = build_model(cfg, band, dtype=getattr(torch, dtype),
-                        fused_stack=fused,
+                        fused_stack=tier, fused_block=fused_block,
                         generator=torch.Generator().manual_seed(0))
     target = cfg.hr_patch_size
-    losses = ShiftCompensatedLosses(target_shape=(target, target, 1))
+    losses = ShiftCompensatedLosses(target_shape=(target, target, 1),
+                                    use_kernel=use_kernel)
     trainer = ModelTrainer(
         model, losses.by_name(cfg.loss), losses.cpsnr,
         build_optimizer(cfg.optimizer, cfg.learning_rate),
@@ -149,9 +159,10 @@ def main(argv=None) -> dict:
     batch = tuple(torch.as_tensor(a, device="cuda")
                   for a in synthetic_batch(n))
     summary = {}
-    for name, dtype, fused in VARIANTS:
+    for name, dtype, tier, use_kernel in VARIANTS:
         with tempfile.TemporaryDirectory() as tmp:
-            tr = make_trainer(cfg, dtype, fused, "cuda", tmp)
+            tr = make_trainer(cfg, dtype, tier, "cuda", tmp,
+                              use_kernel=use_kernel)
             rates = warm_step_rates(tr, batch, opt.steps)
             wall, busy, rows = device_breakdown(tr, batch)
             tr.logger_.close()

@@ -2,16 +2,19 @@
 
     python3 -m probav_tpu_torch.train --cfg cfg/p16t9c85r12.cfg --band NIR \\
         [--bf16] [--staged-decay] [--eval-step N] [--save-best-only] \\
-        [--device cuda] [--plain]
+        [--device cuda] [--fused-stack {off,flat,t}] [--plain]
 
 Loads the stage-5 arrays from the cfg's ``augmentedPatchesDir`` (pickled
 masked arrays: ``TRAINpatchesLR_<band>.npy``, ``TRAINpatchesHR_<band>.npy``
 and their ``TRAINVAL`` twins), builds the band's model from a seeded init,
 takes epochs, batch size, learning rate, optimizer and loss from the cfg,
-and trains with checkpoint auto-resume.  The WDSR-B stack runs on the
-hand-written CUDA kernels (forward and backward) unless ``--plain`` selects
-the plain PyTorch blocks.  ``--device`` defaults to ``cuda`` and fails
-without a card; ``--device cpu`` runs the kernels' plain versions.
+and trains with checkpoint auto-resume.  ``--fused-stack`` picks the WDSR-B
+stack tier, as train.py's flag does: ``t`` (the default) runs it on the
+hand-written CUDA kernels, forward and backward; ``flat`` runs a plain
+forward and the ``wide_bwd`` kernel in each block's backward; ``off`` (or
+``--plain``) the plain PyTorch blocks.  ``--device`` defaults to ``cuda``
+and fails without a card; ``--device cpu`` runs the kernels' plain
+versions.
 ``--band BOTH`` trains NIR, then RED.
 """
 
@@ -38,9 +41,16 @@ def parse_args(argv=None):
     p.add_argument("--eval-step", type=int, default=1000)
     p.add_argument("--save-best-only", action="store_true")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--fused-stack", choices=("off", "flat", "t"),
+                   default="t",
+                   help="block-stack tier: t (kernels, forward and "
+                        "backward), flat (wide_bwd backward), off (plain)")
     p.add_argument("--plain", action="store_true",
-                   help="plain PyTorch block stack instead of the kernels")
-    return p.parse_args(argv)
+                   help="alias of --fused-stack off")
+    opt = p.parse_args(argv)
+    if opt.plain:
+        opt.fused_stack = "off"
+    return opt
 
 
 def load_stage5(cfg, band: str):
@@ -70,7 +80,7 @@ def patch_net(cfg, band: str, opt) -> dict:
     logger.info("[ INFO ] Building model...")
     model = build_model(cfg, band,
                         dtype=torch.bfloat16 if opt.bf16 else torch.float32,
-                        fused_stack=not opt.plain,
+                        fused_stack=opt.fused_stack,
                         generator=torch.Generator().manual_seed(0))
     steps_per_epoch = max(1, len(x_train) // cfg.batch_size)
     tx = build_optimizer(cfg.optimizer, cfg.learning_rate,

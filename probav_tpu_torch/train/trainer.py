@@ -12,8 +12,8 @@ Behaviour kept from the JAX trainer (and its reference):
 - save-best-only gating on validation cPSNR, keep-5 checkpoints, and an
   always-final validation and save;
 - a ragged last validation batch is padded to the full batch with weight-0
-  rows when the model runs the kernel stack (the JAX trainer pads for its
-  fused stack), so both the metric and the loss stay exact.
+  rows when the model runs the "t" kernel stack (the JAX trainer pads for
+  its "t" tier), so both the metric and the loss stay exact.
 
 The step is eager PyTorch: forward, loss, ``torch.autograd.grad``, the
 optimizer update (in place), then the metric under ``torch.no_grad``.
@@ -260,7 +260,7 @@ class ModelTrainer:
         full = val_batcher.batch_size
         rng = np.random.default_rng((val_batcher.seed, self.step))
         src = itertools.islice(val_batcher.epoch(rng=rng), val_steps)
-        pad_ragged = bool(getattr(self.model, "fused_stack", False))
+        pad_ragged = getattr(self.model, "fused_stack", "off") == "t"
         counts: list = []
 
         def padded(stream):

@@ -22,9 +22,14 @@ import probav_tpu_torch
 def _fail(name):
     raise ImportError(f"could not import {name}")
 
+names = set()
 for m in pkgutil.walk_packages(probav_tpu_torch.__path__,
                                "probav_tpu_torch.", onerror=_fail):
     importlib.import_module(m.name)
+    names.add(m.name)
+kernel_modules = {"probav_tpu_torch.ops." + n for n in (
+    "tstack", "wide_block", "block_stack", "shift_table", "shift_loss")}
+assert kernel_modules <= names, kernel_modules - names
 jax_pkg = sorted(n for n in sys.modules
                  if n == "probav_tpu" or n.startswith("probav_tpu."))
 assert jax_pkg == [], jax_pkg

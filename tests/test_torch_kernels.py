@@ -1,5 +1,6 @@
-"""The stack kernels' wrappers (probav_tpu_torch/ops/tstack.py): dispatch
-on the CPU, and the CUDA kernels against their plain versions on a card.
+"""The kernel wrappers (probav_tpu_torch/ops/tstack.py, wide_block.py,
+shift_table.py): dispatch on the CPU, and the CUDA kernels against their
+plain versions on a card.
 
 This file imports neither JAX nor the JAX package, so the ``cuda`` tests
 also run on a machine without them:
@@ -11,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from probav_tpu_torch.ops import block_stack as bs
+from probav_tpu_torch.ops import shift_table as st
 from probav_tpu_torch.ops import tstack as ts
-from probav_tpu_torch.tools.dyadic import blk_bwd_inputs
+from probav_tpu_torch.ops import wide_block as wb
+from probav_tpu_torch.tools.dyadic import (blk_bwd_inputs, shift_table_inputs,
+                                           wide_bwd_inputs)
 
 torch.set_num_threads(1)
 
@@ -59,6 +64,15 @@ def test_wrappers_refuse_other_devices_without_fallback():
     meta = lambda c: torch.empty((B, H, W, T, c), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ts.blk_bwd(meta(C), meta(C), meta(CDEC), w1, b1, w2, wc)
+    rows = lambda c: torch.empty((10, c), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        wb.wide_bwd(rows(C), w1, b1, w2, rows(CDEC))
+    plane = torch.empty((2, 12, 12), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        st.shift_table_fwd(plane, plane, plane, 2, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        st.shift_table_bwd(plane, plane, plane,
+                           torch.empty((2, 25), device="meta"), 2, True)
 
 
 def test_blk_bwd_on_cpu_is_the_plain_twin_uncounted():
@@ -71,6 +85,21 @@ def test_blk_bwd_on_cpu_is_the_plain_twin_uncounted():
     want = ts.blk_bwd_plain(gy, x, d, w1, b1, w2, wc)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ts.LAUNCHES == before
+
+
+def test_wide_bwd_and_shift_tables_on_cpu_are_the_plain_twins_uncounted():
+    x, w1, b1, w2, dy = wide_bwd_inputs(50, C, CMID, CDEC, seed=2)
+    hr, m, p, g = shift_table_inputs(3, size=12, border=2, seed=2)
+    before = (dict(wb.LAUNCHES), dict(st.LAUNCHES))
+    got = wb.wide_bwd(x, w1, b1, w2, dy)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, wb.wide_bwd_plain(x, w1, b1, w2, dy)))
+    for sq in (False, True):
+        assert torch.equal(st.shift_table_fwd(hr, m, p, 2, sq),
+                           st.shift_table_fwd_plain(hr, m, p, 2, sq))
+        assert torch.equal(st.shift_table_bwd(hr, m, p, g, 2, sq),
+                           st.shift_table_bwd_plain(hr, m, p, g, 2, sq))
+    assert (dict(wb.LAUNCHES), dict(st.LAUNCHES)) == before
 
 
 @pytest.fixture
@@ -175,6 +204,75 @@ def test_stack_autograd_on_card_matches_plain_stack(cuda):
         d = ts.seg_fwd_plain(ref.reshape(-1, 32), w1, b1, w2, b2)
         ref = ts.conv_fwd_plain(d.reshape(ref.shape[:-1] + (25,)), ref, wc,
                                 bc)
+    want = torch.autograd.grad(ref, leaves, gy)
+    for a, b in zip(got, want):
+        assert max_rel(a, b) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,c,cmid,cdec", [
+    (300, C, CMID, CDEC), (1000, 32, 100, 40), (2 * 4356, 32, 256, 25),
+    (2 * 4356, 64, 512, 51), (128 * 4356, 32, 256, 25)],
+    ids=["small", "cmid100", "flagship_b2", "wide_b2", "flagship_b128"])
+def test_wide_bwd_matches_plain_on_card(cuda, dtype, n, c, cmid, cdec):
+    """On the dyadic inputs both versions take the same relu decisions:
+    dx 2e-5 of max|ref| at float32, one bf16 step plus margin at bf16 (dx
+    is stored in bf16); the weight grads, float32 sums over every row in
+    another order, 1e-4."""
+    args = wide_bwd_inputs(n, c, cmid, cdec, seed=6, device=cuda,
+                           dtype=dtype)
+    before = wb.LAUNCHES["wide_bwd"]
+    got = wb.wide_bwd(*args)
+    torch.cuda.synchronize()
+    assert wb.LAUNCHES["wide_bwd"] == before + 1
+    want = wb.wide_bwd_plain(*args)
+    assert got[0].dtype == dtype
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        tol = (2e-5 if dtype == torch.float32 else 8e-3) if i == 0 else 1e-4
+        assert max_rel(a, b) < tol, (i, max_rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squared", [False, True], ids=["l1", "l2"])
+@pytest.mark.parametrize("b,size,border", [(5, 48, 3), (128, 48, 3),
+                                           (3, 20, 2)])
+def test_shift_tables_match_plain_on_card(cuda, squared, b, size, border):
+    """Table rtol 3e-5, d/dpred rtol 1e-4 (atol 1e-6 max|ref|), as
+    tests/test_pallas.py holds the TPU kernels; on integer planes both
+    versions compute the same residuals, so the L1 signs agree."""
+    hr, m, p, g = shift_table_inputs(b, size, border, seed=7, device=cuda)
+    before = dict(st.LAUNCHES)
+    tab = st.shift_table_fwd(hr, m, p, border, squared)
+    dp = st.shift_table_bwd(hr, m, p, g, border, squared)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    torch.testing.assert_close(
+        tab, st.shift_table_fwd_plain(hr, m, p, border, squared), rtol=3e-5,
+        atol=0)
+    want = st.shift_table_bwd_plain(hr, m, p, g, border, squared)
+    torch.testing.assert_close(dp, want, rtol=1e-4,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_flat_stack_autograd_on_card_matches_plain_autograd(cuda):
+    """Gradients through the flat stack's node (wide_bwd) against autograd
+    through the same forward, float32, 3 blocks."""
+    blocks = [tuple(t.requires_grad_() for t in params(
+        32, 256, 25, seed=s, device=cuda)) for s in (3, 4, 5)]
+    x = torch.randn(2, 9, 8, 9, 32, device=cuda, requires_grad=True)
+    before = wb.LAUNCHES["wide_bwd"]
+    y = bs.fused_block_stack(x, blocks)
+    gy = torch.randn_like(y)
+    leaves = [x] + [t for blk in blocks for t in blk]
+    got = torch.autograd.grad(y, leaves, gy)
+    assert wb.LAUNCHES["wide_bwd"] == before + 3
+    ref = x
+    for blk in blocks:
+        ref, _ = bs.block_fwd(ref, *blk)
     want = torch.autograd.grad(ref, leaves, gy)
     for a, b in zip(got, want):
         assert max_rel(a, b) < 1e-4
