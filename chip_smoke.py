@@ -13,7 +13,9 @@ Phases, each printing its result:
    and the shift-table kernels (float32 only) at the train step's 128
    patches of 48x48, with median CUDA-event times of kernel, plain version
    and, where one PyTorch call computes the same function, that call
-   (conv_fwd: F.conv3d); the 64-filter widths (64/512/51) are checked for
+   (conv_fwd: F.conv3d, both also timed over 20 calls queued back to
+   back, which leaves out the host's launch latency); the 64-filter widths
+   (64/512/51) are checked for
    parity; blk_bwd and wide_bwd are fed dyadic inputs and the shift tables
    integer planes (probav_tpu_torch/tools/dyadic.py), on which both
    versions take the same relu, sign and rounding decisions;
@@ -191,6 +193,25 @@ def timed(torch, *fns, reps=20):
     return [statistics.median(t) for t in times]
 
 
+def back_to_back(torch, *fns, n=20):
+    """CUDA-event ms per call of each of fns over n calls queued back to
+    back: the device time, without the host's launch latency that a
+    single timed call includes."""
+    out = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / n)
+    return out
+
+
 def stack_inputs(torch, dev, dtype, n, c, cmid, cdec, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -345,6 +366,10 @@ def phase_kernels(torch, ts, dev, card):
             memory_format=torch.channels_last_3d)
         lms, = timed(torch, lambda: F.conv3d(dcl, wcl, bc, padding=1))
         row("conv_fwd", dn, err, ms, pms, lms)
+        kb, lb = back_to_back(torch, lambda: ts.conv_fwd(d5, x, wc, bc),
+                              lambda: F.conv3d(dcl, wcl, bc, padding=1))
+        log(f"kernel conv_fwd {dn}: back to back, per call: kernel "
+            f"{kb:.4f} ms, library call {lb:.4f} ms [{card}]")
 
         # blk_bwd: the seven outputs on dyadic inputs (see BWD_TOL).
         args = blk_bwd_inputs((N_PATCH, HW, HW, T), C, CMID, CDEC, seed=3,

@@ -9,15 +9,18 @@
 // The TPU kernels work on a transposed, lane-shifted [C, ext] layout.  Here
 // activations stay in the model's channels-last [B, H, W, T, C] layout, so
 // a block is a set of [N, C] rows with no pad lanes and no interior mask;
-// the conv's ragged (H, W, T) edges are bounds checks while the halo is
-// staged.
+// the conv's ragged (H, W, T) edges are zero borders of staged halo rows.
 //
 // What bounds them on an H100: seg_fwd is 2*(C_in*C_mid + C_mid*C_dec)
-// FLOP per row (29,184 at the flagship's 32/256/25) and conv_fwd
-// 2*27*C_dec*C_out per position (43,200 at 25->32), against a few dozen
-// elements of traffic per row, so both are compute-bound once the
-// [N, C_mid] wide activation never reaches device memory -- the point of
-// the TPU kernel, kept here in both versions:
+// FLOP per row (29,184 at the flagship's 32/256/25) against a few dozen
+// elements of traffic per row, compute-bound once the [N, C_mid] wide
+// activation never reaches device memory -- the point of the TPU kernel,
+// kept here.  conv_fwd at the flagship (128 patches of 22x22x9, 25 -> 32:
+// N = 557,568 positions) reads d (27.9 MB) and x (35.7 MB) and writes out
+// (35.7 MB): 99 MB, 0.0296 ms at 3.35 TB/s; its 24.1 GFLOP (30.8 with the
+// decay channels padded to 32) take 0.024 ms at the bf16 tensor peak, so
+// in bf16 it is bound by bytes, and in float32 (0.36 ms at 67 TFLOP/s) by
+// operations.
 //
 // - float32 runs on the CUDA cores (exact float32 products, as the JAX
 //   reference computes).  seg_fwd: each thread owns one row, holds x and
@@ -30,8 +33,12 @@
 //   outputs of its position in registers.
 // - bf16 runs on the tensor cores (mma.sync m16n8k16, float32
 //   accumulators): seg_fwd chains the expand and decay products in
-//   registers, conv_fwd is an implicit GEMM over the 27 taps of a staged
-//   halo (see the section below).
+//   registers; conv_fwd is an implicit GEMM over a shared-memory ring of
+//   halo rows, each row of d read from memory about once, filled by
+//   cp.async while the tensor cores work, fragments by ldmatrix, two output
+//   rows per step sharing every fragment load (conv_ring_kernel below,
+//   with its shared-memory budget and shape envelope).  blk_bwd.cu's dd
+//   conv runs the same kernel through probav::conv_dispatch.
 //
 // Both round where the TPU kernels round: sums in float32, the relu output
 // cast to the compute dtype before the decay product, outputs stored in
@@ -42,6 +49,8 @@
 // cudaGetLastError() (or the error of the call that failed first).
 
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -320,7 +329,6 @@ cudaError_t dispatch_conv(const void* d, const void* x, const void* wc,
 // ------------------------------------------------------------------------ //
 
 constexpr int MMA_WARPS = 4;     // warps per block of seg_fwd_mma_kernel
-constexpr int CONV_WARPS = 8;    // warps per block of conv_fwd_mma_kernel
 
 // seg_fwd, bf16.  Each warp takes 16-row tiles; the expand product
 // z = x W1 (K = 16*KS1) is made 8 middle channels at a time, + b1, relu,
@@ -461,181 +469,501 @@ cudaError_t dispatch_seg_mma(const void* x, const void* w1, const void* b1,
   return launch_seg_mma<4, 8>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
 }
 
-// conv_fwd, bf16: implicit GEMM, M = positions, N = 8*NT output channels,
-// K = 27 taps x 16*KS decay channels.  Blocks walk over (b, h, position
-// chunk) items.  For each h tap a block stages the zero-padded halo row of
-// d ([W+2][T+2][16*KS+8], bf16) in shared memory; the taps' weights,
-// transposed to [tap][o][c], are staged once per block, or with each h tap
-// (PER_DH) where all 27 would not fit (64/64 channels).  Each warp owns up
-// to MT m-tiles of 16 positions and keeps their accumulators in registers
-// across all taps.
-template <int KS, int NT, bool PER_DH, bool RES>
-__global__ void __launch_bounds__(CONV_WARPS * 32)
-conv_fwd_mma_kernel(const __nv_bfloat16* __restrict__ d,
-                    const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ wc,
-                    const float* __restrict__ bc,
-                    __nv_bfloat16* __restrict__ out, int B, int H, int W,
-                    int Tn, int c_dec, int c_out) {
-  constexpr int CSP = 16 * KS + 8;               // channel stride (padded)
-  constexpr int MT = CONV_POS / 16 / CONV_WARPS;  // m-tiles per warp
-  constexpr int NO = 8 * NT;
-  constexpr int WTAPS = PER_DH ? 9 : 27;         // taps held in smem
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* halo = ws + WTAPS * NO * CSP;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  const int W2 = W + 2, T2 = Tn + 2, WT = W * Tn;
+// conv_fwd, bf16: an implicit GEMM on the tensor cores, M = positions, N =
+// 8*NT output channels, K = 27 taps x 16*KS decay channels, over a ring of
+// halo rows in shared memory.
+//
+// - Work items are (b, run of `run` consecutive h rows); the launcher picks
+//   the run so that one wave of blocks holds the items (the whole of H, one
+//   item per SM, at B >= the SM count).  A block walks down its run ROWS
+//   output rows per step: rows h .. h+ROWS-1 read input rows h-1 .. h+ROWS
+//   from ring slots (row hh in slot hh % (ROWS+2), a zero-padded
+//   [W+2][T+2][CSP] row of d; rows outside [0, H) read one zero slot that
+//   is never written), while the next step's ROWS rows of d and this step's
+//   rows of x are on their way in by cp.async.  Each row of d thus crosses
+//   from memory once per run, (run+2)/run times in all, and its copy
+//   overlaps the products of the step before.
+// - The copy: rows of d (W*T*c_dec elements each, contiguous, aligned to 2
+//   bytes only) land whole in a raw buffer by 16-byte cp.async from the
+//   16-byte chunk below their start; each thread then repacks 8 channels of
+//   one position at a time into a slot with one 16-byte store.  Every chunk
+//   read holds an element of the rows, so no read leaves their pages.  Slot
+//   borders are zeroed once per block and never written again; the repack
+//   writes channels c_dec..16*KS as zeros in the same 16-byte stores;
+//   channels 16*KS..CSP are never read.
+// - Fragments by ldmatrix.x4: one per 16-position x 16-channel A tile at a
+//   tap offset, one per pair of 8-column B tiles (weights staged as [plane
+//   tap][h tap][o][c]).  CSP = 16*KS + 8 makes the position stride 80 or
+//   144 bytes: the 8 rows of a matrix fall in distinct banks.  The loop
+//   runs over the 9 (w, t) taps and the k-steps; at each it loads the A
+//   tiles of the ROWS+2 input rows and the B tiles of the 3 h taps once
+//   and makes all 3*ROWS products from them, the next step's fragments
+//   loading meanwhile.  Per warp and k-step at ROWS = 2: 7 KB of ldmatrix
+//   for 48 mma (one row per step would take 12 KB).
+// - M-tiles: a row's ceil(W*T/16) tiles are taken in passes of at most
+//   RING_WARPS*RING_MT tiles; the block has just enough warps (RING_MT = 2
+//   tiles each) for one pass.  At 22x9 that is 13 tiles on 7 warps: 13 of
+//   14 tile slots live, 198 of 224 mma rows (88%).
+// - Epilogue: the residual rows of x sit in the x/out buffer; each thread
+//   adds bc and its accumulators to its own elements there, summed in
+//   float32 and rounded to bf16 once, and the rows leave with 16-byte
+//   stores (scalar at their two ends, or throughout where out and x differ
+//   in 16-byte alignment).  Without the residual (blk_bwd's dd conv) the
+//   buffer just stages the result.
+// - The launcher takes the first layout that fits: ROWS = 2 (only at NT =
+//   4: the accumulators of two rows at NT = 8 would spill) before 1, all
+//   27 weight taps staged once per block before 3 at a time (restaged
+//   inside the tap loop).
+//
+// Shared memory at the flagship (25 -> 32, 22x9; the dd conv's 32 -> 25 the
+// same): weights 27*32*40*2 = 69,120 B, 5 slots of 24*11*40*2 = 21,120 B,
+// two raw rows of d (19,840) and two of x/out (25,376): 219,936 B, one
+// block of 7 warps per SM.  Shape envelope (227 KB): at these widths and
+// T = 9, W <= 47, i.e. halo rows of up to 539 positions ((W+2)(T+2)),
+// the fast layout up to W = 23; at 51 -> 64 (the
+// 64-filter model) W <= 22, one row per step with 3 weight taps.  Beyond
+// it the launch is refused with cudaErrorInvalidValue, never run.
+constexpr int RING_WARPS = 8;   // most warps per block
+constexpr int RING_MT = 2;      // m-tiles of 16 positions per warp and pass
 
-  // wc [27][c_dec][c_out] -> ws[tap][o][c], read in wc's order.
-  auto stage_w = [&](int tap0) {
-    for (int e = threadIdx.x; e < WTAPS * 16 * KS * NO; e += blockDim.x) {
-      const int o = e % NO, rest = e / NO;
-      const int c = rest % (16 * KS), tap = rest / (16 * KS);
-      ws[(tap * NO + o) * CSP + c] =
-          (c < c_dec && o < c_out)
-              ? wc[((long)(tap0 + tap) * c_dec + c) * c_out + o] : zero;
-    }
-  };
-  if (!PER_DH) stage_w(0);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-  const int warp = threadIdx.x / 32;
-  const int chunks = (WT + CONV_POS - 1) / CONV_POS;
-  const long items = (long)B * H * chunks;
-  for (long item = blockIdx.x; item < items; item += gridDim.x) {
-    const int chunk = (int)(item % chunks);
-    const long bh = item / chunks;
-    const int h = (int)(bh % H);
-    const int p0 = chunk * CONV_POS;
-    const int live_tiles = (WT - p0 + 15) / 16 - warp * MT;   // may be <= 0
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
 
-    // Halo offset of each of this lane's rows (g and g+8 of every m-tile);
-    // positions past the volume read position 0 and are never stored.
-    int base[MT][2];
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        int p = p0 + (warp * MT + m) * 16 + g + 8 * r;
-        if (p >= WT) p = 0;
-        base[m][r] = ((p / Tn) * T2 + p % Tn) * CSP + 2 * q;
-      }
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-        acc[m][t][0] = acc[m][t][1] = acc[m][t][2] = acc[m][t][3] = 0.f;
-    }
+__device__ __forceinline__ void cp_async16(void* dst, uintptr_t src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
 
-    for (int dh = 0; dh < 3; ++dh) {
-      const int hh = h + dh - 1;
-      __syncthreads();   // previous halo row (and weights) consumed
-      if (PER_DH) stage_w(dh * 9);
-      // One padded position per warp step, lanes over its channels.
-      const bool row_in = hh >= 0 && hh < H;
-      for (int pos = warp; pos < W2 * T2; pos += CONV_WARPS) {
-        const int wi = pos / T2, ti = pos % T2;
-        const bool in = row_in && wi >= 1 && wi <= W && ti >= 1 && ti <= Tn;
-        const __nv_bfloat16* src =
-            d + (((bh + dh - 1) * W + (wi - 1)) * (long)Tn + (ti - 1)) * c_dec;
-        for (int c = lane; c < CSP; c += 32)
-          halo[pos * CSP + c] = (in && c < c_dec) ? src[c] : zero;
-      }
-      __syncthreads();
-      if (!row_in) continue;   // zero row: contributes nothing
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-      for (int tap9 = 0; tap9 < 9; ++tap9) {
-        const int dw = tap9 / 3, dt = tap9 % 3;
-        const int toff = (dw * T2 + dt) * CSP;
-        const __nv_bfloat16* wt =
-            ws + (PER_DH ? tap9 : dh * 9 + tap9) * NO * CSP;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const __nv_bfloat16* r0p = halo + base[m][0] + toff + kk * 16;
-            const __nv_bfloat16* r1p = halo + base[m][1] + toff + kk * 16;
-            a[m][0] = lds32(r0p);
-            a[m][1] = lds32(r1p);
-            a[m][2] = lds32(r0p + 8);
-            a[m][3] = lds32(r1p + 8);
-          }
-#pragma unroll
-          for (int t = 0; t < NT; ++t) {
-            const __nv_bfloat16* wrow = wt + (t * 8 + g) * CSP + kk * 16 + 2 * q;
-            const uint32_t b0 = lds32(wrow), b1 = lds32(wrow + 8);
-#pragma unroll
-            for (int m = 0; m < MT; ++m)
-              if (m < live_tiles) mma_bf16(acc[m][t], a[m], b0, b1);
-          }
-        }
-      }
-    }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
-    // out = acc + bc + x (RES) or acc, summed in float32, stored in bf16.
-    const long row0 = bh * WT;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = p0 + (warp * MT + m) * 16 + g + (i < 2 ? 0 : 8);
-        if (p >= WT) continue;
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const int o = t * 8 + 2 * q + (i & 1);
-          if (o < c_out) {
-            const long idx = (row0 + p) * c_out + o;
-            out[idx] = __float2bfloat16_rn(
-                RES ? acc[m][t][i] + bc[o] + __bfloat162float(x[idx])
-                    : acc[m][t][i]);
-          }
-        }
-      }
+// Bytes of a raw row buffer for n bf16 elements copied from the 16-byte
+// chunk below their start: at most 2n + 28, rounded up to 16.
+inline int row_buf_bytes(int n) {
+  return (2 * n + 43) / 16 * 16;
+}
+
+// Start the copy of row src[0, n) into buf; returns the element offset of
+// src[0] in buf.
+__device__ __forceinline__ int copy_row_async(__nv_bfloat16* buf,
+                                              const __nv_bfloat16* src,
+                                              int n) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t a = s & ~uintptr_t(15);
+  const int chunks = (int)((s + 2 * (uintptr_t)n + 15 - a) / 16);
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x)
+    cp_async16(buf + 8 * i, a + 16 * (uintptr_t)i);
+  return (int)(s - a) / 2;
+}
+
+// Element offset in a row buffer that lines its chunks up with dst's.
+__device__ __forceinline__ int row_skew(const __nv_bfloat16* dst) {
+  return (int)(reinterpret_cast<uintptr_t>(dst) & 15) / 2;
+}
+
+// dst[j] = buf[skew + j] for j < n; 16-byte stores where dst and buf line
+// up, scalar ones at the row's ends.
+__device__ __forceinline__ void store_row(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* buf, int skew,
+                                          int n) {
+  const int so = row_skew(dst);
+  if (so != skew) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = buf[skew + j];
+    return;
+  }
+  const int chunks = (so + n + 7) / 8;
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+    const int j0 = 8 * i - so;   // row index of the chunk's first element
+    if (j0 >= 0 && j0 + 8 <= n) {
+      *reinterpret_cast<uint4*>(dst + j0) =
+          *reinterpret_cast<const uint4*>(buf + 8 * i);
+    } else {
+      for (int k = 0; k < 8; ++k)
+        if (j0 + k >= 0 && j0 + k < n) dst[j0 + k] = buf[8 * i + k];
     }
   }
 }
 
-template <int KS, int NT, bool RES>
-cudaError_t launch_conv_mma(const void* d, const void* x, const void* wc,
-                            const void* bc, void* out, int B, int H, int W,
-                            int Tn, int c_dec, int c_out, cudaStream_t s) {
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
+                                          __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// acc[r] += the products for output rows h + r (r < ROWS) of plane taps
+// pt0 .. pt0 + NPT - 1 (dw * 3 + dt) over all three h taps, for this
+// warp's NM live m-tiles.  in[i] is the slot of input row h - 1 + i; input
+// i feeds output r through h tap i - r, so each A fragment is loaded once
+// for up to three products and each B fragment once for all ROWS rows.
+// NPT * KS k-steps, unrolled, the fragments of each step loaded while the
+// step before runs on the tensor cores.  wt: the staged weights
+// [plane tap][h tap][o][c] plus this lane's B-row offset.
+template <int KS, int NT, int ROWS, int NPT, int NM>
+__device__ __forceinline__ void mma_planes(
+    float (&acc)[ROWS][RING_MT][NT][4],
+    const __nv_bfloat16* (&in)[ROWS + 2], const int (&aoff)[RING_MT],
+    const __nv_bfloat16* wt, int pt0, int T2) {
+  constexpr int CSP = 16 * KS + 8, NO = 8 * NT, NI = ROWS + 2;
+  constexpr int STEPS = NPT * KS;
+  if constexpr (NM > 0) {
+    uint32_t a[2][NI][NM][4], b[2][3][NT / 2][4];
+    auto load = [&](int s, int buf) {
+      const int pt = pt0 + s / KS, kk = s % KS;
+      const int toff = ((pt / 3) * T2 + pt % 3) * CSP + kk * 16;
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int m = 0; m < NM; ++m)
+          ldsm_x4(a[buf][i][m], in[i] + aoff[m] + toff);
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp)
+          ldsm_x4(b[buf][dh][jp],
+                  wt + (((s / KS) * 3 + dh) * NO + jp * 16) * CSP + kk * 16);
+    };
+    load(0, 0);
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+      if (s + 1 < STEPS) load(s + 1, (s + 1) % 2);
+      const int cur = s % 2;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+          for (int jp = 0; jp < NT / 2; ++jp)
+#pragma unroll
+            for (int m = 0; m < NM; ++m) {
+              const uint32_t(&b4)[4] = b[cur][dh][jp];
+              mma_bf16(acc[r][m][2 * jp], a[cur][r + dh][m], b4[0], b4[1]);
+              mma_bf16(acc[r][m][2 * jp + 1], a[cur][r + dh][m], b4[2],
+                       b4[3]);
+            }
+    }
+  }
+}
+
+template <int KS, int NT, int ROWS, bool RES>
+__global__ void __launch_bounds__(RING_WARPS * 32)
+conv_ring_kernel(const __nv_bfloat16* __restrict__ d,
+                 const __nv_bfloat16* __restrict__ x,
+                 const __nv_bfloat16* __restrict__ wc,
+                 const float* __restrict__ bc,
+                 __nv_bfloat16* __restrict__ out, int B, int H, int W,
+                 int Tn, int c_dec, int c_out, int run, int wtaps,
+                 int dbuf_elems) {
+  constexpr int CK = 16 * KS;        // decay channels per slot position
+  constexpr int CSP = CK + 8;        // channel stride of a slot position
+  constexpr int NO = 8 * NT;
+  constexpr int NS = ROWS + 2;       // ring slots (plus one zero slot)
+  const int T2 = Tn + 2, WT = W * Tn;
+  const int slot_elems = (W + 2) * T2 * CSP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* slots = ws + wtaps * NO * CSP;     // [NS + 1][W+2][T+2][CSP]
+  __nv_bfloat16* dbuf = slots + (NS + 1) * slot_elems;   // raw rows of d
+  __nv_bfloat16* obuf = dbuf + dbuf_elems;          // rows of x, then out
+  const __nv_bfloat16* zslot = slots + NS * slot_elems;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+
+  // wc [27][c_dec][c_out] -> ws[plane tap][h tap][o][c] for the wtaps / 3
+  // plane taps from pt0 on, read in wc's order, 8 loads in flight.
+  auto stage_w = [&](int pt0) {
+    const int total = wtaps * CK * NO;
+    for (int e0 = tid; e0 < total; e0 += 8 * nthr) {
+      __nv_bfloat16 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int e = e0 + k * nthr;
+        const int o = e % NO, rest = e / NO;
+        const int c = rest % CK, lt = rest / CK;
+        const int tap = (lt % 3) * 9 + pt0 + lt / 3;
+        v[k] = (e < total && c < c_dec && o < c_out)
+                   ? wc[((long)tap * c_dec + c) * c_out + o] : zero;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int e = e0 + k * nthr;
+        const int o = e % NO, rest = e / NO;
+        if (e < total) ws[((rest / CK) * NO + o) * CSP + rest % CK] = v[k];
+      }
+    }
+  };
+  // Raw row of d at element `src` of dbuf -> interior of row hh's slot,
+  // channels 0..CK (zero from c_dec), 8 channels of a position per step.
+  auto repack = [&](int hh, int src) {
+    __nv_bfloat16* slot = slots + (hh % NS) * slot_elems;
+    for (int u = tid; u < WT * 2 * KS; u += nthr) {
+      const int p = u / (2 * KS), j = u % (2 * KS);
+      const int w = p / Tn, t = p - w * Tn;
+      const __nv_bfloat16* s = dbuf + src + p * c_dec + 8 * j;
+      uint32_t v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = 8 * j + 2 * k;
+        v[k] = pack2(c < c_dec ? s[2 * k] : zero,
+                     c + 1 < c_dec ? s[2 * k + 1] : zero);
+      }
+      *reinterpret_cast<uint4*>(slot + ((w + 1) * T2 + t + 1) * CSP + 8 * j) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+  // Rows r0 .. r0 + n - 1 (n <= ROWS) of d: copy, wait, repack.
+  auto load_rows = [&](long brow, int r0, int n) {
+    const int skew = copy_row_async(dbuf, d + (brow + r0) * WT * c_dec,
+                                    n * WT * c_dec);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int r = 0; r < n; ++r) repack(r0 + r, skew + r * WT * c_dec);
+    __syncthreads();
+  };
+
+  for (int e = tid; e < (NS + 1) * slot_elems / 8; e += nthr)
+    reinterpret_cast<uint4*>(slots)[e] = make_uint4(0, 0, 0, 0);
+  if (wtaps == 27) stage_w(0);   // visible after the first row's barrier
+
+  const int lane = tid % 32, warp = tid / 32, nw = nthr / 32;
+  const int g = lane / 4, q = lane % 4;
+  // This lane's ldmatrix row of the B tiles: o = 8 * (lane / 16) + lane % 8,
+  // channels 8 * ((lane / 8) % 2) on.
+  const int boff = (8 * (lane / 16) + lane % 8) * CSP + 8 * ((lane / 8) % 2);
+  float bcv[NT][2];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int o = t * 8 + 2 * q + k;
+      bcv[t][k] = (RES && o < c_out) ? bc[o] : 0.f;
+    }
+
+  const int tiles = (WT + 15) / 16;
+  const int runs = (H + run - 1) / run;
+  const long items = (long)B * runs;
+  for (long item = blockIdx.x; item < items; item += gridDim.x) {
+    const long brow = (item / runs) * H;            // b * H
+    const int h0 = (int)(item % runs) * run;
+    const int h1 = min(H, h0 + run);
+    const int top = min(H - 1, h1);                 // last input row
+    for (int r = max(0, h0 - 1); r <= min(top, h0 + ROWS); r += ROWS)
+      load_rows(brow, r, min(ROWS, min(top, h0 + ROWS) - r + 1));
+
+    for (int h = h0; h < h1; h += ROWS) {
+      // Output rows h .. h + nout - 1; rows past h1 (an odd run's last
+      // step) are computed from whatever their slots hold and not stored.
+      const int nout = min(ROWS, h1 - h);
+      const int nlo = h + ROWS + 1;                 // the next step's rows
+      const int nn = max(0, min(top, h + 2 * ROWS) - nlo + 1);
+      const int dskew = nn > 0 ? copy_row_async(
+          dbuf, d + (brow + nlo) * WT * c_dec, nn * WT * c_dec) : 0;
+      const long orow = (brow + h) * WT * c_out;
+      const int oskew = RES ? copy_row_async(obuf, x + orow,
+                                             nout * WT * c_out)
+                            : row_skew(out + orow);
+      cp_async_commit();
+      const __nv_bfloat16* in[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int hh = h - 1 + i;
+        in[i] = (hh >= 0 && hh < H) ? slots + (hh % NS) * slot_elems : zslot;
+      }
+
+      for (int t0 = 0; t0 < tiles; t0 += nw * RING_MT) {
+        int aoff[RING_MT];
+        bool live[RING_MT];
+        float acc[ROWS][RING_MT][NT][4];
+#pragma unroll
+        for (int m = 0; m < RING_MT; ++m) {
+          const int tm = t0 + warp * RING_MT + m;
+          live[m] = tm < tiles;
+          // ldmatrix row of the A tile: position 16 tm + lane % 16,
+          // channels 8 * (lane / 16) on; past the row, position 0 (its
+          // results are never stored).
+          int p = tm * 16 + lane % 16;
+          if (p >= WT) p = 0;
+          aoff[m] = ((p / Tn) * T2 + p % Tn) * CSP + 8 * (lane / 16);
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+            for (int t = 0; t < NT; ++t)
+              acc[r][m][t][0] = acc[r][m][t][1] = acc[r][m][t][2] =
+                  acc[r][m][t][3] = 0.f;
+        }
+
+        // The products, for this warp's count of live m-tiles (warp-
+        // uniform, so the unrolled loops carry no conditions).
+        auto taps = [&](auto live_tiles) {
+          constexpr int NM = decltype(live_tiles)::value;
+          if (wtaps == 27) {
+            mma_planes<KS, NT, ROWS, 9, NM>(acc, in, aoff, ws + boff, 0, T2);
+            return;
+          }
+          for (int pt = 0; pt < 9; ++pt) {   // one plane tap's 3 h taps
+            __syncthreads();
+            stage_w(pt);
+            __syncthreads();
+            mma_planes<KS, NT, ROWS, 1, NM>(acc, in, aoff, ws + boff, pt, T2);
+          }
+        };
+        const int nlive = tiles - t0 - warp * RING_MT;
+        if (nlive >= RING_MT)
+          taps(std::integral_constant<int, RING_MT>());
+        else if (nlive == 1)
+          taps(std::integral_constant<int, 1>());
+        else
+          taps(std::integral_constant<int, 0>());
+
+        if (t0 == 0) {   // the copies have had the first pass to land
+          cp_async_wait_all();
+          __syncthreads();
+        }
+        // out = acc + bc + x (RES) or acc, in float32, rounded once.
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (r >= nout) break;
+#pragma unroll
+          for (int m = 0; m < RING_MT; ++m) {
+            if (!live[m]) continue;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int p =
+                  (t0 + warp * RING_MT + m) * 16 + g + (i < 2 ? 0 : 8);
+              if (p >= WT) continue;
+#pragma unroll
+              for (int t = 0; t < NT; ++t) {
+                const int o = t * 8 + 2 * q + (i & 1);
+                if (o >= c_out) continue;
+                __nv_bfloat16& e =
+                    obuf[oskew + (r * WT + p) * c_out + o];
+                const float v = acc[r][m][t][i];
+                e = __float2bfloat16_rn(
+                    RES ? v + bcv[t][i & 1] + __bfloat162float(e) : v);
+              }
+            }
+          }
+        }
+      }
+
+      __syncthreads();   // the step's slots read, its out rows staged
+      for (int r = 0; r < nn; ++r) repack(nlo + r, dskew + r * WT * c_dec);
+      store_row(out + orow, obuf, oskew, nout * WT * c_out);
+      __syncthreads();   // dbuf and obuf free for the next step's copies
+    }
+  }
+}
+
+// Shared-memory bytes of conv_ring_kernel<KS, NT, ROWS> with `wtaps`
+// weight taps staged.
+template <int KS, int NT, int ROWS>
+size_t ring_smem(int W, int Tn, int c_dec, int c_out, int wtaps) {
   constexpr int CSP = 16 * KS + 8;
-  constexpr bool PER_DH = KS * NT > 16;   // all 27 taps fit but at 64/64
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      ((size_t)(PER_DH ? 9 : 27) * 8 * NT * CSP +
-                       (size_t)(W + 2) * (Tn + 2) * CSP);
-  auto kern = conv_fwd_mma_kernel<KS, NT, PER_DH, RES>;
+  const int WT = W * Tn;
+  return 2 * ((size_t)wtaps * 8 * NT * CSP +
+              (size_t)(ROWS + 3) * (W + 2) * (Tn + 2) * CSP) +
+         row_buf_bytes(ROWS * WT * c_dec) + row_buf_bytes(ROWS * WT * c_out);
+}
+
+template <int KS, int NT, int ROWS, bool RES>
+cudaError_t launch_conv_ring(const void* d, const void* x, const void* wc,
+                             const void* bc, void* out, int B, int H, int W,
+                             int Tn, int c_dec, int c_out, int wtaps,
+                             cudaStream_t s) {
+  const int WT = W * Tn;
+  const int tiles = (WT + 15) / 16;
+  const int per_pass = RING_WARPS * RING_MT;
+  const int passes = (tiles + per_pass - 1) / per_pass;
+  const int warps = (tiles + passes * RING_MT - 1) / (passes * RING_MT);
+  const size_t smem = ring_smem<KS, NT, ROWS>(W, Tn, c_dec, c_out, wtaps);
+  auto kern = conv_ring_kernel<KS, NT, ROWS, RES>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long items = (long)B * H * ((W * Tn + CONV_POS - 1) / CONV_POS);
-  const long cap = 4L * sm_count();
-  const int grid = (int)(items < cap ? items : cap);
-  kern<<<grid, CONV_WARPS * 32, smem, s>>>(
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      warps * 32, smem);
+  if (err != cudaSuccess) return err;
+  const long resident = (long)(per_sm > 0 ? per_sm : 1) * sm_count();
+  // Run length: the least work for the busiest wave of blocks, counting a
+  // row's products twice (steps of ROWS rows) and its copy once.
+  int run = H;
+  long best = -1;
+  for (int r = H; r >= 1; --r) {
+    const long items = (long)B * ((H + r - 1) / r);
+    const long steps = (r + ROWS - 1) / ROWS;
+    const long cost = (items + resident - 1) / resident *
+                      (2 * ROWS * steps + r + 2);
+    if (best < 0 || cost < best) best = cost, run = r;
+  }
+  const long items = (long)B * ((H + run - 1) / run);
+  const int grid = (int)(items < resident ? items : resident);
+  kern<<<grid, warps * 32, smem, s>>>(
       static_cast<const __nv_bfloat16*>(d),
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(wc), static_cast<const float*>(bc),
-      static_cast<__nv_bfloat16*>(out), B, H, W, Tn, c_dec, c_out);
+      static_cast<__nv_bfloat16*>(out), B, H, W, Tn, c_dec, c_out, run, wtaps,
+      row_buf_bytes(ROWS * WT * c_dec) / 2);
   return cudaGetLastError();
+}
+
+// The first layout that fits the card's shared memory: two output rows
+// per step where the accumulators allow (NT = 4), else one; all 27 weight
+// taps staged once, else 3 at a time.  None: cudaErrorInvalidValue.
+template <int KS, int NT, bool RES>
+cudaError_t pick_conv_ring(const void* d, const void* x, const void* wc,
+                           const void* bc, void* out, int B, int H, int W,
+                           int Tn, int c_dec, int c_out, cudaStream_t s) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t cap = (size_t)optin;
+  const int choices[2] = {27, 3};
+  for (int wtaps : choices) {
+    if constexpr (NT == 4) {
+      if (ring_smem<KS, NT, 2>(W, Tn, c_dec, c_out, wtaps) <= cap)
+        return launch_conv_ring<KS, NT, 2, RES>(d, x, wc, bc, out, B, H, W,
+                                                Tn, c_dec, c_out, wtaps, s);
+    }
+    if (ring_smem<KS, NT, 1>(W, Tn, c_dec, c_out, wtaps) <= cap)
+      return launch_conv_ring<KS, NT, 1, RES>(d, x, wc, bc, out, B, H, W, Tn,
+                                              c_dec, c_out, wtaps, s);
+  }
+  return cudaErrorInvalidValue;   // outside the envelope
 }
 
 template <bool RES>
 cudaError_t dispatch_conv_mma(const void* d, const void* x, const void* wc,
                               const void* bc, void* out, int B, int H, int W,
                               int Tn, int c_dec, int c_out, cudaStream_t s) {
+  if (c_dec > 64 || c_out > 64) return cudaErrorInvalidValue;
   const bool cd32 = c_dec <= 32, co32 = c_out <= 32;
   if (cd32 && co32)
-    return launch_conv_mma<2, 4, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                      c_out, s);
+    return pick_conv_ring<2, 4, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
+                                     c_out, s);
   if (cd32)
-    return launch_conv_mma<2, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                      c_out, s);
+    return pick_conv_ring<2, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
+                                     c_out, s);
   if (co32)
-    return launch_conv_mma<4, 4, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                      c_out, s);
-  return launch_conv_mma<4, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                    c_out, s);
+    return pick_conv_ring<4, 4, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
+                                     c_out, s);
+  return pick_conv_ring<4, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
+                                   c_out, s);
 }
 
 }  // namespace
@@ -680,12 +1008,14 @@ int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
 }
 
 // dtype as above.  d, x, wc, out in that dtype; bc in float32.
-// wc is [3, 3, 3, c_dec, c_out] (taps over H, W, T), c_out up to 64.
+// wc is [3, 3, 3, c_dec, c_out] (taps over H, W, T), c_dec and c_out up
+// to 64.  bf16 also refuses a volume whose halo-row ring does not fit
+// shared memory (see conv_ring_kernel).
 int probav_conv_fwd(int dtype, const void* d, const void* x, const void* wc,
                     const void* bc, void* out, int B, int H, int W, int Tn,
                     int c_dec, int c_out, void* stream) {
-  if (B < 0 || H < 1 || W < 1 || Tn < 1 || c_dec < 1 || c_out < 1 ||
-      c_out > 64)
+  if (B < 0 || H < 1 || W < 1 || Tn < 1 || c_dec < 1 || c_dec > 64 ||
+      c_out < 1 || c_out > 64)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   return (int)probav::conv_dispatch(dtype, true, d, x, wc, bc, out, B, H, W,

@@ -166,7 +166,12 @@ def seg_fwd(x, w1, b1, w2, b2):
 
 def conv_fwd(d, x, wc, bc):
     """d [B,H,W,T,C_dec], x [B,H,W,T,C], wc [3,3,3,C_dec,C], bc [C] ->
-    x + bc + SAME 3^3 conv(d) in x's dtype (wc cast to it, bc to float32)."""
+    x + bc + SAME 3^3 conv(d) in x's dtype (wc cast to it, bc to float32).
+
+    C_dec and C up to 64.  In bf16 the kernel stages rows of the volume in
+    shared memory, and raises for a volume whose rows do not fit (at the
+    flagship's 25/32 channels and T = 9, W up to 47; csrc/tstack.cu).
+    """
     if x.device.type == "cpu":
         return conv_fwd_plain(d, x, wc, bc)
     from probav_tpu_torch.ops import _build
@@ -179,8 +184,8 @@ def conv_fwd(d, x, wc, bc):
         raise ValueError(f"conv_fwd: shapes d {tuple(d.shape)} x "
                          f"{tuple(x.shape)} wc {tuple(wc.shape)} bc "
                          f"{tuple(bc.shape)}")
-    if c_out > 64:
-        raise ValueError(f"conv_fwd: C_out up to 64, got {c_out}")
+    if c_dec > 64 or c_out > 64:
+        raise ValueError(f"conv_fwd: channels up to 64, got {c_dec}/{c_out}")
     wc = wc.to(x.dtype).contiguous()
     bc = bc.float().contiguous()
     for name, tt in (("wc", wc), ("bc", bc), ("d", d)):

@@ -115,14 +115,27 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("c,cmid,cdec", [(32, 256, 25), (64, 512, 51),
-                                         (C, CMID, CDEC), (32, 100, 40)])
-def test_kernels_match_plain_on_card(cuda, dtype, tol, c, cmid, cdec):
-    """Flagship and 64-filter widths, the CPU tests' small widths, and a
-    c_mid that is not a multiple of the staging chunk; a ragged volume
-    (7x6x5) and a row count that is not a multiple of the tile."""
+@pytest.mark.parametrize("shape,c,cmid,cdec", [
+    ((3, 7, 6, 5), 32, 256, 25), ((3, 7, 6, 5), 64, 512, 51),
+    ((3, 7, 6, 5), C, CMID, CDEC), ((3, 7, 6, 5), 32, 100, 40),
+    ((3, 7, 6, 5), 64, 128, 64), ((3, 7, 6, 5), 25, 100, 32),
+    ((2, 1, 6, 5), 32, 256, 25), ((2, 2, 6, 5), 32, 256, 25),
+    ((1, 7, 6, 5), 32, 256, 25), ((2, 4, 30, 9), 32, 256, 25),
+    ((2, 4, 40, 9), 32, 256, 25)],
+    ids=["flagship", "wide", "small", "cmid100", "c64_cdec64", "c25_cdec32",
+         "h1", "h2", "b1", "long_row", "longer_row"])
+def test_kernels_match_plain_on_card(cuda, dtype, tol, shape, c, cmid, cdec):
+    """Flagship and 64-filter widths, the CPU tests' small widths, a c_mid
+    that is not a multiple of the staging chunk, and every width bucket of
+    the bf16 conv (c_dec -> C: 25 -> 32, 51 -> 64, 64 -> 64, 32 -> 25, 40 ->
+    32); a ragged volume (7x6x5) and a row count that is not a multiple of
+    the tile.  At the flagship widths also the bf16 conv ring's edges: one
+    and two h rows, one patch, and rows of 270 and 360 positions (17 and 23
+    m-tiles: two passes of the block's warps), whose rings fit shared
+    memory only with the weights staged 3 taps at a time, the longer one
+    only at one output row per step."""
     w1, b1, w2, b2, wc, bc = params(c, cmid, cdec, device=cuda, dtype=dtype)
-    x = torch.randn(3, 7, 6, 5, c, device=cuda).to(dtype)
+    x = torch.randn(*shape, c, device=cuda).to(dtype)
     x2 = x.reshape(-1, c)
     before = dict(ts.LAUNCHES)
     d = ts.seg_fwd(x2, w1, b1, w2, b2)
@@ -148,6 +161,36 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
     with pytest.raises(ValueError, match="up to 64"):
         big = params(72, CMID, CDEC, device=cuda)
         ts.seg_fwd(torch.randn(20, 72, device=cuda), *big[:4])
+    # A bf16 conv with c_dec > 64 is refused, not computed without the
+    # channels past 64.
+    wide = params(32, CMID, 72, device=cuda, dtype=torch.bfloat16)
+    xb = torch.randn(1, 3, 6, 5, 32, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="up to 64"):
+        ts.conv_fwd(torch.randn(1, 3, 6, 5, 72, device=cuda).bfloat16(), xb,
+                    wide[4], wide[5])
+    # A volume whose bf16 halo-row ring does not fit shared memory (3 rows
+    # of 102x11 positions) is refused before launch.
+    flag = params(32, 256, 25, device=cuda, dtype=torch.bfloat16)
+    xb = torch.randn(1, 3, 100, 9, 32, device=cuda).bfloat16()
+    with pytest.raises(RuntimeError, match="conv_fwd"):
+        ts.conv_fwd(torch.randn(1, 3, 100, 9, 25, device=cuda).bfloat16(), xb,
+                    flag[4], flag[5])
+
+
+@pytest.mark.cuda
+def test_bf16_conv_fwd_on_card_takes_views_at_any_alignment(cuda):
+    """d and x as contiguous views 1 and 3 elements into larger buffers:
+    their rows start off the 16-byte grid and x's lines up with no chunk
+    of out's, so the copies start below the rows and out is stored
+    element by element."""
+    w1, b1, w2, b2, wc, bc = params(32, 256, 25, device=cuda,
+                                    dtype=torch.bfloat16)
+    shape = (2, 5, 22, 9)
+    n = 2 * 5 * 22 * 9
+    d = torch.randn(n * 25 + 1, device=cuda).bfloat16()[1:].view(*shape, 25)
+    x = torch.randn(n * 32 + 3, device=cuda).bfloat16()[3:].view(*shape, 32)
+    out = ts.conv_fwd(d, x, wc, bc)
+    assert max_rel(out, ts.conv_fwd_plain(d, x, wc, bc)) < 2e-2
 
 
 # blk_bwd outputs: dx, dwc, dw1, db1, dw2, db2, dbc.

@@ -100,11 +100,15 @@ def test_seg_fwd_plain_matches_jax_reference():
     assert max_rel(got, ref) < F32_TOL
 
 
-def test_conv_fwd_plain_matches_jax_reference():
-    (_, _, _, _, wc, bc), = make_blocks(9, CDEC, 1)
+@pytest.mark.parametrize("h", [H, 1], ids=["h5", "h1"])
+@pytest.mark.parametrize("cdec", [CDEC, 12], ids=["cdec7", "cdec12_gt_c"])
+def test_conv_fwd_plain_matches_jax_reference(cdec, h):
+    """c_dec 12 > C 8 is the dd conv's relation (and the 64-filter model's);
+    H = 1 leaves only the middle h tap, as the bf16 kernel's ring does."""
+    (_, _, _, _, wc, bc), = make_blocks(9, cdec, 1)
     r = np.random.default_rng(10)
-    d = r.normal(0, 1, (B, H, W, T, CDEC)).astype(np.float32)
-    x = make_x(11)
+    d = r.normal(0, 1, (B, h, W, T, cdec)).astype(np.float32)
+    x = make_x(11)[:, :h]
     ref = jnp.asarray(x) + lax.conv_general_dilated(
         jnp.asarray(d), jnp.asarray(wc), (1, 1, 1), "SAME",
         dimension_numbers=DIMS3) + jnp.asarray(bc)
