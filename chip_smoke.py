@@ -15,8 +15,10 @@ Phases, each printing its result:
    and, where one PyTorch call computes the same function, that call
    (conv_fwd: F.conv3d, both also timed over 20 calls queued back to
    back, which leaves out the host's launch latency); the 64-filter widths
-   (64/512/51) are checked for
-   parity; blk_bwd and wide_bwd are fed dyadic inputs and the shift tables
+   (64/512/51) are checked for parity, and conv_fwd also at the shapes
+   that its column runs opened: rows of 48 columns at the flagship widths
+   and the 64-filter widths at T = 19; blk_bwd and wide_bwd are fed dyadic
+   inputs and the shift tables
    integer planes (probav_tpu_torch/tools/dyadic.py), on which both
    versions take the same relu, sign and rounding decisions;
 4. model: the flagship cfg/p16t9c85r12.cfg model from a seeded init,
@@ -138,6 +140,12 @@ WARM_TRAIN_STEPS = 5
 # H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+# The TF32 tensor-core peak, for the float32 conv_fwd's 3xTF32 route.
+PEAK_TF32 = 494.7e12
+# conv_fwd parity beyond the flagship volume: (label, [B, H, W, T], c_dec,
+# C), the shapes the column runs of its ring opened.
+CONV_ENVELOPE = (("W=48", (16, 22, 48, 9), CDEC, C),
+                 ("64/512/51 T=19", (16, 22, 22, 19), 51, 64))
 
 
 def log(msg):
@@ -242,46 +250,59 @@ def rel_l2(got, ref):
     return float((got.double() - ref).norm() / ref.norm())
 
 
-def bound(dtype, flops, nbytes):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+def bound(flops, nbytes, peak):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the operations at ``peak`` FLOP/s."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_costs(name, n, c, cmid, cdec, itemsize):
-    """(FLOP, bytes) of one launch: each input read once, each output
-    written once (biases and weight grads in float32)."""
+def kernel_costs(name, n, c, cmid, cdec, dn):
+    """(FLOP, bytes, peak FLOP/s, route) of one launch: each input read
+    once, each output written once (biases and weight grads in float32);
+    the operations at the peak of the units the kernel runs them on, which
+    ``route`` names where that is not the dtype's."""
+    itemsize, peak = (4 if dn == "float32" else 2), PEAK_FLOPS[dn]
     if name == "wide_bwd":
         grads = c * cmid + cmid * cdec + cmid + cdec
         return (2 * n * cmid * (3 * c + 2 * cdec),
                 itemsize * (n * (2 * c + cdec) + c * cmid + cmid * cdec) +
-                4 * (cmid + grads))
+                4 * (cmid + grads), peak, "")
     if name == "seg_fwd":
         return (2 * n * (c * cmid + cmid * cdec),
                 itemsize * (n * (c + cdec) + c * cmid + cmid * cdec) +
-                4 * (cmid + cdec))
+                4 * (cmid + cdec), peak, "")
     if name == "conv_fwd":
-        return (2 * n * 27 * cdec * c,
-                itemsize * (n * (cdec + 2 * c) + 27 * cdec * c) + 4 * c)
+        flops = 2 * n * 27 * cdec * c
+        nbytes = itemsize * (n * (cdec + 2 * c) + 27 * cdec * c) + 4 * c
+        if dn != "float32":
+            return flops, nbytes, peak, ""
+        # 3xTF32 on the tensor cores: three TF32 products for each float32
+        # one; the bound of the CUDA cores' float32 logged beside it.
+        return (3 * flops, nbytes, PEAK_TF32,
+                f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} TFLOP/s; on "
+                f"the CUDA cores {bound(flops, nbytes, peak)[0]:.4f} ms)")
     grads = 27 * cdec * c + c * cmid + cmid * cdec + cmid + cdec + c
     return (2 * n * (2 * 27 * cdec * c + cmid * (3 * c + 2 * cdec)),
             itemsize * (n * (3 * c + cdec) + c * cmid + cmid * cdec +
-                        27 * cdec * c) + 4 * (cmid + grads))
+                        27 * cdec * c) + 4 * (cmid + grads), peak, "")
 
 
 def shift_costs(name, b, hw, border):
-    """(FLOP, bytes) of one shift-table launch, float32: per pixel and
-    shift the forward takes the three window sums (4 FLOP) and |r| or r^2
-    with its sum (5); the backward takes those sums, r, phi and sum(phi m)
-    (10), then r, phi and the shift's term into d/dpred (10).  Bytes: the
-    three planes and the [B, S] table (forward) or the three planes, g and
-    d/dpred (backward)."""
+    """(FLOP, bytes, peak FLOP/s, route) of one shift-table launch, float32
+    on the CUDA cores: per pixel and shift the forward takes the three
+    window sums (4 FLOP) and |r| or r^2 with its sum (5); the backward
+    takes those sums, r, phi and sum(phi m) (10), then r, phi and the
+    shift's term into d/dpred (10).  Bytes: the three planes and the
+    [B, S] table (forward) or the three planes, g and d/dpred
+    (backward)."""
     s = (2 * border + 1) ** 2
     work = b * s * (hw - 2 * border) ** 2
+    peak = PEAK_FLOPS["float32"]
     if name == "shift_table_fwd":
-        return 9 * work, 4 * (3 * b * hw * hw + b * s)
-    return 20 * work, 4 * (4 * b * hw * hw + b * s)
+        return 9 * work, 4 * (3 * b * hw * hw + b * s), peak, ""
+    return 20 * work, 4 * (4 * b * hw * hw + b * s), peak, ""
 
 
 def check_outputs(label, names, got, want, tol_of):
@@ -324,15 +345,15 @@ def phase_kernels(torch, ts, dev, card):
     rows = {}
 
     def row(name, dn, err, ms, pms, lms, costs=None, shape=None):
-        size = 4 if dn == "float32" else 2
-        flops, nbytes = costs or kernel_costs(name, n, C, CMID, CDEC, size)
-        bms, by = bound(dn, flops, nbytes)
+        flops, nbytes, peak, route = (
+            costs or kernel_costs(name, n, C, CMID, CDEC, dn))
+        bms, by = bound(flops, nbytes, peak)
         rows[(name, dn)] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                 library_ms=lms, bound_ms=bms, bound_by=by)
         lib = "none" if lms is None else f"{lms:.4f} ms"
         log(f"kernel {name} {dn} [{shape or f'N={n}, {C}/{CMID}/{CDEC}'}]: "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library call {lib}, "
-            f"bound {bms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, "
+            f"bound {bms:.4f} ms by {by}{route} ({flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB) [{card}]")
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -429,6 +450,19 @@ def phase_kernels(torch, ts, dev, card):
             ", wide_bwd " + ", ".join(
                 f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, e4)))
         del args
+        for label, shape, cd, co in CONV_ENVELOPE:
+            g = torch.Generator(device=dev).manual_seed(11)
+            rn = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=dev)
+                                     * sc).to(dtype)
+            d5, x = rn(*shape, cd), rn(*shape, co)
+            wc, bc = rn(3, 3, 3, cd, co, sc=(27 * cd) ** -0.5), rn(co, sc=0.1)
+            err, scale = check(f"conv_fwd {label} {dn}",
+                               ts.conv_fwd(d5, x, wc, bc),
+                               ts.conv_fwd_plain(d5, x, wc, bc), TOL[dn])
+            log(f"kernel conv_fwd {dn} [{label}: {list(shape)}, {cd} -> "
+                f"{co}]: max|diff| {err:.3e} (max|ref| {scale:.3e}, tol "
+                f"{TOL[dn]:g})")
+        del d5, x
         torch.cuda.empty_cache()
 
     # The shift tables, float32 only: both kinds checked on integer planes

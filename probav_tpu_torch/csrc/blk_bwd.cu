@@ -17,8 +17,9 @@
 //
 //   1. dd: the 3^3 SAME conv of tstack.cu without bias or residual, fed gy
 //      and the taps flipped with their channel axes swapped (the wrapper
-//      prepares them, as pallas_tstack._pack_wc_bwd does).  bf16 runs on
-//      the tensor cores.  dd is rounded to the working dtype and makes one
+//      prepares them, as pallas_tstack._pack_wc_bwd does).  It runs on the
+//      tensor cores at both dtypes (float32 as 3xTF32).  dd is rounded to
+//      the working dtype and makes one
 //      round trip through device memory (2 * N * c_dec elements, 56 MB at
 //      bf16 on the flagship train step), where the TPU kernel keeps it in
 //      VMEM: one kernel cannot hold the conv halo, the 27-tap weights and

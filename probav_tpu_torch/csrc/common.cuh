@@ -22,6 +22,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// TF32 on the tensor cores: mma.sync.m16n8k8, float32 accumulators.  Each
+// 32-bit register holds one TF32 value (a float32 whose low 13 mantissa
+// bits are zero): A (16x8, row-major) holds rows g and g+8 at columns q and
+// q+4 (a0 = (g, q), a1 = (g+8, q), a2 = (g, q+4), a3 = (g+8, q+4)); B (8x8,
+// column-major) rows q and q+4 of column g; C as for m16n8k16.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -60,6 +74,8 @@ inline int sm_count() {
 // The 3^3 SAME conv of tstack.cu, shared with the block backward:
 // out = conv(d, wc) (+ bc + x when `residual`).  d [B,H,W,T,c_dec],
 // wc [3,3,3,c_dec,c_out], out [B,H,W,T,c_out]; dtype 0 float32, 1 bf16.
+// cudaErrorInvalidValue, before any launch, outside its envelope
+// (tstack.cu, conv_ring_kernel).
 cudaError_t conv_dispatch(int dtype, bool residual, const void* d,
                           const void* x, const void* wc, const void* bc,
                           void* out, int B, int H, int W, int Tn, int c_dec,

@@ -22,23 +22,21 @@
 // in bf16 it is bound by bytes, and in float32 (0.36 ms at 67 TFLOP/s) by
 // operations.
 //
-// - float32 runs on the CUDA cores (exact float32 products, as the JAX
-//   reference computes).  seg_fwd: each thread owns one row, holds x and
-//   the d accumulator in registers and makes the wide activation one
-//   channel at a time; weights are staged in shared memory in chunks of
-//   SEG_MCH middle channels and read as broadcast float4 loads.  conv_fwd:
-//   a block owns up to 256 positions of one (b, h) row of the volume; for
-//   each h tap it stages the zero-padded [W+2, T+2, C_dec] halo row and
-//   the nine [C_dec, C_out] tap weights; each thread accumulates all C_out
-//   outputs of its position in registers.
-// - bf16 runs on the tensor cores (mma.sync m16n8k16, float32
-//   accumulators): seg_fwd chains the expand and decay products in
-//   registers; conv_fwd is an implicit GEMM over a shared-memory ring of
-//   halo rows, each row of d read from memory about once, filled by
-//   cp.async while the tensor cores work, fragments by ldmatrix, two output
-//   rows per step sharing every fragment load (conv_ring_kernel below,
-//   with its shared-memory budget and shape envelope).  blk_bwd.cu's dd
-//   conv runs the same kernel through probav::conv_dispatch.
+// - seg_fwd, float32, runs on the CUDA cores (exact float32 products, as
+//   the JAX reference computes): each thread owns one row, holds x and the
+//   d accumulator in registers and makes the wide activation one channel at
+//   a time; weights are staged in shared memory in chunks of SEG_MCH middle
+//   channels and read as broadcast float4 loads.
+// - seg_fwd, bf16, runs on the tensor cores (mma.sync m16n8k16, float32
+//   accumulators) and chains the expand and decay products in registers.
+// - conv_fwd, both dtypes, is an implicit GEMM on the tensor cores over a
+//   shared-memory ring of halo rows, cut into runs of columns where whole
+//   rows do not fit, each row of d read from memory about once, filled by
+//   cp.async while the tensor cores work, fragments by ldmatrix
+//   (conv_ring_kernel below, with its shared-memory budget and shape
+//   envelope): bf16 products at bf16, float32 products as 3xTF32 (three
+//   TF32 products of split operands, within the float32 tolerance).
+//   blk_bwd.cu's dd conv runs the same kernel through probav::conv_dispatch.
 //
 // Both round where the TPU kernels round: sums in float32, the relu output
 // cast to the compute dtype before the decay product, outputs stored in
@@ -50,18 +48,20 @@
 
 #include "common.cuh"
 
+#include <algorithm>
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
 
 using probav::lds32;
 using probav::mma_bf16;
+using probav::mma_tf32;
 using probav::pack_bf16;
 using probav::sm_count;
 
 constexpr int SEG_ROWS = 256;   // rows per seg_fwd block = threads per block
 constexpr int SEG_MCH = 64;     // middle channels staged per chunk
-constexpr int CONV_POS = 256;   // max positions (threads) per conv_fwd block
 
 // ------------------------------------------------------------------------ //
 // seg_fwd, float32: x [n, c_in] -> d [n, c_dec]                             //
@@ -190,135 +190,6 @@ cudaError_t dispatch_seg(const void* x, const void* w1, const void* b1,
   if (cd32)
     return launch_seg<64, 32>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
   return launch_seg<64, 64>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
-}
-
-// ------------------------------------------------------------------------ //
-// conv_fwd, float32: d [B,H,W,T,c_dec], x [B,H,W,T,c_out] -> out            //
-// CO: register width (>= c_out).                                            //
-// ------------------------------------------------------------------------ //
-
-template <int CO>
-__host__ __device__ constexpr int conv_out_stride() { return CO + 1; }
-
-__host__ __device__ inline int conv_halo_stride(int c_dec) {
-  return c_dec | 1;   // odd: neighbouring positions hit different banks
-}
-
-template <int CO, bool RES>
-__global__ void __launch_bounds__(CONV_POS)
-conv_fwd_kernel(const float* __restrict__ d, const float* __restrict__ x,
-                const float* __restrict__ wc, const float* __restrict__ bc,
-                float* __restrict__ out, int H, int W, int Tn, int c_dec,
-                int c_out, int halo_floats) {
-  extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                     // [9][c_dec][CO]  taps of one dh
-  float* buf = ws + 9 * c_dec * CO;     // halo row, later the output tile
-  const int hs = conv_halo_stride(c_dec);
-  const int W2 = W + 2, T2 = Tn + 2;
-
-  const int bh = blockIdx.x;            // b * H + h
-  const int h = bh % H;
-  const int WT = W * Tn;
-  const int p0 = blockIdx.y * CONV_POS;
-  const int np = WT - p0 < CONV_POS ? WT - p0 : CONV_POS;
-  const int tid = threadIdx.x;
-  const int p = p0 + tid;
-  const bool live = tid < np;
-  const int pw = live ? p / Tn : 0, pt = live ? p % Tn : 0;
-
-  float acc[CO];
-#pragma unroll
-  for (int o = 0; o < CO; ++o) acc[o] = 0.f;
-
-  for (int dh = -1; dh <= 1; ++dh) {
-    const int hh = h + dh;
-    const bool row_in = hh >= 0 && hh < H;
-    __syncthreads();   // previous dh's halo and weights fully consumed
-    // Zero-padded halo row [W+2][T+2][hs] of d at height hh.
-    const long src0 = ((long)(bh + dh) * WT) * c_dec;
-    for (int e = tid; e < halo_floats; e += blockDim.x) {
-      const int c = e % hs, wt = e / hs;
-      const int ti = wt % T2, wi = wt / T2;
-      float v = 0.f;
-      if (row_in && c < c_dec && wi >= 1 && wi <= W && ti >= 1 && ti <= Tn)
-        v = d[src0 + ((long)(wi - 1) * Tn + (ti - 1)) * c_dec + c];
-      buf[e] = v;
-    }
-    // Tap weights for this dh: wc[(dh+1)*9 + tap][c][o] -> ws[tap][c][o].
-    const long w0 = (long)(dh + 1) * 9 * c_dec * c_out;
-    for (int e = tid; e < 9 * c_dec * CO; e += blockDim.x) {
-      const int o = e % CO, tc = e / CO;
-      ws[e] = o < c_out ? wc[w0 + (long)tc * c_out + o] : 0.f;
-    }
-    __syncthreads();
-    if (!live || !row_in) continue;
-
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dw = tap / 3, dt = tap % 3;   // 0..2 -> offsets -1..1
-      const float* dv = buf + ((pw + dw) * T2 + (pt + dt)) * hs;
-      const float* wt = ws + tap * c_dec * CO;
-      for (int c = 0; c < c_dec; ++c) {
-        const float v = dv[c];
-        const float4* w4 = reinterpret_cast<const float4*>(wt + c * CO);
-#pragma unroll
-        for (int q = 0; q < CO / 4; ++q) {
-          const float4 w = w4[q];
-          acc[4 * q + 0] = fmaf(v, w.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(v, w.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(v, w.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(v, w.w, acc[4 * q + 3]);
-        }
-      }
-    }
-  }
-
-  // Epilogue through shared memory so that x is read and out written with
-  // coalesced accesses: out = acc + bc + x (RES), else out = acc.
-  __syncthreads();
-  constexpr int OS = conv_out_stride<CO>();
-  if (live) {
-#pragma unroll
-    for (int o = 0; o < CO; ++o) buf[tid * OS + o] = acc[o];
-  }
-  __syncthreads();
-  const long r0 = ((long)bh * WT + p0) * c_out;
-  for (int e = tid; e < np * c_out; e += blockDim.x) {
-    const int r = e / c_out, o = e % c_out;
-    const float v = buf[r * OS + o];
-    out[r0 + e] = RES ? v + bc[o] + x[r0 + e] : v;
-  }
-}
-
-template <int CO, bool RES>
-cudaError_t launch_conv(const void* d, const void* x, const void* wc,
-                        const void* bc, void* out, int B, int H, int W, int Tn,
-                        int c_dec, int c_out, cudaStream_t stream) {
-  const int WT = W * Tn;
-  const int threads = (((WT < CONV_POS ? WT : CONV_POS) + 31) / 32) * 32;
-  const int halo = (W + 2) * (Tn + 2) * conv_halo_stride(c_dec);
-  const int outbuf = threads * conv_out_stride<CO>();
-  const size_t smem =
-      sizeof(float) * ((size_t)9 * c_dec * CO + (halo > outbuf ? halo : outbuf));
-  auto kern = conv_fwd_kernel<CO, RES>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (WT + CONV_POS - 1) / CONV_POS);
-  kern<<<grid, threads, smem, stream>>>(
-      static_cast<const float*>(d), static_cast<const float*>(x),
-      static_cast<const float*>(wc), static_cast<const float*>(bc),
-      static_cast<float*>(out), H, W, Tn, c_dec, c_out, halo);
-  return cudaGetLastError();
-}
-
-template <bool RES>
-cudaError_t dispatch_conv(const void* d, const void* x, const void* wc,
-                          const void* bc, void* out, int B, int H, int W,
-                          int Tn, int c_dec, int c_out, cudaStream_t s) {
-  if (c_out <= 32)
-    return launch_conv<32, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out,
-                                s);
-  return launch_conv<64, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s);
 }
 
 // ------------------------------------------------------------------------ //
@@ -469,62 +340,102 @@ cudaError_t dispatch_seg_mma(const void* x, const void* w1, const void* b1,
   return launch_seg_mma<4, 8>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
 }
 
-// conv_fwd, bf16: an implicit GEMM on the tensor cores, M = positions, N =
-// 8*NT output channels, K = 27 taps x 16*KS decay channels, over a ring of
-// halo rows in shared memory.
+// conv_fwd: an implicit GEMM on the tensor cores, M = positions, N = 8*NT
+// output channels, K = 27 taps x CK decay channels (zero-padded to 32 or
+// 64), over a ring of halo rows in shared memory.  One kernel for both
+// dtypes, E the element type:
 //
-// - Work items are (b, run of `run` consecutive h rows); the launcher picks
-//   the run so that one wave of blocks holds the items (the whole of H, one
-//   item per SM, at B >= the SM count).  A block walks down its run ROWS
-//   output rows per step: rows h .. h+ROWS-1 read input rows h-1 .. h+ROWS
-//   from ring slots (row hh in slot hh % (ROWS+2), a zero-padded
-//   [W+2][T+2][CSP] row of d; rows outside [0, H) read one zero slot that
-//   is never written), while the next step's ROWS rows of d and this step's
-//   rows of x are on their way in by cp.async.  Each row of d thus crosses
-//   from memory once per run, (run+2)/run times in all, and its copy
-//   overlaps the products of the step before.
-// - The copy: rows of d (W*T*c_dec elements each, contiguous, aligned to 2
-//   bytes only) land whole in a raw buffer by 16-byte cp.async from the
-//   16-byte chunk below their start; each thread then repacks 8 channels of
-//   one position at a time into a slot with one 16-byte store.  Every chunk
-//   read holds an element of the rows, so no read leaves their pages.  Slot
-//   borders are zeroed once per block and never written again; the repack
-//   writes channels c_dec..16*KS as zeros in the same 16-byte stores;
-//   channels 16*KS..CSP are never read.
-// - Fragments by ldmatrix.x4: one per 16-position x 16-channel A tile at a
-//   tap offset, one per pair of 8-column B tiles (weights staged as [plane
-//   tap][h tap][o][c]).  CSP = 16*KS + 8 makes the position stride 80 or
-//   144 bytes: the 8 rows of a matrix fall in distinct banks.  The loop
-//   runs over the 9 (w, t) taps and the k-steps; at each it loads the A
-//   tiles of the ROWS+2 input rows and the B tiles of the 3 h taps once
-//   and makes all 3*ROWS products from them, the next step's fragments
-//   loading meanwhile.  Per warp and k-step at ROWS = 2: 7 KB of ldmatrix
-//   for 48 mma (one row per step would take 12 KB).
-// - M-tiles: a row's ceil(W*T/16) tiles are taken in passes of at most
-//   RING_WARPS*RING_MT tiles; the block has just enough warps (RING_MT = 2
-//   tiles each) for one pass.  At 22x9 that is 13 tiles on 7 warps: 13 of
-//   14 tile slots live, 198 of 224 mma rows (88%).
-// - Epilogue: the residual rows of x sit in the x/out buffer; each thread
+// - bf16: mma.sync m16n8k16 on bf16 operands, float32 accumulators.
+// - float32: 3xTF32 on mma.sync m16n8k8.  Each operand v splits into hi =
+//   v rounded to TF32 and lo = v - hi (split_tf32), and acc += lo_a hi_b +
+//   hi_a lo_b + hi_a hi_b in float32, lo_a lo_b dropped: each product keeps
+//   about 2^-20 of relative error at most, within the float32 tolerance
+//   (2e-5 of max|ref| against a float32 conv), which plain TF32 (2^-11) is
+//   not.  The tensor cores sum with truncation, so hi_a hi_b goes to
+//   partial sums of one plane tap (12 or 24 products) added in float32,
+//   the small terms to a sum of their own.  A k-step of 8 channels takes
+//   three products, so the float32 conv issues 6x the bf16 conv's mma for
+//   the same shape.  Its bound at the flagship: 3 x 24.1 GFLOP at the
+//   494.7 TFLOP/s TF32 peak, 0.146 ms (0.36 ms at the 67 TFLOP/s float32
+//   peak of the CUDA cores).  The split is issue-bound work beside the
+//   mma: with cvt.rna.tf32.f32 (four instructions each) the products took
+//   about as long without their mma as with them, hence split_tf32's two.
+//
+// A k-step is 32 bytes of channels at a position (16 bf16, 8 float32), so
+// both dtypes share every address: the ldmatrix.x4 of a 16-position A tile
+// or of a pair of 8-column B tiles reads four 8x8 b16 matrices, 8 rows of
+// 16 bytes each, and hands each lane the 32-bit word that either product's
+// fragment layout (common.cuh) wants: for TF32, one float32 of row g at
+// column q of each matrix.
+//
+// - Work items are (b, run of `run` consecutive h rows, run of `wcols`
+//   consecutive w columns); whole rows (wcols = W) where they fit.  The
+//   launcher picks the h run so that one wave of blocks holds the items (the
+//   whole of H, one item per SM, at B * column runs >= the SM count).  A
+//   block walks down its h run ROWS output rows per step: rows h ..
+//   h+ROWS-1 read input rows h-1 .. h+ROWS from ring slots (row hh in slot
+//   hh % (ROWS+2), a zero-padded [wcols+2][T+2][CSP] block of d: the run's
+//   columns and one halo column on each side; rows outside [0, H) read one
+//   zero slot that is never written), while the next step's ROWS rows of d
+//   and this step's rows of x are on their way in by cp.async.  Each row of
+//   d thus crosses from memory once per h run, (run+2)/run times in all
+//   (times (wcols+2)/wcols for the halo columns), and its copy overlaps the
+//   products of the step before.
+// - The copy: in [B, H, W, T, C] the columns w0-1 .. w0+wcols of a row are
+//   one contiguous span of d (clipped at w = 0 and w = W), aligned to one
+//   element only; it lands whole in a raw buffer by 16-byte cp.async from
+//   the 16-byte chunk below its start (with whole rows, a step's rows of d
+//   are one span, and so are its rows of x and of out), and each thread
+//   then repacks 16 bytes of channels of one position at a time into the
+//   slot.  Every chunk read holds an element of the span, so no read
+//   leaves its pages.  The repack of a run of columns writes every slot
+//   column, zeros for columns outside [0, W); that of a whole row only its
+//   W columns.  It writes zeros for channels c_dec..CK.  The slots' T
+//   borders (and a whole row's edge columns) are zeroed once per block and
+//   never written; channels CK..CSP are never read.
+// - Fragments by ldmatrix.x4: one per 16-position x 32-byte A tile at a tap
+//   offset, one per pair of 8-column B tiles (weights staged as [plane
+//   tap][h tap][o][c]).  CSP = CK + 16 bytes makes the position stride 80,
+//   144 or 272 bytes: the 8 rows of a matrix fall in distinct banks.  The
+//   loop runs over the 9 (w, t) taps and the k-steps; at each it loads the
+//   A tiles of the ROWS+2 input rows and the B tiles of the 3 h taps once
+//   and makes all 3*ROWS products from them (float32: splits them, then
+//   three sweeps of products over all accumulators, so that no product
+//   waits on the one before), the next step's fragments loading meanwhile.
+//   bf16 unrolls all 9 plane taps; float32, with three times the code per
+//   k-step, loops over them.
+// - M-tiles: a run's ceil(wcols*T/16) tiles are taken in passes of at most
+//   RING_WARPS*MT tiles; the block has just enough warps (MT tiles each:
+//   2 at bf16, 1 at float32, whose split operands take the registers) for
+//   one pass.  At 22x9 bf16 that is 13 tiles on 7 warps: 198 of 224 mma
+//   rows (88%) live.
+// - Epilogue: the residual runs of x sit in the x/out buffer; each thread
 //   adds bc and its accumulators to its own elements there, summed in
-//   float32 and rounded to bf16 once, and the rows leave with 16-byte
-//   stores (scalar at their two ends, or throughout where out and x differ
-//   in 16-byte alignment).  Without the residual (blk_bwd's dd conv) the
+//   float32 and rounded once (bf16) or not at all (float32), and the runs
+//   (wcols*T*C contiguous elements of a row) leave with 16-byte stores
+//   (scalar at their two ends, or throughout where out and x differ in
+//   16-byte alignment).  Without the residual (blk_bwd's dd conv) the
 //   buffer just stages the result.
-// - The launcher takes the first layout that fits: ROWS = 2 (only at NT =
-//   4: the accumulators of two rows at NT = 8 would spill) before 1, all
-//   27 weight taps staged once per block before 3 at a time (restaged
-//   inside the tap loop).
+// - Layout (ring_layout): all 27 weight taps staged once per block before
+//   3 at a time (restaged inside the tap loop); with either, whole rows
+//   before column runs, and two output rows per step before one (two only
+//   at NT = 4: the accumulators of two rows at NT = 8 would spill); a run
+//   as wide as fits, of at least RING_MIN_RUN positions with 27 taps, the
+//   runs of a row made equal to within a column.
 //
-// Shared memory at the flagship (25 -> 32, 22x9; the dd conv's 32 -> 25 the
-// same): weights 27*32*40*2 = 69,120 B, 5 slots of 24*11*40*2 = 21,120 B,
-// two raw rows of d (19,840) and two of x/out (25,376): 219,936 B, one
-// block of 7 warps per SM.  Shape envelope (227 KB): at these widths and
-// T = 9, W <= 47, i.e. halo rows of up to 539 positions ((W+2)(T+2)),
-// the fast layout up to W = 23; at 51 -> 64 (the
-// 64-filter model) W <= 22, one row per step with 3 weight taps.  Beyond
-// it the launch is refused with cudaErrorInvalidValue, never run.
-constexpr int RING_WARPS = 8;   // most warps per block
-constexpr int RING_MT = 2;      // m-tiles of 16 positions per warp and pass
+// Shared memory at the flagship (22x9, 25 -> 32; the dd conv's 32 -> 25 the
+// same).  bf16: weights 27*32*40*2 = 69,120 B, 5 slots of 24*11*40*2 =
+// 21,120 B, two raw rows of d (2 x 9,936) and two of x/out (2 x 12,704):
+// 220,000 B, whole rows, two per step.  float32: weights 27*32*36*4 =
+// 124,416 B leave room for runs of 11 columns, one row per step: 4 slots of
+// 13*11*36*4 = 20,592 B, a raw run of d (11,728) and one of x/out
+// (12,704): 231,216 B.  One block per SM either way.  Envelope (227 KB):
+// every W at c_dec, c_out <= 64; a launch is refused, with
+// cudaErrorInvalidValue before it runs, only where one column with 3 weight
+// taps does not fit: at T > 40 for float32 at 64 -> 64 channels (T > 99 at
+// 25 -> 32), T > 89 for bf16 at 64 -> 64 (T > 189 at 25 -> 32).
+constexpr int RING_WARPS = 8;      // most warps per block
+constexpr int RING_MIN_RUN = 64;   // least positions of a run, 27 taps
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -550,49 +461,67 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Bytes of a raw row buffer for n bf16 elements copied from the 16-byte
-// chunk below their start: at most 2n + 28, rounded up to 16.
-inline int row_buf_bytes(int n) {
-  return (2 * n + 43) / 16 * 16;
+// The four words v of a fragment -> hi = v rounded to TF32 (to nearest,
+// ties away from zero: cvt.rna's rounding, two integer operations, without
+// its four-instruction Inf/NaN guard) and lo = v - hi (exact in float32,
+// |lo| <= 2^-11 |v|).  lo goes to the tensor cores as it is: they read a
+// TF32 operand's top 19 bits, so lo loses at most 2^-10 of itself, 2^-21
+// of v.
+__device__ __forceinline__ void split_tf32(const uint32_t (&v)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    hi[j] = (v[j] + 0x1000u) & 0xffffe000u;
+    lo[j] = __float_as_uint(__uint_as_float(v[j]) - __uint_as_float(hi[j]));
+  }
 }
 
-// Start the copy of row src[0, n) into buf; returns the element offset of
+// Bytes of a raw buffer for a span of n bytes copied from the 16-byte chunk
+// below its start (and for a run of out staged at its 16-byte skew).
+inline size_t run_buf_bytes(size_t n) {
+  return (n + 43) / 16 * 16;
+}
+
+// Start the copy of src[0, n) into buf; returns the element offset of
 // src[0] in buf.
-__device__ __forceinline__ int copy_row_async(__nv_bfloat16* buf,
-                                              const __nv_bfloat16* src,
-                                              int n) {
+template <typename E>
+__device__ __forceinline__ int copy_async(E* buf, const E* src, int n) {
   const uintptr_t s = reinterpret_cast<uintptr_t>(src);
   const uintptr_t a = s & ~uintptr_t(15);
-  const int chunks = (int)((s + 2 * (uintptr_t)n + 15 - a) / 16);
+  const int chunks = (int)((s + sizeof(E) * (uintptr_t)n + 15 - a) / 16);
+  char* dst = reinterpret_cast<char*>(buf);
   for (int i = threadIdx.x; i < chunks; i += blockDim.x)
-    cp_async16(buf + 8 * i, a + 16 * (uintptr_t)i);
-  return (int)(s - a) / 2;
+    cp_async16(dst + 16 * i, a + 16 * (uintptr_t)i);
+  return (int)((s - a) / sizeof(E));
 }
 
-// Element offset in a row buffer that lines its chunks up with dst's.
-__device__ __forceinline__ int row_skew(const __nv_bfloat16* dst) {
-  return (int)(reinterpret_cast<uintptr_t>(dst) & 15) / 2;
+// Element offset in a buffer that lines its chunks up with dst's.
+template <typename E>
+__device__ __forceinline__ int row_skew(const E* dst) {
+  return (int)((reinterpret_cast<uintptr_t>(dst) & 15) / sizeof(E));
 }
 
 // dst[j] = buf[skew + j] for j < n; 16-byte stores where dst and buf line
-// up, scalar ones at the row's ends.
-__device__ __forceinline__ void store_row(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* buf, int skew,
+// up, scalar ones at the span's ends.
+template <typename E>
+__device__ __forceinline__ void store_row(E* dst, const E* buf, int skew,
                                           int n) {
+  constexpr int VE = 16 / sizeof(E);
   const int so = row_skew(dst);
   if (so != skew) {
     for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = buf[skew + j];
     return;
   }
-  const int chunks = (so + n + 7) / 8;
+  const int chunks = (so + n + VE - 1) / VE;
   for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
-    const int j0 = 8 * i - so;   // row index of the chunk's first element
-    if (j0 >= 0 && j0 + 8 <= n) {
+    const int j0 = VE * i - so;   // span index of the chunk's first element
+    if (j0 >= 0 && j0 + VE <= n) {
       *reinterpret_cast<uint4*>(dst + j0) =
-          *reinterpret_cast<const uint4*>(buf + 8 * i);
+          *reinterpret_cast<const uint4*>(buf + VE * i);
     } else {
-      for (int k = 0; k < 8; ++k)
-        if (j0 + k >= 0 && j0 + k < n) dst[j0 + k] = buf[8 * i + k];
+      for (int k = 0; k < VE; ++k)
+        if (j0 + k >= 0 && j0 + k < n) dst[j0 + k] = buf[VE * i + k];
     }
   }
 }
@@ -608,21 +537,48 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
 // warp's NM live m-tiles.  in[i] is the slot of input row h - 1 + i; input
 // i feeds output r through h tap i - r, so each A fragment is loaded once
 // for up to three products and each B fragment once for all ROWS rows.
-// NPT * KS k-steps, unrolled, the fragments of each step loaded while the
-// step before runs on the tensor cores.  wt: the staged weights
-// [plane tap][h tap][o][c] plus this lane's B-row offset.
-template <int KS, int NT, int ROWS, int NPT, int NM>
+// NPT * KS k-steps, the fragments of each step loaded while the step before
+// runs on the tensor cores.  wt: the staged weights [plane tap][h tap][o][c]
+// plus this lane's B-row offset.
+template <typename E, int CK, int NT, int ROWS, int MT, int NPT, int NM>
 __device__ __forceinline__ void mma_planes(
-    float (&acc)[ROWS][RING_MT][NT][4],
-    const __nv_bfloat16* (&in)[ROWS + 2], const int (&aoff)[RING_MT],
-    const __nv_bfloat16* wt, int pt0, int T2) {
-  constexpr int CSP = 16 * KS + 8, NO = 8 * NT, NI = ROWS + 2;
-  constexpr int STEPS = NPT * KS;
+    float (&acc)[ROWS][MT][NT][4], const E* (&in)[ROWS + 2],
+    const int (&aoff)[MT], const E* wt, int pt0, int T2) {
+  constexpr bool TF32 = std::is_same<E, float>::value;
+  constexpr int VE = 16 / sizeof(E), KC = 2 * VE, KS = CK / KC;
+  constexpr int CSP = CK + VE, NO = 8 * NT, NI = ROWS + 2;
+  static_assert(KS % 2 == 0, "a plane tap's k-steps alternate buffers");
   if constexpr (NM > 0) {
     uint32_t a[2][NI][NM][4], b[2][3][NT / 2][4];
-    auto load = [&](int s, int buf) {
-      const int pt = pt0 + s / KS, kk = s % KS;
-      const int toff = ((pt / 3) * T2 + pt % 3) * CSP + kk * 16;
+    // float32: hi_a hi_b goes to ph, reset at every plane tap and added to
+    // acc there in float32, the small terms to pl, added at the end (the
+    // tensor cores sum with truncation, so short chains on small partial
+    // sums hold the float32 tolerance at any K; two chains also halve each
+    // product's wait on the one before).
+    float ph[ROWS][NM][NT][4], pl[ROWS][NM][NT][4];
+    auto zero = [&](float (&v)[ROWS][NM][NT][4]) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int m = 0; m < NM; ++m)
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+            v[r][m][t][0] = v[r][m][t][1] = v[r][m][t][2] = v[r][m][t][3] =
+                0.f;
+    };
+    auto add = [&](float (&v)[ROWS][NM][NT][4]) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int m = 0; m < NM; ++m)
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[r][m][t][i] += v[r][m][t][i];
+    };
+    auto load = [&](int pt, int kk, int buf) {
+      const int tap = pt0 + pt;
+      const int toff = ((tap / 3) * T2 + tap % 3) * CSP + kk * KC;
 #pragma unroll
       for (int i = 0; i < NI; ++i)
 #pragma unroll
@@ -633,52 +589,103 @@ __device__ __forceinline__ void mma_planes(
 #pragma unroll
         for (int jp = 0; jp < NT / 2; ++jp)
           ldsm_x4(b[buf][dh][jp],
-                  wt + (((s / KS) * 3 + dh) * NO + jp * 16) * CSP + kk * 16);
+                  wt + ((pt * 3 + dh) * NO + jp * 16) * CSP + kk * KC);
     };
-    load(0, 0);
+    auto products = [&](int cur) {
+      if constexpr (!TF32) {   // row by row, the h taps in turn (faster
+                               // back to back than the h tap outermost)
 #pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
-      if (s + 1 < STEPS) load(s + 1, (s + 1) % 2);
-      const int cur = s % 2;
+        for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r)
+          for (int dh = 0; dh < 3; ++dh)
 #pragma unroll
-        for (int dh = 0; dh < 3; ++dh)
+            for (int jp = 0; jp < NT / 2; ++jp)
+#pragma unroll
+              for (int m = 0; m < NM; ++m) {
+                const uint32_t(&b4)[4] = b[cur][dh][jp];
+                mma_bf16(acc[r][m][2 * jp], a[cur][r + dh][m], b4[0], b4[1]);
+                mma_bf16(acc[r][m][2 * jp + 1], a[cur][r + dh][m], b4[2],
+                         b4[3]);
+              }
+      } else {
+#pragma unroll
+        for (int dh = 0; dh < 3; ++dh) {
+          uint32_t ah[ROWS][NM][4], al[ROWS][NM][4];
+          uint32_t bh[NT / 2][4], bl[NT / 2][4];
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+            for (int m = 0; m < NM; ++m)
+              split_tf32(a[cur][r + dh][m], ah[r][m], al[r][m]);
 #pragma unroll
           for (int jp = 0; jp < NT / 2; ++jp)
+            split_tf32(b[cur][dh][jp], bh[jp], bl[jp]);
+          // lo_a hi_b and hi_a lo_b to pl, hi_a hi_b to ph; one sweep
+          // over all accumulators per term.
 #pragma unroll
-            for (int m = 0; m < NM; ++m) {
-              const uint32_t(&b4)[4] = b[cur][dh][jp];
-              mma_bf16(acc[r][m][2 * jp], a[cur][r + dh][m], b4[0], b4[1]);
-              mma_bf16(acc[r][m][2 * jp + 1], a[cur][r + dh][m], b4[2],
-                       b4[3]);
-            }
+          for (int term = 0; term < 3; ++term)
+#pragma unroll
+            for (int jp = 0; jp < NT / 2; ++jp)
+#pragma unroll
+              for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+                for (int m = 0; m < NM; ++m)
+#pragma unroll
+                  for (int half = 0; half < 2; ++half) {
+                    const uint32_t(&fa)[4] = term == 0 ? al[r][m] : ah[r][m];
+                    const uint32_t(&fb)[4] = term == 1 ? bl[jp] : bh[jp];
+                    float(&c)[4] = term == 2 ? ph[r][m][2 * jp + half]
+                                             : pl[r][m][2 * jp + half];
+                    mma_tf32(c, fa, fb[2 * half], fb[2 * half + 1]);
+                  }
+        }
+      }
+    };
+    auto plane = [&](int pt) {
+      if constexpr (TF32) zero(ph);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        if (kk + 1 < KS)
+          load(pt, kk + 1, (kk + 1) % 2);
+        else if (pt + 1 < NPT)
+          load(pt + 1, 0, 0);
+        products(kk % 2);
+      }
+      if constexpr (TF32) add(ph);
+    };
+    load(0, 0, 0);
+    if constexpr (TF32) {
+      zero(pl);
+#pragma unroll 1
+      for (int pt = 0; pt < NPT; ++pt) plane(pt);
+      add(pl);
+    } else {
+#pragma unroll
+      for (int pt = 0; pt < NPT; ++pt) plane(pt);
     }
   }
 }
 
-template <int KS, int NT, int ROWS, bool RES>
+template <typename E, int CK, int NT, int ROWS, int MT, bool RES>
 __global__ void __launch_bounds__(RING_WARPS * 32)
-conv_ring_kernel(const __nv_bfloat16* __restrict__ d,
-                 const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ wc,
-                 const float* __restrict__ bc,
-                 __nv_bfloat16* __restrict__ out, int B, int H, int W,
-                 int Tn, int c_dec, int c_out, int run, int wtaps,
-                 int dbuf_elems) {
-  constexpr int CK = 16 * KS;        // decay channels per slot position
-  constexpr int CSP = CK + 8;        // channel stride of a slot position
+conv_ring_kernel(const E* __restrict__ d, const E* __restrict__ x,
+                 const E* __restrict__ wc, const float* __restrict__ bc,
+                 E* __restrict__ out, int B, int H, int W, int Tn, int c_dec,
+                 int c_out, int run, int wcols, int wtaps, int dbuf_elems,
+                 int obuf_elems) {
+  constexpr int VE = 16 / sizeof(E);  // elements per 16 bytes
+  constexpr int CSP = CK + VE;        // channel stride of a slot position
   constexpr int NO = 8 * NT;
-  constexpr int NS = ROWS + 2;       // ring slots (plus one zero slot)
-  const int T2 = Tn + 2, WT = W * Tn;
-  const int slot_elems = (W + 2) * T2 * CSP;
+  constexpr int NS = ROWS + 2;        // ring slots (plus one zero slot)
+  const int T2 = Tn + 2;
+  const int slot_elems = (wcols + 2) * T2 * CSP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* slots = ws + wtaps * NO * CSP;     // [NS + 1][W+2][T+2][CSP]
-  __nv_bfloat16* dbuf = slots + (NS + 1) * slot_elems;   // raw rows of d
-  __nv_bfloat16* obuf = dbuf + dbuf_elems;          // rows of x, then out
-  const __nv_bfloat16* zslot = slots + NS * slot_elems;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  E* ws = reinterpret_cast<E*>(smem_raw);
+  E* slots = ws + wtaps * NO * CSP;       // [NS + 1][wcols+2][T+2][CSP]
+  E* dbuf = slots + (NS + 1) * slot_elems;   // ROWS raw runs of d
+  E* obuf = dbuf + ROWS * dbuf_elems;        // ROWS runs of x, then out
+  const E* zslot = slots + NS * slot_elems;
+  const E zero = probav::from_f<E>(0.f);
   const int tid = threadIdx.x, nthr = blockDim.x;
 
   // wc [27][c_dec][c_out] -> ws[plane tap][h tap][o][c] for the wtaps / 3
@@ -686,7 +693,7 @@ conv_ring_kernel(const __nv_bfloat16* __restrict__ d,
   auto stage_w = [&](int pt0) {
     const int total = wtaps * CK * NO;
     for (int e0 = tid; e0 < total; e0 += 8 * nthr) {
-      __nv_bfloat16 v[8];
+      E v[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int e = e0 + k * nthr;
@@ -704,44 +711,71 @@ conv_ring_kernel(const __nv_bfloat16* __restrict__ d,
       }
     }
   };
-  // Raw row of d at element `src` of dbuf -> interior of row hh's slot,
-  // channels 0..CK (zero from c_dec), 8 channels of a position per step.
-  auto repack = [&](int hh, int src) {
-    __nv_bfloat16* slot = slots + (hh % NS) * slot_elems;
-    for (int u = tid; u < WT * 2 * KS; u += nthr) {
-      const int p = u / (2 * KS), j = u % (2 * KS);
-      const int w = p / Tn, t = p - w * Tn;
-      const __nv_bfloat16* s = dbuf + src + p * c_dec + 8 * j;
+  // The run of row hh of d at element `src` of dbuf (its columns from
+  // max(w0 - 1, 0) on) -> row hh's slot: slot column j holds column
+  // w0 - 1 + j for j <= wl + 1, zero outside [0, W); channels 0..CK, zero
+  // from c_dec; 16 bytes of a position per step.  Whole rows write only
+  // the W columns inside: their edge columns stay as zeroed at the start.
+  auto repack = [&](int hh, int src, int w0, int wl) {
+    constexpr int G = CK / VE;              // 16-byte groups of a position
+    E* slot = slots + (hh % NS) * slot_elems;
+    const int clo = max(w0 - 1, 0), c0 = wl == W ? 1 : 0;
+    const int n = (wl + 2 - 2 * c0) * Tn * G;
+    for (int u = tid; u < n; u += nthr) {
+      const int p = u / G, j = u - p * G;
+      const int pc = p / Tn, t = p - pc * Tn, sc = pc + c0;
+      const int w = w0 - 1 + sc;
+      const bool live = w >= 0 && w < W;
+      const E* s = dbuf + src + ((w - clo) * Tn + t) * c_dec + VE * j;
       uint32_t v[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int c = 8 * j + 2 * k;
-        v[k] = pack2(c < c_dec ? s[2 * k] : zero,
-                     c + 1 < c_dec ? s[2 * k + 1] : zero);
+        if constexpr (VE == 8) {
+          const int c = VE * j + 2 * k;
+          v[k] = pack2(live && c < c_dec ? s[2 * k] : zero,
+                       live && c + 1 < c_dec ? s[2 * k + 1] : zero);
+        } else {
+          const int c = VE * j + k;
+          v[k] = __float_as_uint(live && c < c_dec ? s[k] : 0.f);
+        }
       }
-      *reinterpret_cast<uint4*>(slot + ((w + 1) * T2 + t + 1) * CSP + 8 * j) =
+      *reinterpret_cast<uint4*>(slot + (sc * T2 + t + 1) * CSP + VE * j) =
           make_uint4(v[0], v[1], v[2], v[3]);
     }
   };
-  // Rows r0 .. r0 + n - 1 (n <= ROWS) of d: copy, wait, repack.
-  auto load_rows = [&](long brow, int r0, int n) {
-    const int skew = copy_row_async(dbuf, d + (brow + r0) * WT * c_dec,
-                                    n * WT * c_dec);
-    cp_async_wait_all();
-    __syncthreads();
-    for (int r = 0; r < n; ++r) repack(r0 + r, skew + r * WT * c_dec);
-    __syncthreads();
+  // Start the copies of the runs of rows r .. r + n - 1 of d (columns
+  // w0 - 1 .. w0 + wl, clipped to the volume); src[i] <- the element offset
+  // in dbuf of row r + i's run.  Whole rows are one contiguous span, copied
+  // at once; runs of columns go to raw buffer i each.
+  auto copy_d = [&](long brow, int r, int n, int w0, int wl,
+                    int (&src)[ROWS]) {
+    const long wt = (long)Tn * c_dec;
+    if (wl == W) {
+      const int s =
+          n > 0 ? copy_async(dbuf, d + (brow + r) * W * wt, n * W * wt) : 0;
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) src[i] = s + i * W * (int)wt;
+      return;
+    }
+    const int clo = max(w0 - 1, 0), chi = min(w0 + wl, W - 1);
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+      src[i] = i < n ? i * dbuf_elems +
+                           copy_async(dbuf + i * dbuf_elems,
+                                      d + ((brow + r + i) * W + clo) * wt,
+                                      (chi - clo + 1) * (int)wt)
+                     : 0;
   };
 
-  for (int e = tid; e < (NS + 1) * slot_elems / 8; e += nthr)
+  for (int e = tid; e < (NS + 1) * slot_elems / VE; e += nthr)
     reinterpret_cast<uint4*>(slots)[e] = make_uint4(0, 0, 0, 0);
   if (wtaps == 27) stage_w(0);   // visible after the first row's barrier
 
   const int lane = tid % 32, warp = tid / 32, nw = nthr / 32;
   const int g = lane / 4, q = lane % 4;
   // This lane's ldmatrix row of the B tiles: o = 8 * (lane / 16) + lane % 8,
-  // channels 8 * ((lane / 8) % 2) on.
-  const int boff = (8 * (lane / 16) + lane % 8) * CSP + 8 * ((lane / 8) % 2);
+  // channels from 16 bytes * ((lane / 8) % 2) on.
+  const int boff = (8 * (lane / 16) + lane % 8) * CSP + VE * ((lane / 8) % 2);
   float bcv[NT][2];
 #pragma unroll
   for (int t = 0; t < NT; ++t)
@@ -751,51 +785,79 @@ conv_ring_kernel(const __nv_bfloat16* __restrict__ d,
       bcv[t][k] = (RES && o < c_out) ? bc[o] : 0.f;
     }
 
-  const int tiles = (WT + 15) / 16;
-  const int runs = (H + run - 1) / run;
-  const long items = (long)B * runs;
+  const int hruns = (H + run - 1) / run, wruns = (W + wcols - 1) / wcols;
+  const long items = (long)B * hruns * wruns;
   for (long item = blockIdx.x; item < items; item += gridDim.x) {
-    const long brow = (item / runs) * H;            // b * H
-    const int h0 = (int)(item % runs) * run;
+    const long brow = item / (hruns * wruns) * H;   // b * H
+    const int ir = (int)(item % (hruns * wruns));
+    const int h0 = ir / wruns * run, w0 = ir % wruns * wcols;
+    const int wl = min(wcols, W - w0), np = wl * Tn;  // the run's columns
     const int h1 = min(H, h0 + run);
     const int top = min(H - 1, h1);                 // last input row
-    for (int r = max(0, h0 - 1); r <= min(top, h0 + ROWS); r += ROWS)
-      load_rows(brow, r, min(ROWS, min(top, h0 + ROWS) - r + 1));
+    for (int r = max(0, h0 - 1); r <= min(top, h0 + ROWS); r += ROWS) {
+      const int n = min(ROWS, min(top, h0 + ROWS) - r + 1);
+      int src[ROWS];
+      copy_d(brow, r, n, w0, wl, src);
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+        if (i < n) repack(r + i, src[i], w0, wl);
+      __syncthreads();
+    }
 
+    const int tiles = (np + 15) / 16;
     for (int h = h0; h < h1; h += ROWS) {
       // Output rows h .. h + nout - 1; rows past h1 (an odd run's last
       // step) are computed from whatever their slots hold and not stored.
       const int nout = min(ROWS, h1 - h);
       const int nlo = h + ROWS + 1;                 // the next step's rows
       const int nn = max(0, min(top, h + 2 * ROWS) - nlo + 1);
-      const int dskew = nn > 0 ? copy_row_async(
-          dbuf, d + (brow + nlo) * WT * c_dec, nn * WT * c_dec) : 0;
-      const long orow = (brow + h) * WT * c_out;
-      const int oskew = RES ? copy_row_async(obuf, x + orow,
-                                             nout * WT * c_out)
-                            : row_skew(out + orow);
+      // Runs of x (or of out's alignment) for the output rows: with whole
+      // rows one span from obuf on, else one run per raw buffer; obase[i]
+      // is the element offset in obuf of output row h + i's run.
+      int dsrc[ROWS], obase[ROWS];
+      long orow[ROWS];
+      copy_d(brow, nlo, nn, w0, wl, dsrc);
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+        orow[i] = ((brow + h + i) * W + w0) * (long)Tn * c_out;
+      if (wl == W) {
+        const int s = RES ? copy_async(obuf, x + orow[0], nout * np * c_out)
+                          : row_skew(out + orow[0]);
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) obase[i] = s + i * np * c_out;
+      } else {
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i)
+          obase[i] = i * obuf_elems +
+                     (i >= nout ? 0
+                      : RES ? copy_async(obuf + i * obuf_elems, x + orow[i],
+                                         np * c_out)
+                            : row_skew(out + orow[i]));
+      }
       cp_async_commit();
-      const __nv_bfloat16* in[NS];
+      const E* in[NS];
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
         const int hh = h - 1 + i;
         in[i] = (hh >= 0 && hh < H) ? slots + (hh % NS) * slot_elems : zslot;
       }
 
-      for (int t0 = 0; t0 < tiles; t0 += nw * RING_MT) {
-        int aoff[RING_MT];
-        bool live[RING_MT];
-        float acc[ROWS][RING_MT][NT][4];
+      for (int t0 = 0; t0 < tiles; t0 += nw * MT) {
+        int aoff[MT];
+        bool live[MT];
+        float acc[ROWS][MT][NT][4];
 #pragma unroll
-        for (int m = 0; m < RING_MT; ++m) {
-          const int tm = t0 + warp * RING_MT + m;
+        for (int m = 0; m < MT; ++m) {
+          const int tm = t0 + warp * MT + m;
           live[m] = tm < tiles;
           // ldmatrix row of the A tile: position 16 tm + lane % 16,
-          // channels 8 * (lane / 16) on; past the row, position 0 (its
-          // results are never stored).
+          // channels from 16 bytes * (lane / 16) on; past the run,
+          // position 0 (its results are never stored).
           int p = tm * 16 + lane % 16;
-          if (p >= WT) p = 0;
-          aoff[m] = ((p / Tn) * T2 + p % Tn) * CSP + 8 * (lane / 16);
+          if (p >= np) p = 0;
+          aoff[m] = ((p / Tn) * T2 + p % Tn) * CSP + VE * (lane / 16);
 #pragma unroll
           for (int r = 0; r < ROWS; ++r)
 #pragma unroll
@@ -809,19 +871,21 @@ conv_ring_kernel(const __nv_bfloat16* __restrict__ d,
         auto taps = [&](auto live_tiles) {
           constexpr int NM = decltype(live_tiles)::value;
           if (wtaps == 27) {
-            mma_planes<KS, NT, ROWS, 9, NM>(acc, in, aoff, ws + boff, 0, T2);
+            mma_planes<E, CK, NT, ROWS, MT, 9, NM>(acc, in, aoff, ws + boff,
+                                                   0, T2);
             return;
           }
           for (int pt = 0; pt < 9; ++pt) {   // one plane tap's 3 h taps
             __syncthreads();
             stage_w(pt);
             __syncthreads();
-            mma_planes<KS, NT, ROWS, 1, NM>(acc, in, aoff, ws + boff, pt, T2);
+            mma_planes<E, CK, NT, ROWS, MT, 1, NM>(acc, in, aoff, ws + boff,
+                                                   pt, T2);
           }
         };
-        const int nlive = tiles - t0 - warp * RING_MT;
-        if (nlive >= RING_MT)
-          taps(std::integral_constant<int, RING_MT>());
+        const int nlive = tiles - t0 - warp * MT;
+        if (nlive >= MT)
+          taps(std::integral_constant<int, MT>());
         else if (nlive == 1)
           taps(std::integral_constant<int, 1>());
         else
@@ -836,59 +900,113 @@ conv_ring_kernel(const __nv_bfloat16* __restrict__ d,
         for (int r = 0; r < ROWS; ++r) {
           if (r >= nout) break;
 #pragma unroll
-          for (int m = 0; m < RING_MT; ++m) {
+          for (int m = 0; m < MT; ++m) {
             if (!live[m]) continue;
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const int p =
-                  (t0 + warp * RING_MT + m) * 16 + g + (i < 2 ? 0 : 8);
-              if (p >= WT) continue;
+              const int p = (t0 + warp * MT + m) * 16 + g + (i < 2 ? 0 : 8);
+              if (p >= np) continue;
 #pragma unroll
               for (int t = 0; t < NT; ++t) {
                 const int o = t * 8 + 2 * q + (i & 1);
                 if (o >= c_out) continue;
-                __nv_bfloat16& e =
-                    obuf[oskew + (r * WT + p) * c_out + o];
+                E& e = obuf[obase[r] + p * c_out + o];
                 const float v = acc[r][m][t][i];
-                e = __float2bfloat16_rn(
-                    RES ? v + bcv[t][i & 1] + __bfloat162float(e) : v);
+                e = probav::from_f<E>(
+                    RES ? v + bcv[t][i & 1] + probav::to_f(e) : v);
               }
             }
           }
         }
       }
 
-      __syncthreads();   // the step's slots read, its out rows staged
-      for (int r = 0; r < nn; ++r) repack(nlo + r, dskew + r * WT * c_dec);
-      store_row(out + orow, obuf, oskew, nout * WT * c_out);
+      __syncthreads();   // the step's slots read, its out runs staged
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+        if (i < nn) repack(nlo + i, dsrc[i], w0, wl);
+      if (wl == W) {
+        store_row(out + orow[0], obuf, obase[0], nout * np * c_out);
+      } else {
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i)
+          if (i < nout)
+            store_row(out + orow[i], obuf + i * obuf_elems,
+                      obase[i] - i * obuf_elems, np * c_out);
+      }
       __syncthreads();   // dbuf and obuf free for the next step's copies
     }
   }
 }
 
-// Shared-memory bytes of conv_ring_kernel<KS, NT, ROWS> with `wtaps`
-// weight taps staged.
-template <int KS, int NT, int ROWS>
-size_t ring_smem(int W, int Tn, int c_dec, int c_out, int wtaps) {
-  constexpr int CSP = 16 * KS + 8;
-  const int WT = W * Tn;
-  return 2 * ((size_t)wtaps * 8 * NT * CSP +
-              (size_t)(ROWS + 3) * (W + 2) * (Tn + 2) * CSP) +
-         row_buf_bytes(ROWS * WT * c_dec) + row_buf_bytes(ROWS * WT * c_out);
+// Column runs of d and of x/out of a layout, for its raw buffers.
+struct RingLayout {
+  int rows, wtaps, wcols;
+};
+
+// Shared-memory bytes of conv_ring_kernel<E, CK, NT, rows> at runs of
+// `wcols` of the W columns with `wtaps` weight taps staged; the raw
+// buffers' elements in *dbuf, *obuf.
+template <typename E, int CK, int NT>
+size_t ring_smem(const RingLayout& l, int W, int Tn, int c_dec, int c_out,
+                 int* dbuf = nullptr, int* obuf = nullptr) {
+  constexpr int CSP = CK + 16 / (int)sizeof(E);
+  const size_t dcols = (size_t)std::min(W, l.wcols + 2);
+  const size_t db = run_buf_bytes(sizeof(E) * dcols * Tn * c_dec);
+  const size_t ob = run_buf_bytes(sizeof(E) * (size_t)l.wcols * Tn * c_out);
+  if (dbuf) *dbuf = (int)(db / sizeof(E));
+  if (obuf) *obuf = (int)(ob / sizeof(E));
+  return sizeof(E) * ((size_t)l.wtaps * 8 * NT * CSP +
+                      (size_t)(l.rows + 3) * (l.wcols + 2) * (Tn + 2) * CSP) +
+         l.rows * (db + ob);
 }
 
-template <int KS, int NT, int ROWS, bool RES>
+// The layout of conv_ring_kernel for a volume (see above); false where not
+// even one column fits with 3 weight taps.
+template <typename E, int CK, int NT>
+bool ring_layout(int W, int Tn, int c_dec, int c_out, size_t cap,
+                 RingLayout* out) {
+  for (int wtaps : {27, 3}) {
+    for (int rows = NT == 4 ? 2 : 1; rows >= 1; --rows) {
+      RingLayout l{rows, wtaps, W};
+      if (ring_smem<E, CK, NT>(l, W, Tn, c_dec, c_out) <= cap) {
+        *out = l;   // whole rows
+        return true;
+      }
+    }
+    for (int rows = NT == 4 ? 2 : 1; rows >= 1; --rows) {
+      // The widest run that fits (the bytes grow with the run).
+      int lo = 0, hi = W - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (ring_smem<E, CK, NT>(RingLayout{rows, wtaps, mid}, W, Tn, c_dec,
+                                 c_out) <= cap)
+          lo = mid;
+        else
+          hi = mid - 1;
+      }
+      if (lo < 1 || (wtaps == 27 && lo * Tn < RING_MIN_RUN)) continue;
+      const int runs = (W + lo - 1) / lo;
+      *out = RingLayout{rows, wtaps, (W + runs - 1) / runs};
+      return true;
+    }
+  }
+  return false;
+}
+
+template <typename E, int CK, int NT, int ROWS, bool RES>
 cudaError_t launch_conv_ring(const void* d, const void* x, const void* wc,
                              const void* bc, void* out, int B, int H, int W,
-                             int Tn, int c_dec, int c_out, int wtaps,
-                             cudaStream_t s) {
-  const int WT = W * Tn;
-  const int tiles = (WT + 15) / 16;
-  const int per_pass = RING_WARPS * RING_MT;
+                             int Tn, int c_dec, int c_out,
+                             const RingLayout& lay, cudaStream_t s) {
+  constexpr int MT = std::is_same<E, float>::value ? 1 : 2;
+  const int tiles = (lay.wcols * Tn + 15) / 16;
+  const int per_pass = RING_WARPS * MT;
   const int passes = (tiles + per_pass - 1) / per_pass;
-  const int warps = (tiles + passes * RING_MT - 1) / (passes * RING_MT);
-  const size_t smem = ring_smem<KS, NT, ROWS>(W, Tn, c_dec, c_out, wtaps);
-  auto kern = conv_ring_kernel<KS, NT, ROWS, RES>;
+  const int warps = (tiles + passes * MT - 1) / (passes * MT);
+  int dbuf = 0, obuf = 0;
+  const size_t smem =
+      ring_smem<E, CK, NT>(lay, W, Tn, c_dec, c_out, &dbuf, &obuf);
+  auto kern = conv_ring_kernel<E, CK, NT, ROWS, MT, RES>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -897,32 +1015,29 @@ cudaError_t launch_conv_ring(const void* d, const void* x, const void* wc,
                                                       warps * 32, smem);
   if (err != cudaSuccess) return err;
   const long resident = (long)(per_sm > 0 ? per_sm : 1) * sm_count();
-  // Run length: the least work for the busiest wave of blocks, counting a
-  // row's products twice (steps of ROWS rows) and its copy once.
+  // h run length: the least work for the busiest wave of blocks, counting
+  // a row's products twice (steps of ROWS rows) and its copy once.
+  const long bw = (long)B * ((W + lay.wcols - 1) / lay.wcols);
   int run = H;
   long best = -1;
   for (int r = H; r >= 1; --r) {
-    const long items = (long)B * ((H + r - 1) / r);
+    const long items = bw * ((H + r - 1) / r);
     const long steps = (r + ROWS - 1) / ROWS;
     const long cost = (items + resident - 1) / resident *
                       (2 * ROWS * steps + r + 2);
     if (best < 0 || cost < best) best = cost, run = r;
   }
-  const long items = (long)B * ((H + run - 1) / run);
+  const long items = bw * ((H + run - 1) / run);
   const int grid = (int)(items < resident ? items : resident);
   kern<<<grid, warps * 32, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(d),
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(wc), static_cast<const float*>(bc),
-      static_cast<__nv_bfloat16*>(out), B, H, W, Tn, c_dec, c_out, run, wtaps,
-      row_buf_bytes(ROWS * WT * c_dec) / 2);
+      static_cast<const E*>(d), static_cast<const E*>(x),
+      static_cast<const E*>(wc), static_cast<const float*>(bc),
+      static_cast<E*>(out), B, H, W, Tn, c_dec, c_out, run, lay.wcols,
+      lay.wtaps, dbuf, obuf);
   return cudaGetLastError();
 }
 
-// The first layout that fits the card's shared memory: two output rows
-// per step where the accumulators allow (NT = 4), else one; all 27 weight
-// taps staged once, else 3 at a time.  None: cudaErrorInvalidValue.
-template <int KS, int NT, bool RES>
+template <typename E, int CK, int NT, bool RES>
 cudaError_t pick_conv_ring(const void* d, const void* x, const void* wc,
                            const void* bc, void* out, int B, int H, int W,
                            int Tn, int c_dec, int c_out, cudaStream_t s) {
@@ -932,38 +1047,37 @@ cudaError_t pick_conv_ring(const void* d, const void* x, const void* wc,
   err = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const size_t cap = (size_t)optin;
-  const int choices[2] = {27, 3};
-  for (int wtaps : choices) {
-    if constexpr (NT == 4) {
-      if (ring_smem<KS, NT, 2>(W, Tn, c_dec, c_out, wtaps) <= cap)
-        return launch_conv_ring<KS, NT, 2, RES>(d, x, wc, bc, out, B, H, W,
-                                                Tn, c_dec, c_out, wtaps, s);
-    }
-    if (ring_smem<KS, NT, 1>(W, Tn, c_dec, c_out, wtaps) <= cap)
-      return launch_conv_ring<KS, NT, 1, RES>(d, x, wc, bc, out, B, H, W, Tn,
-                                              c_dec, c_out, wtaps, s);
+  RingLayout lay;
+  if (!ring_layout<E, CK, NT>(W, Tn, c_dec, c_out, (size_t)optin, &lay))
+    return cudaErrorInvalidValue;   // outside the envelope
+  if constexpr (NT == 4) {
+    if (lay.rows == 2)
+      return launch_conv_ring<E, CK, NT, 2, RES>(d, x, wc, bc, out, B, H, W,
+                                                 Tn, c_dec, c_out, lay, s);
   }
-  return cudaErrorInvalidValue;   // outside the envelope
+  return launch_conv_ring<E, CK, NT, 1, RES>(d, x, wc, bc, out, B, H, W, Tn,
+                                             c_dec, c_out, lay, s);
 }
 
-template <bool RES>
-cudaError_t dispatch_conv_mma(const void* d, const void* x, const void* wc,
-                              const void* bc, void* out, int B, int H, int W,
-                              int Tn, int c_dec, int c_out, cudaStream_t s) {
+// Decay channels padded to CK = 32 or 64, outputs to 8 * NT = 32 or 64.
+template <typename E, bool RES>
+cudaError_t dispatch_conv_ring(const void* d, const void* x, const void* wc,
+                               const void* bc, void* out, int B, int H,
+                               int W, int Tn, int c_dec, int c_out,
+                               cudaStream_t s) {
   if (c_dec > 64 || c_out > 64) return cudaErrorInvalidValue;
   const bool cd32 = c_dec <= 32, co32 = c_out <= 32;
   if (cd32 && co32)
-    return pick_conv_ring<2, 4, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                     c_out, s);
+    return pick_conv_ring<E, 32, 4, RES>(d, x, wc, bc, out, B, H, W, Tn,
+                                         c_dec, c_out, s);
   if (cd32)
-    return pick_conv_ring<2, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                     c_out, s);
+    return pick_conv_ring<E, 32, 8, RES>(d, x, wc, bc, out, B, H, W, Tn,
+                                         c_dec, c_out, s);
   if (co32)
-    return pick_conv_ring<4, 4, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                     c_out, s);
-  return pick_conv_ring<4, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                   c_out, s);
+    return pick_conv_ring<E, 64, 4, RES>(d, x, wc, bc, out, B, H, W, Tn,
+                                         c_dec, c_out, s);
+  return pick_conv_ring<E, 64, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
+                                       c_out, s);
 }
 
 }  // namespace
@@ -974,15 +1088,17 @@ cudaError_t probav::conv_dispatch(int dtype, bool residual, const void* d,
                                   int W, int Tn, int c_dec, int c_out,
                                   cudaStream_t s) {
   if (dtype == 0)
-    return residual ? dispatch_conv<true>(d, x, wc, bc, out, B, H, W, Tn,
-                                          c_dec, c_out, s)
-                    : dispatch_conv<false>(d, x, wc, bc, out, B, H, W, Tn,
-                                           c_dec, c_out, s);
+    return residual ? dispatch_conv_ring<float, true>(d, x, wc, bc, out, B,
+                                                      H, W, Tn, c_dec, c_out,
+                                                      s)
+                    : dispatch_conv_ring<float, false>(d, x, wc, bc, out, B,
+                                                       H, W, Tn, c_dec, c_out,
+                                                       s);
   if (dtype == 1)
-    return residual ? dispatch_conv_mma<true>(d, x, wc, bc, out, B, H, W, Tn,
-                                              c_dec, c_out, s)
-                    : dispatch_conv_mma<false>(d, x, wc, bc, out, B, H, W, Tn,
-                                               c_dec, c_out, s);
+    return residual ? dispatch_conv_ring<__nv_bfloat16, true>(
+                          d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s)
+                    : dispatch_conv_ring<__nv_bfloat16, false>(
+                          d, x, wc, bc, out, B, H, W, Tn, c_dec, c_out, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1007,10 +1123,11 @@ int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype as above.  d, x, wc, out in that dtype; bc in float32.
-// wc is [3, 3, 3, c_dec, c_out] (taps over H, W, T), c_dec and c_out up
-// to 64.  bf16 also refuses a volume whose halo-row ring does not fit
-// shared memory (see conv_ring_kernel).
+// dtype: 0 = float32 (tensor cores, 3xTF32), 1 = bfloat16 (tensor
+// cores).  d, x, wc, out in that dtype; bc in float32.  wc is [3, 3, 3,
+// c_dec, c_out] (taps over H, W, T), c_dec and c_out up to 64.  Any W; a
+// T beyond the envelope of conv_ring_kernel (one column with 3 weight taps
+// over shared memory: T > 40 at float32, 64 -> 64 channels) is refused.
 int probav_conv_fwd(int dtype, const void* d, const void* x, const void* wc,
                     const void* bc, void* out, int B, int H, int W, int Tn,
                     int c_dec, int c_out, void* stream) {

@@ -22,6 +22,12 @@ The block stack has three tiers, ``fused_stack``:
   convolutions, or with ``fused_block`` the expand -> relu -> decay of each
   block as ``ops/wide_block.fused_expand_decay`` (``wide_bwd`` backward).
 
+A ``"t"`` model of more than 64 channels (or decay channels), which the
+stack kernels refuse (``ops.tstack.t_tier_refusal``), raises when it is
+built: such a model is built with ``fused_stack="off"``.  At a C that does
+not divide 128 the forward runs on the kernels and ``blk_bwd`` refuses the
+backward.
+
 On the CPU every kernel is replaced by its plain version.  The parameter
 tree is the same in every tier.  A bool is accepted for the tier with the
 meaning it had in this package before tiers existed: ``True`` is ``"t"``
@@ -42,7 +48,7 @@ import torch.nn as nn
 from probav_tpu_torch.models.layers import WNConv, reflect_pad
 from probav_tpu_torch.ops.block_stack import fused_block_stack
 from probav_tpu_torch.ops.patches import depth_to_space
-from probav_tpu_torch.ops.tstack import stack_apply_5d
+from probav_tpu_torch.ops.tstack import stack_apply_5d, t_tier_refusal
 from probav_tpu_torch.ops.wide_block import fused_expand_decay
 
 STACK_TIERS = ("off", "flat", "t")
@@ -151,6 +157,11 @@ class WDSRConv3D(nn.Module):
         self.mean, self.std = mean, std
         self.dtype, self.fused_stack = dtype, stack_tier(fused_stack)
         f, k = num_filters, tuple(kernel_size)
+        why = t_tier_refusal(f, int(f * decay_rate))
+        if self.fused_stack == "t" and why:
+            raise ValueError(f"fused_stack='t': the stack kernels take "
+                             f"{why}; build this width with fused_stack="
+                             f"'off'")
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.mainConv1 = WNConv(in_channels, f, k, "SAME", "relu", **kw)
         self.block_names = [f"resBlock_{i}" for i in range(num_res_blocks)]

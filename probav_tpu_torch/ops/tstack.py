@@ -18,10 +18,18 @@ With grad enabled, ``stack_apply_5d`` runs the blocks under one
 custom VJP): its forward saves each block's input x_i and decay output d_i,
 its backward runs ``blk_bwd`` for the blocks in reverse order.
 
-float32 runs on the CUDA cores with exact float32 products; bf16 runs on
-the tensor cores (``mma.sync``) with float32 accumulation (blk_bwd at the
-flagship's widths; at wider ones its bf16 runs on the CUDA cores).  Both
-round where the TPU kernels round.
+``conv_fwd`` (and ``blk_bwd``'s dd conv, the same kernel) runs on the
+tensor cores at both dtypes: bf16 products at bf16, float32 products as
+3xTF32 (each operand split into two TF32 halves, three products summed in
+float32: about 2**-22 relative error per product, within the float32
+tolerance that plain TF32 misses).  ``seg_fwd`` and the rest of
+``blk_bwd`` run float32 on the CUDA cores with exact float32 products, and
+bf16 on the tensor cores (``mma.sync``) with float32 accumulation (blk_bwd
+at the flagship's widths; at wider ones its bf16 runs on the CUDA cores).
+All round where the TPU kernels round.
+
+``t_tier_refusal`` states the channel widths the kernels take, once: the
+wrappers raise with it, and a ``"t"`` model refuses to be built with it.
 
 The TPU kernels' transposed ``[C, ext]`` lane-shift layout (``Geom``, the
 interior mask, halo margins, ``to_t``/``from_t``, the scan loop forms and
@@ -111,6 +119,24 @@ def blk_bwd_plain(gy, x, d, w1, b1, w2, wc):
 # kernel wrappers                                                         #
 # ---------------------------------------------------------------------- #
 
+def t_tier_refusal(c: int, c_dec: int, backward: bool = False
+                   ) -> str | None:
+    """Why the kernels cannot run blocks of C channels that decay to C_dec,
+    or None where they can: seg_fwd and conv_fwd take C and C_dec up to 64;
+    blk_bwd (``backward``) also needs a C that divides 128."""
+    if c > 64 or c_dec > 64:
+        return f"channels up to 64, got C = {c}, C_dec = {c_dec}"
+    if backward and 128 % c:
+        return f"a C that divides 128, got C = {c}"
+    return None
+
+
+def _check_widths(name, c, c_dec, backward=False):
+    why = t_tier_refusal(c, c_dec, backward)
+    if why:
+        raise ValueError(f"{name}: {why}")
+
+
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -144,8 +170,7 @@ def seg_fwd(x, w1, b1, w2, b2):
         raise ValueError(f"seg_fwd: shapes x {tuple(x.shape)} w1 "
                          f"{tuple(w1.shape)} b1 {tuple(b1.shape)} w2 "
                          f"{tuple(w2.shape)} b2 {tuple(b2.shape)}")
-    if c_in > 64 or c_dec > 64:
-        raise ValueError(f"seg_fwd: channels up to 64, got {c_in}/{c_dec}")
+    _check_widths("seg_fwd", c_in, c_dec)
     w1 = w1.to(x.dtype).contiguous()
     w2 = w2.to(x.dtype).contiguous()
     b1 = b1.float().contiguous()
@@ -168,9 +193,11 @@ def conv_fwd(d, x, wc, bc):
     """d [B,H,W,T,C_dec], x [B,H,W,T,C], wc [3,3,3,C_dec,C], bc [C] ->
     x + bc + SAME 3^3 conv(d) in x's dtype (wc cast to it, bc to float32).
 
-    C_dec and C up to 64.  In bf16 the kernel stages rows of the volume in
-    shared memory, and raises for a volume whose rows do not fit (at the
-    flagship's 25/32 channels and T = 9, W up to 47; csrc/tstack.cu).
+    C_dec and C up to 64, any B, H and W.  The kernel stages runs of
+    columns of the volume's rows in shared memory (whole rows where they
+    fit) and raises only where one column does not fit: T over 40 in
+    float32 at 64 -> 64 channels (over 99 at the flagship's 25 -> 32),
+    over 89 in bf16 at 64 -> 64 (over 189 at 25 -> 32); csrc/tstack.cu.
     """
     if x.device.type == "cpu":
         return conv_fwd_plain(d, x, wc, bc)
@@ -184,8 +211,7 @@ def conv_fwd(d, x, wc, bc):
         raise ValueError(f"conv_fwd: shapes d {tuple(d.shape)} x "
                          f"{tuple(x.shape)} wc {tuple(wc.shape)} bc "
                          f"{tuple(bc.shape)}")
-    if c_dec > 64 or c_out > 64:
-        raise ValueError(f"conv_fwd: channels up to 64, got {c_dec}/{c_out}")
+    _check_widths("conv_fwd", c_out, c_dec)
     wc = wc.to(x.dtype).contiguous()
     bc = bc.float().contiguous()
     for name, tt in (("wc", wc), ("bc", bc), ("d", d)):
@@ -220,9 +246,7 @@ def blk_bwd(gy, x, d, w1, b1, w2, wc):
                          f"{tuple(x.shape)} d {tuple(d.shape)} w1 "
                          f"{tuple(w1.shape)} b1 {tuple(b1.shape)} w2 "
                          f"{tuple(w2.shape)} wc {tuple(wc.shape)}")
-    if c > 64 or 128 % c or c_dec > 64:
-        raise ValueError(f"blk_bwd: C must divide 128 and C, C_dec be up "
-                         f"to 64, got {c}/{c_dec}")
+    _check_widths("blk_bwd", c, c_dec, backward=True)
     w1 = w1.to(x.dtype).contiguous()
     w2 = w2.to(x.dtype).contiguous()
     b1 = b1.float().contiguous()

@@ -121,19 +121,23 @@ def cuda():
     ((3, 7, 6, 5), 64, 128, 64), ((3, 7, 6, 5), 25, 100, 32),
     ((2, 1, 6, 5), 32, 256, 25), ((2, 2, 6, 5), 32, 256, 25),
     ((1, 7, 6, 5), 32, 256, 25), ((2, 4, 30, 9), 32, 256, 25),
-    ((2, 4, 40, 9), 32, 256, 25)],
+    ((2, 4, 40, 9), 32, 256, 25), ((1, 3, 48, 9), 32, 256, 25),
+    ((1, 3, 100, 9), 32, 256, 25), ((2, 4, 47, 9), 32, 256, 25),
+    ((2, 5, 22, 19), 32, 256, 25), ((2, 5, 22, 19), 64, 512, 51)],
     ids=["flagship", "wide", "small", "cmid100", "c64_cdec64", "c25_cdec32",
-         "h1", "h2", "b1", "long_row", "longer_row"])
+         "h1", "h2", "b1", "long_row", "longer_row", "w48", "w100",
+         "seam_w47", "t19", "wide_t19"])
 def test_kernels_match_plain_on_card(cuda, dtype, tol, shape, c, cmid, cdec):
     """Flagship and 64-filter widths, the CPU tests' small widths, a c_mid
     that is not a multiple of the staging chunk, and every width bucket of
-    the bf16 conv (c_dec -> C: 25 -> 32, 51 -> 64, 64 -> 64, 32 -> 25, 40 ->
-    32); a ragged volume (7x6x5) and a row count that is not a multiple of
-    the tile.  At the flagship widths also the bf16 conv ring's edges: one
-    and two h rows, one patch, and rows of 270 and 360 positions (17 and 23
-    m-tiles: two passes of the block's warps), whose rings fit shared
-    memory only with the weights staged 3 taps at a time, the longer one
-    only at one output row per step."""
+    the conv (c_dec -> C: 25 -> 32, 51 -> 64, 64 -> 64, 32 -> 25, 40 -> 32);
+    a ragged volume (7x6x5) and a row count that is not a multiple of the
+    tile.  At the flagship widths also the conv ring's edges: one and two h
+    rows, one patch, whole rows of 270 positions (17 m-tiles: two passes of
+    the block's warps at bf16), and rows cut into column runs: W = 40, 48
+    and 100 (float32 from W = 22 on), W = 47, whose runs leave a shorter
+    one at the row's end at both dtypes, and T = 19, where the 64-filter
+    widths stage their weights 3 taps at a time."""
     w1, b1, w2, b2, wc, bc = params(c, cmid, cdec, device=cuda, dtype=dtype)
     x = torch.randn(*shape, c, device=cuda).to(dtype)
     x2 = x.reshape(-1, c)
@@ -161,6 +165,12 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
     with pytest.raises(ValueError, match="up to 64"):
         big = params(72, CMID, CDEC, device=cuda)
         ts.seg_fwd(torch.randn(20, 72, device=cuda), *big[:4])
+    # 48 channels: the forward kernels take them, blk_bwd refuses them.
+    w48 = params(48, CMID, 38, device=cuda)
+    v48 = torch.randn(1, 2, 3, 5, 48, device=cuda)
+    with pytest.raises(ValueError, match="divides 128"):
+        ts.blk_bwd(v48, v48, torch.randn(1, 2, 3, 5, 38, device=cuda),
+                   *w48[:3], w48[4])
     # A bf16 conv with c_dec > 64 is refused, not computed without the
     # channels past 64.
     wide = params(32, CMID, 72, device=cuda, dtype=torch.bfloat16)
@@ -168,13 +178,21 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
     with pytest.raises(ValueError, match="up to 64"):
         ts.conv_fwd(torch.randn(1, 3, 6, 5, 72, device=cuda).bfloat16(), xb,
                     wide[4], wide[5])
-    # A volume whose bf16 halo-row ring does not fit shared memory (3 rows
-    # of 102x11 positions) is refused before launch.
-    flag = params(32, 256, 25, device=cuda, dtype=torch.bfloat16)
-    xb = torch.randn(1, 3, 100, 9, 32, device=cuda).bfloat16()
+    # A row of 100x9 positions, refused before the conv ring took column
+    # runs, runs at both dtypes.
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        flag = params(32, 256, 25, device=cuda, dtype=dtype)
+        xb = torch.randn(1, 3, 100, 9, 32, device=cuda).to(dtype)
+        db = torch.randn(1, 3, 100, 9, 25, device=cuda).to(dtype)
+        assert max_rel(ts.conv_fwd(db, xb, flag[4], flag[5]),
+                       ts.conv_fwd_plain(db, xb, flag[4], flag[5])) < tol
+    # Beyond the envelope (one column at T = 41 over shared memory in
+    # float32 at 64 -> 64 channels) the launch is refused, never run.
+    deep = params(64, CMID, 64, device=cuda)
     with pytest.raises(RuntimeError, match="conv_fwd"):
-        ts.conv_fwd(torch.randn(1, 3, 100, 9, 25, device=cuda).bfloat16(), xb,
-                    flag[4], flag[5])
+        ts.conv_fwd(torch.randn(1, 2, 3, 41, 64, device=cuda),
+                    torch.randn(1, 2, 3, 41, 64, device=cuda), deep[4],
+                    deep[5])
 
 
 @pytest.mark.cuda
@@ -191,6 +209,21 @@ def test_bf16_conv_fwd_on_card_takes_views_at_any_alignment(cuda):
     x = torch.randn(n * 32 + 3, device=cuda).bfloat16()[3:].view(*shape, 32)
     out = ts.conv_fwd(d, x, wc, bc)
     assert max_rel(out, ts.conv_fwd_plain(d, x, wc, bc)) < 2e-2
+
+
+@pytest.mark.cuda
+def test_f32_conv_fwd_on_card_takes_views_at_any_alignment(cuda):
+    """float32 d and x as contiguous views 1 and 3 elements into larger
+    buffers, on rows cut into column runs (W = 48: runs of 10 and 8
+    columns): every run's span starts off the 16-byte grid, and x's lines
+    up with no chunk of out's, so out is stored element by element."""
+    w1, b1, w2, b2, wc, bc = params(32, 256, 25, device=cuda)
+    shape = (2, 5, 48, 9)
+    n = 2 * 5 * 48 * 9
+    d = torch.randn(n * 25 + 1, device=cuda)[1:].view(*shape, 25)
+    x = torch.randn(n * 32 + 3, device=cuda)[3:].view(*shape, 32)
+    out = ts.conv_fwd(d, x, wc, bc)
+    assert max_rel(out, ts.conv_fwd_plain(d, x, wc, bc)) < 2e-5
 
 
 # blk_bwd outputs: dx, dwc, dw1, db1, dw2, db2, dbc.

@@ -100,15 +100,18 @@ def test_seg_fwd_plain_matches_jax_reference():
     assert max_rel(got, ref) < F32_TOL
 
 
-@pytest.mark.parametrize("h", [H, 1], ids=["h5", "h1"])
+@pytest.mark.parametrize("h,w", [(H, W), (1, W), (1, 48)],
+                         ids=["h5", "h1", "h1_w48"])
 @pytest.mark.parametrize("cdec", [CDEC, 12], ids=["cdec7", "cdec12_gt_c"])
-def test_conv_fwd_plain_matches_jax_reference(cdec, h):
+def test_conv_fwd_plain_matches_jax_reference(cdec, h, w):
     """c_dec 12 > C 8 is the dd conv's relation (and the 64-filter model's);
-    H = 1 leaves only the middle h tap, as the bf16 kernel's ring does."""
+    H = 1 leaves only the middle h tap, as the kernel's ring does; W = 48
+    is a row that the kernel cuts into column runs."""
     (_, _, _, _, wc, bc), = make_blocks(9, cdec, 1)
     r = np.random.default_rng(10)
-    d = r.normal(0, 1, (B, h, W, T, cdec)).astype(np.float32)
-    x = make_x(11)[:, :h]
+    d = r.normal(0, 1, (B, h, w, T, cdec)).astype(np.float32)
+    x = make_x(11)[:, :h] if w == W else \
+        r.normal(0, 1, (B, h, w, T, C)).astype(np.float32)
     ref = jnp.asarray(x) + lax.conv_general_dilated(
         jnp.asarray(d), jnp.asarray(wc), (1, 1, 1), "SAME",
         dimension_numbers=DIMS3) + jnp.asarray(bc)
