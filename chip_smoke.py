@@ -21,21 +21,31 @@ Phases, each printing its result:
    inputs and the shift tables
    integer planes (probav_tpu_torch/tools/dyadic.py), on which both
    versions take the same relu, sign and rounding decisions;
-4. model: the flagship cfg/p16t9c85r12.cfg model from a seeded init,
+4. widths: the four block-stack kernels beyond the flagship's channels,
+   at the widths of the 48-, 72- and 128-filter models (48/384/38,
+   72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
+   and bf16, against their plain versions with the kernel phase's
+   tolerances (conv_fwd at 128/1024/102 also at T = 19), with single-call
+   times of kernel, plain version and F.conv3d; one float32 train step of
+   a 12-block 128-filter "t" model against its "off" twin at batch 32
+   (loss, cPSNR, every gradient leaf), a bf16 forward of that model against
+   "off", and the train CLI at 48 filters in bf16 with the "t" stack
+   (blk_bwd launches per step, a falling loss);
+5. model: the flagship cfg/p16t9c85r12.cfg model from a seeded init,
    535,267 parameters, forward of the kernel stack against the plain
    stack on 128 patches;
-5. stack gradient: autograd through the 12-block kernel stack (forward
+6. stack gradient: autograd through the 12-block kernel stack (forward
    kernels, blk_bwd backward) against autograd through the plain twins,
    float32 and bf16, every block parameter's gradient compared; at bf16
    also against blk_bwd_plain on the same forward, and, as a witness that
    the gap is rounding, against that chain in float32;
-6. serve: ``probav_tpu_torch.serve.main()`` on a synthetic tree at bf16 and
+7. serve: ``probav_tpu_torch.serve.main()`` on a synthetic tree at bf16 and
    float32, with and without --tta, and --plain at both; PNG names, launch
    counts and the float32 kernel-vs-plain agreement (within one count) are
    checked.  Each CLI run is one cold run;
-7. warm resolve: ``Resolver.resolve_all`` at bf16 and float32, kernels and
+8. warm resolve: ``Resolver.resolve_all`` at bf16 and float32, kernels and
    plain: the median and range of timed runs after a warm-up;
-8. train: ``probav_tpu_torch.train`` (through ``main(argv)``) on a
+9. train: ``probav_tpu_torch.train`` (through ``main(argv)``) on a
    synthetic stage-5 tree at batch 128, bf16 and float32, with the "t"
    kernel stack, with ``--fused-stack flat`` and with --plain: launch
    counts (12 of each stack kernel per step with "t", 12 of wide_bwd with
@@ -146,6 +156,13 @@ PEAK_TF32 = 494.7e12
 # C), the shapes the column runs of its ring opened.
 CONV_ENVELOPE = (("W=48", (16, 22, 48, 9), CDEC, C),
                  ("64/512/51 T=19", (16, 22, 22, 19), 51, 64))
+# The width phase: (C, C_mid, C_dec) of the 48-, 72- and 128-filter models
+# (exp_rate 8, decay_rate 0.8) on WIDTH_PATCHES patches; the 12-block
+# model at WIDE_FILTERS in float32 at WIDE_BATCH (its "off" twin saves 12
+# blocks' wide activations, ~20 GB at batch 32); the train CLI at
+# CLI_FILTERS.
+WIDTHS = ((48, 384, 38), (72, 576, 57), (128, 1024, 102))
+WIDTH_PATCHES, WIDE_FILTERS, WIDE_BATCH, CLI_FILTERS = 16, 128, 32, 48
 
 
 def log(msg):
@@ -492,6 +509,178 @@ def phase_kernels(torch, ts, dev, card):
     return rows
 
 
+def phase_widths(torch, ts, dev, card):
+    """The width phase (module docstring, 4)."""
+    import torch.nn.functional as F
+
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.models.wdsr import build_model
+    from probav_tpu_torch.ops import wide_block as wb
+    from probav_tpu_torch.tools.dyadic import blk_bwd_inputs, wide_bwd_inputs
+    from probav_tpu_torch.tools.profile_train import (make_trainer,
+                                                      synthetic_batch)
+    from probav_tpu_torch.train import cli
+
+    n = WIDTH_PATCHES * HW * HW * T
+    vol = (WIDTH_PATCHES, HW, HW, T)
+
+    def report(name, dn, widths, err, ms, pms, lms=None):
+        flops, nbytes, peak, route = kernel_costs(name, n, *widths, dn)
+        bms, by = bound(flops, nbytes, peak)
+        lib = "none" if lms is None else f"{lms:.4f} ms"
+        log(f"width {name} {dn} [N={n}, {'/'.join(map(str, widths))}]: "
+            f"max|diff| {err:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"library call {lib}, bound {bms:.4f} ms by {by}{route} [{card}]")
+
+    for widths in WIDTHS:
+        c, cmid, cdec = widths
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            tol_of = lambda k: BWD_TOL[dn] if k == "dx" else BWD_GRAD_TOL
+            x, (w1, b1, w2, b2, wc, bc) = stack_inputs(
+                torch, dev, dtype, WIDTH_PATCHES, c, cmid, cdec, seed=20)
+            x2 = x.reshape(-1, c)
+            reset_launches()
+            d = ts.seg_fwd(x2, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            err, _ = check(f"width seg_fwd {widths} {dn}", d,
+                           ts.seg_fwd_plain(x2, w1, b1, w2, b2), TOL[dn])
+            pms, ms = timed(torch,
+                            lambda: ts.seg_fwd_plain(x2, w1, b1, w2, b2),
+                            lambda: ts.seg_fwd(x2, w1, b1, w2, b2))
+            report("seg_fwd", dn, widths, err, ms, pms)
+
+            d5 = d.reshape(x.shape[:-1] + (cdec,))
+            err, _ = check(f"width conv_fwd {widths} {dn}",
+                           ts.conv_fwd(d5, x, wc, bc),
+                           ts.conv_fwd_plain(d5, x, wc, bc), TOL[dn])
+            dcl = d5.permute(0, 4, 1, 2, 3)
+            wcl = wc.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            pms, ms, lms = timed(
+                torch, lambda: ts.conv_fwd_plain(d5, x, wc, bc),
+                lambda: ts.conv_fwd(d5, x, wc, bc),
+                lambda: F.conv3d(dcl, wcl, bc, padding=1))
+            report("conv_fwd", dn, widths, err, ms, pms, lms)
+            del d, d5, dcl, x, x2
+            if c == WIDE_FILTERS:   # T = 19 at the widest bucket
+                g = torch.Generator(device=dev).manual_seed(21)
+                rn = lambda *s_, sc=1.0: (torch.randn(
+                    s_, generator=g, device=dev) * sc).to(dtype)
+                shape = (WIDTH_PATCHES, HW, HW, 19)
+                d19, x19 = rn(*shape, cdec), rn(*shape, c)
+                err, _ = check(f"width conv_fwd T=19 {widths} {dn}",
+                               ts.conv_fwd(d19, x19, wc, bc),
+                               ts.conv_fwd_plain(d19, x19, wc, bc), TOL[dn])
+                log(f"width conv_fwd {dn} [{list(shape)}, {cdec} -> {c}]: "
+                    f"max|diff| {err:.3e} (tol {TOL[dn]:g} of max|ref|)")
+                del d19, x19
+
+            args = blk_bwd_inputs(vol, c, cmid, cdec, seed=22, device=dev,
+                                  dtype=dtype)
+            errs = check_outputs(f"width blk_bwd {widths} {dn}", BWD_NAMES,
+                                 ts.blk_bwd(*args), ts.blk_bwd_plain(*args),
+                                 tol_of)
+            pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
+                            lambda: ts.blk_bwd(*args), reps=10)
+            report("blk_bwd", dn, widths, max(errs), ms, pms)
+            args = wide_bwd_inputs(n, c, cmid, cdec, seed=23, device=dev,
+                                   dtype=dtype)
+            errs = check_outputs(f"width wide_bwd {widths} {dn}", WIDE_NAMES,
+                                 wb.wide_bwd(*args), wb.wide_bwd_plain(*args),
+                                 tol_of)
+            pms, ms = timed(torch, lambda: wb.wide_bwd_plain(*args),
+                            lambda: wb.wide_bwd(*args), reps=10)
+            report("wide_bwd", dn, widths, max(errs), ms, pms)
+            del args
+            counts = launches()
+            if any(counts[k] <= 0 for k in ("seg_fwd", "conv_fwd", "blk_bwd",
+                                            "wide_bwd")):
+                raise AssertionError(f"width {widths} {dn}: launches {counts}")
+            torch.cuda.empty_cache()
+
+    # The 12-block WIDE_FILTERS model: one float32 train step of "t"
+    # against "off" (held as phase_train_step holds them), then a bf16
+    # forward of each.
+    cfg = Config.from_file(CFG)
+    cfg.flat["num_filters"] = WIDE_FILTERS
+    batch = tuple(torch.as_tensor(a, device=dev)
+                  for a in synthetic_batch(WIDE_BATCH, seed=2))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tier in ("off", "t"):
+            tr = make_trainer(cfg, "float32", tier, dev,
+                              os.path.join(tmp, tier))
+            grads = tr.loss_and_grads(*batch)[2]
+            reset_launches()
+            loss, metric = tr.train_step(*batch)
+            torch.cuda.synchronize()
+            out[tier] = dict(loss=float(loss), metric=float(metric),
+                             grads=grads, counts=launches())
+            tr.logger_.close()
+            del tr, grads
+            torch.cuda.empty_cache()
+    a, b = out["t"], out["off"]
+    if a["counts"] != expect(**STEP_KERNELS) or b["counts"] != expect():
+        raise AssertionError(f"width model step: launches {a['counts']}, "
+                             f"off {b['counts']}")
+    gerr = {k: rel_l2(a["grads"][k], b["grads"][k]) for k in a["grads"]}
+    gk = max(gerr, key=lambda k: gerr[k] if np.isfinite(gerr[k]) else np.inf)
+    msg = (f"width model: 12 blocks, {WIDE_FILTERS} filters, one f32 train "
+           f"step at batch {WIDE_BATCH}, t vs off: loss {a['loss']:.6f} vs "
+           f"{b['loss']:.6f}; cPSNR {a['metric']:.4f} vs {b['metric']:.4f}; "
+           f"gradients of {len(gerr)} leaves, worst ||got-ref||/||ref|| {gk} "
+           f"{gerr[gk]:.3e} (tol {STACK_TOL['float32']:g})")
+    if not abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]) or \
+            not abs(a["metric"] - b["metric"]) <= 1e-4 or \
+            not gerr[gk] <= STACK_TOL["float32"]:
+        raise AssertionError(msg)
+    log(f"{msg} [{card}]")
+    del out, a, b
+    outs = {}
+    for tier in ("t", "off"):
+        m = build_model(cfg, "NIR", dtype=torch.bfloat16, fused_stack=tier,
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+        with torch.inference_mode():
+            outs[tier] = m.eval()(batch[0]).float()
+        del m
+    err, scale = check("width model bf16", outs["t"], outs["off"],
+                       MODEL_TOL["bfloat16"])
+    log(f"width model bf16: {WIDE_FILTERS} filters, kernel stack vs plain "
+        f"stack on {WIDE_BATCH} patches max|diff| {err:.3e} (max|ref| "
+        f"{scale:.3e}, tol {MODEL_TOL['bfloat16']:g}) [{card}]")
+    del outs, batch
+    torch.cuda.empty_cache()
+
+    # The train CLI at CLI_FILTERS filters, bf16, "t" stack.
+    steps_per_epoch, val_batches = TRAIN_N // 128, -(-VAL_N // 128)
+    epochs = TRAIN_EPOCHS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path, _, log_dir = write_train_tree(tmp, "w48", epochs,
+                                                num_filters=CLI_FILTERS)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = cli.main(["--cfg", cfg_path, "--band", "NIR", "--eval-step",
+                        str(steps_per_epoch), "--device", str(dev), "--bf16",
+                        "--fused-stack", "t"])["NIR"]
+        wall = time.perf_counter() - t0
+        got = launches()
+        steps = epochs * steps_per_epoch
+        evals = (epochs + 1) * val_batches
+        want = expect(seg_fwd=12 * (steps + evals),
+                      conv_fwd=12 * (steps + evals), blk_bwd=12 * steps)
+        losses = train_losses(log_dir)
+        if res["steps"] != steps or got != want or \
+                not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train CLI at {CLI_FILTERS} filters: "
+                                 f"{res['steps']} steps, launches {got} "
+                                 f"(expected {want}), losses {losses}")
+    log(f"train CLI bf16 t at {CLI_FILTERS} filters: {steps} steps at batch "
+        f"128, launches {got} ({got['blk_bwd'] // steps} blk_bwd per step); "
+        f"train loss {losses[0]:.3f} -> {losses[-1]:.3f}; {wall:.1f} s cold "
+        f"[{card}]")
+
+
 def chain_blk_bwd_plain(ts, gy, xs, ds, blocks, dtype):
     """[dx, then per block dw1, db1, dw2, db2, dwc, dbc]: blk_bwd_plain
     chained from the last block to the first over the saved forward
@@ -735,10 +924,11 @@ def phase_warm(torch, dev, card):
             f"(min {min(rates):.3f}, max {max(rates):.3f}) [{card}]")
 
 
-def write_train_tree(root, name, epochs):
-    """A cfg copy whose directories point into root/name, with ``epochs``,
-    over a synthetic stage-5 tree (TRAIN_N training and VAL_N validation
-    patches, HR as pickled masked arrays as the pipeline writes them)."""
+def write_train_tree(root, name, epochs, **overrides):
+    """A cfg copy whose directories point into root/name, with ``epochs``
+    (and the other keys of ``overrides``), over a synthetic stage-5 tree
+    (TRAIN_N training and VAL_N validation patches, HR as pickled masked
+    arrays as the pipeline writes them)."""
     from probav_tpu_torch.tools.profile_train import synthetic_batch
 
     base = os.path.join(root, name)
@@ -752,7 +942,7 @@ def write_train_tree(root, name, epochs):
             np.ma.masked_array(hr[sl], mask=mask[sl] == 0).dump(
                 os.path.join(aug, f"{split}patchesHR_NIR.npy"))
     model = os.path.join(base, "model")
-    return (write_cfg(base, epochs=epochs),
+    return (write_cfg(base, epochs=epochs, **overrides),
             os.path.join(model, "ckpt_p16t9c85r12", "NIR"),
             os.path.join(model, "logs_p16t9c85r12", "NIR"))
 
@@ -980,10 +1170,14 @@ def main():
              if "Function properties" in ln or "registers" in ln
              or "spill" in ln]
     print("\n".join(ptxas), file=sys.stderr)
+    per_source = [ln[len("compiled "):] for ln in report.splitlines()
+                  if ln.startswith("compiled ")]
     log(f"build: {os.path.relpath(path, ROOT)} in {secs:.1f} s (nvcc "
-        f"{' '.join(_build.NVCC_FLAGS)}, one process per source)")
+        f"{' '.join(_build.NVCC_FLAGS)}, one process per source: "
+        f"{'; '.join(per_source)})")
 
     rows = phase_kernels(torch, ts, dev, card)
+    phase_widths(torch, ts, dev, card)
     phase_model(torch, dev, card)
     phase_stack_grad(torch, ts, dev, card)
     serve_launches = phase_serve(torch, dev, card)

@@ -33,9 +33,10 @@
 // widths: bf16 at c_in, c_dec <= 32 and c_mid <= 256 (the flagship's
 // 32/256/25) runs on the tensor cores (wgrad_mma_kernel,
 // seg_bwd_mma_kernel: mma.sync m16n8k16, float32 sums); float32, and bf16
-// at wider widths (the 64-filter model's 64/512/51), run on the CUDA cores
-// (wgrad_kernel, seg_bwd_kernel: bf16 data widened to float32, whose
-// products of bf16 values are exact), so every width has a kernel.
+// at wider widths (the 64-filter model's 64/512/51, up to 128/1024/102),
+// run on the CUDA cores (wgrad_kernel, seg_bwd_kernel: bf16 data widened
+// to float32, whose products of bf16 values are exact), so every width
+// from 1 to MAX_CH = 128 channels has a kernel.
 //
 // Reductions across blocks: kernels 2 and 3 run a persistent grid of G
 // blocks; each block owns one float32 slot of the partial buffer and sums
@@ -77,6 +78,8 @@
 
 #include "common.cuh"
 
+#include <algorithm>
+
 namespace {
 
 using probav::from_f;
@@ -106,21 +109,31 @@ struct Slot {
 
 // ------------------------------------------------------------------------ //
 // wgrad: dWc[tap][c][o] = sum_q d[q + off(tap)][c] * gy[q][o]                //
-// CDB c's (stride 32) and COB o's per thread and tap.                      //
+// A block owns one h tap (blockIdx.y) and one tile of 32*CDB c's by 8*COB   //
+// o's (blockIdx.z; one tile up to the flagship's and the 64-filter         //
+// model's widths); each thread CDB c's (stride 32) and COB o's per tap.    //
+// Work items are (b, h, run of wcols columns): whole rows where the run's   //
+// gy and its d halo fit shared memory (every width at W = 22, T = 9),     //
+// else runs of columns (at W = 48 from c_dec = 64 on).                    //
 // ------------------------------------------------------------------------ //
 
 template <typename T, int CDB, int COB>
 __global__ void __launch_bounds__(WG_THREADS)
 wgrad_kernel(const T* __restrict__ d, const T* __restrict__ gy,
              float* __restrict__ part, long slot_len, int B, int H, int W,
-             int Tn, int c_dec, int c_out) {
-  constexpr int COP = COB * 8;           // gy row stride in smem
+             int Tn, int c_dec, int c_out, int wcols) {
+  constexpr int COP = COB * 8;           // gy row stride in smem, o's a tile
+  constexpr int CT = CDB * 32;           // c's a tile
   extern __shared__ __align__(16) float smem[];
-  const int hs = c_dec | 1;              // odd halo channel stride
-  const int W2 = W + 2, T2 = Tn + 2, WT = W * Tn;
-  float* gys = smem;                     // [WT][COP]
-  float* halo = gys + WT * COP;          // [W2][T2][hs]
-  const int halo_floats = W2 * T2 * hs;
+  const int ctiles = (c_dec + CT - 1) / CT;
+  const int c0 = (int)(blockIdx.z % ctiles) * CT;
+  const int o0 = (int)(blockIdx.z / ctiles) * COP;
+  const int cw = min(CT, c_dec - c0);    // this tile's c's
+  const int hs = cw | 1;                 // odd halo channel stride
+  const int T2 = Tn + 2;
+  const int wruns = (W + wcols - 1) / wcols;
+  float* gys = smem;                     // [wcols * Tn][COP]
+  float* halo = gys + wcols * Tn * COP;  // [wcols + 2][T2][hs]
 
   const int tid = threadIdx.x;
   const int oq = tid % 8, cg = tid / 8;  // o's oq*COB.., c's cg + 32 i
@@ -129,7 +142,7 @@ wgrad_kernel(const T* __restrict__ d, const T* __restrict__ gy,
 #pragma unroll
   for (int i = 0; i < CDB; ++i) {
     const int c = cg + 32 * i;
-    cidx[i] = c < c_dec ? c : c_dec - 1;   // clamp: never stored
+    cidx[i] = c < cw ? c : cw - 1;       // clamp: never stored
   }
   float acc[9][CDB][COB];
 #pragma unroll
@@ -139,29 +152,36 @@ wgrad_kernel(const T* __restrict__ d, const T* __restrict__ gy,
 #pragma unroll
       for (int u = 0; u < COB; ++u) acc[t][i][u] = 0.f;
 
-  for (long item = blockIdx.x; item < (long)B * H; item += gridDim.x) {
-    const int h = (int)(item % H);
+  for (long item = blockIdx.x; item < (long)B * H * wruns;
+       item += gridDim.x) {
+    const long row = item / wruns;       // b * H + h
+    const int w0 = (int)(item % wruns) * wcols, wl = min(wcols, W - w0);
+    const int h = (int)(row % H);
     const int hh = h + dh - 1;
     if (hh < 0 || hh >= H) continue;     // uniform over the block
     __syncthreads();                     // previous item fully consumed
-    const long gsrc = item * WT * c_out;
-    for (int e = tid; e < WT * COP; e += WG_THREADS) {
+    // Row bases once, int offsets within a row: a 64-bit index per element
+    // makes the compiler branch around each load, one in flight a thread
+    // (17% of the flagship's wgrad time).
+    const T* gsrc = gy + ((row * W + w0) * Tn * c_out + o0);
+    for (int e = tid; e < wl * Tn * COP; e += WG_THREADS) {
       const int p = e / COP, o = e % COP;
-      gys[e] = o < c_out ? to_f(gy[gsrc + (long)p * c_out + o]) : 0.f;
+      gys[e] = o0 + o < c_out ? to_f(gsrc[p * c_out + o]) : 0.f;
     }
-    const long dsrc = (item + dh - 1) * WT * c_dec;
+    const T* dsrc = d + ((row + dh - 1) * W * Tn * c_dec + c0);
+    const int halo_floats = (wl + 2) * T2 * hs;
     for (int e = tid; e < halo_floats; e += WG_THREADS) {
       const int c = e % hs, wt = e / hs;
-      const int ti = wt % T2, wi = wt / T2;
+      const int ti = wt % T2, w = w0 - 1 + wt / T2;
       float v = 0.f;
-      if (c < c_dec && wi >= 1 && wi <= W && ti >= 1 && ti <= Tn)
-        v = to_f(d[dsrc + ((long)(wi - 1) * Tn + (ti - 1)) * c_dec + c]);
+      if (c < cw && w >= 0 && w < W && ti >= 1 && ti <= Tn)
+        v = to_f(dsrc[(w * Tn + ti - 1) * c_dec + c]);
       halo[e] = v;
     }
     __syncthreads();
 
     int pw = 0, pt = 0;
-    for (int p = 0; p < WT; ++p) {
+    for (int p = 0; p < wl * Tn; ++p) {
       float gv[COB];
       const float4* g4 = reinterpret_cast<const float4*>(gys + p * COP +
                                                          oq * COB);
@@ -193,32 +213,53 @@ wgrad_kernel(const T* __restrict__ d, const T* __restrict__ gy,
 #pragma unroll
     for (int i = 0; i < CDB; ++i) {
       const int c = cg + 32 * i;
-      if (c >= c_dec) continue;
+      if (c >= cw) continue;
 #pragma unroll
       for (int u = 0; u < COB; ++u) {
-        const int o = oq * COB + u;
+        const int o = o0 + oq * COB + u;
         if (o < c_out)
-          out[((long)(dh * 9 + t) * c_dec + c) * c_out + o] = acc[t][i][u];
+          out[((long)(dh * 9 + t) * c_dec + c0 + c) * c_out + o] =
+              acc[t][i][u];
       }
     }
+}
+
+template <typename T, int CDB, int COB>
+size_t wgrad_smem(int wcols, int Tn, int c_dec) {
+  const int hs = std::min(CDB * 32, c_dec) | 1;
+  return sizeof(float) * ((size_t)wcols * Tn * COB * 8 +
+                          (size_t)(wcols + 2) * (Tn + 2) * hs);
 }
 
 template <typename T, int CDB, int COB>
 cudaError_t launch_wgrad(const void* d, const void* gy, float* part,
                          long slot_len, int G, int B, int H, int W, int Tn,
                          int c_dec, int c_out, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((size_t)W * Tn * COB * 8 +
-                                       (size_t)(W + 2) * (Tn + 2) * (c_dec | 1));
+  // Whole rows where they fit, else the widest run of columns that does,
+  // the runs of a row made equal to within a column; refused before any
+  // launch where not even one column fits (T > 222 at 64 x 64 tiles).
+  const size_t optin = (size_t)probav::optin_smem();
+  int wcols = W;
+  while (wcols > 0 && wgrad_smem<T, CDB, COB>(wcols, Tn, c_dec) > optin)
+    --wcols;
+  if (wcols < 1) return cudaErrorInvalidValue;
+  const int runs = (W + wcols - 1) / wcols;
+  wcols = (W + runs - 1) / runs;
+  const size_t smem = wgrad_smem<T, CDB, COB>(wcols, Tn, c_dec);
   auto kern = wgrad_kernel<T, CDB, COB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(G, 3), WG_THREADS, smem, s>>>(
+  const int tiles = (c_dec + CDB * 32 - 1) / (CDB * 32) *
+                    ((c_out + COB * 8 - 1) / (COB * 8));
+  kern<<<dim3(G, 3, tiles), WG_THREADS, smem, s>>>(
       static_cast<const T*>(d), static_cast<const T*>(gy), part, slot_len, B,
-      H, W, Tn, c_dec, c_out);
+      H, W, Tn, c_dec, c_out, wcols);
   return cudaGetLastError();
 }
 
+// Tiles of up to 64 c's by 64 o's (beyond that, more tiles: the per-thread
+// sums, 9 x CDB x COB, stay at most 144).
 template <typename T>
 cudaError_t dispatch_wgrad(const void* d, const void* gy, float* part,
                            long slot_len, int G, int B, int H, int W, int Tn,
@@ -402,7 +443,12 @@ cudaError_t launch_wgrad_mma(const void* d, const void* gy, float* part,
 
 // ------------------------------------------------------------------------ //
 // seg_bwd: x, dd, gy [n, *] -> dx [n, c_in] and the dW1/dW2/db1/db2/dbc      //
-// partials.  CI, CD: register widths (>= c_in, c_dec, multiples of 4).     //
+// partials.  CI, CD: the 32-channel buckets of c_in, c_dec.  One row per   //
+// thread: its dx sums in registers, and its x and dd rows too where they   //
+// fit beside them (CI <= 64, CI + CD <= 128), else read from the shared    //
+// tile (odd stride: no bank conflicts; loops over them unrolled 4 deep,    //
+// not whole).  dbc: thread k < c_in sums channel k of gy over the tile's   //
+// rows in order, from the tile in shared memory.                          //
 // WIDE (the wide block's backward): no gy, dx = W1 dz, no dbc, and dz and  //
 // relu(z) are not rounded to T.                                            //
 // ------------------------------------------------------------------------ //
@@ -426,7 +472,9 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
   float* w1c = hs + BWD_ROWS * BWD_MS;          // [MCH][CI]  w1 transposed
   float* w2c = w1c + BWD_MCH * CI;              // [MCH][CD]
   float* b1c = w2c + BWD_MCH * CD;              // [MCH]
-  float* red = b1c + BWD_MCH;                   // [R]  dbc reduction
+  static_assert(probav::MAX_CH <= BWD_ROWS, "a thread per dbc channel");
+  constexpr bool REG = CI <= 64 && CI + CD <= 128;
+  constexpr int KU = REG ? CI / 4 : 4, CU = REG ? CD / 4 : 4;   // unrolls
 
   const int tid = threadIdx.x;
   const Slot sl(c_in, c_mid, c_dec, !WIDE);
@@ -434,9 +482,7 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
   for (long e = sl.w1 + tid; e < sl.bc; e += BWD_ROWS) slot[e] = 0.f;
   __syncthreads();
 
-  // c_in divides BWD_ROWS (checked by the blk_bwd entry point), so in the
-  // coalesced epilogue this thread always meets channel tid % c_in.
-  float dbc_acc = 0.f;
+  float dbc_acc = 0.f;   // channel tid of dbc (tid < c_in)
   const long tiles = ((long)n + BWD_ROWS - 1) / BWD_ROWS;
   for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long row0 = tile * BWD_ROWS;
@@ -453,11 +499,23 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
           (r < nrows && c < c_dec) ? to_f(dd[(row0 + r) * c_dec + c]) : 0.f;
     }
     __syncthreads();
-    float xr[CI], dr[CD], dxa[CI];
+    float xr[REG ? CI : 1], dr[REG ? CD : 1], dxa[CI];
+    const float* xo = xs + tid * RS;   // this thread's x and dd rows
+    const float* dof = ds + tid * RS;
 #pragma unroll
-    for (int k = 0; k < CI; ++k) { xr[k] = xs[tid * RS + k]; dxa[k] = 0.f; }
+    for (int k = 0; k < CI; ++k) dxa[k] = 0.f;
+    if constexpr (REG) {
 #pragma unroll
-    for (int c = 0; c < CD; ++c) dr[c] = ds[tid * RS + c];
+      for (int k = 0; k < CI; ++k) xr[k] = xo[k];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) dr[c] = dof[c];
+    }
+    auto xv = [&](int k) {
+      if constexpr (REG) return xr[k]; else return xo[k];
+    };
+    auto dv = [&](int c) {
+      if constexpr (REG) return dr[c]; else return dof[c];
+    };
 
     for (int j0 = 0; j0 < c_mid; j0 += BWD_MCH) {
       __syncthreads();   // previous chunk's sums done with zs, hs, w1c
@@ -480,28 +538,28 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
         float z[4], g[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) { z[q] = b1c[jj + q]; g[q] = 0.f; }
-#pragma unroll
+#pragma unroll (KU)
         for (int k = 0; k < CI; k += 4) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const float4 w =
                 *reinterpret_cast<const float4*>(w1c + (jj + q) * CI + k);
-            z[q] = fmaf(xr[k], w.x, z[q]);
-            z[q] = fmaf(xr[k + 1], w.y, z[q]);
-            z[q] = fmaf(xr[k + 2], w.z, z[q]);
-            z[q] = fmaf(xr[k + 3], w.w, z[q]);
+            z[q] = fmaf(xv(k), w.x, z[q]);
+            z[q] = fmaf(xv(k + 1), w.y, z[q]);
+            z[q] = fmaf(xv(k + 2), w.z, z[q]);
+            z[q] = fmaf(xv(k + 3), w.w, z[q]);
           }
         }
-#pragma unroll
+#pragma unroll (CU)
         for (int c = 0; c < CD; c += 4) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const float4 w =
                 *reinterpret_cast<const float4*>(w2c + (jj + q) * CD + c);
-            g[q] = fmaf(dr[c], w.x, g[q]);
-            g[q] = fmaf(dr[c + 1], w.y, g[q]);
-            g[q] = fmaf(dr[c + 2], w.z, g[q]);
-            g[q] = fmaf(dr[c + 3], w.w, g[q]);
+            g[q] = fmaf(dv(c), w.x, g[q]);
+            g[q] = fmaf(dv(c + 1), w.y, g[q]);
+            g[q] = fmaf(dv(c + 2), w.z, g[q]);
+            g[q] = fmaf(dv(c + 3), w.w, g[q]);
           }
         }
 #pragma unroll
@@ -587,8 +645,9 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
       }
     }
 
-    // Epilogue through shared memory: dx = W1 dz (+ gy), coalesced.
-    __syncthreads();   // the last chunk's sums are done with xs
+    // Epilogue through shared memory: dx = W1 dz (+ gy), coalesced; gy
+    // lands in ds (free once the last chunk's sums are done) for dbc.
+    __syncthreads();   // the last chunk's sums are done with xs and ds
 #pragma unroll
     for (int k = 0; k < CI; ++k) xs[tid * RS + k] = dxa[k];
     __syncthreads();
@@ -599,21 +658,18 @@ seg_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dd,
         dx[base + e] = from_f<T>(xs[r * RS + k]);
       } else {
         const float g = to_f(gy[base + e]);
-        dbc_acc += g;
+        ds[r * RS + k] = g;
         dx[base + e] = from_f<T>(xs[r * RS + k] + g);
       }
     }
+    if constexpr (!WIDE) {
+      __syncthreads();
+      if (tid < c_in)
+        for (int r = 0; r < nrows; ++r) dbc_acc += ds[r * RS + tid];
+    }
   }
-  if constexpr (WIDE) return;
-
-  // dbc: the BWD_ROWS / c_in threads of each channel, summed in order.
-  __syncthreads();
-  red[tid] = dbc_acc;
-  __syncthreads();
-  if (tid < c_in) {
-    float s = 0.f;
-    for (int i = tid; i < BWD_ROWS; i += c_in) s += red[i];
-    slot[sl.bc + tid] = s;
+  if constexpr (!WIDE) {
+    if (tid < c_in) slot[sl.bc + tid] = dbc_acc;
   }
 }
 
@@ -625,7 +681,7 @@ cudaError_t launch_seg_bwd(const void* x, const void* dd, const void* gy,
   constexpr int RS = (CI > CD ? CI : CD) + 1;
   const size_t smem =
       sizeof(float) * ((size_t)2 * BWD_ROWS * RS + 2 * BWD_ROWS * BWD_MS +
-                       BWD_MCH * (CI + CD + 1) + BWD_ROWS);
+                       BWD_MCH * (CI + CD + 1));
   auto kern = seg_bwd_kernel<T, CI, CD, WIDE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -644,22 +700,13 @@ cudaError_t dispatch_seg_bwd(const void* x, const void* dd, const void* gy,
                              void* dx, float* part, long slot_len, int G,
                              int n, int c_in, int c_mid, int c_dec,
                              cudaStream_t s) {
-  const bool ci32 = c_in <= 32, cd32 = c_dec <= 32;
-  if (ci32 && cd32)
-    return launch_seg_bwd<T, 32, 32, WIDE>(x, dd, gy, w1, b1, w2, dx, part,
-                                           slot_len, G, n, c_in, c_mid,
-                                           c_dec, s);
-  if (ci32)
-    return launch_seg_bwd<T, 32, 64, WIDE>(x, dd, gy, w1, b1, w2, dx, part,
-                                           slot_len, G, n, c_in, c_mid,
-                                           c_dec, s);
-  if (cd32)
-    return launch_seg_bwd<T, 64, 32, WIDE>(x, dd, gy, w1, b1, w2, dx, part,
-                                           slot_len, G, n, c_in, c_mid,
-                                           c_dec, s);
-  return launch_seg_bwd<T, 64, 64, WIDE>(x, dd, gy, w1, b1, w2, dx, part,
-                                         slot_len, G, n, c_in, c_mid, c_dec,
-                                         s);
+  return probav::by_bucket(c_in, [&](auto ci) {
+    return probav::by_bucket(c_dec, [&](auto cd) {
+      return launch_seg_bwd<T, decltype(ci)::value, decltype(cd)::value,
+                            WIDE>(x, dd, gy, w1, b1, w2, dx, part, slot_len,
+                                  G, n, c_in, c_mid, c_dec, s);
+    });
+  });
 }
 
 // ------------------------------------------------------------------------ //
@@ -1026,15 +1073,18 @@ extern "C" {
 // c_dec] and output dx [B,H,W,T,c_in] in that dtype; wflip [3,3,3,c_in,
 // c_dec] in that dtype is wc [3,3,3,c_dec,c_in] flipped in its three tap
 // axes with its channel axes swapped; b1 float32.  part: float32 scratch
-// of G slots; out: float32 [slot_len] in the Slot layout above.  c_in up
-// to 64 and dividing 128; c_dec up to 64.
+// of G slots; out: float32 [slot_len] in the Slot layout above.  c_in and
+// c_dec any count from 1 to MAX_CH = 128; T within the dd conv's envelope
+// (tstack.cu, conv_ring_kernel), else cudaErrorInvalidValue before any
+// launch.
 int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
                    const void* wflip, const void* w1, const void* b1,
                    const void* w2, void* dd, void* dx, void* part, void* out,
                    int G, int B, int H, int W, int Tn, int c_in, int c_mid,
                    int c_dec, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || Tn < 1 || G < 1 || c_in < 1 || c_in > 64 ||
-      BWD_ROWS % c_in != 0 || c_dec < 1 || c_dec > 64 || c_mid < 1)
+  if (B < 1 || H < 1 || W < 1 || Tn < 1 || G < 1 || c_in < 1 ||
+      c_in > probav::MAX_CH || c_dec < 1 || c_dec > probav::MAX_CH ||
+      c_mid < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b1f = static_cast<const float*>(b1);
@@ -1054,13 +1104,13 @@ int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
 // [c_mid, c_dec], dy [n, c_dec] and the output dx [n, c_in] in that dtype;
 // b1 float32.  part: float32 scratch of G slots; out: float32 dW1 [c_in]
 // [c_mid] | dW2 [c_mid][c_dec] | db1 [c_mid] | db2 [c_dec].  c_in and
-// c_dec up to 64.
+// c_dec any count from 1 to MAX_CH = 128.
 int probav_wide_bwd(int dtype, const void* x, const void* w1, const void* b1,
                     const void* w2, const void* dy, void* dx, void* part,
                     void* out, int G, int n, int c_in, int c_mid, int c_dec,
                     void* stream) {
-  if (n < 1 || G < 1 || c_in < 1 || c_in > 64 || c_dec < 1 || c_dec > 64 ||
-      c_mid < 1)
+  if (n < 1 || G < 1 || c_in < 1 || c_in > probav::MAX_CH || c_dec < 1 ||
+      c_dec > probav::MAX_CH || c_mid < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b1f = static_cast<const float*>(b1);

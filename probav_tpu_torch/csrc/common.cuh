@@ -4,6 +4,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace probav {
 
@@ -60,6 +61,29 @@ from_f<__nv_bfloat16>(float v) {
 }
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
+}
+
+// The widest channel count any kernel of the block stack takes (C, C_dec;
+// ops/tstack.t_tier_refusal states the same).
+constexpr int MAX_CH = 128;
+
+// f(std::integral_constant<int, B>()) for B, the 32-channel bucket of c:
+// the compile-time register or tile width of c channels, 1 <= c <= MAX_CH.
+template <typename F>
+__host__ auto by_bucket(int c, F&& f) {
+  if (c <= 32) return f(std::integral_constant<int, 32>());
+  if (c <= 64) return f(std::integral_constant<int, 64>());
+  if (c <= 96) return f(std::integral_constant<int, 96>());
+  return f(std::integral_constant<int, 128>());
+}
+
+inline int optin_smem() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 232448;
+  return optin;
 }
 
 inline int sm_count() {

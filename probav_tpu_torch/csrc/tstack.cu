@@ -23,12 +23,16 @@
 // operations.
 //
 // - seg_fwd, float32, runs on the CUDA cores (exact float32 products, as
-//   the JAX reference computes): each thread owns one row, holds x and the
-//   d accumulator in registers and makes the wide activation one channel at
-//   a time; weights are staged in shared memory in chunks of SEG_MCH middle
-//   channels and read as broadcast float4 loads.
+//   the JAX reference computes): each thread owns one row, holds the d
+//   accumulator (and, up to 64 + 64 channels, x) in registers and makes the
+//   wide activation one channel at a time; weights are staged in shared
+//   memory in chunks of SEG_MCH middle channels and read as broadcast
+//   float4 loads.
 // - seg_fwd, bf16, runs on the tensor cores (mma.sync m16n8k16, float32
 //   accumulators) and chains the expand and decay products in registers.
+//
+// Every kernel takes C and C_dec from 1 to 128 (probav::MAX_CH), in
+// 32-channel buckets of its compile-time widths (probav::by_bucket).
 // - conv_fwd, both dtypes, is an implicit GEMM on the tensor cores over a
 //   shared-memory ring of halo rows, cut into runs of columns where whole
 //   rows do not fit, each row of d read from memory about once, filled by
@@ -65,7 +69,12 @@ constexpr int SEG_MCH = 64;     // middle channels staged per chunk
 
 // ------------------------------------------------------------------------ //
 // seg_fwd, float32: x [n, c_in] -> d [n, c_dec]                             //
-// CI, CD: register widths (>= c_in, c_dec); unused lanes see zero weights.  //
+// CI, CD: the 32-channel buckets of c_in, c_dec; unused lanes see zero      //
+// weights.  The d accumulator lives in registers; so does the x row where   //
+// both fit (CI + CD <= 128), else each thread reads its x row from the      //
+// shared tile (odd stride: no bank conflicts), four middle channels per     //
+// pass over it, unrolled 4 deep.  The sums run in the same order either     //
+// way.                                                                     //
 // ------------------------------------------------------------------------ //
 
 template <int CI, int CD>
@@ -96,9 +105,13 @@ seg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
   __syncthreads();
 
-  float xr[CI];
+  constexpr bool XREG = CI + CD <= 128;
+  float xr[XREG ? CI : 1];
+  if constexpr (XREG) {
 #pragma unroll
-  for (int k = 0; k < CI; ++k) xr[k] = rows[tid * RS + k];
+    for (int k = 0; k < CI; ++k) xr[k] = rows[tid * RS + k];
+  }
+  const float* xo = rows + tid * RS;   // this thread's x row
   float acc[CD];
 #pragma unroll
   for (int c = 0; c < CD; ++c) acc[c] = 0.f;
@@ -122,20 +135,9 @@ seg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       b1s[j] = (j0 + j < c_mid) ? b1[j0 + j] : 0.f;
     __syncthreads();
 
-#pragma unroll 2
-    for (int j = 0; j < SEG_MCH; ++j) {
-      const float4* w1v = reinterpret_cast<const float4*>(w1s + j * CI);
-      float z = 0.f;
-#pragma unroll
-      for (int q = 0; q < CI / 4; ++q) {
-        const float4 w = w1v[q];
-        z = fmaf(xr[4 * q + 0], w.x, z);
-        z = fmaf(xr[4 * q + 1], w.y, z);
-        z = fmaf(xr[4 * q + 2], w.z, z);
-        z = fmaf(xr[4 * q + 3], w.w, z);
-      }
-      // Padded channels have zero weights and bias: they contribute nothing.
-      const float h = fmaxf(z + b1s[j], 0.f);
+    // acc += relu(x w1[:, j] + b1[j]) w2[j, :].  Padded channels have zero
+    // weights and bias: they contribute nothing.
+    auto decay = [&](float h, int j) {
       const float4* w2v = reinterpret_cast<const float4*>(w2s + j * CD);
 #pragma unroll
       for (int q = 0; q < CD / 4; ++q) {
@@ -144,6 +146,42 @@ seg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
         acc[4 * q + 1] = fmaf(h, w.y, acc[4 * q + 1]);
         acc[4 * q + 2] = fmaf(h, w.z, acc[4 * q + 2]);
         acc[4 * q + 3] = fmaf(h, w.w, acc[4 * q + 3]);
+      }
+    };
+    if constexpr (XREG) {
+#pragma unroll 2
+      for (int j = 0; j < SEG_MCH; ++j) {
+        const float4* w1v = reinterpret_cast<const float4*>(w1s + j * CI);
+        float z = 0.f;
+#pragma unroll
+        for (int q = 0; q < CI / 4; ++q) {
+          const float4 w = w1v[q];
+          z = fmaf(xr[4 * q + 0], w.x, z);
+          z = fmaf(xr[4 * q + 1], w.y, z);
+          z = fmaf(xr[4 * q + 2], w.z, z);
+          z = fmaf(xr[4 * q + 3], w.w, z);
+        }
+        decay(fmaxf(z + b1s[j], 0.f), j);
+      }
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < SEG_MCH; j += 4) {
+        float z[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int k = 0; k < CI; k += 4) {
+          const float xv[4] = {xo[k], xo[k + 1], xo[k + 2], xo[k + 3]};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float4 w =
+                *reinterpret_cast<const float4*>(w1s + (j + u) * CI + k);
+            z[u] = fmaf(xv[0], w.x, z[u]);
+            z[u] = fmaf(xv[1], w.y, z[u]);
+            z[u] = fmaf(xv[2], w.z, z[u]);
+            z[u] = fmaf(xv[3], w.w, z[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) decay(fmaxf(z[u] + b1s[j + u], 0.f), j + u);
       }
     }
   }
@@ -182,14 +220,12 @@ cudaError_t launch_seg(const void* x, const void* w1, const void* b1,
 cudaError_t dispatch_seg(const void* x, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* d, int n,
                          int c_in, int c_mid, int c_dec, cudaStream_t s) {
-  const bool ci32 = c_in <= 32, cd32 = c_dec <= 32;
-  if (ci32 && cd32)
-    return launch_seg<32, 32>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
-  if (ci32)
-    return launch_seg<32, 64>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
-  if (cd32)
-    return launch_seg<64, 32>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
-  return launch_seg<64, 64>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
+  return probav::by_bucket(c_in, [&](auto ci) {
+    return probav::by_bucket(c_dec, [&](auto cd) {
+      return launch_seg<decltype(ci)::value, decltype(cd)::value>(
+          x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
+    });
+  });
 }
 
 // ------------------------------------------------------------------------ //
@@ -204,9 +240,13 @@ constexpr int MMA_WARPS = 4;     // warps per block of seg_fwd_mma_kernel
 // seg_fwd, bf16.  Each warp takes 16-row tiles; the expand product
 // z = x W1 (K = 16*KS1) is made 8 middle channels at a time, + b1, relu,
 // rounded to bf16 in registers and immediately used as the A operand of the
-// decay product d += h W2 (N = 8*NT2).  W1^T [c_mid][16*KS1] and
-// W2^T [8*NT2][c_mid] are staged once per block in shared memory, rows
-// padded by 8 elements so that the fragment loads hit distinct banks.
+// decay product d += h W2 (N = 8*NT2).  W1^T [mch][16*KS1] and
+// W2^T [8*NT2][mch] are staged in shared memory for mch middle channels at
+// a time, rows padded by 8 elements so that the fragment loads hit
+// distinct banks: all of c_mid once per block where it fits (the
+// flagship's 32/256/25: 38,400 B), else in chunks restaged for each group
+// of MMA_WARPS tiles (at 128/1024/102, five chunks of 208), the decay
+// accumulators held in registers across the chunks.
 template <int KS1, int NT2>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
 seg_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
@@ -214,36 +254,45 @@ seg_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                    const float* __restrict__ b1,
                    const __nv_bfloat16* __restrict__ w2,
                    const float* __restrict__ b2, __nv_bfloat16* __restrict__ d,
-                   int n, int c_in, int c_mid, int c_dec, int c_mid16) {
+                   int n, int c_in, int c_mid, int c_dec, int c_mid16,
+                   int mch) {
   constexpr int CIP = 16 * KS1 + 8;            // W1^T row stride
-  const int CMP = c_mid16 + 8;                 // W2^T row stride
+  const int CMP = mch + 8;                     // W2^T row stride
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* w2s = w1s + c_mid16 * CIP;
+  __nv_bfloat16* w2s = w1s + mch * CIP;
   float* b1s = reinterpret_cast<float*>(w2s + 8 * NT2 * CMP);
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
 
-  // Staged in the global arrays' order (coalesced reads); pad columns of
-  // the smem rows are never read.
-  for (int e = threadIdx.x; e < 16 * KS1 * c_mid16; e += blockDim.x) {
-    const int k = e / c_mid16, j = e % c_mid16;
-    w1s[j * CIP + k] =
-        (j < c_mid && k < c_in) ? w1[(long)k * c_mid + j] : zero;
+  // Middle channels j0 .. j0 + mch - 1, staged in the global arrays' order
+  // (coalesced reads); pad columns of the smem rows are never read.
+  auto stage = [&](int j0) {
+    for (int e = threadIdx.x; e < 16 * KS1 * mch; e += blockDim.x) {
+      const int k = e / mch, j = e % mch, jm = j0 + j;
+      w1s[j * CIP + k] =
+          (jm < c_mid && k < c_in) ? w1[(long)k * c_mid + jm] : zero;
+    }
+    for (int e = threadIdx.x; e < mch * 8 * NT2; e += blockDim.x) {
+      const int j = e / (8 * NT2), c = e % (8 * NT2), jm = j0 + j;
+      w2s[c * CMP + j] =
+          (c < c_dec && jm < c_mid) ? w2[(long)jm * c_dec + c] : zero;
+    }
+    for (int j = threadIdx.x; j < mch; j += blockDim.x)
+      b1s[j] = j0 + j < c_mid ? b1[j0 + j] : 0.f;
+  };
+  const bool whole = mch >= c_mid16;
+  if (whole) {
+    stage(0);
+    __syncthreads();
   }
-  for (int e = threadIdx.x; e < c_mid16 * 8 * NT2; e += blockDim.x) {
-    const int j = e / (8 * NT2), c = e % (8 * NT2);
-    w2s[c * CMP + j] =
-        (c < c_dec && j < c_mid) ? w2[(long)j * c_dec + c] : zero;
-  }
-  for (int j = threadIdx.x; j < c_mid16; j += blockDim.x)
-    b1s[j] = j < c_mid ? b1[j] : 0.f;
-  __syncthreads();
 
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
   const int warp = threadIdx.x / 32;
   const long tiles = ((long)n + 15) / 16;
-  for (long tile = (long)blockIdx.x * MMA_WARPS + warp; tile < tiles;
-       tile += (long)gridDim.x * MMA_WARPS) {
+  const long groups = (tiles + MMA_WARPS - 1) / MMA_WARPS;
+  for (long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const long tile = grp * MMA_WARPS + warp;
+    const bool live = tile < tiles;
     const long r0 = tile * 16 + g, r1 = r0 + 8;
     uint32_t a1[KS1][4];
 #pragma unroll
@@ -265,30 +314,41 @@ seg_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     for (int t = 0; t < NT2; ++t)
       acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 
-    for (int s = 0; s < c_mid16 / 16; ++s) {
-      uint32_t a2[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int n0 = s * 16 + half * 8;
-        float z[4] = {0.f, 0.f, 0.f, 0.f};
-        const __nv_bfloat16* wrow = w1s + (n0 + g) * CIP + 2 * q;
-#pragma unroll
-        for (int kk = 0; kk < KS1; ++kk)
-          mma_bf16(z, a1[kk], lds32(wrow + kk * 16), lds32(wrow + kk * 16 + 8));
-        // + b1, relu, round to bf16 before the decay product
-        // (pallas_tstack.py:237-238).
-        const float bb0 = b1s[n0 + 2 * q], bb1 = b1s[n0 + 2 * q + 1];
-        a2[2 * half + 0] = pack_bf16(fmaxf(z[0] + bb0, 0.f),
-                                     fmaxf(z[1] + bb1, 0.f));
-        a2[2 * half + 1] = pack_bf16(fmaxf(z[2] + bb0, 0.f),
-                                     fmaxf(z[3] + bb1, 0.f));
+    for (int j0 = 0; j0 < c_mid16; j0 += mch) {
+      if (!whole) {   // every warp of the block, live or not
+        __syncthreads();
+        stage(j0);
+        __syncthreads();
       }
+      if (!live) continue;
+      const int steps = min(mch, c_mid16 - j0) / 16;
+      for (int s = 0; s < steps; ++s) {
+        uint32_t a2[4];
 #pragma unroll
-      for (int t = 0; t < NT2; ++t) {
-        const __nv_bfloat16* wrow = w2s + (t * 8 + g) * CMP + s * 16 + 2 * q;
-        mma_bf16(acc[t], a2, lds32(wrow), lds32(wrow + 8));
+        for (int half = 0; half < 2; ++half) {
+          const int n0 = s * 16 + half * 8;
+          float z[4] = {0.f, 0.f, 0.f, 0.f};
+          const __nv_bfloat16* wrow = w1s + (n0 + g) * CIP + 2 * q;
+#pragma unroll
+          for (int kk = 0; kk < KS1; ++kk)
+            mma_bf16(z, a1[kk], lds32(wrow + kk * 16),
+                     lds32(wrow + kk * 16 + 8));
+          // + b1, relu, round to bf16 before the decay product
+          // (pallas_tstack.py:237-238).
+          const float bb0 = b1s[n0 + 2 * q], bb1 = b1s[n0 + 2 * q + 1];
+          a2[2 * half + 0] = pack_bf16(fmaxf(z[0] + bb0, 0.f),
+                                       fmaxf(z[1] + bb1, 0.f));
+          a2[2 * half + 1] = pack_bf16(fmaxf(z[2] + bb0, 0.f),
+                                       fmaxf(z[3] + bb1, 0.f));
+        }
+#pragma unroll
+        for (int t = 0; t < NT2; ++t) {
+          const __nv_bfloat16* wrow = w2s + (t * 8 + g) * CMP + s * 16 + 2 * q;
+          mma_bf16(acc[t], a2, lds32(wrow), lds32(wrow + 8));
+        }
       }
     }
+    if (!live) continue;
 #pragma unroll
     for (int t = 0; t < NT2; ++t) {
 #pragma unroll
@@ -302,15 +362,28 @@ seg_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// Shared-memory bytes of seg_fwd_mma_kernel<KS1, NT2> staging mch middle
+// channels at a time.
+template <int KS1, int NT2>
+size_t seg_mma_smem(int mch) {
+  return sizeof(__nv_bfloat16) * ((size_t)mch * (16 * KS1 + 8) +
+                                  (size_t)8 * NT2 * (mch + 8)) +
+         sizeof(float) * mch;
+}
+
 template <int KS1, int NT2>
 cudaError_t launch_seg_mma(const void* x, const void* w1, const void* b1,
                            const void* w2, const void* b2, void* d, int n,
                            int c_in, int c_mid, int c_dec, cudaStream_t s) {
   const int c_mid16 = (c_mid + 15) / 16 * 16;
-  const size_t smem = sizeof(__nv_bfloat16) *
-                          ((size_t)c_mid16 * (16 * KS1 + 8) +
-                           (size_t)8 * NT2 * (c_mid16 + 8)) +
-                      sizeof(float) * c_mid16;
+  // All of c_mid where it fits, else the largest chunk with which two
+  // blocks share an SM (one stages while the other computes).
+  const size_t optin = (size_t)probav::optin_smem();
+  int mch = c_mid16;
+  if (seg_mma_smem<KS1, NT2>(mch) > optin) {
+    while (mch > 16 && seg_mma_smem<KS1, NT2>(mch) > optin / 2) mch -= 16;
+  }
+  const size_t smem = seg_mma_smem<KS1, NT2>(mch);
   auto kern = seg_fwd_mma_kernel<KS1, NT2>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -323,27 +396,27 @@ cudaError_t launch_seg_mma(const void* x, const void* w1, const void* b1,
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
       static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
-      static_cast<__nv_bfloat16*>(d), n, c_in, c_mid, c_dec, c_mid16);
+      static_cast<__nv_bfloat16*>(d), n, c_in, c_mid, c_dec, c_mid16, mch);
   return cudaGetLastError();
 }
 
+// K = c_in and N = c_dec in 32-channel buckets: KS1 = 2 .. 8 k-steps of 16,
+// NT2 = 4 .. 16 column tiles of 8.
 cudaError_t dispatch_seg_mma(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* d, int n,
                              int c_in, int c_mid, int c_dec, cudaStream_t s) {
-  const bool ci32 = c_in <= 32, cd32 = c_dec <= 32;
-  if (ci32 && cd32)
-    return launch_seg_mma<2, 4>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
-  if (ci32)
-    return launch_seg_mma<2, 8>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
-  if (cd32)
-    return launch_seg_mma<4, 4>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
-  return launch_seg_mma<4, 8>(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
+  return probav::by_bucket(c_in, [&](auto ci) {
+    return probav::by_bucket(c_dec, [&](auto cd) {
+      return launch_seg_mma<decltype(ci)::value / 16, decltype(cd)::value / 8>(
+          x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
+    });
+  });
 }
 
 // conv_fwd: an implicit GEMM on the tensor cores, M = positions, N = 8*NT
-// output channels, K = 27 taps x CK decay channels (zero-padded to 32 or
-// 64), over a ring of halo rows in shared memory.  One kernel for both
-// dtypes, E the element type:
+// output channels, K = 27 taps x CK decay channels (zero-padded to 32, 64,
+// 96 or 128), over a ring of halo rows in shared memory.  One kernel for
+// both dtypes, E the element type:
 //
 // - bf16: mma.sync m16n8k16 on bf16 operands, float32 accumulators.
 // - float32: 3xTF32 on mma.sync m16n8k8.  Each operand v splits into hi =
@@ -421,7 +494,14 @@ cudaError_t dispatch_seg_mma(const void* x, const void* w1, const void* b1,
 //   before column runs, and two output rows per step before one (two only
 //   at NT = 4: the accumulators of two rows at NT = 8 would spill); a run
 //   as wide as fits, of at least RING_MIN_RUN positions with 27 taps, the
-//   runs of a row made equal to within a column.
+//   runs of a row made equal to within a column.  Beyond CK = 64 only 3
+//   taps and one row per step (ring_all_taps).
+// - Output tiles: more than 8 * NT outputs (beyond 64) go to a second grid
+//   axis, one block per tile of 8 * NT outputs and work item.  Each block
+//   copies the whole run of x but stores only its own channels
+//   (store_cols), so the tiles never write the same element.  NT = 8 takes
+//   twice the weights of NT = 4; where its layout does not fit (float32 at
+//   CK = 128 beyond T = 9's runs of 2 columns), tiles of 32 do.
 //
 // Shared memory at the flagship (22x9, 25 -> 32; the dd conv's 32 -> 25 the
 // same).  bf16: weights 27*32*40*2 = 69,120 B, 5 slots of 24*11*40*2 =
@@ -430,12 +510,21 @@ cudaError_t dispatch_seg_mma(const void* x, const void* w1, const void* b1,
 // 124,416 B leave room for runs of 11 columns, one row per step: 4 slots of
 // 13*11*36*4 = 20,592 B, a raw run of d (11,728) and one of x/out
 // (12,704): 231,216 B.  One block per SM either way.  Envelope (227 KB):
-// every W at c_dec, c_out <= 64; a launch is refused, with
+// every W at c_dec, c_out <= 128; a launch is refused, with
 // cudaErrorInvalidValue before it runs, only where one column with 3 weight
-// taps does not fit: at T > 40 for float32 at 64 -> 64 channels (T > 99 at
-// 25 -> 32), T > 89 for bf16 at 64 -> 64 (T > 189 at 25 -> 32).
+// taps and 32 outputs does not fit.  At the widest bucket, 128 -> 128
+// channels, that is T > 20 for float32 (3 taps of 32 outputs, 50,688 B,
+// four slots of 3 x (T+2) positions of 528 B, a raw column of d and one of
+// x/out) and T > 46 for bf16; narrower widths reach further (float32 64 ->
+// 64: T > 46; 25 -> 32: T > 99; bf16 25 -> 32: T > 189).
 constexpr int RING_WARPS = 8;      // most warps per block
 constexpr int RING_MIN_RUN = 64;   // least positions of a run, 27 taps
+
+// Whether all 27 weight taps can be staged at once for CK input channels
+// (never beyond 64: 27 taps of 32 outputs at CK = 96 take 179,712 B in
+// bf16, leaving no room for a run of RING_MIN_RUN positions); two output
+// rows per step likewise only up to 64.
+__host__ __device__ constexpr bool ring_all_taps(int CK) { return CK <= 64; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -523,6 +612,20 @@ __device__ __forceinline__ void store_row(E* dst, const E* buf, int skew,
       for (int k = 0; k < VE; ++k)
         if (j0 + k >= 0 && j0 + k < n) dst[j0 + k] = buf[VE * i + k];
     }
+  }
+}
+
+// dst[p * c_out + o] = buf[skew + p * c_out + o] for p < np and the block's
+// output channels o0 <= o < o1 (an output tile of a wide conv: the other
+// channels of the staged runs belong to other blocks).
+template <typename E>
+__device__ __forceinline__ void store_cols(E* dst, const E* buf, int skew,
+                                           int np, int c_out, int o0,
+                                           int o1) {
+  const int nc = o1 - o0;
+  for (int u = threadIdx.x; u < np * nc; u += blockDim.x) {
+    const int p = u / nc, o = o0 + u % nc;
+    dst[(long)p * c_out + o] = buf[skew + (long)p * c_out + o];
   }
 }
 
@@ -678,6 +781,9 @@ conv_ring_kernel(const E* __restrict__ d, const E* __restrict__ x,
   constexpr int NO = 8 * NT;
   constexpr int NS = ROWS + 2;        // ring slots (plus one zero slot)
   const int T2 = Tn + 2;
+  // This block's output tile: channels o0 .. o1 - 1 (all of them at
+  // c_out <= 8 * NT, a grid of one tile).
+  const int o0 = blockIdx.y * NO, o1 = min(c_out, o0 + NO);
   const int slot_elems = (wcols + 2) * T2 * CSP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   E* ws = reinterpret_cast<E*>(smem_raw);
@@ -688,8 +794,9 @@ conv_ring_kernel(const E* __restrict__ d, const E* __restrict__ x,
   const E zero = probav::from_f<E>(0.f);
   const int tid = threadIdx.x, nthr = blockDim.x;
 
-  // wc [27][c_dec][c_out] -> ws[plane tap][h tap][o][c] for the wtaps / 3
-  // plane taps from pt0 on, read in wc's order, 8 loads in flight.
+  // wc [27][c_dec][c_out] -> ws[plane tap][h tap][o - o0][c] for the
+  // wtaps / 3 plane taps from pt0 on, read in wc's order, 8 loads in
+  // flight.
   auto stage_w = [&](int pt0) {
     const int total = wtaps * CK * NO;
     for (int e0 = tid; e0 < total; e0 += 8 * nthr) {
@@ -700,8 +807,8 @@ conv_ring_kernel(const E* __restrict__ d, const E* __restrict__ x,
         const int o = e % NO, rest = e / NO;
         const int c = rest % CK, lt = rest / CK;
         const int tap = (lt % 3) * 9 + pt0 + lt / 3;
-        v[k] = (e < total && c < c_dec && o < c_out)
-                   ? wc[((long)tap * c_dec + c) * c_out + o] : zero;
+        v[k] = (e < total && c < c_dec && o0 + o < c_out)
+                   ? wc[((long)tap * c_dec + c) * c_out + o0 + o] : zero;
       }
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -769,7 +876,8 @@ conv_ring_kernel(const E* __restrict__ d, const E* __restrict__ x,
 
   for (int e = tid; e < (NS + 1) * slot_elems / VE; e += nthr)
     reinterpret_cast<uint4*>(slots)[e] = make_uint4(0, 0, 0, 0);
-  if (wtaps == 27) stage_w(0);   // visible after the first row's barrier
+  if (ring_all_taps(CK) && wtaps == 27)
+    stage_w(0);   // visible after the first row's barrier
 
   const int lane = tid % 32, warp = tid / 32, nw = nthr / 32;
   const int g = lane / 4, q = lane % 4;
@@ -781,7 +889,7 @@ conv_ring_kernel(const E* __restrict__ d, const E* __restrict__ x,
   for (int t = 0; t < NT; ++t)
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      const int o = t * 8 + 2 * q + k;
+      const int o = o0 + t * 8 + 2 * q + k;
       bcv[t][k] = (RES && o < c_out) ? bc[o] : 0.f;
     }
 
@@ -870,10 +978,12 @@ conv_ring_kernel(const E* __restrict__ d, const E* __restrict__ x,
         // uniform, so the unrolled loops carry no conditions).
         auto taps = [&](auto live_tiles) {
           constexpr int NM = decltype(live_tiles)::value;
-          if (wtaps == 27) {
-            mma_planes<E, CK, NT, ROWS, MT, 9, NM>(acc, in, aoff, ws + boff,
-                                                   0, T2);
-            return;
+          if constexpr (ring_all_taps(CK)) {
+            if (wtaps == 27) {
+              mma_planes<E, CK, NT, ROWS, MT, 9, NM>(acc, in, aoff,
+                                                     ws + boff, 0, T2);
+              return;
+            }
           }
           for (int pt = 0; pt < 9; ++pt) {   // one plane tap's 3 h taps
             __syncthreads();
@@ -908,7 +1018,7 @@ conv_ring_kernel(const E* __restrict__ d, const E* __restrict__ x,
               if (p >= np) continue;
 #pragma unroll
               for (int t = 0; t < NT; ++t) {
-                const int o = t * 8 + 2 * q + (i & 1);
+                const int o = o0 + t * 8 + 2 * q + (i & 1);
                 if (o >= c_out) continue;
                 E& e = obuf[obase[r] + p * c_out + o];
                 const float v = acc[r][m][t][i];
@@ -924,7 +1034,17 @@ conv_ring_kernel(const E* __restrict__ d, const E* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < ROWS; ++i)
         if (i < nn) repack(nlo + i, dsrc[i], w0, wl);
-      if (wl == W) {
+      if (gridDim.y > 1) {   // an output tile: its own channels only
+        if (wl == W) {
+          store_cols(out + orow[0], obuf, obase[0], nout * np, c_out, o0, o1);
+        } else {
+#pragma unroll
+          for (int i = 0; i < ROWS; ++i)
+            if (i < nout)
+              store_cols(out + orow[i], obuf + i * obuf_elems,
+                         obase[i] - i * obuf_elems, np, c_out, o0, o1);
+        }
+      } else if (wl == W) {
         store_row(out + orow[0], obuf, obase[0], nout * np * c_out);
       } else {
 #pragma unroll
@@ -965,15 +1085,17 @@ size_t ring_smem(const RingLayout& l, int W, int Tn, int c_dec, int c_out,
 template <typename E, int CK, int NT>
 bool ring_layout(int W, int Tn, int c_dec, int c_out, size_t cap,
                  RingLayout* out) {
+  constexpr int MAX_ROWS = NT == 4 && ring_all_taps(CK) ? 2 : 1;
   for (int wtaps : {27, 3}) {
-    for (int rows = NT == 4 ? 2 : 1; rows >= 1; --rows) {
+    if (wtaps == 27 && !ring_all_taps(CK)) continue;
+    for (int rows = MAX_ROWS; rows >= 1; --rows) {
       RingLayout l{rows, wtaps, W};
       if (ring_smem<E, CK, NT>(l, W, Tn, c_dec, c_out) <= cap) {
         *out = l;   // whole rows
         return true;
       }
     }
-    for (int rows = NT == 4 ? 2 : 1; rows >= 1; --rows) {
+    for (int rows = MAX_ROWS; rows >= 1; --rows) {
       // The widest run that fits (the bytes grow with the run).
       int lo = 0, hi = W - 1;
       while (lo < hi) {
@@ -1003,6 +1125,7 @@ cudaError_t launch_conv_ring(const void* d, const void* x, const void* wc,
   const int per_pass = RING_WARPS * MT;
   const int passes = (tiles + per_pass - 1) / per_pass;
   const int warps = (tiles + passes * MT - 1) / (passes * MT);
+  const int otiles = (c_out + 8 * NT - 1) / (8 * NT);
   int dbuf = 0, obuf = 0;
   const size_t smem =
       ring_smem<E, CK, NT>(lay, W, Tn, c_dec, c_out, &dbuf, &obuf);
@@ -1014,7 +1137,9 @@ cudaError_t launch_conv_ring(const void* d, const void* x, const void* wc,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                       warps * 32, smem);
   if (err != cudaSuccess) return err;
-  const long resident = (long)(per_sm > 0 ? per_sm : 1) * sm_count();
+  // One wave of blocks, shared among the output tiles.
+  const long resident = std::max(
+      1L, (long)(per_sm > 0 ? per_sm : 1) * sm_count() / otiles);
   // h run length: the least work for the busiest wave of blocks, counting
   // a row's products twice (steps of ROWS rows) and its copy once.
   const long bw = (long)B * ((W + lay.wcols - 1) / lay.wcols);
@@ -1028,7 +1153,7 @@ cudaError_t launch_conv_ring(const void* d, const void* x, const void* wc,
     if (best < 0 || cost < best) best = cost, run = r;
   }
   const long items = bw * ((H + run - 1) / run);
-  const int grid = (int)(items < resident ? items : resident);
+  const dim3 grid((unsigned)(items < resident ? items : resident), otiles);
   kern<<<grid, warps * 32, smem, s>>>(
       static_cast<const E*>(d), static_cast<const E*>(x),
       static_cast<const E*>(wc), static_cast<const float*>(bc),
@@ -1038,19 +1163,11 @@ cudaError_t launch_conv_ring(const void* d, const void* x, const void* wc,
 }
 
 template <typename E, int CK, int NT, bool RES>
-cudaError_t pick_conv_ring(const void* d, const void* x, const void* wc,
-                           const void* bc, void* out, int B, int H, int W,
-                           int Tn, int c_dec, int c_out, cudaStream_t s) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  RingLayout lay;
-  if (!ring_layout<E, CK, NT>(W, Tn, c_dec, c_out, (size_t)optin, &lay))
-    return cudaErrorInvalidValue;   // outside the envelope
-  if constexpr (NT == 4) {
+cudaError_t launch_ring_layout(const void* d, const void* x, const void* wc,
+                               const void* bc, void* out, int B, int H, int W,
+                               int Tn, int c_dec, int c_out,
+                               const RingLayout& lay, cudaStream_t s) {
+  if constexpr (NT == 4 && ring_all_taps(CK)) {
     if (lay.rows == 2)
       return launch_conv_ring<E, CK, NT, 2, RES>(d, x, wc, bc, out, B, H, W,
                                                  Tn, c_dec, c_out, lay, s);
@@ -1059,25 +1176,32 @@ cudaError_t pick_conv_ring(const void* d, const void* x, const void* wc,
                                              c_dec, c_out, lay, s);
 }
 
-// Decay channels padded to CK = 32 or 64, outputs to 8 * NT = 32 or 64.
+// Decay channels padded to CK = 32, 64, 96 or 128; outputs in tiles of 8 *
+// NT channels, one block per tile and work item: NT = 4 up to 32 outputs,
+// else NT = 8 (tiles of 64) where a layout fits, else NT = 4 (tiles of 32,
+// less shared memory for weights: float32 at CK = 128 and T = 19).  A
+// volume for which neither fits is refused (cudaErrorInvalidValue) before
+// any launch.
 template <typename E, bool RES>
 cudaError_t dispatch_conv_ring(const void* d, const void* x, const void* wc,
                                const void* bc, void* out, int B, int H,
                                int W, int Tn, int c_dec, int c_out,
                                cudaStream_t s) {
-  if (c_dec > 64 || c_out > 64) return cudaErrorInvalidValue;
-  const bool cd32 = c_dec <= 32, co32 = c_out <= 32;
-  if (cd32 && co32)
-    return pick_conv_ring<E, 32, 4, RES>(d, x, wc, bc, out, B, H, W, Tn,
-                                         c_dec, c_out, s);
-  if (cd32)
-    return pick_conv_ring<E, 32, 8, RES>(d, x, wc, bc, out, B, H, W, Tn,
-                                         c_dec, c_out, s);
-  if (co32)
-    return pick_conv_ring<E, 64, 4, RES>(d, x, wc, bc, out, B, H, W, Tn,
-                                         c_dec, c_out, s);
-  return pick_conv_ring<E, 64, 8, RES>(d, x, wc, bc, out, B, H, W, Tn, c_dec,
-                                       c_out, s);
+  if (c_dec < 1 || c_dec > probav::MAX_CH || c_out < 1 ||
+      c_out > probav::MAX_CH)
+    return cudaErrorInvalidValue;
+  const size_t optin = (size_t)probav::optin_smem();
+  return probav::by_bucket(c_dec, [&](auto ck) {
+    constexpr int CK = decltype(ck)::value;
+    RingLayout lay;
+    if (c_out > 32 && ring_layout<E, CK, 8>(W, Tn, c_dec, c_out, optin, &lay))
+      return launch_ring_layout<E, CK, 8, RES>(d, x, wc, bc, out, B, H, W, Tn,
+                                               c_dec, c_out, lay, s);
+    if (ring_layout<E, CK, 4>(W, Tn, c_dec, c_out, optin, &lay))
+      return launch_ring_layout<E, CK, 4, RES>(d, x, wc, bc, out, B, H, W, Tn,
+                                               c_dec, c_out, lay, s);
+    return cudaErrorInvalidValue;   // outside the envelope
+  });
 }
 
 }  // namespace
@@ -1105,12 +1229,13 @@ cudaError_t probav::conv_dispatch(int dtype, bool residual, const void* d,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  x, w1, w2,
-// d in that dtype; b1, b2 in float32.  c_in, c_dec up to 64; c_mid any
-// positive count that fits shared memory.
+// d in that dtype; b1, b2 in float32.  c_in, c_dec any count from 1 to
+// MAX_CH = 128; c_mid any positive count (staged in chunks).
 int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* d, int n, int c_in,
                    int c_mid, int c_dec, void* stream) {
-  if (n < 0 || c_in < 1 || c_in > 64 || c_dec < 1 || c_dec > 64 || c_mid < 1)
+  if (n < 0 || c_in < 1 || c_in > probav::MAX_CH || c_dec < 1 ||
+      c_dec > probav::MAX_CH || c_mid < 1)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1125,14 +1250,15 @@ int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
 
 // dtype: 0 = float32 (tensor cores, 3xTF32), 1 = bfloat16 (tensor
 // cores).  d, x, wc, out in that dtype; bc in float32.  wc is [3, 3, 3,
-// c_dec, c_out] (taps over H, W, T), c_dec and c_out up to 64.  Any W; a
-// T beyond the envelope of conv_ring_kernel (one column with 3 weight taps
-// over shared memory: T > 40 at float32, 64 -> 64 channels) is refused.
+// c_dec, c_out] (taps over H, W, T), c_dec and c_out from 1 to MAX_CH =
+// 128.  Any W; a T beyond the envelope of conv_ring_kernel (one column with
+// 3 weight taps over shared memory: T > 20 at float32, 128 -> 128
+// channels) is refused.
 int probav_conv_fwd(int dtype, const void* d, const void* x, const void* wc,
                     const void* bc, void* out, int B, int H, int W, int Tn,
                     int c_dec, int c_out, void* stream) {
-  if (B < 0 || H < 1 || W < 1 || Tn < 1 || c_dec < 1 || c_dec > 64 ||
-      c_out < 1 || c_out > 64)
+  if (B < 0 || H < 1 || W < 1 || Tn < 1 || c_dec < 1 ||
+      c_dec > probav::MAX_CH || c_out < 1 || c_out > probav::MAX_CH)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   return (int)probav::conv_dispatch(dtype, true, d, x, wc, bc, out, B, H, W,

@@ -22,11 +22,10 @@ The block stack has three tiers, ``fused_stack``:
   convolutions, or with ``fused_block`` the expand -> relu -> decay of each
   block as ``ops/wide_block.fused_expand_decay`` (``wide_bwd`` backward).
 
-A ``"t"`` model of more than 64 channels (or decay channels), which the
-stack kernels refuse (``ops.tstack.t_tier_refusal``), raises when it is
-built: such a model is built with ``fused_stack="off"``.  At a C that does
-not divide 128 the forward runs on the kernels and ``blk_bwd`` refuses the
-backward.
+The stack kernels take any width from 1 to 128 channels (and decay
+channels), forward and backward; a ``"t"`` model beyond that, which they
+refuse (``ops.tstack.t_tier_refusal``), raises when it is built: such a
+model is built with ``fused_stack="off"``.
 
 On the CPU every kernel is replaced by its plain version.  The parameter
 tree is the same in every tier.  A bool is accepted for the tier with the

@@ -75,7 +75,8 @@ def library_path() -> Path:
 def build(verbose: bool = False) -> tuple[Path, float, str]:
     """Compile the kernels if no library for these sources exists yet.
 
-    Returns (library path, seconds spent compiling, compiler output).  With
+    Returns (library path, seconds spent compiling, compiler output, which
+    ends with one "compiled <source> in <s> s" line per source).  With
     ``verbose`` ptxas reports each kernel's registers, shared memory and
     spills (and the library is rebuilt so that the report exists).
     """
@@ -92,18 +93,29 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
     report = []
     try:
         objs = [tmp / (src.stem + ".o") for src in sources()]
-        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj),
-                                   str(src)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(sources(), objs)]
-        failed = []
-        for src, p in zip(sources(), procs):
-            text = p.communicate()[0]
+        logs = [tmp / (src.stem + ".log") for src in sources()]
+        procs = []
+        for src, obj, log in zip(sources(), objs, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [nvcc, *flags, "-c", "-o", str(obj), str(src)],
+                    stdout=f, stderr=subprocess.STDOUT))
+        done = {}
+        while len(done) < len(procs):
+            for i, p in enumerate(procs):
+                if i not in done and p.poll() is not None:
+                    done[i] = time.perf_counter() - t0
+            time.sleep(0.05)
+        failed, timing = [], []
+        for i, (src, p, log) in enumerate(zip(sources(), procs, logs)):
+            text = log.read_text()
             report.append(text)
+            timing.append(f"compiled {src.name} in {done[i]:.1f} s\n")
             if p.returncode != 0:
                 failed.append(f"nvcc {src.name} ({p.returncode}):\n{text}")
         if failed:
             raise RuntimeError("\n".join(failed))
+        report += timing
         lib = tmp / "lib.so"
         r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
                             *map(str, objs)], capture_output=True, text=True)

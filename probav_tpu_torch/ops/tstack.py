@@ -28,8 +28,11 @@ bf16 on the tensor cores (``mma.sync``) with float32 accumulation (blk_bwd
 at the flagship's widths; at wider ones its bf16 runs on the CUDA cores).
 All round where the TPU kernels round.
 
-``t_tier_refusal`` states the channel widths the kernels take, once: the
+``t_tier_refusal`` states the channel widths the kernels take, once: any C
+and C_dec from 1 to 128 (``MAX_CHANNELS``), forward and backward.  The
 wrappers raise with it, and a ``"t"`` model refuses to be built with it.
+Within it the only limit left is the conv's depth T per width (``conv_fwd``),
+which the kernels refuse before they launch.
 
 The TPU kernels' transposed ``[C, ext]`` lane-shift layout (``Geom``, the
 interior mask, halo margins, ``to_t``/``from_t``, the scan loop forms and
@@ -51,6 +54,9 @@ import torch.nn.functional as F
 LAUNCHES = {"seg_fwd": 0, "conv_fwd": 0, "blk_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The widest C and C_dec the kernels take (csrc/common.cuh, MAX_CH).
+MAX_CHANNELS = 128
 
 
 def reset_launches() -> None:
@@ -122,19 +128,30 @@ def blk_bwd_plain(gy, x, d, w1, b1, w2, wc):
 def t_tier_refusal(c: int, c_dec: int, backward: bool = False
                    ) -> str | None:
     """Why the kernels cannot run blocks of C channels that decay to C_dec,
-    or None where they can: seg_fwd and conv_fwd take C and C_dec up to 64;
-    blk_bwd (``backward``) also needs a C that divides 128."""
-    if c > 64 or c_dec > 64:
-        return f"channels up to 64, got C = {c}, C_dec = {c_dec}"
-    if backward and 128 % c:
-        return f"a C that divides 128, got C = {c}"
+    or None where they can: every kernel takes any C and C_dec from 1 to
+    ``MAX_CHANNELS``.  ``backward`` (blk_bwd, wide_bwd) asks about the same
+    envelope: the backward takes every width the forward takes."""
+    del backward
+    if not (1 <= c <= MAX_CHANNELS and 1 <= c_dec <= MAX_CHANNELS):
+        return (f"channels from 1 to {MAX_CHANNELS}, got C = {c}, "
+                f"C_dec = {c_dec}")
     return None
 
 
-def _check_widths(name, c, c_dec, backward=False):
-    why = t_tier_refusal(c, c_dec, backward)
+def _check_widths(name, c, c_dec):
+    why = t_tier_refusal(c, c_dec)
     if why:
         raise ValueError(f"{name}: {why}")
+
+
+def partial_slots(device, c: int, c_dec: int) -> int:
+    """How many float32 partial slots (one per block) blk_bwd and wide_bwd
+    sum their weight gradients into: two per SM up to 64 channels; beyond,
+    where a seg_bwd block holds an SM alone and a slot grows as C * C_mid
+    (2.36 MB at 128/1024/102), one per SM, which halves the scratch and the
+    reduce's reads."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms if max(c, c_dec) > 64 else 2 * sms
 
 
 def _stream(t) -> int:
@@ -193,11 +210,12 @@ def conv_fwd(d, x, wc, bc):
     """d [B,H,W,T,C_dec], x [B,H,W,T,C], wc [3,3,3,C_dec,C], bc [C] ->
     x + bc + SAME 3^3 conv(d) in x's dtype (wc cast to it, bc to float32).
 
-    C_dec and C up to 64, any B, H and W.  The kernel stages runs of
+    C_dec and C from 1 to 128, any B, H and W.  The kernel stages runs of
     columns of the volume's rows in shared memory (whole rows where they
-    fit) and raises only where one column does not fit: T over 40 in
-    float32 at 64 -> 64 channels (over 99 at the flagship's 25 -> 32),
-    over 89 in bf16 at 64 -> 64 (over 189 at 25 -> 32); csrc/tstack.cu.
+    fit) and raises only where one column does not fit: T over 20 in
+    float32 at 128 -> 128 channels (over 46 at 64 -> 64, over 99 at the
+    flagship's 25 -> 32), over 46 in bf16 at 128 -> 128 (over 189 at
+    25 -> 32); csrc/tstack.cu.
     """
     if x.device.type == "cpu":
         return conv_fwd_plain(d, x, wc, bc)
@@ -246,7 +264,7 @@ def blk_bwd(gy, x, d, w1, b1, w2, wc):
                          f"{tuple(x.shape)} d {tuple(d.shape)} w1 "
                          f"{tuple(w1.shape)} b1 {tuple(b1.shape)} w2 "
                          f"{tuple(w2.shape)} wc {tuple(wc.shape)}")
-    _check_widths("blk_bwd", c, c_dec, backward=True)
+    _check_widths("blk_bwd", c, c_dec)
     w1 = w1.to(x.dtype).contiguous()
     w2 = w2.to(x.dtype).contiguous()
     b1 = b1.float().contiguous()
@@ -256,8 +274,7 @@ def blk_bwd(gy, x, d, w1, b1, w2, wc):
     for name, tt in (("w1", w1), ("b1", b1), ("w2", w2), ("wc", wflip)):
         if tt.device != x.device:
             raise ValueError(f"blk_bwd {name} on {tt.device}, x on {x.device}")
-    groups = 2 * torch.cuda.get_device_properties(x.device) \
-        .multi_processor_count
+    groups = partial_slots(x.device, c, c_dec)
     slot = 27 * c_dec * c + c * c_mid + c_mid * c_dec + c_mid + c_dec + c
     dd = torch.empty(d.shape, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)

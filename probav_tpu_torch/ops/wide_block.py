@@ -12,7 +12,8 @@ the four weight gradients (replaces ``pallas_wide_block._bwd``):
 
 dy, z, relu(z) and dz stay float32 at both dtypes, as in ``_bwd_kernel``;
 dx is stored in x's dtype, the weight gradients are float32.  The TPU row
-tiling (``_pick_tile``, ``_pad_rows``) is not ported: any N is taken.
+tiling (``_pick_tile``, ``_pad_rows``) is not ported: any N is taken, and
+any C_in and C_out from 1 to 128 (``tstack.t_tier_refusal``).
 
 Dispatch as in ``ops/tstack.py``: CPU tensors run ``wide_bwd_plain``; CUDA
 tensors launch the kernel, count it in ``LAUNCHES``, or raise.
@@ -22,7 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from probav_tpu_torch.ops.tstack import _DTYPE_CODE, _check_input, _stream
+from probav_tpu_torch.ops.tstack import (_DTYPE_CODE, _check_input,
+                                         _check_widths, _stream,
+                                         partial_slots)
 
 # Kernel launches since the counts were last reset (plain runs not counted).
 LAUNCHES = {"wide_bwd": 0}
@@ -63,9 +66,7 @@ def wide_bwd(x, w1, b1, w2, dy):
         raise ValueError(f"wide_bwd: shapes x {tuple(x.shape)} w1 "
                          f"{tuple(w1.shape)} b1 {tuple(b1.shape)} w2 "
                          f"{tuple(w2.shape)} dy {tuple(dy.shape)}")
-    if c_in > 64 or c_dec > 64:
-        raise ValueError(f"wide_bwd: C_in and C_out up to 64, got "
-                         f"{c_in}/{c_dec}")
+    _check_widths("wide_bwd", c_in, c_dec)
     w1 = w1.to(x.dtype).contiguous()
     w2 = w2.to(x.dtype).contiguous()
     b1 = b1.float().contiguous()
@@ -74,8 +75,7 @@ def wide_bwd(x, w1, b1, w2, dy):
             raise ValueError(f"wide_bwd {name} on {t.device}, x on "
                              f"{x.device}")
     dx = torch.empty_like(x)
-    groups = 2 * torch.cuda.get_device_properties(x.device) \
-        .multi_processor_count
+    groups = partial_slots(x.device, c_in, c_dec)
     slot = c_in * c_mid + c_mid * c_dec + c_mid + c_dec
     part = torch.empty((groups, slot), dtype=torch.float32, device=x.device)
     out = torch.empty(slot, dtype=torch.float32, device=x.device)

@@ -16,16 +16,18 @@ Grids (value = integer * 2**-bits): x and gy in [-2, 2] step 2**-4; w1 and
 b1 in [-0.25, 0.25] step 2**-6; w2 in [-0.25, 0.25] step 2**-5; wc in
 [-0.125, 0.125] step 2**-6; d in [-2, 2] step 2**-4.  At the flagship
 widths |z| <= 16.25 on a 2**-10 grid and |dd| <= 216 on a 2**-10 grid,
-both well inside float32's 24-bit significand; W2 dd sits on a 2**-15
-grid and stays exact while |dd| stays below ~80, which these inputs keep
-(dd is a sum of 864 terms of mean 0; its spread is ~2.4).  Every grid
-value is exact in bf16, and so is the rounding of an exact value.
+both well inside float32's 24-bit significand (at the widest, 128/1024/102:
+|z| <= 64.25, |dd| <= 864); W2 dd sits on a 2**-15 grid and stays exact
+while its partial sums stay below 2**9, which these inputs keep (dd is a
+sum of 27 C terms of mean 0, spread ~2.4 at C = 32 and ~4.9 at 128; W2 dd
+then spreads ~1.8 at 25 decay channels and ~7 at 102).  Every grid value
+is exact in bf16, and so is the rounding of an exact value.
 
 ``wide_bwd`` (the flat expand -> relu -> decay backward) takes the same
 decision, z > 0, and keeps dz in float32: with x and dy on the grid of x
-above and w1, b1, w2 on theirs, z (|z| <= 32.25 at 64 input channels, on a
-2**-10 grid) and W2 dy (|W2 dy| <= 25.5 at 51 output channels, on a 2**-9
-grid) are exact in any order at every width the kernel takes.
+above and w1, b1, w2 on theirs, z (|z| <= 64.25 at 128 input channels,
+on a 2**-10 grid) and W2 dy (|W2 dy| <= 64 at 128 output channels, on a
+2**-9 grid) are exact in any order at every width the kernel takes.
 
 The shift tables decide sign(r) for the L1 backward.  With integer planes
 below 2**12 and a 0/1 mask, the window sums of m, hr and p*m (at most

@@ -123,10 +123,14 @@ def cuda():
     ((1, 7, 6, 5), 32, 256, 25), ((2, 4, 30, 9), 32, 256, 25),
     ((2, 4, 40, 9), 32, 256, 25), ((1, 3, 48, 9), 32, 256, 25),
     ((1, 3, 100, 9), 32, 256, 25), ((2, 4, 47, 9), 32, 256, 25),
-    ((2, 5, 22, 19), 32, 256, 25), ((2, 5, 22, 19), 64, 512, 51)],
+    ((2, 5, 22, 19), 32, 256, 25), ((2, 5, 22, 19), 64, 512, 51),
+    ((3, 7, 6, 5), 48, 384, 38), ((3, 7, 6, 5), 72, 576, 57),
+    ((3, 7, 6, 5), 128, 1024, 102), ((2, 3, 22, 9), 128, 1024, 102),
+    ((2, 5, 22, 19), 128, 1024, 102), ((2, 3, 22, 9), 100, 130, 128)],
     ids=["flagship", "wide", "small", "cmid100", "c64_cdec64", "c25_cdec32",
          "h1", "h2", "b1", "long_row", "longer_row", "w48", "w100",
-         "seam_w47", "t19", "wide_t19"])
+         "seam_w47", "t19", "wide_t19", "c48", "c72", "c128", "c128_w22",
+         "c128_t19", "c100_cdec128"])
 def test_kernels_match_plain_on_card(cuda, dtype, tol, shape, c, cmid, cdec):
     """Flagship and 64-filter widths, the CPU tests' small widths, a c_mid
     that is not a multiple of the staging chunk, and every width bucket of
@@ -137,7 +141,11 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol, shape, c, cmid, cdec):
     the block's warps at bf16), and rows cut into column runs: W = 40, 48
     and 100 (float32 from W = 22 on), W = 47, whose runs leave a shorter
     one at the row's end at both dtypes, and T = 19, where the 64-filter
-    widths stage their weights 3 taps at a time."""
+    widths stage their weights 3 taps at a time.  Beyond 64 channels: the
+    48-, 72- and 128-filter widths (C_mid = 8 C, C_dec = 0.8 C; seg_fwd
+    in bf16 stages C_mid in chunks at 128/1024, the conv's outputs beyond
+    64 take a second tile, in float32 at T = 19 tiles of 32), and a C that
+    is no multiple of 32 with 128 decay channels."""
     w1, b1, w2, b2, wc, bc = params(c, cmid, cdec, device=cuda, dtype=dtype)
     x = torch.randn(*shape, c, device=cuda).to(dtype)
     x2 = x.reshape(-1, c)
@@ -154,6 +162,7 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol, shape, c, cmid, cdec):
 
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs_on_card(cuda):
+    from probav_tpu_torch.ops import _build
     w1, b1, w2, b2, wc, bc = params(C, CMID, CDEC, device=cuda)
     x = torch.randn(20, C, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -162,22 +171,25 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
         ts.seg_fwd(x.half(), w1, b1, w2, b2)
     with pytest.raises(ValueError, match="shapes"):
         ts.seg_fwd(x, w1[:4], b1, w2, b2)
-    with pytest.raises(ValueError, match="up to 64"):
-        big = params(72, CMID, CDEC, device=cuda)
-        ts.seg_fwd(torch.randn(20, 72, device=cuda), *big[:4])
-    # 48 channels: the forward kernels take them, blk_bwd refuses them.
-    w48 = params(48, CMID, 38, device=cuda)
-    v48 = torch.randn(1, 2, 3, 5, 48, device=cuda)
-    with pytest.raises(ValueError, match="divides 128"):
-        ts.blk_bwd(v48, v48, torch.randn(1, 2, 3, 5, 38, device=cuda),
-                   *w48[:3], w48[4])
-    # A bf16 conv with c_dec > 64 is refused, not computed without the
-    # channels past 64.
+    # 72 channels, beyond the kernels' former limit of 64, launch and match
+    # plain.
+    big = params(72, CMID, CDEC, device=cuda)
+    x72 = torch.randn(20, 72, device=cuda)
+    assert max_rel(ts.seg_fwd(x72, *big[:4]),
+                   ts.seg_fwd_plain(x72, *big[:4])) < 2e-5
+    # 48 channels, which do not divide 128: blk_bwd launches and matches.
+    args = blk_bwd_inputs((1, 2, 3, 5), 48, CMID, 38, seed=2, device=cuda)
+    before = ts.LAUNCHES["blk_bwd"]
+    got = ts.blk_bwd(*args)
+    assert ts.LAUNCHES["blk_bwd"] == before + 1
+    for name, a, b in zip(BWD_NAMES, got, ts.blk_bwd_plain(*args)):
+        assert max_rel(a, b) < blk_bwd_tolerances(torch.float32)[name], name
+    # A bf16 conv with c_dec 72 > 64 runs every channel.
     wide = params(32, CMID, 72, device=cuda, dtype=torch.bfloat16)
     xb = torch.randn(1, 3, 6, 5, 32, device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="up to 64"):
-        ts.conv_fwd(torch.randn(1, 3, 6, 5, 72, device=cuda).bfloat16(), xb,
-                    wide[4], wide[5])
+    db = torch.randn(1, 3, 6, 5, 72, device=cuda).bfloat16()
+    assert max_rel(ts.conv_fwd(db, xb, wide[4], wide[5]),
+                   ts.conv_fwd_plain(db, xb, wide[4], wide[5])) < 2e-2
     # A row of 100x9 positions, refused before the conv ring took column
     # runs, runs at both dtypes.
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
@@ -186,13 +198,45 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
         db = torch.randn(1, 3, 100, 9, 25, device=cuda).to(dtype)
         assert max_rel(ts.conv_fwd(db, xb, flag[4], flag[5]),
                        ts.conv_fwd_plain(db, xb, flag[4], flag[5])) < tol
-    # Beyond the envelope (one column at T = 41 over shared memory in
-    # float32 at 64 -> 64 channels) the launch is refused, never run.
-    deep = params(64, CMID, 64, device=cuda)
-    with pytest.raises(RuntimeError, match="conv_fwd"):
-        ts.conv_fwd(torch.randn(1, 2, 3, 41, 64, device=cuda),
-                    torch.randn(1, 2, 3, 41, 64, device=cuda), deep[4],
-                    deep[5])
+    # 136 channels, beyond the envelope: refused by each wrapper before it
+    # launches, and by each C entry point (which never launches).
+    before = dict(ts.LAUNCHES), dict(wb.LAUNCHES)
+    w136 = params(136, CMID, 108, device=cuda)
+    v136 = torch.randn(1, 2, 3, 5, 136, device=cuda)
+    d108 = torch.randn(1, 2, 3, 5, 108, device=cuda)
+    with pytest.raises(ValueError, match="from 1 to 128"):
+        ts.seg_fwd(v136.reshape(-1, 136), *w136[:4])
+    with pytest.raises(ValueError, match="from 1 to 128"):
+        ts.conv_fwd(d108, v136, w136[4], w136[5])
+    with pytest.raises(ValueError, match="from 1 to 128"):
+        ts.blk_bwd(v136, v136, d108, *w136[:3], w136[4])
+    with pytest.raises(ValueError, match="from 1 to 128"):
+        wb.wide_bwd(v136.reshape(-1, 136), *w136[:3], d108.reshape(-1, 108))
+    assert (dict(ts.LAUNCHES), dict(wb.LAUNCHES)) == before
+    lib, p, s = _build.library(), v136.data_ptr(), ts._stream(v136)
+    n = 30
+    assert lib.probav_seg_fwd(0, p, p, p, p, p, p, n, 136, CMID, 108, s) != 0
+    assert lib.probav_conv_fwd(0, p, p, p, p, p, 1, 2, 3, 5, 108, 136,
+                               s) != 0
+    assert lib.probav_blk_bwd(0, *[p] * 11, 1, 1, 2, 3, 5, 136, CMID, 108,
+                              s) != 0
+    assert lib.probav_wide_bwd(0, *[p] * 8, 1, n, 136, CMID, 108, s) != 0
+    torch.cuda.synchronize()
+    # Beyond the T envelope of the widest bucket (one column at T = 21 over
+    # shared memory in float32 at 128 -> 128 channels) the launch is
+    # refused, never run; T = 20 runs.
+    deep = params(128, CMID, 128, device=cuda)
+    for t in (20, 21):
+        d5 = torch.randn(1, 2, 3, t, 128, device=cuda)
+        x5 = torch.randn(1, 2, 3, t, 128, device=cuda)
+        if t == 20:
+            assert max_rel(ts.conv_fwd(d5, x5, deep[4], deep[5]),
+                           ts.conv_fwd_plain(d5, x5, deep[4], deep[5])) < 2e-5
+            continue
+        before = ts.LAUNCHES["conv_fwd"]
+        with pytest.raises(RuntimeError, match="conv_fwd"):
+            ts.conv_fwd(d5, x5, deep[4], deep[5])
+        assert ts.LAUNCHES["conv_fwd"] == before
 
 
 @pytest.mark.cuda
@@ -247,9 +291,15 @@ def blk_bwd_tolerances(dtype):
 @pytest.mark.parametrize("shape,c,cmid,cdec", [
     ((3, 7, 6, 5), C, CMID, CDEC), ((3, 7, 6, 5), 32, 100, 40),
     ((2, 22, 22, 9), 32, 256, 25), ((2, 22, 22, 9), 64, 512, 51),
-    ((128, 22, 22, 9), 32, 256, 25)],
-    ids=["small", "cmid100", "flagship_b2", "wide_b2", "flagship_b128"])
+    ((128, 22, 22, 9), 32, 256, 25), ((3, 7, 6, 5), 48, 384, 38),
+    ((3, 7, 6, 5), 72, 576, 57), ((3, 7, 6, 5), 128, 1024, 102),
+    ((2, 4, 48, 9), 128, 1024, 102), ((2, 3, 22, 9), 100, 130, 128)],
+    ids=["small", "cmid100", "flagship_b2", "wide_b2", "flagship_b128",
+         "c48", "c72", "c128", "c128_w48", "c100_cdec128"])
 def test_blk_bwd_matches_plain_on_card(cuda, dtype, shape, c, cmid, cdec):
+    """Beyond 64 channels the CUDA-core kernels at both dtypes, dWc in
+    tiles of 64 x 64 channels, and at W = 48 (128/1024/102) in runs of
+    columns."""
     gy, x, d, w1, b1, w2, wc = blk_bwd_inputs(shape, c, cmid, cdec, seed=5,
                                               device=cuda, dtype=dtype)
     before = ts.LAUNCHES["blk_bwd"]
@@ -290,8 +340,10 @@ def test_stack_autograd_on_card_matches_plain_stack(cuda):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,c,cmid,cdec", [
     (300, C, CMID, CDEC), (1000, 32, 100, 40), (2 * 4356, 32, 256, 25),
-    (2 * 4356, 64, 512, 51), (128 * 4356, 32, 256, 25)],
-    ids=["small", "cmid100", "flagship_b2", "wide_b2", "flagship_b128"])
+    (2 * 4356, 64, 512, 51), (128 * 4356, 32, 256, 25),
+    (300, 48, 384, 38), (1000, 72, 576, 57), (2 * 4356, 128, 1024, 102)],
+    ids=["small", "cmid100", "flagship_b2", "wide_b2", "flagship_b128",
+         "c48", "c72", "c128_b2"])
 def test_wide_bwd_matches_plain_on_card(cuda, dtype, n, c, cmid, cdec):
     """On the dyadic inputs both versions take the same relu decisions:
     dx 2e-5 of max|ref| at float32, one bf16 step plus margin at bf16 (dx
