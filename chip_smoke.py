@@ -18,14 +18,17 @@ Phases, each printing its result:
    (64/512/51) are checked for parity, and conv_fwd also at the shapes
    that its column runs opened: rows of 48 columns at the flagship widths
    and the 64-filter widths at T = 19; blk_bwd and wide_bwd are fed dyadic
-   inputs and the shift tables
+   inputs (blk_bwd's log names the seg_bwd kernel its C entry routes each
+   width to: at float32 the 3xTF32 tensor-core kernel at the flagship, the
+   CUDA-core one at 64/512/51) and the shift tables
    integer planes (probav_tpu_torch/tools/dyadic.py), on which both
    versions take the same relu, sign and rounding decisions;
 4. widths: the four block-stack kernels beyond the flagship's channels,
    at the widths of the 48-, 72- and 128-filter models (48/384/38,
    72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
    and bf16, against their plain versions with the kernel phase's
-   tolerances (conv_fwd at 128/1024/102 also at T = 19), with single-call
+   tolerances (conv_fwd at 128/1024/102 also at T = 19; blk_bwd's seg_bwd
+   route named), with single-call
    times of kernel, plain version and F.conv3d; one float32 train step of
    a 12-block 128-filter "t" model against its "off" twin at batch 32
    (loss, cPSNR, every gradient leaf), a bf16 forward of that model against
@@ -301,9 +304,17 @@ def kernel_costs(name, n, c, cmid, cdec, dn):
                 f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} TFLOP/s; on "
                 f"the CUDA cores {bound(flops, nbytes, peak)[0]:.4f} ms)")
     grads = 27 * cdec * c + c * cmid + cmid * cdec + cmid + cdec + c
-    return (2 * n * (2 * 27 * cdec * c + cmid * (3 * c + 2 * cdec)),
-            itemsize * (n * (3 * c + cdec) + c * cmid + cmid * cdec +
-                        27 * cdec * c) + 4 * (cmid + grads), peak, "")
+    flops = 2 * n * (2 * 27 * cdec * c + cmid * (3 * c + 2 * cdec))
+    nbytes = itemsize * (n * (3 * c + cdec) + c * cmid + cmid * cdec +
+                         27 * cdec * c) + 4 * (cmid + grads)
+    if dn != "float32":
+        return flops, nbytes, peak, ""
+    # float32 products at their least time on the card, as 3xTF32 (the dd
+    # conv and, at C, C_dec <= 32, C_mid <= 256, seg_bwd run so; wgrad on
+    # the CUDA cores); the CUDA cores' bound logged beside it.
+    return (3 * flops, nbytes, PEAK_TF32,
+            f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} TFLOP/s; on "
+            f"the CUDA cores {bound(flops, nbytes, peak)[0]:.4f} ms)")
 
 
 def shift_costs(name, b, hw, border):
@@ -419,7 +430,8 @@ def phase_kernels(torch, ts, dev, card):
                              ts.blk_bwd_plain(*args), tol_of)
         log(f"kernel blk_bwd {dn}: max|diff| " + ", ".join(
             f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, errs)) +
-            f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|)")
+            f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|);"
+            f" seg_bwd route {ts.seg_bwd_route(dtype, C, CMID, CDEC)}")
         pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
                         lambda: ts.blk_bwd(*args), reps=10)
         row("blk_bwd", dn, errs[0], ms, pms, None)
@@ -465,7 +477,8 @@ def phase_kernels(torch, ts, dev, card):
             f"{e2:.3e}, blk_bwd " + ", ".join(
                 f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, e3)) +
             ", wide_bwd " + ", ".join(
-                f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, e4)))
+                f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, e4)) +
+            f"; blk_bwd seg_bwd route {ts.seg_bwd_route(dtype, 64, 512, 51)}")
         del args
         for label, shape, cd, co in CONV_ENVELOPE:
             g = torch.Generator(device=dev).manual_seed(11)
@@ -584,6 +597,8 @@ def phase_widths(torch, ts, dev, card):
             pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
                             lambda: ts.blk_bwd(*args), reps=10)
             report("blk_bwd", dn, widths, max(errs), ms, pms)
+            log(f"width blk_bwd {dn} [{'/'.join(map(str, widths))}]: "
+                f"seg_bwd route {ts.seg_bwd_route(dtype, *widths)}")
             args = wide_bwd_inputs(n, c, cmid, cdec, seed=23, device=dev,
                                    dtype=dtype)
             errs = check_outputs(f"width wide_bwd {widths} {dn}", WIDE_NAMES,

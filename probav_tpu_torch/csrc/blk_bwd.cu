@@ -29,20 +29,22 @@
 //      bias grads.  The wide z / dz [N, c_mid] never reach device memory.
 //   4. reduce: the weight-gradient partials.
 //
-// Kernels 2 and 3 come in two versions each, chosen from the dtype and the
-// widths: bf16 at c_in, c_dec <= 32 and c_mid <= 256 (the flagship's
-// 32/256/25) runs on the tensor cores (wgrad_mma_kernel,
-// seg_bwd_mma_kernel: mma.sync m16n8k16, float32 sums); float32, and bf16
-// at wider widths (the 64-filter model's 64/512/51, up to 128/1024/102),
-// run on the CUDA cores (wgrad_kernel, seg_bwd_kernel: bf16 data widened
-// to float32, whose products of bf16 values are exact), so every width
-// from 1 to MAX_CH = 128 channels has a kernel.
+// Kernels 2 and 3 come in several versions, chosen from the dtype and the
+// widths before any launch.  At c_in, c_dec <= 32 and c_mid <= 256 (the
+// flagship's 32/256/25) seg_bwd runs on the tensor cores at both dtypes
+// (seg_bwd_route): bf16 as seg_bwd_mma_kernel (mma.sync m16n8k16, float32
+// sums), float32 as seg_bwd_tf32_kernel (3xTF32 on mma.sync m16n8k8); so
+// does the bf16 wgrad (wgrad_mma_kernel).  The float32 wgrad, and both
+// kernels at wider widths (the 64-filter model's 64/512/51, up to
+// 128/1024/102), run on the CUDA cores (wgrad_kernel, seg_bwd_kernel: bf16
+// data widened to float32, whose products of bf16 values are exact), so
+// every width from 1 to MAX_CH = 128 channels has a kernel.
 //
 // Reductions across blocks: kernels 2 and 3 run a persistent grid of G
 // blocks; each block owns one float32 slot of the partial buffer and sums
 // into it over all its tiles, in registers written once at the end (the
-// wgrad kernels, seg_bwd_mma) or in the slot itself (seg_bwd), with no
-// atomics.  Kernel 4 sums the G slots in a fixed order, so a run is
+// wgrad kernels, seg_bwd_mma, seg_bwd_tf32) or in the slot itself
+// (seg_bwd), with no atomics.  Kernel 4 sums the G slots in a fixed order, so a run is
 // deterministic, as the per-tile partials of pallas_tstack.py:445-449 are.
 //
 // What bounds it on an H100: per row 2 * 27 * c_dec * c_out FLOP each for
@@ -50,10 +52,12 @@
 // W1 dz, dW1 and dW2: in all 161,152 FLOP per row at the flagship
 // 32/256/25 (89.9 GFLOP per launch at N = 557,568) against ~89 elements
 // read and 32 written per row: compute-bound,
-// 1.34 ms at the 67 TFLOP/s float32 peak and 91 us at the 989 TFLOP/s bf16
-// peak.  This version keeps the wide activation out of device memory and
-// the bf16 products on the tensor cores; it does not pipeline its staging
-// (no cp.async / TMA) and uses mma.sync, not wgmma, which is later work.
+// 91 us at the 989 TFLOP/s bf16 peak; float32 0.545 ms as 3xTF32 at the
+// 494.7 TFLOP/s TF32 peak (1.34 ms at the CUDA cores' 67 TFLOP/s).  This
+// version keeps the wide activation out of device memory and the dd conv,
+// seg_bwd and the bf16 wgrad on the tensor cores; only the dd conv and the
+// float32 seg_bwd pipeline their staging (cp.async), and all use
+// mma.sync, not wgmma, which is later work.
 //
 // Rounding points (pallas_tstack.py:356-379): dd summed in float32 then
 // rounded; dz from float32 W2 dd, masked by z > 0 on the float32 z, then
@@ -999,6 +1003,409 @@ cudaError_t launch_seg_bwd_mma(const void* x, const void* dd, const void* gy,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------ //
+// seg_bwd, float32 on the tensor cores as 3xTF32 (mma.sync.m16n8k8, float32 //
+// sums; split_tf32 in common.cuh), for c_in, c_dec <= 32 and c_mid <= 256   //
+// (the flagship's 32/256/25).  It computes what seg_bwd_kernel<float, ...,  //
+// false> computes, with the same slot layout and no rounding point.         //
+//                                                                          //
+// Bound at the flagship (N = 557,568): 2 N c_mid (3 c_in + 2 c_dec) = 41.7  //
+// GFLOP, three TF32 products each, 0.253 ms at the 494.7 TFLOP/s TF32 peak  //
+// (0.62 ms at the 67 TFLOP/s of the CUDA cores), against 270 MB moved      //
+// (0.081 ms): operations.                                                  //
+//                                                                          //
+// A tile is 128 rows, and c_mid is taken in chunks of 64 middle channels;  //
+// each of the 8 warps owns 16 rows of the tile in phase A:                 //
+// - Phase A, per pair of 8-column n-tiles: z = x W1 + b1 and W2 dd come    //
+//   out of the mma in the C layout; dz = relu'(z) (W2 dd) and h = relu(z)  //
+//   go to shared memory ([row][j], float2 stores) and, without shuffles,   //
+//   into dx += dz W1^T: a TF32 A fragment takes columns q and q+4, so C's  //
+//   columns 2q and 2q+1 are fed as A's q and q+4 and the B rows of W1^T    //
+//   are read with the same permutation (the order of k inside a dot       //
+//   product is free).  x and dd A fragments are split once per tile.       //
+// - Phase B, block-wide: dW1 += x^T dz and dW2 += h^T dd over the tile's   //
+//   128 rows (K), each warp one 32x8 tile of dW1 and one 16x16 tile of dW2 //
+//   of the chunk; db1 and db2 from the B fragments it loads anyway.        //
+// Every fragment is one float32 word, so x, dd, dz and h stay row-major   //
+// in shared memory and no tile is transposed; the strides (40 for x, dd;  //
+// 72 for dz, h; 264 for the weights) make every fragment read of phase B   //
+// and the weight reads conflict-free (phase A's once-a-tile x/dd reads     //
+// 2-way).  The tensor cores sum with truncation, so each chunk's dx        //
+// products and each chunk's weight-gradient products over one tile go to  //
+// fresh accumulators, added in float32 to the running sums (dx over the    //
+// chunks, dW1/dW2 over all the block's tiles, in registers, written to the //
+// slot once).  x and dd tiles are double-buffered: the next tile's rows    //
+// arrive by cp.async (16 bytes where a row is a multiple of 4 floats, else //
+// 4) while this one computes.  The weights are staged once per block and   //
+// split at each load: their hi/lo planes would not fit beside the tiles.   //
+// Shared memory: 2 x 33,792 (w1, w2 as [c][j]) + 1,024 (b1) + 2 x 36,864  //
+// (dz, h) + 4 x 20,480 (x, dd, two buffers) + 1,024: 225,280 B, one block  //
+// per SM.                                                                  //
+// ------------------------------------------------------------------------ //
+
+constexpr int SBT_ROWS = 128;            // rows per tile
+constexpr int SBT_WARPS = 8;             // 16 rows each in phase A
+constexpr int SBT_CH = 64;               // middle channels per chunk
+constexpr int SBT_NCH = 4;               // chunks: c_mid <= 256
+constexpr int SBT_XS = 40;               // x / dd row stride (floats)
+constexpr int SBT_ZS = SBT_CH + 8;       // dz / h row stride
+constexpr int SBT_WS = 256 + 8;          // [c][j] weight row stride
+
+// One A (16x8) or B (8x8) fragment, split into its TF32 halves.
+struct FragA { uint32_t h[4], l[4]; };
+struct FragB { uint32_t h[2], l[2]; };
+
+__device__ __forceinline__ void split_a(FragA& f, float a0, float a1,
+                                        float a2, float a3) {
+  probav::split_tf32(a0, f.h[0], f.l[0]);
+  probav::split_tf32(a1, f.h[1], f.l[1]);
+  probav::split_tf32(a2, f.h[2], f.l[2]);
+  probav::split_tf32(a3, f.h[3], f.l[3]);
+}
+
+__device__ __forceinline__ void split_b(FragB& f, float b0, float b1) {
+  probav::split_tf32(b0, f.h[0], f.l[0]);
+  probav::split_tf32(b1, f.h[1], f.l[1]);
+}
+
+// Term `term` of the 3xTF32 product: 0 hi hi, 1 lo hi, 2 hi lo.  Callers
+// sweep each term over several accumulators, so that no mma waits on the
+// one before.
+__device__ __forceinline__ void mma_term(float (&c)[4], const FragA& a,
+                                         const FragB& b, int term) {
+  if (term == 0) probav::mma_tf32(c, a.h, b.h[0], b.h[1]);
+  else if (term == 1) probav::mma_tf32(c, a.l, b.h[0], b.h[1]);
+  else probav::mma_tf32(c, a.h, b.l[0], b.l[1]);
+}
+
+// Start copying rows [0, SBT_ROWS) of a [*, cols] tile at src into dst
+// (row stride SBT_XS): zeros for rows from nrows on.  16-byte copies where
+// `vec` (cols a multiple of 4, src 16-byte aligned), else 4-byte ones.
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int nrows, int cols, bool vec) {
+  if (vec) {
+    const int c4 = cols / 4;
+    for (int e = threadIdx.x; e < SBT_ROWS * c4; e += blockDim.x) {
+      const int r = e / c4, c = 4 * (e % c4);
+      const bool in = r < nrows;
+      probav::cp_async16_zfill(dst + r * SBT_XS + c,
+                               in ? src + r * cols + c : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < SBT_ROWS * cols; e += blockDim.x) {
+      const int r = e / cols, c = e % cols;
+      const bool in = r < nrows;
+      probav::cp_async4_zfill(dst + r * SBT_XS + c, in ? src + e : src, in);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(SBT_WARPS * 32, 1)
+seg_bwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dd,
+                    const float* __restrict__ gy,
+                    const float* __restrict__ w1,
+                    const float* __restrict__ b1,
+                    const float* __restrict__ w2, float* __restrict__ dx,
+                    float* __restrict__ part, long slot_len, int n, int c_in,
+                    int c_mid, int c_dec) {
+  extern __shared__ __align__(16) float smem[];
+  float* w1s = smem;                            // [32][WS]  w1[c][j]
+  float* w2s = w1s + 32 * SBT_WS;               // [32][WS]  w2[j][c] at [c][j]
+  float* b1s = w2s + 32 * SBT_WS;               // [256]
+  float* zs = b1s + 256;                        // [ROWS][ZS]  dz of a chunk
+  float* hs = zs + SBT_ROWS * SBT_ZS;           // [ROWS][ZS]  h of a chunk
+  float* xb = hs + SBT_ROWS * SBT_ZS;           // [2][ROWS][XS]  x tiles
+  float* db = xb + 2 * SBT_ROWS * SBT_XS;       // [2][ROWS][XS]  dd tiles
+  float* red = db + 2 * SBT_ROWS * SBT_XS;      // [WARPS][32]  dbc
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+
+  // Weights zero-padded to 32 x 256 (padded z, dz and h are 0); the tile
+  // buffers zeroed once: the copies never write their padding columns.
+  for (int e = tid; e < 32 * 256; e += blockDim.x) {
+    const int c = e / 256, j = e % 256;
+    w1s[c * SBT_WS + j] = (c < c_in && j < c_mid) ? w1[(long)c * c_mid + j]
+                                                  : 0.f;
+    const int j2 = e / 32, c2 = e % 32;
+    w2s[c2 * SBT_WS + j2] =
+        (c2 < c_dec && j2 < c_mid) ? w2[(long)j2 * c_dec + c2] : 0.f;
+  }
+  for (int j = tid; j < 256; j += blockDim.x) b1s[j] = j < c_mid ? b1[j] : 0.f;
+  for (int e = tid; e < 4 * SBT_ROWS * SBT_XS; e += blockDim.x) xb[e] = 0.f;
+  __syncthreads();
+
+  const bool xvec = c_in % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool dvec = c_dec % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(dd) % 16 == 0;
+  const long tiles = ((long)n + SBT_ROWS - 1) / SBT_ROWS;
+  auto stage = [&](long tile, int buf) {
+    const long row0 = tile * SBT_ROWS;
+    const int nrows = (int)min((long)SBT_ROWS, (long)n - row0);
+    copy_rows(xb + buf * SBT_ROWS * SBT_XS, x + row0 * c_in, nrows, c_in,
+              xvec);
+    copy_rows(db + buf * SBT_ROWS * SBT_XS, dd + row0 * c_dec, nrows, c_dec,
+              dvec);
+    probav::cp_async_commit();
+  };
+
+  float acc1[SBT_NCH][2][4], acc2[SBT_NCH][2][4];   // dW1, dW2 tiles
+#pragma unroll
+  for (int ch = 0; ch < SBT_NCH; ++ch)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc1[ch][t][i] = acc2[ch][t][i] = 0.f;
+  float db1a[SBT_NCH] = {}, db2a[2] = {}, dbca[4][2] = {};
+
+  const int rw = warp * 16;                // this warp's rows in phase A
+  const int mh = (warp / 2) * 16;          // its dW2 rows (j) in a chunk
+  const int nd = (warp % 2) * 16;          // its dW2 columns (c)
+  if (blockIdx.x < tiles) stage(blockIdx.x, 0);
+  int buf = 0;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    // The other buffer was last read before the previous tile's final
+    // barrier.
+    if (tile + gridDim.x < tiles) stage(tile + gridDim.x, buf ^ 1);
+    else probav::cp_async_commit();
+    probav::cp_async_wait_group<1>();
+    __syncthreads();
+    const float* xt = xb + buf * SBT_ROWS * SBT_XS;
+    const float* dt = db + buf * SBT_ROWS * SBT_XS;
+    const long row0 = tile * SBT_ROWS;
+    const int nrows = (int)min((long)SBT_ROWS, (long)n - row0);
+
+    // Phase A's A fragments of x and dd (rows rw + g, rw + g + 8), split.
+    FragA ax[4], ad[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float* X = xt + (rw + g) * SBT_XS + k * 8 + q;
+      const float* D = dt + (rw + g) * SBT_XS + k * 8 + q;
+      split_a(ax[k], X[0], X[8 * SBT_XS], X[4], X[8 * SBT_XS + 4]);
+      split_a(ad[k], D[0], D[8 * SBT_XS], D[4], D[8 * SBT_XS + 4]);
+    }
+    float dxa[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      dxa[t][0] = dxa[t][1] = dxa[t][2] = dxa[t][3] = 0.f;
+
+#pragma unroll
+    for (int ch = 0; ch < SBT_NCH; ++ch) {
+      const int j0 = ch * SBT_CH;
+      if (j0 >= c_mid) break;              // uniform over the block
+      float dxc[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        dxc[t][0] = dxc[t][1] = dxc[t][2] = dxc[t][3] = 0.f;
+
+      // Phase A, two n-tiles (16 middle channels) at a time.
+#pragma unroll 2
+      for (int p = 0; p < SBT_CH / 16; ++p) {
+        const int jn = j0 + p * 16;
+        float z[2][4] = {}, gg[2][4] = {};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          FragB bw[2], bv[2];
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const float* Wz = w1s + (k * 8 + q) * SBT_WS + jn + t * 8 + g;
+            const float* Wg = w2s + (k * 8 + q) * SBT_WS + jn + t * 8 + g;
+            split_b(bw[t], Wz[0], Wz[4 * SBT_WS]);
+            split_b(bv[t], Wg[0], Wg[4 * SBT_WS]);
+          }
+#pragma unroll
+          for (int term = 0; term < 3; ++term)
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+              mma_term(z[t], ax[k], bw[t], term);
+              mma_term(gg[t], ad[k], bv[t], term);
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int jl = p * 16 + t * 8 + 2 * q;   // chunk column of C's 2q
+          const float bb0 = b1s[j0 + jl], bb1 = b1s[j0 + jl + 1];
+          z[t][0] += bb0; z[t][1] += bb1; z[t][2] += bb0; z[t][3] += bb1;
+          float dz[4], h[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dz[i] = z[t][i] > 0.f ? gg[t][i] : 0.f;
+            h[i] = fmaxf(z[t][i], 0.f);
+          }
+          float* Z = zs + (rw + g) * SBT_ZS + jl;
+          float* Hh = hs + (rw + g) * SBT_ZS + jl;
+          *reinterpret_cast<float2*>(Z) = make_float2(dz[0], dz[1]);
+          *reinterpret_cast<float2*>(Z + 8 * SBT_ZS) =
+              make_float2(dz[2], dz[3]);
+          *reinterpret_cast<float2*>(Hh) = make_float2(h[0], h[1]);
+          *reinterpret_cast<float2*>(Hh + 8 * SBT_ZS) =
+              make_float2(h[2], h[3]);
+          // dx += dz W1^T over these 8 middle channels: C columns 2q, 2q+1
+          // are A columns q, q+4, and B rows q, q+4 are W1[c][j0+jl], [+1].
+          FragA az;
+          split_a(az, dz[0], dz[2], dz[1], dz[3]);
+          FragB bx[4];
+#pragma unroll
+          for (int ct = 0; ct < 4; ++ct) {
+            const float2 w = *reinterpret_cast<const float2*>(
+                w1s + (ct * 8 + g) * SBT_WS + j0 + jl);
+            split_b(bx[ct], w.x, w.y);
+          }
+#pragma unroll
+          for (int term = 0; term < 3; ++term)
+#pragma unroll
+            for (int ct = 0; ct < 4; ++ct) mma_term(dxc[ct], az, bx[ct], term);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dxa[t][i] += dxc[t][i];
+      __syncthreads();   // the chunk's dz, h complete
+
+      // Phase B: K = the tile's 128 rows, 8 at a time.
+      float t1[2][4] = {}, t2[2][4] = {};
+#pragma unroll 4
+      for (int kk = 0; kk < SBT_ROWS / 8; ++kk) {
+        const int r = kk * 8 + q;
+        const float* X = xt + r * SBT_XS + g;
+        const float* Z = zs + r * SBT_ZS + warp * 8 + g;
+        const float* Hh = hs + r * SBT_ZS + mh + g;
+        const float* D = dt + r * SBT_XS + nd + g;
+        FragA axt[2], ah;
+        FragB bz, bd[2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)     // x^T rows c = mt*16 + g (+8)
+          split_a(axt[mt], X[mt * 16], X[mt * 16 + 8],
+                  X[mt * 16 + 4 * SBT_XS], X[mt * 16 + 8 + 4 * SBT_XS]);
+        split_b(bz, Z[0], Z[4 * SBT_ZS]);  // dz column j = warp*8 + g
+        db1a[ch] += Z[0] + Z[4 * SBT_ZS];
+        split_a(ah, Hh[0], Hh[8], Hh[4 * SBT_ZS], Hh[4 * SBT_ZS + 8]);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {   // dd columns c = nd + nt*8 + g
+          split_b(bd[nt], D[nt * 8], D[nt * 8 + 4 * SBT_XS]);
+          if (ch == 0 && warp < 2)
+            db2a[nt] += D[nt * 8] + D[nt * 8 + 4 * SBT_XS];
+        }
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_term(t1[mt], axt[mt], bz, term);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) mma_term(t2[nt], ah, bd[nt], term);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc1[ch][t][i] += t1[t][i];
+          acc2[ch][t][i] += t2[t][i];
+        }
+      __syncthreads();   // phase B done with zs, hs (and, last, the tile)
+    }
+
+    // dx = W1 dz + gy, summed in float32; dbc sums gy.
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rw + g + (i < 2 ? 0 : 8);
+        const int c = t * 8 + 2 * q + (i & 1);
+        if (r < nrows && c < c_in) {
+          const long idx = (row0 + r) * c_in + c;
+          const float gv = gy[idx];
+          dbca[t][i & 1] += gv;
+          dx[idx] = dxa[t][i] + gv;
+        }
+      }
+  }
+  probav::cp_async_wait_all();
+
+  // Write this block's partial slot: every entry of dW1..dbc.
+  const Slot sl(c_in, c_mid, c_dec);
+  float* slot = part + blockIdx.x * slot_len;
+#pragma unroll
+  for (int ch = 0; ch < SBT_NCH; ++ch) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = g + (i < 2 ? 0 : 8), cc = 2 * q + (i & 1);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int c = t * 16 + rr, j = ch * SBT_CH + warp * 8 + cc;
+        if (c < c_in && j < c_mid)
+          slot[sl.w1 + (long)c * c_mid + j] = acc1[ch][t][i];
+        const int j2 = ch * SBT_CH + mh + rr, c2 = nd + t * 8 + cc;
+        if (j2 < c_mid && c2 < c_dec)
+          slot[sl.w2 + (long)j2 * c_dec + c2] = acc2[ch][t][i];
+      }
+    }
+    // db1: lanes q hold rows r = q (mod 4) of column j; sum them in order.
+    float v = db1a[ch];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    const int j = ch * SBT_CH + warp * 8 + g;
+    if (q == 0 && j < c_mid) slot[sl.b1 + j] = v;
+  }
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    float v = db2a[t];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    const int c = nd + t * 8 + g;
+    if (warp < 2 && q == 0 && c < c_dec) slot[sl.b2 + c] = v;
+  }
+  // dbc: sum the 8 row groups (lanes g) of each warp, then the warps.
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float v = dbca[t][u];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[warp * 32 + t * 8 + 2 * q + u] = v;
+    }
+  __syncthreads();
+  if (tid < c_in) {
+    float sum = 0.f;
+    for (int w = 0; w < SBT_WARPS; ++w) sum += red[w * 32 + tid];
+    slot[sl.bc + tid] = sum;
+  }
+}
+
+cudaError_t launch_seg_bwd_tf32(const void* x, const void* dd, const void* gy,
+                                const void* w1, const float* b1,
+                                const void* w2, void* dx, float* part,
+                                long slot_len, int G, int n, int c_in,
+                                int c_mid, int c_dec, cudaStream_t s) {
+  const size_t smem =
+      sizeof(float) * ((size_t)2 * 32 * SBT_WS + 256 + 2 * SBT_ROWS * SBT_ZS +
+                       4 * SBT_ROWS * SBT_XS + SBT_WARPS * 32);
+  auto kern = seg_bwd_tf32_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<G, SBT_WARPS * 32, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dd),
+      static_cast<const float*>(gy), static_cast<const float*>(w1), b1,
+      static_cast<const float*>(w2), static_cast<float*>(dx), part, slot_len,
+      n, c_in, c_mid, c_dec);
+  return cudaGetLastError();
+}
+
+// Which seg_bwd blk_bwd runs, from the dtype and widths alone: the tensor
+// cores where their tiles cover the widths (c_in, c_dec <= 32, c_mid <=
+// 256), bf16 on seg_bwd_mma_kernel and float32 on seg_bwd_tf32_kernel;
+// elsewhere seg_bwd_kernel on the CUDA cores.
+enum SegBwdRoute { SEG_BWD_CUDA_CORES = 0, SEG_BWD_BF16_MMA = 1,
+                   SEG_BWD_TF32_MMA = 2 };
+
+SegBwdRoute seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
+  if (c_in > 32 || c_dec > 32 || c_mid > 256) return SEG_BWD_CUDA_CORES;
+  return dtype == 1 ? SEG_BWD_BF16_MMA : SEG_BWD_TF32_MMA;
+}
+
 // out[i] = sum over g of part[g][i], g in order.
 __global__ void reduce_partials_kernel(const float* __restrict__ part,
                                        float* __restrict__ out, int G,
@@ -1039,14 +1446,19 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
     err = dispatch_wgrad<T>(d, gy, part, sl.len, G, B, H, W, Tn, c_dec, c_in,
                             s);
   if (err != cudaSuccess) return err;
-  // bf16 at widths the tensor-core kernel covers (the flagship's) takes
-  // it; other widths and float32 run on the CUDA cores.
-  if (dtype == 1 && c_in <= 32 && c_dec <= 32 && c_mid <= 256)
-    err = launch_seg_bwd_mma(x, dd, gy, w1, b1, w2, dx, part, sl.len, G, n,
-                             c_in, c_mid, c_dec, s);
-  else
-    err = dispatch_seg_bwd<T>(x, dd, gy, w1, b1, w2, dx, part, sl.len, G, n,
-                              c_in, c_mid, c_dec, s);
+  switch (seg_bwd_route(dtype, c_in, c_mid, c_dec)) {
+    case SEG_BWD_BF16_MMA:
+      err = launch_seg_bwd_mma(x, dd, gy, w1, b1, w2, dx, part, sl.len, G, n,
+                               c_in, c_mid, c_dec, s);
+      break;
+    case SEG_BWD_TF32_MMA:
+      err = launch_seg_bwd_tf32(x, dd, gy, w1, b1, w2, dx, part, sl.len, G,
+                                n, c_in, c_mid, c_dec, s);
+      break;
+    default:
+      err = dispatch_seg_bwd<T>(x, dd, gy, w1, b1, w2, dx, part, sl.len, G,
+                                n, c_in, c_mid, c_dec, s);
+  }
   if (err != cudaSuccess) return err;
   return reduce_partials(part, out, G, sl.len, s);
 }
@@ -1098,6 +1510,13 @@ int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
                                        dx, pf, of, G, B, H, W, Tn, c_in,
                                        c_mid, c_dec, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The seg_bwd kernel probav_blk_bwd launches for these widths: 0 =
+// seg_bwd_kernel (CUDA cores), 1 = seg_bwd_mma_kernel (bf16 mma), 2 =
+// seg_bwd_tf32_kernel (float32 as 3xTF32 mma).
+int probav_seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
+  return (int)seg_bwd_route(dtype, c_in, c_mid, c_dec);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  x [n, c_in], w1 [c_in, c_mid], w2

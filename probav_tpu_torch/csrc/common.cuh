@@ -37,6 +37,67 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// float32 on the tensor cores as 3xTF32: v splits into hi = v rounded to
+// TF32 (to nearest, ties away from zero: cvt.rna's rounding, two integer
+// operations, without its four-instruction Inf/NaN guard) and lo = v - hi
+// (exact in float32, |lo| <= 2^-11 |v|), and a product into acc += lo_a
+// hi_b + hi_a lo_b + hi_a hi_b, lo_a lo_b dropped: about 2^-20 of relative
+// error per product at most.  lo goes to the tensor cores as it is: they
+// read a TF32 operand's top 19 bits, so lo loses at most 2^-10 of itself,
+// 2^-21 of v.  A value on a grid that TF32 holds (11 significant bits)
+// splits exactly, with lo = 0.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// The four words v of a fragment, split.
+__device__ __forceinline__ void split_tf32(const uint32_t (&v)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) split_tf32(__uint_as_float(v[j]), hi[j], lo[j]);
+}
+
+// Asynchronous copies from device memory into shared memory (cp.async).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, uintptr_t src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+// 16 (or 4) bytes from src where `valid`, else zeros (nothing is read).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

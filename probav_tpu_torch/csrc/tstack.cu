@@ -58,11 +58,16 @@
 
 namespace {
 
+using probav::cp_async16;
+using probav::cp_async_commit;
+using probav::cp_async_wait_all;
 using probav::lds32;
 using probav::mma_bf16;
 using probav::mma_tf32;
 using probav::pack_bf16;
 using probav::sm_count;
+using probav::smem_addr;
+using probav::split_tf32;
 
 constexpr int SEG_ROWS = 256;   // rows per seg_fwd block = threads per block
 constexpr int SEG_MCH = 64;     // middle channels staged per chunk
@@ -526,44 +531,11 @@ constexpr int RING_MIN_RUN = 64;   // least positions of a run, 27 taps
 // rows per step likewise only up to 64.
 __host__ __device__ constexpr bool ring_all_taps(int CK) { return CK <= 64; }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, uintptr_t src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// The four words v of a fragment -> hi = v rounded to TF32 (to nearest,
-// ties away from zero: cvt.rna's rounding, two integer operations, without
-// its four-instruction Inf/NaN guard) and lo = v - hi (exact in float32,
-// |lo| <= 2^-11 |v|).  lo goes to the tensor cores as it is: they read a
-// TF32 operand's top 19 bits, so lo loses at most 2^-10 of itself, 2^-21
-// of v.
-__device__ __forceinline__ void split_tf32(const uint32_t (&v)[4],
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    hi[j] = (v[j] + 0x1000u) & 0xffffe000u;
-    lo[j] = __float_as_uint(__uint_as_float(v[j]) - __uint_as_float(hi[j]));
-  }
 }
 
 // Bytes of a raw buffer for a span of n bytes copied from the 16-byte chunk

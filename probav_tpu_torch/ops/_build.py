@@ -36,6 +36,8 @@ SIGNATURES = {
     # dtype, gy, x, d, wflip, w1, b1, w2, dd, dx, part, out,
     # G, B, H, W, T, c_in, c_mid, c_dec, stream
     "probav_blk_bwd": [_I] + [_P] * 11 + [_I] * 8 + [_P],
+    # dtype, c_in, c_mid, c_dec
+    "probav_seg_bwd_route": [_I] * 4,
     # dtype, x, w1, b1, w2, dy, dx, part, out, G, n, c_in, c_mid, c_dec,
     # stream
     "probav_wide_bwd": [_I] + [_P] * 8 + [_I] * 5 + [_P],

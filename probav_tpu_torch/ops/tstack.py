@@ -22,11 +22,14 @@ its backward runs ``blk_bwd`` for the blocks in reverse order.
 tensor cores at both dtypes: bf16 products at bf16, float32 products as
 3xTF32 (each operand split into two TF32 halves, three products summed in
 float32: about 2**-22 relative error per product, within the float32
-tolerance that plain TF32 misses).  ``seg_fwd`` and the rest of
-``blk_bwd`` run float32 on the CUDA cores with exact float32 products, and
-bf16 on the tensor cores (``mma.sync``) with float32 accumulation (blk_bwd
-at the flagship's widths; at wider ones its bf16 runs on the CUDA cores).
-All round where the TPU kernels round.
+tolerance that plain TF32 misses).  ``blk_bwd``'s expand/decay backward
+(``seg_bwd_route``) and its bf16 ``wgrad`` run on the tensor cores too
+where C, C_dec <= 32 and C_mid <= 256 (the flagship's widths): bf16
+products at bf16, float32 as 3xTF32.  The float32 ``seg_fwd`` and
+``wgrad``, and ``blk_bwd`` at wider widths, run on the CUDA cores with
+exact float32 products (bf16 widened); bf16 ``seg_fwd`` runs on the
+tensor cores (``mma.sync``, float32 accumulation).  All round where the
+TPU kernels round.
 
 ``t_tier_refusal`` states the channel widths the kernels take, once: any C
 and C_dec from 1 to 128 (``MAX_CHANNELS``), forward and backward.  The
@@ -142,6 +145,23 @@ def _check_widths(name, c, c_dec):
     why = t_tier_refusal(c, c_dec)
     if why:
         raise ValueError(f"{name}: {why}")
+
+
+# The kernels blk_bwd's expand/decay backward may launch, by the code that
+# csrc/blk_bwd.cu's seg_bwd_route gives.
+SEG_BWD_ROUTES = ("seg_bwd_kernel (CUDA cores)",
+                  "seg_bwd_mma_kernel (bf16 mma)",
+                  "seg_bwd_tf32_kernel (3xTF32 mma)")
+
+
+def seg_bwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
+    """The kernel that ``blk_bwd`` runs for the expand/decay backward of a
+    block of these widths on the card, as its C entry chooses it (from the
+    dtype and widths alone, before any launch).  Builds the kernels."""
+    from probav_tpu_torch.ops import _build
+    code = _build.library().probav_seg_bwd_route(_DTYPE_CODE[dtype], c,
+                                                 c_mid, c_dec)
+    return SEG_BWD_ROUTES[code]
 
 
 def partial_slots(device, c: int, c_dec: int) -> int:

@@ -16,7 +16,10 @@ choice and lazy module loading.  ``--steps`` more steps are timed one by
 one on the host clock, each ending in ``torch.cuda.synchronize()``; their
 median patches/s is the warm throughput.  One more step runs under
 ``torch.profiler``: the device time of each kernel and memcpy and their
-sum (device busy); the idle share is 1 - busy / the median step time.  A
+sum (device busy); the idle share is 1 - busy / the median step time; and
+in the "t" variants blk_bwd's four sub-kernels (dd conv, wgrad, seg_bwd,
+reduce; see ``time_conv.BLK_BWD_PARTS``) per step, with the kernels that
+ran.  A
 JSON summary goes to ``<out>/profile_train.json``.  Needs a CUDA card;
 float32 runs with TF32 off.
 """
@@ -144,6 +147,7 @@ def main(argv=None) -> dict:
     import torch
 
     from probav_tpu_torch.config import Config
+    from probav_tpu_torch.tools.time_conv import blk_bwd_part
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA device")
@@ -168,9 +172,18 @@ def main(argv=None) -> dict:
             tr.logger_.close()
         med = statistics.median(rates)
         idle = 1 - busy / (1e3 * n / med)
+        parts = {}
+        for t, k, c in rows:
+            part = blk_bwd_part(k) if tier == "t" else None
+            if part:
+                p = parts.setdefault(part, dict(ms=0.0, calls=0, kernels=[]))
+                p["ms"] += t
+                p["calls"] += c
+                p["kernels"].append(k[:90])
         summary[name] = dict(rates=rates, median=med, profiled_wall_ms=wall,
                              device_busy_ms=busy, idle=idle,
-                             top=[(t, k[:90], c) for t, k, c in rows[:16]])
+                             top=[(t, k[:90], c) for t, k, c in rows[:16]],
+                             blk_bwd_parts=parts)
         print(f"== {name}: train step at batch {n}, patches/s "
               f"{['%.1f' % x for x in rates]} median {med:.1f}; device "
               f"busy {busy:.2f} ms, idle {100 * idle:.1f}% of the median "
@@ -178,6 +191,10 @@ def main(argv=None) -> dict:
         for t, k, c in rows[:16]:
             print(f"   {t:9.3f} ms  {100 * t / busy:5.1f}%  x{c:<5d} "
                   f"{k[:100]}", flush=True)
+        for part, p in parts.items():
+            print(f"   blk_bwd {part}: {p['ms']:.3f} ms a step, "
+                  f"{p['calls']} calls ({'; '.join(p['kernels'])})",
+                  flush=True)
         del tr
         torch.cuda.empty_cache()
     with open(os.path.join(opt.out, "profile_train.json"), "w") as f:

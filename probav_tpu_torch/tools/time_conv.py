@@ -14,9 +14,12 @@ compare two trees of the port on one card.
 (blk_bwd and wide_bwd on the dyadic inputs of ``tools/dyadic.py``), then
 ``--rounds`` rounds of the median of 20 single CUDA-event-timed calls and
 of 20 calls queued back to back (device time, without the host's launch
-latency).  Run parent, change, change, parent in one call and compare the
-rounds' spread.  Prints one JSON line and appends it to
-``<out>/time_conv.jsonl``.  Needs a CUDA card.
+latency).  For blk_bwd also its four sub-kernels (``BLK_BWD_PARTS``): the
+device time of each per call, by the kernel names of a ``torch.profiler``
+trace of 10 calls back to back, beside its bound (``blk_bwd_part_costs``).
+Run parent, change, change, parent in one call and compare the rounds'
+spread.  Prints one JSON line and appends it to ``<out>/time_conv.jsonl``.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,6 +37,87 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # weight gradients 1e-4 of max|ref|.
 BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 KERNELS = ("conv_fwd", "seg_fwd", "blk_bwd", "wide_bwd")
+# blk_bwd's sub-kernels: (part, ((kernel name, what its name must also
+# hold), ...)).  The dd conv is conv_ring_kernel without the residual (its
+# last template argument false; conv_fwd's is true); seg_bwd_kernel with
+# WIDE true is wide_bwd's, not blk_bwd's.
+BLK_BWD_PARTS = (("dd conv", (("conv_ring_kernel", ", false>"),)),
+                 ("wgrad", (("wgrad_kernel", ""), ("wgrad_mma_kernel", ""))),
+                 ("seg_bwd", (("seg_bwd_kernel", ", false>"),
+                              ("seg_bwd_mma_kernel", ""),
+                              ("seg_bwd_tf32_kernel", ""))),
+                 ("reduce", (("reduce_partials_kernel", ""),)))
+# H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores,
+# TF32 and bf16 on the tensor cores; device memory.
+PEAK = {"float32": 67e12, "tf32": 494.7e12, "bfloat16": 989e12}
+PEAK_BYTES = 3.35e12
+
+
+def blk_bwd_part(kernel_name: str) -> str | None:
+    """The sub-kernel of blk_bwd a profiled kernel name belongs to (the
+    reduce is wide_bwd's too: read it where only blk_bwd runs)."""
+    for part, kernels in BLK_BWD_PARTS:
+        for name, tail in kernels:
+            if (f"{name}<" in kernel_name or f"{name}(" in kernel_name) \
+                    and tail in kernel_name:
+                return part
+    return None
+
+
+def blk_bwd_part_costs(n, c, cmid, cdec, dn, groups):
+    """{part: (FLOP, bytes, bound ms, bound by)} of one blk_bwd at n rows:
+    each input read once, each output written once.  The bound is the
+    least time on the card: bf16 at the bf16 tensor-core peak, float32 as
+    3xTF32 (three TF32 products for each, at the TF32 peak; the key
+    "cuda_core_ms" gives the CUDA cores' bound beside it).  The reduce
+    reads the groups' float32 slots and writes one."""
+    s = 4 if dn == "float32" else 2
+    slot = 27 * cdec * c + c * cmid + cmid * cdec + cmid + cdec + c
+    conv = 2 * n * 27 * cdec * c
+    parts = {
+        "dd conv": (conv, s * (n * (c + cdec) + 27 * cdec * c)),
+        "wgrad": (conv, s * n * (c + cdec) + 4 * 27 * cdec * c),
+        "seg_bwd": (2 * n * cmid * (3 * c + 2 * cdec),
+                    s * (n * (3 * c + cdec) + c * cmid + cmid * cdec) +
+                    4 * (cmid + c * cmid + cmid * cdec + cmid + cdec + c)),
+        "reduce": (groups * slot, 4 * (groups + 1) * slot)}
+    out = {}
+    for part, (flops, nbytes) in parts.items():
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        if part == "reduce":
+            t_ops = flops / PEAK["float32"] * 1e3
+        elif dn == "float32":
+            t_ops = 3 * flops / PEAK["tf32"] * 1e3
+        else:
+            t_ops = flops / PEAK["bfloat16"] * 1e3
+        row = dict(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        if dn == "float32" and part != "reduce":
+            row["cuda_core_ms"] = max(flops / PEAK["float32"] * 1e3,
+                                      t_bytes)
+        out[part] = row
+    return out
+
+
+def profile_parts(call, reps=10):
+    """{part: (ms per call, [kernel names])} of blk_bwd's sub-kernels, from
+    a torch.profiler trace of ``reps`` calls back to back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        part = blk_bwd_part(e.key)
+        if us > 0 and part:
+            ms, names = parts.get(part, (0.0, []))
+            parts[part] = (ms + us / 1e3 / reps, names + [e.key[:120]])
+    return parts
 
 
 def calls(ts, wb, name, dtype, dev, g):
@@ -141,6 +225,14 @@ def main(argv=None):
                                b2b_ms=b2b,
                                single_median=statistics.median(single),
                                b2b_median=statistics.median(b2b))
+            if name == "blk_bwd":
+                n = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
+                groups = ts.partial_slots(dev, C_OUT, C_DEC)
+                costs = blk_bwd_part_costs(n, C_OUT, C_MID, C_DEC, dn,
+                                           groups)
+                result[key]["parts"] = {
+                    part: dict(ms=ms, kernels=names, **costs[part])
+                    for part, (ms, names) in profile_parts(call).items()}
             del call, plain
             torch.cuda.empty_cache()
     line = json.dumps(result)

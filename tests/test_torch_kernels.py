@@ -315,6 +315,34 @@ def test_blk_bwd_matches_plain_on_card(cuda, dtype, shape, c, cmid, cdec):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,cmid,cdec,route", [
+    ((2, 22, 22, 9), 32, 256, 25, "seg_bwd_tf32_kernel"),
+    ((3, 7, 6, 5), 8, 64, 6, "seg_bwd_tf32_kernel"),
+    ((3, 7, 6, 5), 24, 200, 19, "seg_bwd_tf32_kernel"),
+    ((2, 22, 22, 9), 32, 256, 32, "seg_bwd_tf32_kernel"),
+    ((1, 3, 5, 7), 32, 256, 25, "seg_bwd_tf32_kernel"),
+    ((3, 7, 6, 5), 33, 256, 25, "seg_bwd_kernel")],
+    ids=["flagship", "c8", "cmid200", "cdec32", "rows105", "c33"])
+def test_f32_blk_bwd_seg_bwd_routes_match_plain_on_card(cuda, shape, c, cmid,
+                                                        cdec, route):
+    """float32 within the tensor cores' widths takes the 3xTF32 seg_bwd
+    (c_mid 200: a chunk of 64 cut short; 105 rows: less than a tile), 33
+    channels the CUDA-core one; both match plain on the dyadic inputs to
+    the float32 tolerances, and two calls agree bit for bit."""
+    assert ts.seg_bwd_route(torch.float32, c, cmid, cdec).startswith(route)
+    args = blk_bwd_inputs(shape, c, cmid, cdec, seed=7, device=cuda)
+    got = ts.blk_bwd(*args)
+    again = ts.blk_bwd(*args)
+    torch.cuda.synchronize()
+    want = ts.blk_bwd_plain(*args)
+    tol = blk_bwd_tolerances(torch.float32)
+    for name, a, a2, b in zip(BWD_NAMES, got, again, want):
+        assert a.shape == b.shape, name
+        assert max_rel(a, b) < tol[name], (name, max_rel(a, b))
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.cuda
 def test_stack_autograd_on_card_matches_plain_stack(cuda):
     """Gradients through the kernel stack's autograd node against autograd
     through the plain blocks, float32, 3 blocks."""
