@@ -18,9 +18,11 @@ Phases, each printing its result:
    (64/512/51) are checked for parity, and conv_fwd also at the shapes
    that its column runs opened: rows of 48 columns at the flagship widths
    and the 64-filter widths at T = 19; blk_bwd and wide_bwd are fed dyadic
-   inputs (blk_bwd's log names the seg_bwd kernel its C entry routes each
-   width to: at float32 the 3xTF32 tensor-core kernel at the flagship, the
-   CUDA-core one at 64/512/51) and the shift tables
+   inputs (blk_bwd's log names the seg_bwd and the wgrad kernel its C
+   entry routes each width to: at float32 the 3xTF32 tensor-core seg_bwd
+   at the flagship, the CUDA-core one at 64/512/51; the tensor-core wgrad
+   at bf16 from 1 to 32 channels, which the flagship must take) and the
+   shift tables
    integer planes (probav_tpu_torch/tools/dyadic.py), on which both
    versions take the same relu, sign and rounding decisions;
 4. widths: the four block-stack kernels beyond the flagship's channels,
@@ -28,7 +30,7 @@ Phases, each printing its result:
    72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
    and bf16, against their plain versions with the kernel phase's
    tolerances (conv_fwd at 128/1024/102 also at T = 19; blk_bwd's seg_bwd
-   route named), with single-call
+   and wgrad routes named), with single-call
    times of kernel, plain version and F.conv3d; one float32 train step of
    a 12-block 128-filter "t" model against its "off" twin at batch 32
    (loss, cPSNR, every gradient leaf), a bf16 forward of that model against
@@ -428,10 +430,14 @@ def phase_kernels(torch, ts, dev, card):
         torch.cuda.synchronize()
         errs = check_outputs(f"blk_bwd {dn}", BWD_NAMES, got,
                              ts.blk_bwd_plain(*args), tol_of)
+        wroute = ts.wgrad_route(dtype, C, CDEC, HW, T)
         log(f"kernel blk_bwd {dn}: max|diff| " + ", ".join(
             f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, errs)) +
             f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|);"
-            f" seg_bwd route {ts.seg_bwd_route(dtype, C, CMID, CDEC)}")
+            f" seg_bwd route {ts.seg_bwd_route(dtype, C, CMID, CDEC)}, "
+            f"wgrad route {wroute}")
+        if dn == "bfloat16" and wroute != ts.WGRAD_ROUTES[1]:
+            raise AssertionError(f"blk_bwd bf16 wgrad route {wroute}")
         pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
                         lambda: ts.blk_bwd(*args), reps=10)
         row("blk_bwd", dn, errs[0], ms, pms, None)
@@ -478,7 +484,8 @@ def phase_kernels(torch, ts, dev, card):
                 f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, e3)) +
             ", wide_bwd " + ", ".join(
                 f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, e4)) +
-            f"; blk_bwd seg_bwd route {ts.seg_bwd_route(dtype, 64, 512, 51)}")
+            f"; blk_bwd seg_bwd route {ts.seg_bwd_route(dtype, 64, 512, 51)}"
+            f", wgrad route {ts.wgrad_route(dtype, 64, 51, HW, T)}")
         del args
         for label, shape, cd, co in CONV_ENVELOPE:
             g = torch.Generator(device=dev).manual_seed(11)
@@ -598,7 +605,8 @@ def phase_widths(torch, ts, dev, card):
                             lambda: ts.blk_bwd(*args), reps=10)
             report("blk_bwd", dn, widths, max(errs), ms, pms)
             log(f"width blk_bwd {dn} [{'/'.join(map(str, widths))}]: "
-                f"seg_bwd route {ts.seg_bwd_route(dtype, *widths)}")
+                f"seg_bwd route {ts.seg_bwd_route(dtype, *widths)}, wgrad "
+                f"route {ts.wgrad_route(dtype, widths[0], widths[2], HW, T)}")
             args = wide_bwd_inputs(n, c, cmid, cdec, seed=23, device=dev,
                                    dtype=dtype)
             errs = check_outputs(f"width wide_bwd {widths} {dn}", WIDE_NAMES,

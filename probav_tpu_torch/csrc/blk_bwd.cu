@@ -34,7 +34,9 @@
 // flagship's 32/256/25) seg_bwd runs on the tensor cores at both dtypes
 // (seg_bwd_route): bf16 as seg_bwd_mma_kernel (mma.sync m16n8k16, float32
 // sums), float32 as seg_bwd_tf32_kernel (3xTF32 on mma.sync m16n8k8); so
-// does the bf16 wgrad (wgrad_mma_kernel).  The float32 wgrad, and both
+// does the bf16 wgrad where its rows fit shared memory (wgrad_route:
+// wgrad_ring_kernel, ldmatrix.trans on channels-last halo rows staged by
+// cp.async).  The float32 wgrad, and both
 // kernels at wider widths (the 64-filter model's 64/512/51, up to
 // 128/1024/102), run on the CUDA cores (wgrad_kernel, seg_bwd_kernel: bf16
 // data widened to float32, whose products of bf16 values are exact), so
@@ -55,9 +57,9 @@
 // 91 us at the 989 TFLOP/s bf16 peak; float32 0.545 ms as 3xTF32 at the
 // 494.7 TFLOP/s TF32 peak (1.34 ms at the CUDA cores' 67 TFLOP/s).  This
 // version keeps the wide activation out of device memory and the dd conv,
-// seg_bwd and the bf16 wgrad on the tensor cores; only the dd conv and the
-// float32 seg_bwd pipeline their staging (cp.async), and all use
-// mma.sync, not wgmma, which is later work.
+// seg_bwd and the bf16 wgrad on the tensor cores; the dd conv, the float32
+// seg_bwd and the bf16 wgrad pipeline their staging (cp.async), and all
+// use mma.sync, not wgmma, which is later work.
 //
 // Rounding points (pallas_tstack.py:356-379): dd summed in float32 then
 // rounded; dz from float32 W2 dd, masked by z > 0 on the float32 z, then
@@ -283,50 +285,148 @@ cudaError_t dispatch_wgrad(const void* d, const void* gy, float* part,
 }
 
 // ------------------------------------------------------------------------ //
-// wgrad, bf16 on the tensor cores, for c_dec, c_out <= 32: per (b, h) row, //
-// dWc[tap] += d_shifted^T gy as mma with K over the row's positions.  The   //
-// positions are taken on the zero-padded (W+2) x (T+2) grid, where every    //
-// tap is one uniform shift; gy is zero on the pad, so the padded positions  //
-// add nothing.  Each block walks a contiguous run of (b, h) rows and keeps  //
-// the d rows h-1, h, h+1 in a ring of three transposed ([channel]           //
-// [position]) rows, so one new d row and the gy row are staged per step.    //
-// Warp w of 9 owns the taps (dh, dw) = (w / 3, w % 3) and dt = 0..2, with   //
-// their 3 x 32 x 32 sums in registers across the block's rows.             //
+// wgrad, bf16 on the tensor cores, for c_dec, c_out <= 32:                  //
+// wgrad_ring_kernel.  Per (b, h) row of gy, dWc[tap] += d_shifted^T gy as  //
+// mma.sync m16n8k16 with M = 32 channels c, N = 32 outputs o and K = the   //
+// row's W*T real positions of gy, rounded up to 16 (gy is zero past them). //
 // ------------------------------------------------------------------------ //
+//
+// - Channels-last tiles, no transposition.  d's rows are staged as
+//   [position][CSP] slots of the zero-padded (W+2) x (T+2) halo grid, gy's
+//   row as [position][CSP] over its W*T positions; CSP = 40 bf16 makes the
+//   position stride 80 bytes, so the 8 rows of an ldmatrix fall in distinct
+//   banks.  Both operands' fragments come from ldmatrix.x4.trans: A = d^T
+//   (16 channels x 16 positions) and B = gy (16 positions x 2 x 8 outputs).
+//   ldmatrix takes one address per row, so gy position k = w T + t reads
+//   the halo row (w + dw) (T+2) + t + dt of tap (dw, dt) (prow[k] is its
+//   centre tap, (w + 1) (T+2) + t + 1): any shift, odd or even, is a row
+//   address, and K runs over the real positions (198 -> 208 at 22 x 9, not
+//   the 272 of the padded grid).
+// - Copies off the critical path.  A (b, h) row of d or gy is one
+//   contiguous span of [B, H, W, T, C], aligned to one element only: it
+//   lands whole in a raw buffer by 16-byte cp.async from the chunk below
+//   its start (copy_async), and the threads then repack 16 bytes of
+//   channels a position into the slot, zeros for channels c_dec..32 (or
+//   c_out..32).  The next item's new d row and its gy row are in flight
+//   while the tensor cores work on this item.
+// - The ring.  A block walks a contiguous run of (b, h) items; rows
+//   h - 1 .. h + 1 of d sit in slots row % 3, so one new d row is staged
+//   per item; at the block's first item and at each image's row 0 the ring
+//   restarts (the rows of the image around h, one copy at a time).  A warp
+//   whose h tap reads a row outside [0, H) skips its products (a zero row).
+// - Accumulators: warp w of 9 owns the taps (dh, dw) = (w / 3, w % 3), dt =
+//   0..2: 3 x 32 x 32 float32 sums (96 a lane) in registers across the
+//   block's items, written once to the block's slot, zeros where it had no
+//   item (the reduce sums all G slots).  A k-step is 8 ldmatrix and 24
+//   mma, unrolled two deep and scheduled by the compiler: 9 warps leave
+//   168 registers a thread (three warps on one of the SM's four register
+//   files), and fragments double-buffered by hand spilled and ran 4%
+//   slower.
+// - Rounding: bf16 x bf16 products are exact in float32 and summed there
+//   (mma.sync's float32 accumulators), as by the plain version; only the
+//   order of the sums differs.
+//
+// What bounds it on an H100: 2 * 27 * c_dec * c_out FLOP a position, 24.1
+// GFLOP at the flagship's N = 557,568 and 25 -> 32 (0.0244 ms at the 989
+// TFLOP/s bf16 peak) against 63.6 MB of d and gy read (0.019 ms):
+// operations.  It issues 32 * 32 products a position of the 25 * 32 needed
+// and 208 of 198 positions a row, 1.35x the work.  Shared memory at 22 x 9:
+// three d slots of 24 * 11 * 80 B, the gy slot of 208 * 80 B, the raw rows
+// (9,936 B of d, 12,704 B of gy) and prow: 103,472 B, one block per SM (its
+// 288 threads take the registers).  W = 48 at T = 9 fits (217,600 B), and
+// so does T = 19 at W = 22 (204,960 B); shapes whose layout exceeds shared
+// memory (W = 100 at T = 9) take wgrad_kernel on the CUDA cores
+// (wgrad_route, before any launch).
 
-constexpr int WGM_WARPS = 9;
-constexpr int WGM_MARG = 16;   // zero margin (positions) around each d row
+constexpr int WGR_WARPS = 9;
+constexpr int WGR_CSP = 40;   // bf16 channel stride of a staged position
 
-__device__ __forceinline__ uint32_t ld2_bf16(const __nv_bfloat16* p) {
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
-  return (uint32_t)u[0] | ((uint32_t)u[1] << 16);
+// Shared-memory bytes of wgrad_ring_kernel; the raw buffers' elements in
+// *dbuf, *gbuf.
+size_t wgrad_ring_smem(int W, int Tn, int c_dec, int c_out,
+                       int* dbuf = nullptr, int* gbuf = nullptr) {
+  const size_t e = sizeof(__nv_bfloat16), wt = (size_t)W * Tn;
+  const size_t npk = (wt + 15) / 16 * 16;
+  const size_t db = probav::run_buf_bytes(e * wt * c_dec);
+  const size_t gb = probav::run_buf_bytes(e * wt * c_out);
+  if (dbuf) *dbuf = (int)(db / e);
+  if (gbuf) *gbuf = (int)(gb / e);
+  return e * WGR_CSP * (3 * (size_t)(W + 2) * (Tn + 2) + npk) + db + gb +
+         sizeof(int) * npk;
 }
 
-__global__ void __launch_bounds__(WGM_WARPS * 32)
-wgrad_mma_kernel(const __nv_bfloat16* __restrict__ d,
-                 const __nv_bfloat16* __restrict__ gy,
-                 float* __restrict__ part, long slot_len, int B, int H,
-                 int W, int Tn, int c_dec, int c_out, int npk) {
-  using probav::lds32;
+__global__ void __launch_bounds__(WGR_WARPS * 32)
+wgrad_ring_kernel(const __nv_bfloat16* __restrict__ d,
+                  const __nv_bfloat16* __restrict__ gy,
+                  float* __restrict__ part, long slot_len, int B, int H,
+                  int W, int Tn, int c_dec, int c_out, int dbuf_elems,
+                  int gbuf_elems) {
+  using E = __nv_bfloat16;
+  using probav::copy_async;
+  using probav::ldsm_x4_trans;
   using probav::mma_bf16;
+  using probav::pack2;
+  constexpr int CSP = WGR_CSP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int GS = npk + 8;                    // gy^T row stride
-  const int DS = npk + 2 * WGM_MARG;         // d^T row stride
-  __nv_bfloat16* gT = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [32][GS]
-  __nv_bfloat16* dT = gT + 32 * GS;                          // [3][32][DS]
-  // Offset (w * T + t) of padded position Pm - MARG, or -1 on the pad.
-  int* pos = reinterpret_cast<int*>(dT + 3 * 32 * DS);       // [DS]
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int T2 = Tn + 2, WT = W * Tn, npk = (WT + 15) / 16 * 16;
+  const int slot_elems = (W + 2) * T2 * CSP;
+  E* slots = reinterpret_cast<E*>(smem_raw);   // [3][W+2][T+2][CSP]
+  E* gsl = slots + 3 * slot_elems;             // [npk][CSP]
+  E* dbuf = gsl + npk * CSP;                   // a raw row of d
+  E* gbuf = dbuf + dbuf_elems;                 // a raw row of gy
+  int* prow = reinterpret_cast<int*>(gbuf + gbuf_elems);   // [npk]
+  const E zero = __float2bfloat16_rn(0.f);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, q = lane % 4;
-  const int T2 = Tn + 2, np = (W + 2) * T2, WT = W * Tn;
   const int dh = warp / 3, dw = warp % 3;
-  for (int pm = tid; pm < DS; pm += blockDim.x) {
-    const int P = pm - WGM_MARG;
-    const int wp = P >= 0 ? P / T2 : 0, tp = P >= 0 ? P % T2 : 0;
-    pos[pm] = (P >= 0 && P < np && wp >= 1 && wp <= W && tp >= 1 &&
-               tp <= Tn) ? (wp - 1) * Tn + (tp - 1) : -1;
+
+  // Zeros on the halo borders and on gy past its W*T positions, never
+  // written again; the halo row of each position's centre tap (position
+  // 0's past the row, where gy is zero).
+  for (int e = tid; e < (3 * slot_elems + npk * CSP) / 8; e += nthr)
+    reinterpret_cast<uint4*>(slots)[e] = make_uint4(0, 0, 0, 0);
+  for (int k = tid; k < npk; k += nthr) {
+    const int p = k < WT ? k : 0;
+    prow[k] = (p / Tn + 1) * T2 + p % Tn + 1;
   }
+  // A raw row (W*T positions of cn channels from buf) -> dst: position p
+  // to row prow[p] (a d slot) or p (the gy slot); channels 0..32, zero
+  // from cn; 16 bytes of a position per step.
+  auto repack = [&](E* dst, const E* buf, int cn, bool halo) {
+    for (int u = tid; u < WT * 4; u += nthr) {
+      const int p = u / 4, j = u % 4;
+      const E* s = buf + p * cn + 8 * j;
+      uint32_t v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = 8 * j + 2 * k;
+        v[k] = pack2(c < cn ? s[2 * k] : zero,
+                     c + 1 < cn ? s[2 * k + 1] : zero);
+      }
+      *reinterpret_cast<uint4*>(dst + (halo ? prow[p] : p) * CSP + 8 * j) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+  auto copy_d = [&](long b, int hh) {
+    return copy_async(dbuf, d + (b * H + hh) * (long)WT * c_dec, WT * c_dec);
+  };
+  auto copy_g = [&](long item) {
+    return copy_async(gbuf, gy + item * (long)WT * c_out, WT * c_out);
+  };
+
+  const long items = (long)B * H;
+  const long per = (items + gridDim.x - 1) / gridDim.x;
+  const long i0 = min(items, (long)blockIdx.x * per);
+  const long i1 = min(items, i0 + per);
+  // The first row of d an item stages, or -1: at a restart (the block's
+  // first item, an image's row 0) rows h - 1 .. h + 1 within the image,
+  // else row h + 1.
+  auto first_row = [&](long item) {
+    const int h = (int)(item % H);
+    const int lo = (item == i0 || h == 0) ? max(h - 1, 0) : h + 1;
+    return lo < H ? lo : -1;
+  };
 
   float acc[3][2][4][4];
 #pragma unroll
@@ -338,71 +438,67 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ d,
         acc[t][m][nt][0] = acc[t][m][nt][1] = acc[t][m][nt][2] =
             acc[t][m][nt][3] = 0.f;
 
-  // Ring slot of d row hh (h - 1 .. h + 1 are in three distinct slots).
-  auto ring = [](int hh) { return (hh % 3 + 3) % 3; };
-  // Stage d row hh of image b (zeros outside 0..H-1) into its ring slot.
-  auto stage_d = [&](long b, int hh) {
-    __nv_bfloat16* dst = dT + ring(hh) * 32 * DS;
-    const bool in = hh >= 0 && hh < H;
-    const __nv_bfloat16* src = d + (b * H + (in ? hh : 0)) * WT * c_dec;
-    for (int e = tid; e < DS * 32; e += blockDim.x) {
-      const int c = e % 32, pm = e / 32;
-      const int p = pos[pm];
-      dst[c * DS + pm] =
-          (in && p >= 0 && c < c_dec) ? src[(long)p * c_dec + c] : zero;
-    }
-  };
+  // This lane's ldmatrix rows: A (matrix j = lane / 8: positions 8 (j / 2)
+  // on, channels 8 (j % 2) on; + 16 for the second m-tile), B (positions
+  // 8 (j % 2) on, outputs 8 (j / 2) on; + 16 for the second pair of
+  // n-tiles).  A's row is the halo row of its position at tap (dw, dt):
+  // prow + (dw - 1) (T+2) + dt - 1.
+  const int pa = 8 * (lane / 16) + lane % 8;
+  const int aoff = ((dw - 1) * T2 - 1) * CSP + 8 * ((lane / 8) % 2);
+  const E* bbase = gsl + (8 * ((lane / 8) % 2) + lane % 8) * CSP +
+                   8 * (lane / 16);
+  const int nk = npk / 16;
 
-  const long items = (long)B * H;
-  const long per = (items + gridDim.x - 1) / gridDim.x;
-  const long i0 = blockIdx.x * per;
-  const long i1 = i0 + per < items ? i0 + per : items;
-  __syncthreads();   // pos ready
+  int dsk = 0, gsk = 0;   // element offsets of the spans in dbuf, gbuf
+  if (i0 < i1) {
+    dsk = copy_d(i0 / H, first_row(i0));
+    gsk = copy_g(i0);
+    probav::cp_async_commit();
+  }
   for (long item = i0; item < i1; ++item) {
     const long b = item / H;
     const int h = (int)(item % H);
-    __syncthreads();   // previous item consumed
-    if (item == i0 || h == 0) {
-      stage_d(b, h - 1);
-      stage_d(b, h);
+    const int lo = first_row(item), hi = min(h + 1, H - 1);
+    probav::cp_async_wait_all();
+    __syncthreads();   // the copies landed; the last item's products done
+    repack(gsl, gbuf + gsk, c_out, false);
+    if (lo >= 0) repack(slots + (lo % 3) * slot_elems, dbuf + dsk, c_dec, true);
+    for (int r = lo + 1; lo >= 0 && r <= hi; ++r) {   // a restart's rows
+      __syncthreads();   // dbuf repacked
+      dsk = copy_d(b, r);
+      probav::cp_async_commit();
+      probav::cp_async_wait_all();
+      __syncthreads();
+      repack(slots + (r % 3) * slot_elems, dbuf + dsk, c_dec, true);
     }
-    stage_d(b, h + 1);
-    const __nv_bfloat16* gsrc = gy + item * WT * c_out;
-    for (int e = tid; e < npk * 32; e += blockDim.x) {
-      const int o = e % 32, P = e / 32;
-      const int p = pos[P + WGM_MARG];
-      gT[o * GS + P] =
-          (p >= 0 && o < c_out) ? gsrc[(long)p * c_out + o] : zero;
+    __syncthreads();   // ring and gy slot staged; the raw buffers free
+    if (item + 1 < i1) {
+      const int r = first_row(item + 1);
+      if (r >= 0) dsk = copy_d((item + 1) / H, r);
+      gsk = copy_g(item + 1);
+      probav::cp_async_commit();
     }
-    __syncthreads();
     const int hh = h + dh - 1;
-    if (hh < 0 || hh >= H) continue;   // a zero d row
-    const __nv_bfloat16* dr = dT + ring(hh) * 32 * DS;
-
-#pragma unroll 1
-    for (int kk = 0; kk < npk / 16; ++kk) {
-      const int k0 = kk * 16 + 2 * q;
-      uint32_t bf[4][2];
+    if (hh < 0 || hh >= H) continue;   // a zero row of d
+    const E* abase = slots + (hh % 3) * slot_elems + aoff;
+#pragma unroll 2
+    for (int kk = 0; kk < nk; ++kk) {
+      uint32_t bf[2][4];
+      ldsm_x4_trans(bf[0], bbase + kk * 16 * CSP);
+      ldsm_x4_trans(bf[1], bbase + kk * 16 * CSP + 16);
+      const E* ap = abase + prow[kk * 16 + pa] * CSP;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* Bp = gT + (nt * 8 + g) * GS + k0;
-        bf[nt][0] = lds32(Bp);
-        bf[nt][1] = lds32(Bp + 8);
-      }
-#pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        const int off = (dw - 1) * T2 + (t - 1);
+      for (int t = 0; t < 3; ++t)
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-          const __nv_bfloat16* A =
-              dr + (m * 16 + g) * DS + WGM_MARG + k0 + off;
-          const uint32_t a[4] = {ld2_bf16(A), ld2_bf16(A + 8 * DS),
-                                 ld2_bf16(A + 8), ld2_bf16(A + 8 * DS + 8)};
+          uint32_t a[4];
+          ldsm_x4_trans(a, ap + t * CSP + m * 16);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_bf16(acc[t][m][nt], a, bf[nt][0], bf[nt][1]);
+          for (int np = 0; np < 2; ++np) {
+            mma_bf16(acc[t][m][2 * np], a, bf[np][0], bf[np][1]);
+            mma_bf16(acc[t][m][2 * np + 1], a, bf[np][2], bf[np][3]);
+          }
         }
-      }
     }
   }
 
@@ -423,25 +519,31 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ d,
         }
 }
 
-// Launches the tensor-core wgrad when its tiles fit; returns
-// cudaErrorNotSupported (nothing launched) when they do not.
-cudaError_t launch_wgrad_mma(const void* d, const void* gy, float* part,
-                             long slot_len, int G, int B, int H, int W,
-                             int Tn, int c_dec, int c_out, cudaStream_t s) {
-  const int npk = ((W + 2) * (Tn + 2) + 15) / 16 * 16;
-  const size_t smem = sizeof(__nv_bfloat16) *
-                          ((size_t)32 * (npk + 8) + 96 * (npk + 2 * WGM_MARG)) +
-                      sizeof(int) * (npk + 2 * WGM_MARG);
-  if (c_dec > 32 || c_out > 32 || smem > 227 * 1024)
-    return cudaErrorNotSupported;
-  auto kern = wgrad_mma_kernel;
+// Which wgrad blk_bwd runs, from the dtype and shapes alone: bf16 at c_dec,
+// c_out <= 32 on wgrad_ring_kernel where its layout fits shared memory;
+// elsewhere wgrad_kernel on the CUDA cores.
+enum WgradRoute { WGRAD_CUDA_CORES = 0, WGRAD_BF16_RING = 1 };
+
+WgradRoute wgrad_route(int dtype, int c_dec, int c_out, int W, int Tn) {
+  if (dtype != 1 || c_dec > 32 || c_out > 32 ||
+      wgrad_ring_smem(W, Tn, c_dec, c_out) > (size_t)probav::optin_smem())
+    return WGRAD_CUDA_CORES;
+  return WGRAD_BF16_RING;
+}
+
+cudaError_t launch_wgrad_ring(const void* d, const void* gy, float* part,
+                              long slot_len, int G, int B, int H, int W,
+                              int Tn, int c_dec, int c_out, cudaStream_t s) {
+  int dbuf = 0, gbuf = 0;
+  const size_t smem = wgrad_ring_smem(W, Tn, c_dec, c_out, &dbuf, &gbuf);
+  auto kern = wgrad_ring_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<G, WGM_WARPS * 32, smem, s>>>(
+  kern<<<G, WGR_WARPS * 32, smem, s>>>(
       static_cast<const __nv_bfloat16*>(d),
       static_cast<const __nv_bfloat16*>(gy), part, slot_len, B, H, W, Tn,
-      c_dec, c_out, npk);
+      c_dec, c_out, dbuf, gbuf);
   return cudaGetLastError();
 }
 
@@ -1438,11 +1540,10 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
                                           nullptr, dd, B, H, W, Tn, c_in,
                                           c_dec, s);
   if (err != cudaSuccess) return err;
-  err = cudaErrorNotSupported;
-  if (dtype == 1)
-    err = launch_wgrad_mma(d, gy, part, sl.len, G, B, H, W, Tn, c_dec, c_in,
-                           s);
-  if (err == cudaErrorNotSupported)
+  if (wgrad_route(dtype, c_dec, c_in, W, Tn) == WGRAD_BF16_RING)
+    err = launch_wgrad_ring(d, gy, part, sl.len, G, B, H, W, Tn, c_dec, c_in,
+                            s);
+  else
     err = dispatch_wgrad<T>(d, gy, part, sl.len, G, B, H, W, Tn, c_dec, c_in,
                             s);
   if (err != cudaSuccess) return err;
@@ -1517,6 +1618,12 @@ int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
 // seg_bwd_tf32_kernel (float32 as 3xTF32 mma).
 int probav_seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return (int)seg_bwd_route(dtype, c_in, c_mid, c_dec);
+}
+
+// The wgrad (dWc) kernel probav_blk_bwd launches for these shapes: 0 =
+// wgrad_kernel (CUDA cores), 1 = wgrad_ring_kernel (bf16 mma).
+int probav_wgrad_route(int dtype, int c_in, int c_dec, int W, int Tn) {
+  return (int)wgrad_route(dtype, c_dec, c_in, W, Tn);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  x [n, c_in], w1 [c_in, c_mid], w2

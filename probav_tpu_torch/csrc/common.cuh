@@ -98,6 +98,51 @@ template <int N> __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Bytes of a raw buffer for a span of n bytes copied from the 16-byte chunk
+// below its start (and for a run of out staged at its 16-byte skew).
+inline size_t run_buf_bytes(size_t n) {
+  return (n + 43) / 16 * 16;
+}
+
+// Start the copy of src[0, n) into buf by 16-byte cp.async, from the chunk
+// below src on (every chunk read holds an element of the span); returns the
+// element offset of src[0] in buf.
+template <typename E>
+__device__ __forceinline__ int copy_async(E* buf, const E* src, int n) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t a = s & ~uintptr_t(15);
+  const int chunks = (int)((s + sizeof(E) * (uintptr_t)n + 15 - a) / 16);
+  char* dst = reinterpret_cast<char*>(buf);
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x)
+    cp_async16(dst + 16 * i, a + 16 * (uintptr_t)i);
+  return (int)((s - a) / sizeof(E));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  Plain: register j of lane l holds row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1 of matrix j.  .trans: the transpose,
+// rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
+                                          __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

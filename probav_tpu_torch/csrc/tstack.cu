@@ -58,15 +58,17 @@
 
 namespace {
 
-using probav::cp_async16;
 using probav::cp_async_commit;
 using probav::cp_async_wait_all;
+using probav::copy_async;
+using probav::ldsm_x4;
 using probav::lds32;
 using probav::mma_bf16;
 using probav::mma_tf32;
+using probav::pack2;
 using probav::pack_bf16;
+using probav::run_buf_bytes;
 using probav::sm_count;
-using probav::smem_addr;
 using probav::split_tf32;
 
 constexpr int SEG_ROWS = 256;   // rows per seg_fwd block = threads per block
@@ -531,32 +533,6 @@ constexpr int RING_MIN_RUN = 64;   // least positions of a run, 27 taps
 // rows per step likewise only up to 64.
 __host__ __device__ constexpr bool ring_all_taps(int CK) { return CK <= 64; }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// Bytes of a raw buffer for a span of n bytes copied from the 16-byte chunk
-// below its start (and for a run of out staged at its 16-byte skew).
-inline size_t run_buf_bytes(size_t n) {
-  return (n + 43) / 16 * 16;
-}
-
-// Start the copy of src[0, n) into buf; returns the element offset of
-// src[0] in buf.
-template <typename E>
-__device__ __forceinline__ int copy_async(E* buf, const E* src, int n) {
-  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t a = s & ~uintptr_t(15);
-  const int chunks = (int)((s + sizeof(E) * (uintptr_t)n + 15 - a) / 16);
-  char* dst = reinterpret_cast<char*>(buf);
-  for (int i = threadIdx.x; i < chunks; i += blockDim.x)
-    cp_async16(dst + 16 * i, a + 16 * (uintptr_t)i);
-  return (int)((s - a) / sizeof(E));
-}
-
 // Element offset in a buffer that lines its chunks up with dst's.
 template <typename E>
 __device__ __forceinline__ int row_skew(const E* dst) {
@@ -599,12 +575,6 @@ __device__ __forceinline__ void store_cols(E* dst, const E* buf, int skew,
     const int p = u / nc, o = o0 + u % nc;
     dst[(long)p * c_out + o] = buf[skew + (long)p * c_out + o];
   }
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 // acc[r] += the products for output rows h + r (r < ROWS) of plane taps

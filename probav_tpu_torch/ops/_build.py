@@ -38,6 +38,8 @@ SIGNATURES = {
     "probav_blk_bwd": [_I] + [_P] * 11 + [_I] * 8 + [_P],
     # dtype, c_in, c_mid, c_dec
     "probav_seg_bwd_route": [_I] * 4,
+    # dtype, c_in, c_dec, W, T
+    "probav_wgrad_route": [_I] * 5,
     # dtype, x, w1, b1, w2, dy, dx, part, out, G, n, c_in, c_mid, c_dec,
     # stream
     "probav_wide_bwd": [_I] + [_P] * 8 + [_I] * 5 + [_P],

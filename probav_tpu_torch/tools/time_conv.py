@@ -16,7 +16,10 @@ compare two trees of the port on one card.
 of 20 calls queued back to back (device time, without the host's launch
 latency).  For blk_bwd also its four sub-kernels (``BLK_BWD_PARTS``): the
 device time of each per call, by the kernel names of a ``torch.profiler``
-trace of 10 calls back to back, beside its bound (``blk_bwd_part_costs``).
+trace of 10 calls back to back, beside its bound (``blk_bwd_part_costs``),
+and in each round the one PyTorch call that computes the dd conv and the
+dWc of the same inputs (cuDNN's conv3d dgrad and weight gradient,
+``library_calls``), 20 calls back to back.
 Run parent, change, change, parent in one call and compare the rounds'
 spread.  Prints one JSON line and appends it to ``<out>/time_conv.jsonl``.
 Needs a CUDA card.
@@ -42,7 +45,7 @@ KERNELS = ("conv_fwd", "seg_fwd", "blk_bwd", "wide_bwd")
 # last template argument false; conv_fwd's is true); seg_bwd_kernel with
 # WIDE true is wide_bwd's, not blk_bwd's.
 BLK_BWD_PARTS = (("dd conv", (("conv_ring_kernel", ", false>"),)),
-                 ("wgrad", (("wgrad_kernel", ""), ("wgrad_mma_kernel", ""))),
+                 ("wgrad", (("wgrad_kernel", ""), ("wgrad_ring_kernel", ""))),
                  ("seg_bwd", (("seg_bwd_kernel", ", false>"),
                               ("seg_bwd_mma_kernel", ""),
                               ("seg_bwd_tf32_kernel", ""))),
@@ -120,8 +123,41 @@ def profile_parts(call, reps=10):
     return parts
 
 
+def library_calls(gy, x, d, w1, b1, w2, wc):
+    """{part: one PyTorch call computing it} for blk_bwd's dd conv and
+    wgrad on the same inputs: ``convolution_backward`` of the block's conv
+    (d -> out with weights wc) for grad_input (dd) or grad_weight (dWc),
+    on the [B,H,W,T,C] tensors viewed as NCDHW (channels_last_3d, no
+    copy).  Timed beside the kernels only; the port never calls them."""
+    import torch
+    del x, w1, b1, w2
+    dcl, gcl = d.permute(0, 4, 1, 2, 3), gy.permute(0, 4, 1, 2, 3)
+    wcl = wc.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    back = lambda mask: torch.ops.aten.convolution_backward(
+        gcl, dcl, wcl, None, [1] * 3, [1] * 3, [1] * 3, False, [0] * 3, 1,
+        mask)
+    return {"dd conv": lambda: back([True, False, False])[0],
+            "wgrad": lambda: back([False, True, False])[1]}
+
+
+def back_to_back(call, n=20):
+    """ms per call of n calls queued back to back (CUDA events)."""
+    import torch
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        call()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
 def calls(ts, wb, name, dtype, dev, g):
-    """(kernel call, its plain twin, dx tolerance) on one set of inputs."""
+    """(kernel call, its plain twin, dx tolerance, {part: library call})
+    on one set of inputs."""
     import torch
 
     from probav_tpu_torch.tools.dyadic import blk_bwd_inputs, wide_bwd_inputs
@@ -135,23 +171,23 @@ def calls(ts, wb, name, dtype, dev, g):
         wc, bc = rn(3, 3, 3, C_DEC, C_OUT, sc=(27 * C_DEC) ** -0.5), \
             rn(C_OUT, sc=0.1)
         return (lambda: ts.conv_fwd(d, x, wc, bc),
-                lambda: ts.conv_fwd_plain(d, x, wc, bc), TOL[dn])
+                lambda: ts.conv_fwd_plain(d, x, wc, bc), TOL[dn], {})
     if name == "seg_fwd":
         x = rn(SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3], C_OUT)
         w = (rn(C_OUT, C_MID, sc=C_OUT ** -0.5), rn(C_MID, sc=0.1),
              rn(C_MID, C_DEC, sc=C_MID ** -0.5), rn(C_DEC, sc=0.1))
         return (lambda: ts.seg_fwd(x, *w), lambda: ts.seg_fwd_plain(x, *w),
-                TOL[dn])
+                TOL[dn], {})
     if name == "blk_bwd":
         args = blk_bwd_inputs(SHAPE, C_OUT, C_MID, C_DEC, seed=3,
                               device=dev, dtype=dtype)
         return (lambda: ts.blk_bwd(*args), lambda: ts.blk_bwd_plain(*args),
-                BWD_TOL[dn])
+                BWD_TOL[dn], library_calls(*args))
     n = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     args = wide_bwd_inputs(n, C_OUT, C_MID, C_DEC, seed=5, device=dev,
                            dtype=dtype)
     return (lambda: wb.wide_bwd(*args), lambda: wb.wide_bwd_plain(*args),
-            BWD_TOL[dn])
+            BWD_TOL[dn], {})
 
 
 def main(argv=None):
@@ -186,7 +222,7 @@ def main(argv=None):
     for name in kernels:
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
-            call, plain, tol = calls(ts, wb, name, dtype, dev, g)
+            call, plain, tol, lib = calls(ts, wb, name, dtype, dev, g)
             got, ref = call(), plain()
             if isinstance(got, torch.Tensor):
                 got, ref = (got,), (ref,)
@@ -198,8 +234,15 @@ def main(argv=None):
                     raise SystemExit(f"{name} {dn} output {i}: max|diff| "
                                      f"{err:.3e} > {lim:.3e}")
                 errs.append(err)
+            if lib:   # the library's dWc is the plain version's (the
+                # weight grad in the working dtype: bf16 rounds it)
+                ref_w = ref[1].permute(4, 3, 0, 1, 2)
+                err = float((lib["wgrad"]().float() - ref_w).abs().max())
+                if not err <= 1e-2 * float(ref_w.abs().max()):
+                    raise SystemExit(f"library wgrad {dn}: max|diff| {err}")
             del got, ref
             single, b2b = [], []
+            lib_b2b = {part: [] for part in lib}
             for _ in range(opt.rounds):
                 times = []
                 for _ in range(20):
@@ -211,20 +254,18 @@ def main(argv=None):
                     e.synchronize()
                     times.append(s.elapsed_time(e))
                 single.append(statistics.median(times))
-                torch.cuda.synchronize()
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                for _ in range(20):
-                    call()
-                e.record()
-                e.synchronize()
-                b2b.append(s.elapsed_time(e) / 20)
+                b2b.append(back_to_back(call))
+                for part, fn in lib.items():
+                    lib_b2b[part].append(back_to_back(fn))
             key = dn if name == "conv_fwd" else f"{name} {dn}"
             result[key] = dict(max_abs_err=max(errs), single_ms=single,
                                b2b_ms=b2b,
                                single_median=statistics.median(single),
                                b2b_median=statistics.median(b2b))
+            if lib:
+                result[key]["library_b2b_ms"] = lib_b2b
+                result[key]["library_b2b_median"] = {
+                    part: statistics.median(v) for part, v in lib_b2b.items()}
             if name == "blk_bwd":
                 n = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
                 groups = ts.partial_slots(dev, C_OUT, C_DEC)
@@ -233,7 +274,7 @@ def main(argv=None):
                 result[key]["parts"] = {
                     part: dict(ms=ms, kernels=names, **costs[part])
                     for part, (ms, names) in profile_parts(call).items()}
-            del call, plain
+            del call, plain, lib
             torch.cuda.empty_cache()
     line = json.dumps(result)
     print(line, flush=True)

@@ -343,6 +343,40 @@ def test_f32_blk_bwd_seg_bwd_routes_match_plain_on_card(cuda, shape, c, cmid,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,cmid,cdec,route", [
+    ((128, 22, 22, 9), 32, 256, 25, "wgrad_ring_kernel"),
+    ((3, 7, 6, 5), 8, 64, 6, "wgrad_ring_kernel"),
+    ((2, 4, 48, 9), 32, 256, 25, "wgrad_ring_kernel"),
+    ((2, 5, 22, 19), 32, 256, 25, "wgrad_ring_kernel"),
+    ((2, 3, 6, 5), 32, 256, 25, "wgrad_ring_kernel"),
+    ((2, 22, 22, 9), 32, 256, 32, "wgrad_ring_kernel"),
+    ((3, 7, 6, 5), 33, 256, 25, "wgrad_kernel")],
+    ids=["flagship_b128", "small", "w48", "t19", "bh_below_g", "cdec32",
+         "c33"])
+def test_bf16_blk_bwd_wgrad_routes_match_plain_on_card(cuda, shape, c, cmid,
+                                                       cdec, route):
+    """bf16 dWc at C, C_dec <= 32 takes the tensor-core wgrad: the
+    flagship at batch 128, 8/64/6, W = 48 and T = 19 (the largest layouts
+    it holds), B*H = 6 items for the partial slots' 264 or more blocks
+    (every slot written), c_dec = c_out = 32; 33 channels take the
+    CUDA-core wgrad.  All match plain on the dyadic inputs to the bf16
+    tolerances, and two calls agree bit for bit."""
+    assert ts.wgrad_route(torch.bfloat16, c, cdec, shape[2],
+                          shape[3]).startswith(route)
+    args = blk_bwd_inputs(shape, c, cmid, cdec, seed=8, device=cuda,
+                          dtype=torch.bfloat16)
+    got = ts.blk_bwd(*args)
+    again = ts.blk_bwd(*args)
+    torch.cuda.synchronize()
+    want = ts.blk_bwd_plain(*args)
+    tol = blk_bwd_tolerances(torch.bfloat16)
+    for name, a, a2, b in zip(BWD_NAMES, got, again, want):
+        assert a.shape == b.shape, name
+        assert max_rel(a, b) < tol[name], (name, max_rel(a, b))
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.cuda
 def test_stack_autograd_on_card_matches_plain_stack(cuda):
     """Gradients through the kernel stack's autograd node against autograd
     through the plain blocks, float32, 3 blocks."""
@@ -413,16 +447,28 @@ def test_shift_tables_match_plain_on_card(cuda, squared, b, size, border):
                                atol=1e-6 * float(want.abs().max()))
 
 
+def rel_l2(got, ref):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).norm() / ref.norm())
+
+
 @pytest.mark.cuda
 def test_flat_stack_autograd_on_card_matches_plain_autograd(cuda):
     """Gradients through the flat stack's node (wide_bwd) against autograd
-    through the same forward, float32, 3 blocks."""
+    through the same forward, float32, 3 blocks, on inputs drawn from a
+    seeded numpy generator.  Compared leaf by leaf norm-wise: past the
+    first block z is no dyadic value, and a relu derivative that flips
+    between the two sums' orders moves one element by a whole dz, which
+    an elementwise bound reads as a failure and a norm does not."""
     blocks = [tuple(t.requires_grad_() for t in params(
         32, 256, 25, seed=s, device=cuda)) for s in (3, 4, 5)]
-    x = torch.randn(2, 9, 8, 9, 32, device=cuda, requires_grad=True)
+    r = np.random.default_rng(9)
+    x = torch.from_numpy(r.normal(size=(2, 9, 8, 9, 32)).astype(
+        np.float32)).to(cuda).requires_grad_()
     before = wb.LAUNCHES["wide_bwd"]
     y = bs.fused_block_stack(x, blocks)
-    gy = torch.randn_like(y)
+    gy = torch.from_numpy(r.normal(size=tuple(y.shape)).astype(
+        np.float32)).to(cuda)
     leaves = [x] + [t for blk in blocks for t in blk]
     got = torch.autograd.grad(y, leaves, gy)
     assert wb.LAUNCHES["wide_bwd"] == before + 3
@@ -431,4 +477,4 @@ def test_flat_stack_autograd_on_card_matches_plain_autograd(cuda):
         ref, _ = bs.block_fwd(ref, *blk)
     want = torch.autograd.grad(ref, leaves, gy)
     for a, b in zip(got, want):
-        assert max_rel(a, b) < 1e-4
+        assert rel_l2(a, b) < 1e-4
