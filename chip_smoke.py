@@ -21,8 +21,8 @@ Phases, each printing its result:
    inputs (blk_bwd's log names the seg_bwd and the wgrad kernel its C
    entry routes each width to: at float32 the 3xTF32 tensor-core seg_bwd
    at the flagship, the CUDA-core one at 64/512/51; the tensor-core wgrad
-   at bf16 from 1 to 32 channels, which the flagship must take) and the
-   shift tables
+   from 1 to 32 channels where its rows fit, which the flagship must take
+   at both dtypes) and the shift tables
    integer planes (probav_tpu_torch/tools/dyadic.py), on which both
    versions take the same relu, sign and rounding decisions;
 4. widths: the four block-stack kernels beyond the flagship's channels,
@@ -312,8 +312,8 @@ def kernel_costs(name, n, c, cmid, cdec, dn):
     if dn != "float32":
         return flops, nbytes, peak, ""
     # float32 products at their least time on the card, as 3xTF32 (the dd
-    # conv and, at C, C_dec <= 32, C_mid <= 256, seg_bwd run so; wgrad on
-    # the CUDA cores); the CUDA cores' bound logged beside it.
+    # conv and, at C, C_dec <= 32, C_mid <= 256, seg_bwd and wgrad run so);
+    # the CUDA cores' bound logged beside it.
     return (3 * flops, nbytes, PEAK_TF32,
             f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} TFLOP/s; on "
             f"the CUDA cores {bound(flops, nbytes, peak)[0]:.4f} ms)")
@@ -436,8 +436,10 @@ def phase_kernels(torch, ts, dev, card):
             f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|);"
             f" seg_bwd route {ts.seg_bwd_route(dtype, C, CMID, CDEC)}, "
             f"wgrad route {wroute}")
-        if dn == "bfloat16" and wroute != ts.WGRAD_ROUTES[1]:
-            raise AssertionError(f"blk_bwd bf16 wgrad route {wroute}")
+        want_route = ts.WGRAD_ROUTES[1 if dn == "bfloat16" else 2]
+        if wroute != want_route:
+            raise AssertionError(f"blk_bwd {dn} wgrad route {wroute}, "
+                                 f"expected {want_route}")
         pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
                         lambda: ts.blk_bwd(*args), reps=10)
         row("blk_bwd", dn, errs[0], ms, pms, None)

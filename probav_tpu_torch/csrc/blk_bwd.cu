@@ -34,13 +34,14 @@
 // flagship's 32/256/25) seg_bwd runs on the tensor cores at both dtypes
 // (seg_bwd_route): bf16 as seg_bwd_mma_kernel (mma.sync m16n8k16, float32
 // sums), float32 as seg_bwd_tf32_kernel (3xTF32 on mma.sync m16n8k8); so
-// does the bf16 wgrad where its rows fit shared memory (wgrad_route:
+// does the wgrad where its rows fit shared memory (wgrad_route: bf16
 // wgrad_ring_kernel, ldmatrix.trans on channels-last halo rows staged by
-// cp.async).  The float32 wgrad, and both
-// kernels at wider widths (the 64-filter model's 64/512/51, up to
-// 128/1024/102), run on the CUDA cores (wgrad_kernel, seg_bwd_kernel: bf16
-// data widened to float32, whose products of bf16 values are exact), so
-// every width from 1 to MAX_CH = 128 channels has a kernel.
+// cp.async; float32 wgrad_tf32_kernel, 3xTF32 on halo rows copied straight
+// into a ring of four slots).  Both kernels at wider widths (the 64-filter
+// model's 64/512/51, up to 128/1024/102), and the wgrad on larger rows,
+// run on the CUDA cores (wgrad_kernel, seg_bwd_kernel: bf16 data widened
+// to float32, whose products of bf16 values are exact), so every width
+// from 1 to MAX_CH = 128 channels has a kernel.
 //
 // Reductions across blocks: kernels 2 and 3 run a persistent grid of G
 // blocks; each block owns one float32 slot of the partial buffer and sums
@@ -57,9 +58,10 @@
 // 91 us at the 989 TFLOP/s bf16 peak; float32 0.545 ms as 3xTF32 at the
 // 494.7 TFLOP/s TF32 peak (1.34 ms at the CUDA cores' 67 TFLOP/s).  This
 // version keeps the wide activation out of device memory and the dd conv,
-// seg_bwd and the bf16 wgrad on the tensor cores; the dd conv, the float32
-// seg_bwd and the bf16 wgrad pipeline their staging (cp.async), and all
-// use mma.sync, not wgmma, which is later work.
+// seg_bwd and the wgrad on the tensor cores at the flagship's widths; the
+// dd conv, the float32 seg_bwd and both tensor-core wgrads pipeline their
+// staging (cp.async), and all use mma.sync, not wgmma, which is later
+// work.
 //
 // Rounding points (pallas_tstack.py:356-379): dd summed in float32 then
 // rounded; dz from float32 W2 dd, masked by z > 0 on the float32 z, then
@@ -517,18 +519,6 @@ wgrad_ring_kernel(const __nv_bfloat16* __restrict__ d,
           if (c < c_dec && o < c_out)
             out[((long)tap * c_dec + c) * c_out + o] = acc[t][m][nt][i];
         }
-}
-
-// Which wgrad blk_bwd runs, from the dtype and shapes alone: bf16 at c_dec,
-// c_out <= 32 on wgrad_ring_kernel where its layout fits shared memory;
-// elsewhere wgrad_kernel on the CUDA cores.
-enum WgradRoute { WGRAD_CUDA_CORES = 0, WGRAD_BF16_RING = 1 };
-
-WgradRoute wgrad_route(int dtype, int c_dec, int c_out, int W, int Tn) {
-  if (dtype != 1 || c_dec > 32 || c_out > 32 ||
-      wgrad_ring_smem(W, Tn, c_dec, c_out) > (size_t)probav::optin_smem())
-    return WGRAD_CUDA_CORES;
-  return WGRAD_BF16_RING;
 }
 
 cudaError_t launch_wgrad_ring(const void* d, const void* gy, float* part,
@@ -1496,6 +1486,270 @@ cudaError_t launch_seg_bwd_tf32(const void* x, const void* dd, const void* gy,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------ //
+// wgrad, float32 on the tensor cores as 3xTF32, for c_dec, c_out <= 32:     //
+// wgrad_tf32_kernel.  Per (b, h) row of gy, dWc[tap] += d_shifted^T gy as  //
+// mma.sync m16n8k8 with M = 32 channels c, N = 32 outputs o and K = the    //
+// row's W*T real positions of gy, rounded up to 8 (gy is zero past them). //
+// ------------------------------------------------------------------------ //
+//
+// - Fragments of 32-bit words, no transposition.  A TF32 fragment word is
+//   one float, so each is one scalar shared load from the channels-last
+//   tiles: A = d^T takes (c = g, g+8; position q, q+4) and B = gy takes
+//   (position q, q+4; o = g), g = lane / 4, q = lane % 4.  d's rows are
+//   staged as zero-padded (W+2) x (T+2) halo grids of cells of CS = 40
+//   floats, each w-row of cells followed by 16 floats of padding: a step
+//   of one gy position moves 40 floats within a w-row and 3 * 40 + 16 =
+//   136 across one, both 8 (mod 32), so the four positions q of an A load
+//   and its eight channels g fall in 32 distinct banks at any T, and a
+//   tap's shift (dw, dt) is the constant (dw - 1) (row stride) + (dt - 1)
+//   40 from the centre cell prow[k] of gy position k.  gy's row is
+//   [position][32] with channel o at o ^ 8 (position % 4), which puts a B
+//   load's four positions in four distinct 8-bank groups.
+// - Copies straight into the tiles.  Rows of d land by 4-byte cp.async (a
+//   position of 25 channels is 100 bytes), rows of gy by 16-byte ones where
+//   a position's channels are a multiple of 4 floats (2.5% faster than 4-
+//   byte ones at the flagship), else 4-byte ones, on zeros laid once
+//   (the halo, channels c_dec..32 and c_out..32, gy past its W*T
+//   positions): no raw buffer, no repack.  Rows of d sit in a ring of four
+//   slots, global row b*H + h in slot (b*H + h) % 4, and gy in two: while
+//   item i (rows i-1 .. i+1) is in the tensor cores, row i+2 of d and row
+//   i+1 of gy are in flight.  Rows of the next image follow on the same
+//   ring (a warp skips a tap row outside the image), so a block restages
+//   only at its first item.
+// - Warps: 12, three on each of the SM's four schedulers (9 would put
+//   three on one and two on the others).  Warp w owns the h tap dh = w /
+//   4, channels 16 (w % 2) .. + 15 and outputs 16 ((w / 2) % 2) .. + 15:
+//   nine taps (dw, dt) of one 16 x 16 tile, 72 float32 sums a lane.  A
+//   k-step of one dw is 2 prow, 4 B and 12 A loads, their splits and 18
+//   mma.
+// - Rounding: the tensor cores sum with truncation, so each item's
+//   products of one dw go to 24 fresh sums, added in float32 to the 72
+//   running sums (in registers across the block's items, written once to
+//   its slot, zeros where it had none; the reduce sums the G slots in
+//   order); summed straight into the running sums, dWc drifts to 1.2e-5
+//   of max|ref| from float64 at the flagship.  96 sums fit three warps'
+//   share of a scheduler's registers (168 a thread).  3xTF32 as in
+//   seg_bwd_tf32_kernel: lo_a lo_b dropped.
+//
+// What bounds it on an H100: 2 * 27 * c_dec * c_out FLOP a position, three
+// TF32 products each: 72.3 GFLOP at the flagship's N = 557,568 and 25 ->
+// 32, 0.146 ms at the 494.7 TFLOP/s TF32 peak (0.360 ms at the CUDA cores'
+// 67 TFLOP/s), against 127 MB of d and gy read (0.038 ms): operations.  It
+// issues 32 * 32 products a position of the 25 * 32 needed and 200 of 198
+// positions a row.  Shared memory at 22 x 9: four d slots of 24 * 456
+// floats, two gy slots of 200 * 32 floats and prow: 227,104 B, one block
+// per SM.  Larger rows do not fit (W = 23 at T = 9: 236,480 B; W = 48:
+// 477,120 B; T = 19 at W = 22: 438,944 B) and take wgrad_kernel
+// (wgrad_route, before any launch).  On the card this version takes ~4x
+// its bound, and no one unit holds it (tools/wgrad_variants.py): without
+// its mma it takes 76% of its time, without the split 79%; the rest is
+// the loads of each k-step's chain and their latency, with three warps a
+// scheduler to hide them.
+
+constexpr int WGT_WARPS = 12;
+constexpr int WGT_CS = 40;     // floats of a halo cell of d
+constexpr int WGT_WPAD = 16;   // floats after each w-row of cells
+
+// Shared-memory bytes of wgrad_tf32_kernel.
+size_t wgrad_tf32_smem(int W, int Tn) {
+  const size_t npk = ((size_t)W * Tn + 7) / 8 * 8;
+  const size_t ws = (size_t)(Tn + 2) * WGT_CS + WGT_WPAD;
+  return sizeof(float) * (4 * (size_t)(W + 2) * ws + 2 * npk * 32) +
+         sizeof(int) * npk;
+}
+
+__global__ void __launch_bounds__(WGT_WARPS * 32, 1)
+wgrad_tf32_kernel(const float* __restrict__ d, const float* __restrict__ gy,
+                  float* __restrict__ part, long slot_len, int B, int H,
+                  int W, int Tn, int c_dec, int c_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int WT = W * Tn, npk = (WT + 7) / 8 * 8;
+  const int WS = (Tn + 2) * WGT_CS + WGT_WPAD;   // a w-row of cells
+  const int slot_f = (W + 2) * WS;
+  float* slots = smem;                       // [4][W+2][WS]  rows of d
+  float* gsl = slots + 4 * slot_f;           // [2][npk][32]  rows of gy
+  int* prow = reinterpret_cast<int*>(gsl + 2 * npk * 32);   // [npk]
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int dh = warp / 4, mi = warp % 2, np = (warp / 2) % 2;
+
+  // Zeros everywhere the copies never write; the centre cell of each gy
+  // position (position 0's past the row, where gy is zero).
+  for (int e = tid; e < (4 * slot_f + 2 * npk * 32) / 4; e += nthr)
+    reinterpret_cast<float4*>(smem)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = tid; k < npk; k += nthr) {
+    const int p = k < WT ? k : 0;
+    prow[k] = (p / Tn + 1) * WS + (p % Tn + 1) * WGT_CS;
+  }
+  __syncthreads();   // the zeros stored before any copy lands on them
+
+  const bool gvec = c_out % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(gy) % 16 == 0;
+  // Global row r of d into ring slot r % 4, position p at its cell.
+  auto copy_d = [&](long r) {
+    float* dst = slots + (int)(r % 4) * slot_f;
+    const float* src = d + r * WT * c_dec;
+    for (int e = tid; e < WT * c_dec; e += nthr)
+      probav::cp_async4_zfill(dst + prow[e / c_dec] + e % c_dec, src + e,
+                              true);
+  };
+  // Row `item` of gy into gy slot buf, channel o of position p at o ^ 8 (p
+  // % 4).
+  auto copy_g = [&](long item, int buf) {
+    float* dst = gsl + buf * npk * 32;
+    const float* src = gy + item * WT * c_out;
+    if (gvec) {
+      const int c4 = c_out / 4;
+      for (int e = tid; e < WT * c4; e += nthr) {
+        const int p = e / c4, o = 4 * (e % c4);
+        probav::cp_async16_zfill(dst + p * 32 + (o ^ ((p & 3) << 3)),
+                                 src + p * c_out + o, true);
+      }
+    } else {
+      for (int e = tid; e < WT * c_out; e += nthr) {
+        const int p = e / c_out, o = e % c_out;
+        probav::cp_async4_zfill(dst + p * 32 + (o ^ ((p & 3) << 3)),
+                                src + e, true);
+      }
+    }
+  };
+
+  const long items = (long)B * H;
+  const long per = (items + gridDim.x - 1) / gridDim.x;
+  const long i0 = min(items, (long)blockIdx.x * per);
+  const long i1 = min(items, i0 + per);
+  if (i0 < i1) {   // the first item's rows i0 - 1 .. i0 + 1 and its gy
+    for (long r = max(i0 - 1, 0L); r <= min(i0 + 1, items - 1); ++r)
+      copy_d(r);
+    copy_g(i0, 0);
+    probav::cp_async_commit();
+  }
+
+  float acc[3][3][2][4];   // [dw][dt][n-tile][C word]
+#pragma unroll
+  for (int dw = 0; dw < 3; ++dw)
+#pragma unroll
+    for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        acc[dw][dt][n][0] = acc[dw][dt][n][1] = acc[dw][dt][n][2] =
+            acc[dw][dt][n][3] = 0.f;
+
+  // This lane's words: A at channel 16 mi + g (+ 8) of a cell; B (position
+  // q of a k-step, output 16 np + 8 n + g) at boff[n] (+ 4 positions).
+  const int ach = 16 * mi + g;
+  int boff[2];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+    boff[n] = q * 32 + ((16 * np + 8 * n + g) ^ (8 * q));
+  const int nk = npk / 8;
+
+  for (long item = i0; item < i1; ++item) {
+    const int h = (int)(item % H);
+    const int buf = (int)((item - i0) & 1);
+    probav::cp_async_wait_all();
+    __syncthreads();   // this item's rows landed; the last item's products
+                       // done with the slots the next copies overwrite
+    if (item + 1 < i1) {
+      if (item + 2 < items) copy_d(item + 2);
+      copy_g(item + 1, buf ^ 1);
+      probav::cp_async_commit();
+    }
+    const int hh = h + dh - 1;
+    if (hh < 0 || hh >= H) continue;   // a zero row of d
+    // Tap (dw, dt) of position k: cell prow[k] + (dw - 1) WS + (dt - 1) CS.
+    const float* arow = slots + (int)((item + dh - 1) % 4) * slot_f + ach -
+                        WS - WGT_CS;
+    const float* gs = gsl + buf * npk * 32;
+#pragma unroll
+    for (int dw = 0; dw < 3; ++dw) {
+      float f[3][2][4];
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          f[dt][n][0] = f[dt][n][1] = f[dt][n][2] = f[dt][n][3] = 0.f;
+      const float* ap = arow + dw * WS;
+#pragma unroll 2
+      for (int kk = 0; kk < nk; ++kk) {
+        const float* gk = gs + kk * 8 * 32;
+        FragB b[2];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          split_b(b[n], gk[boff[n]], gk[boff[n] + 4 * 32]);
+        const float* a0 = ap + prow[kk * 8 + q];
+        const float* a4 = ap + prow[kk * 8 + q + 4];
+        FragA a[3];
+#pragma unroll
+        for (int dt = 0; dt < 3; ++dt)
+          split_a(a[dt], a0[dt * WGT_CS], a0[dt * WGT_CS + 8],
+                  a4[dt * WGT_CS], a4[dt * WGT_CS + 8]);
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+            for (int n = 0; n < 2; ++n) mma_term(f[dt][n], a[dt], b[n], term);
+      }
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[dw][dt][n][i] += f[dt][n][i];
+    }
+  }
+
+  float* out = part + blockIdx.x * slot_len;
+#pragma unroll
+  for (int dw = 0; dw < 3; ++dw)
+#pragma unroll
+    for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = ach + (i < 2 ? 0 : 8);
+          const int o = 16 * np + 8 * n + 2 * q + (i & 1);
+          const int tap = dh * 9 + dw * 3 + dt;
+          if (c < c_dec && o < c_out)
+            out[((long)tap * c_dec + c) * c_out + o] = acc[dw][dt][n][i];
+        }
+}
+
+cudaError_t launch_wgrad_tf32(const void* d, const void* gy, float* part,
+                              long slot_len, int G, int B, int H, int W,
+                              int Tn, int c_dec, int c_out, cudaStream_t s) {
+  const size_t smem = wgrad_tf32_smem(W, Tn);
+  auto kern = wgrad_tf32_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<G, WGT_WARPS * 32, smem, s>>>(
+      static_cast<const float*>(d), static_cast<const float*>(gy), part,
+      slot_len, B, H, W, Tn, c_dec, c_out);
+  return cudaGetLastError();
+}
+
+// Which wgrad blk_bwd runs, from the dtype and shapes alone: at c_dec,
+// c_out <= 32 the tensor cores where the kernel's layout fits shared
+// memory, bf16 on wgrad_ring_kernel and float32 on wgrad_tf32_kernel;
+// elsewhere wgrad_kernel on the CUDA cores.
+enum WgradRoute { WGRAD_CUDA_CORES = 0, WGRAD_BF16_RING = 1,
+                  WGRAD_TF32_RING = 2 };
+
+WgradRoute wgrad_route(int dtype, int c_dec, int c_out, int W, int Tn) {
+  if (c_dec > 32 || c_out > 32) return WGRAD_CUDA_CORES;
+  const size_t optin = (size_t)probav::optin_smem();
+  if (dtype == 1)
+    return wgrad_ring_smem(W, Tn, c_dec, c_out) <= optin ? WGRAD_BF16_RING
+                                                         : WGRAD_CUDA_CORES;
+  return wgrad_tf32_smem(W, Tn) <= optin ? WGRAD_TF32_RING
+                                         : WGRAD_CUDA_CORES;
+}
+
 // Which seg_bwd blk_bwd runs, from the dtype and widths alone: the tensor
 // cores where their tiles cover the widths (c_in, c_dec <= 32, c_mid <=
 // 256), bf16 on seg_bwd_mma_kernel and float32 on seg_bwd_tf32_kernel;
@@ -1540,12 +1794,19 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
                                           nullptr, dd, B, H, W, Tn, c_in,
                                           c_dec, s);
   if (err != cudaSuccess) return err;
-  if (wgrad_route(dtype, c_dec, c_in, W, Tn) == WGRAD_BF16_RING)
-    err = launch_wgrad_ring(d, gy, part, sl.len, G, B, H, W, Tn, c_dec, c_in,
-                            s);
-  else
-    err = dispatch_wgrad<T>(d, gy, part, sl.len, G, B, H, W, Tn, c_dec, c_in,
-                            s);
+  switch (wgrad_route(dtype, c_dec, c_in, W, Tn)) {
+    case WGRAD_BF16_RING:
+      err = launch_wgrad_ring(d, gy, part, sl.len, G, B, H, W, Tn, c_dec,
+                              c_in, s);
+      break;
+    case WGRAD_TF32_RING:
+      err = launch_wgrad_tf32(d, gy, part, sl.len, G, B, H, W, Tn, c_dec,
+                              c_in, s);
+      break;
+    default:
+      err = dispatch_wgrad<T>(d, gy, part, sl.len, G, B, H, W, Tn, c_dec,
+                              c_in, s);
+  }
   if (err != cudaSuccess) return err;
   switch (seg_bwd_route(dtype, c_in, c_mid, c_dec)) {
     case SEG_BWD_BF16_MMA:
@@ -1621,7 +1882,8 @@ int probav_seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
 }
 
 // The wgrad (dWc) kernel probav_blk_bwd launches for these shapes: 0 =
-// wgrad_kernel (CUDA cores), 1 = wgrad_ring_kernel (bf16 mma).
+// wgrad_kernel (CUDA cores), 1 = wgrad_ring_kernel (bf16 mma), 2 =
+// wgrad_tf32_kernel (float32 as 3xTF32 mma).
 int probav_wgrad_route(int dtype, int c_in, int c_dec, int W, int Tn) {
   return (int)wgrad_route(dtype, c_dec, c_in, W, Tn);
 }

@@ -25,10 +25,11 @@ float32: about 2**-22 relative error per product, within the float32
 tolerance that plain TF32 misses).  ``blk_bwd``'s expand/decay backward
 (``seg_bwd_route``) runs on the tensor cores too where C, C_dec <= 32
 and C_mid <= 256 (the flagship's widths): bf16 products at bf16, float32
-as 3xTF32; so does its bf16 ``wgrad`` (dWc) at C, C_dec <= 32 where a
-row's halo fits shared memory (``wgrad_route``).  The float32 ``seg_fwd``
-and ``wgrad``, and ``blk_bwd`` at wider widths, run on the CUDA cores with
-exact float32 products (bf16 widened); bf16 ``seg_fwd`` runs on the
+as 3xTF32; so does its ``wgrad`` (dWc) at C, C_dec <= 32 where a row's
+halo fits shared memory (``wgrad_route``; at float32 rows up to the
+flagship's 22 x 9).  The float32 ``seg_fwd``, the ``wgrad`` on larger
+rows and ``blk_bwd`` at wider widths run on the CUDA cores with exact
+float32 products (bf16 widened); bf16 ``seg_fwd`` runs on the
 tensor cores (``mma.sync``, float32 accumulation).  All round where the
 TPU kernels round.
 
@@ -167,15 +168,17 @@ def seg_bwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
 
 # The kernels blk_bwd's weight gradient of the conv (dWc) may launch, by
 # the code that csrc/blk_bwd.cu's wgrad_route gives.
-WGRAD_ROUTES = ("wgrad_kernel (CUDA cores)", "wgrad_ring_kernel (bf16 mma)")
+WGRAD_ROUTES = ("wgrad_kernel (CUDA cores)", "wgrad_ring_kernel (bf16 mma)",
+                "wgrad_tf32_kernel (3xTF32 mma)")
 
 
 def wgrad_route(dtype, c: int, c_dec: int, w: int, t: int) -> str:
     """The kernel that ``blk_bwd`` runs for dWc of a block of C channels
     decaying to C_dec on rows of W x T positions, as its C entry chooses it
-    (from the dtype and shapes alone, before any launch): bf16 at C, C_dec
-    <= 32 where the rows fit shared memory takes the tensor cores.  Builds
-    the kernels."""
+    (from the dtype and shapes alone, before any launch): at C, C_dec <= 32
+    where the rows fit shared memory the tensor cores (bf16 up to W = 48 at
+    T = 9 or T = 19 at W = 22; float32 up to 22 x 9), elsewhere the CUDA
+    cores.  Builds the kernels."""
     from probav_tpu_torch.ops import _build
     code = _build.library().probav_wgrad_route(_DTYPE_CODE[dtype], c, c_dec,
                                                w, t)

@@ -14,7 +14,9 @@ compare two trees of the port on one card.
 (blk_bwd and wide_bwd on the dyadic inputs of ``tools/dyadic.py``), then
 ``--rounds`` rounds of the median of 20 single CUDA-event-timed calls and
 of 20 calls queued back to back (device time, without the host's launch
-latency).  For blk_bwd also its four sub-kernels (``BLK_BWD_PARTS``): the
+latency).  For blk_bwd also the wgrad route, at float32 the error of
+its dWc against float64 on random-normal inputs (``dwc_rel_err_f64``), and
+its four sub-kernels (``BLK_BWD_PARTS``): the
 device time of each per call, by the kernel names of a ``torch.profiler``
 trace of 10 calls back to back, beside its bound (``blk_bwd_part_costs``),
 and in each round the one PyTorch call that computes the dd conv and the
@@ -45,7 +47,8 @@ KERNELS = ("conv_fwd", "seg_fwd", "blk_bwd", "wide_bwd")
 # last template argument false; conv_fwd's is true); seg_bwd_kernel with
 # WIDE true is wide_bwd's, not blk_bwd's.
 BLK_BWD_PARTS = (("dd conv", (("conv_ring_kernel", ", false>"),)),
-                 ("wgrad", (("wgrad_kernel", ""), ("wgrad_ring_kernel", ""))),
+                 ("wgrad", (("wgrad_kernel", ""), ("wgrad_ring_kernel", ""),
+                            ("wgrad_tf32_kernel", ""))),
                  ("seg_bwd", (("seg_bwd_kernel", ", false>"),
                               ("seg_bwd_mma_kernel", ""),
                               ("seg_bwd_tf32_kernel", ""))),
@@ -139,6 +142,36 @@ def library_calls(gy, x, d, w1, b1, w2, wc):
         mask)
     return {"dd conv": lambda: back([True, False, False])[0],
             "wgrad": lambda: back([False, True, False])[1]}
+
+
+def dwc_float64(d, gy):
+    """dWc [3,3,3,C_dec,C] of blk_bwd in float64: per tap, d [B,H,W,T,C_dec]
+    shifted by the tap (zero-padded) times gy [B,H,W,T,C], summed over every
+    position."""
+    import torch
+    h, w, t, c_dec = d.shape[1:]
+    dp = torch.nn.functional.pad(d.double(), (0, 0, 1, 1, 1, 1, 1, 1))
+    g2 = gy.double().reshape(-1, gy.shape[-1])
+    return torch.stack([
+        dp[:, i:i + h, j:j + w, k:k + t].reshape(-1, c_dec).t() @ g2
+        for i in range(3) for j in range(3) for k in range(3)]).reshape(
+            3, 3, 3, c_dec, -1)
+
+
+def dwc_rel_err_f64(ts, dev, seed=12):
+    """max|dWc - ref| / max|ref| of float32 blk_bwd at the flagship on
+    random-normal d and gy, ref ``dwc_float64``.  Reads the error of
+    whichever wgrad kernel the tree routes float32 to."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s, sc=1.0: torch.randn(s, generator=g, device=dev) * sc
+    gy, x, d = rn(*SHAPE, C_OUT), rn(*SHAPE, C_OUT), rn(*SHAPE, C_DEC)
+    w = (rn(C_OUT, C_MID, sc=C_OUT ** -0.5), rn(C_MID, sc=0.1),
+         rn(C_MID, C_DEC, sc=C_MID ** -0.5))
+    wc = rn(3, 3, 3, C_DEC, C_OUT, sc=(27 * C_DEC) ** -0.5)
+    ref = dwc_float64(d, gy)
+    got = ts.blk_bwd(gy, x, d, *w, wc)[1].double()
+    return float((got - ref).abs().max() / ref.abs().max())
 
 
 def back_to_back(call, n=20):
@@ -267,6 +300,10 @@ def main(argv=None):
                 result[key]["library_b2b_median"] = {
                     part: statistics.median(v) for part, v in lib_b2b.items()}
             if name == "blk_bwd":
+                result[key]["wgrad_route"] = ts.wgrad_route(
+                    dtype, C_OUT, C_DEC, SHAPE[2], SHAPE[3])
+                if dn == "float32":
+                    result[key]["dwc_rel_err_f64"] = dwc_rel_err_f64(ts, dev)
                 n = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
                 groups = ts.partial_slots(dev, C_OUT, C_DEC)
                 costs = blk_bwd_part_costs(n, C_OUT, C_MID, C_DEC, dn,

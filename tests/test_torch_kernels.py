@@ -18,6 +18,7 @@ from probav_tpu_torch.ops import tstack as ts
 from probav_tpu_torch.ops import wide_block as wb
 from probav_tpu_torch.tools.dyadic import (blk_bwd_inputs, shift_table_inputs,
                                            wide_bwd_inputs)
+from probav_tpu_torch.tools.time_conv import dwc_float64
 
 torch.set_num_threads(1)
 
@@ -374,6 +375,61 @@ def test_bf16_blk_bwd_wgrad_routes_match_plain_on_card(cuda, shape, c, cmid,
         assert a.shape == b.shape, name
         assert max_rel(a, b) < tol[name], (name, max_rel(a, b))
         assert torch.equal(a, a2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,cmid,cdec,route", [
+    ((128, 22, 22, 9), 32, 256, 25, "wgrad_tf32_kernel"),
+    ((3, 7, 6, 5), 8, 64, 6, "wgrad_tf32_kernel"),
+    ((2, 4, 48, 9), 32, 256, 25, "wgrad_kernel"),
+    ((2, 5, 22, 19), 32, 256, 25, "wgrad_kernel"),
+    ((2, 3, 6, 5), 32, 256, 25, "wgrad_tf32_kernel"),
+    ((2, 22, 22, 9), 32, 256, 32, "wgrad_tf32_kernel"),
+    ((3, 7, 6, 5), 30, 64, 6, "wgrad_tf32_kernel"),
+    ((3, 7, 6, 5), 33, 256, 25, "wgrad_kernel")],
+    ids=["flagship_b128", "small", "w48", "t19", "bh_below_g", "cdec32",
+         "c30", "c33"])
+def test_f32_blk_bwd_wgrad_routes_match_plain_on_card(cuda, shape, c, cmid,
+                                                      cdec, route):
+    """float32 dWc at C, C_dec <= 32 takes the 3xTF32 wgrad where its rows
+    fit shared memory: the flagship at batch 128, 8/64/6, B*H = 6 items
+    for the partial slots' 264 or more blocks (every slot written), c_dec
+    = c_out = 32, 30 channels (4-byte copies of gy); W = 48, T = 19 (rows
+    beyond its layout) and 33 channels take the CUDA-core wgrad.  All
+    match plain on the dyadic inputs to the float32 tolerances, and two
+    calls agree bit for bit."""
+    assert ts.wgrad_route(torch.float32, c, cdec, shape[2],
+                          shape[3]).startswith(route)
+    args = blk_bwd_inputs(shape, c, cmid, cdec, seed=8, device=cuda)
+    got = ts.blk_bwd(*args)
+    again = ts.blk_bwd(*args)
+    torch.cuda.synchronize()
+    want = ts.blk_bwd_plain(*args)
+    tol = blk_bwd_tolerances(torch.float32)
+    for name, a, a2, b in zip(BWD_NAMES, got, again, want):
+        assert a.shape == b.shape, name
+        assert max_rel(a, b) < tol[name], (name, max_rel(a, b))
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.cuda
+def test_f32_wgrad_on_random_normal_inputs_is_within_1e5_of_float64(cuda):
+    """The 3xTF32 wgrad at the flagship, batch 128, on random-normal d and
+    gy (numpy seed 12): dWc within 1e-5 of max|ref| of a float64 dWc.  The
+    products drop lo_a lo_b (~2**-22 each) and the tensor cores sum each
+    item's products with truncation before the float32 running sums."""
+    assert ts.wgrad_route(torch.float32, 32, 25, 22, 9).startswith(
+        "wgrad_tf32_kernel")
+    r = np.random.default_rng(12)
+    shape = (128, 22, 22, 9)
+    mk = lambda *s, sc=1.0: torch.from_numpy(
+        (r.normal(size=s) * sc).astype(np.float32)).to(cuda)
+    gy, x, d = mk(*shape, 32), mk(*shape, 32), mk(*shape, 25)
+    w1, b1, w2, b2, wc, bc = params(32, 256, 25, seed=12, device=cuda)
+    got = ts.blk_bwd(gy, x, d, w1, b1, w2, wc)[1]
+    ref = dwc_float64(d, gy)
+    err = float((got.double() - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-5, err
 
 
 @pytest.mark.cuda

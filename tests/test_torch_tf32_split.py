@@ -112,3 +112,32 @@ def test_three_product_w2_dd_is_within_2e5_of_float64(kind):
                   split_tf32(w2t)[0].astype(np.float64) - ref).max() / scale
     assert err3 <= 2e-5, err3
     assert err1 > 2e-5, err1
+
+
+def test_three_product_wgrad_is_within_2e5_of_float64():
+    """dWc of blk_bwd (wgrad_tf32_kernel's products), sum over positions of
+    d shifted by the tap times gy, at 32/25 channels on random-normal d and
+    gy: three products within 2e-5 of max|ref| of float64 for every tap,
+    where one (hi hi, plain TF32) is not."""
+    r = np.random.default_rng(2)
+    b, h, w, t, c, c_dec = 2, 6, 6, 5, 32, 25
+    d = r.normal(size=(b, h, w, t, c_dec)).astype(np.float32)
+    gy = r.normal(size=(b, h, w, t, c)).astype(np.float32)
+    dpad = np.pad(d, ((0, 0), (1, 1), (1, 1), (1, 1), (0, 0)))
+    g2 = gy.reshape(-1, c)
+    err1 = err3 = 0.0
+    refs = []
+    for dh in range(3):
+        for dw in range(3):
+            for dt in range(3):
+                ds = dpad[:, dh:dh + h, dw:dw + w, dt:dt + t]
+                ds = ds.reshape(-1, c_dec).T
+                refs.append((ds, ds.astype(np.float64) @ g2))
+    scale = max(np.abs(ref).max() for _, ref in refs)
+    for dst, ref in refs:
+        err3 = max(err3, np.abs(three_product_matmul(dst, g2) - ref).max())
+        err1 = max(err1, np.abs(split_tf32(dst)[0].astype(np.float64) @
+                                split_tf32(g2)[0].astype(np.float64) -
+                                ref).max())
+    assert err3 / scale <= 2e-5, err3 / scale
+    assert err1 / scale > 2e-5, err1 / scale
