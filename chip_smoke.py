@@ -17,7 +17,11 @@ Phases, each printing its result:
    back, which leaves out the host's launch latency); the 64-filter widths
    (64/512/51) are checked for parity, and conv_fwd also at the shapes
    that its column runs opened: rows of 48 columns at the flagship widths
-   and the 64-filter widths at T = 19; blk_bwd and wide_bwd are fed dyadic
+   and the 64-filter widths at T = 19; seg_fwd's log names the kernel its
+   C entry routes each width to (at float32 the 3xTF32 tensor-core
+   seg_fwd_tf32_kernel, which the flagship must take, and the CUDA-core
+   seg_fwd_kernel at 64/512/51 and the width phase's widths; bounds
+   counted on the units of that route); blk_bwd and wide_bwd are fed dyadic
    inputs (blk_bwd's log names the seg_bwd and the wgrad kernel its C
    entry routes each width to: at float32 the 3xTF32 tensor-core seg_bwd
    at the flagship, the CUDA-core one at 64/512/51; the tensor-core wgrad
@@ -29,8 +33,8 @@ Phases, each printing its result:
    at the widths of the 48-, 72- and 128-filter models (48/384/38,
    72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
    and bf16, against their plain versions with the kernel phase's
-   tolerances (conv_fwd at 128/1024/102 also at T = 19; blk_bwd's seg_bwd
-   and wgrad routes named), with single-call
+   tolerances (conv_fwd at 128/1024/102 also at T = 19; seg_fwd's route
+   and blk_bwd's seg_bwd and wgrad routes named), with single-call
    times of kernel, plain version and F.conv3d; one float32 train step of
    a 12-block 128-filter "t" model against its "off" twin at batch 32
    (loss, cPSNR, every gradient leaf), a bf16 forward of that model against
@@ -280,6 +284,15 @@ def bound(flops, nbytes, peak):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def seg_fwd_route(dn, c, cmid, cdec):
+    """The kernel seg_fwd runs at these widths in dtype ``dn``, as its C
+    entry chooses it (ops/tstack.seg_fwd_route)."""
+    import torch
+
+    from probav_tpu_torch.ops import tstack as ts
+    return ts.seg_fwd_route(getattr(torch, dn), c, cmid, cdec)
+
+
 def kernel_costs(name, n, c, cmid, cdec, dn):
     """(FLOP, bytes, peak FLOP/s, route) of one launch: each input read
     once, each output written once (biases and weight grads in float32);
@@ -292,9 +305,19 @@ def kernel_costs(name, n, c, cmid, cdec, dn):
                 itemsize * (n * (2 * c + cdec) + c * cmid + cmid * cdec) +
                 4 * (cmid + grads), peak, "")
     if name == "seg_fwd":
-        return (2 * n * (c * cmid + cmid * cdec),
-                itemsize * (n * (c + cdec) + c * cmid + cmid * cdec) +
-                4 * (cmid + cdec), peak, "")
+        flops = 2 * n * (c * cmid + cmid * cdec)
+        nbytes = itemsize * (n * (c + cdec) + c * cmid + cmid * cdec) + \
+            4 * (cmid + cdec)
+        if dn != "float32":
+            return flops, nbytes, peak, ""
+        if not seg_fwd_route("float32", c, cmid, cdec).startswith(
+                "seg_fwd_tf32_kernel"):
+            return flops, nbytes, peak, " on the CUDA cores"
+        # 3xTF32 on the tensor cores (seg_fwd_tf32_kernel); the bound of
+        # the CUDA cores' float32 logged beside it.
+        return (3 * flops, nbytes, PEAK_TF32,
+                f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} TFLOP/s; on "
+                f"the CUDA cores {bound(flops, nbytes, peak)[0]:.4f} ms)")
     if name == "conv_fwd":
         flops = 2 * n * 27 * cdec * c
         nbytes = itemsize * (n * (cdec + 2 * c) + 27 * cdec * c) + 4 * c
@@ -395,8 +418,13 @@ def phase_kernels(torch, ts, dev, card):
         torch.cuda.synchronize()
         err, scale = check(f"seg_fwd {dn}", d,
                            ts.seg_fwd_plain(x2, w1, b1, w2, b2), TOL[dn])
+        route = seg_fwd_route(dn, C, CMID, CDEC)
         log(f"kernel seg_fwd {dn}: max|diff| {err:.3e} (max|ref| "
-            f"{scale:.3e}, tol {TOL[dn]:g})")
+            f"{scale:.3e}, tol {TOL[dn]:g}); route {route}")
+        want_route = ts.SEG_FWD_ROUTES[1 if dn == "bfloat16" else 2]
+        if route != want_route:
+            raise AssertionError(f"seg_fwd {dn} route {route}, expected "
+                                 f"{want_route}")
         pms, ms = timed(torch, lambda: ts.seg_fwd_plain(x2, w1, b1, w2, b2),
                         lambda: ts.seg_fwd(x2, w1, b1, w2, b2))
         row("seg_fwd", dn, err, ms, pms, None)
@@ -486,6 +514,7 @@ def phase_kernels(torch, ts, dev, card):
                 f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, e3)) +
             ", wide_bwd " + ", ".join(
                 f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, e4)) +
+            f"; seg_fwd route {seg_fwd_route(dn, 64, 512, 51)}"
             f"; blk_bwd seg_bwd route {ts.seg_bwd_route(dtype, 64, 512, 51)}"
             f", wgrad route {ts.wgrad_route(dtype, 64, 51, HW, T)}")
         del args
@@ -571,6 +600,8 @@ def phase_widths(torch, ts, dev, card):
                             lambda: ts.seg_fwd_plain(x2, w1, b1, w2, b2),
                             lambda: ts.seg_fwd(x2, w1, b1, w2, b2))
             report("seg_fwd", dn, widths, err, ms, pms)
+            log(f"width seg_fwd {dn} [{'/'.join(map(str, widths))}]: route "
+                f"{seg_fwd_route(dn, *widths)}")
 
             d5 = d.reshape(x.shape[:-1] + (cdec,))
             err, _ = check(f"width conv_fwd {widths} {dn}",

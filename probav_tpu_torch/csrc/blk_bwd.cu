@@ -90,8 +90,14 @@
 
 namespace {
 
+using probav::copy_rows;
+using probav::FragA;
+using probav::FragB;
 using probav::from_f;
+using probav::mma_term;
 using probav::round_to;
+using probav::split_a;
+using probav::split_b;
 using probav::to_f;
 
 constexpr int BWD_ROWS = 128;   // rows per seg_bwd tile = threads per block
@@ -1143,55 +1149,6 @@ constexpr int SBT_XS = 40;               // x / dd row stride (floats)
 constexpr int SBT_ZS = SBT_CH + 8;       // dz / h row stride
 constexpr int SBT_WS = 256 + 8;          // [c][j] weight row stride
 
-// One A (16x8) or B (8x8) fragment, split into its TF32 halves.
-struct FragA { uint32_t h[4], l[4]; };
-struct FragB { uint32_t h[2], l[2]; };
-
-__device__ __forceinline__ void split_a(FragA& f, float a0, float a1,
-                                        float a2, float a3) {
-  probav::split_tf32(a0, f.h[0], f.l[0]);
-  probav::split_tf32(a1, f.h[1], f.l[1]);
-  probav::split_tf32(a2, f.h[2], f.l[2]);
-  probav::split_tf32(a3, f.h[3], f.l[3]);
-}
-
-__device__ __forceinline__ void split_b(FragB& f, float b0, float b1) {
-  probav::split_tf32(b0, f.h[0], f.l[0]);
-  probav::split_tf32(b1, f.h[1], f.l[1]);
-}
-
-// Term `term` of the 3xTF32 product: 0 hi hi, 1 lo hi, 2 hi lo.  Callers
-// sweep each term over several accumulators, so that no mma waits on the
-// one before.
-__device__ __forceinline__ void mma_term(float (&c)[4], const FragA& a,
-                                         const FragB& b, int term) {
-  if (term == 0) probav::mma_tf32(c, a.h, b.h[0], b.h[1]);
-  else if (term == 1) probav::mma_tf32(c, a.l, b.h[0], b.h[1]);
-  else probav::mma_tf32(c, a.h, b.l[0], b.l[1]);
-}
-
-// Start copying rows [0, SBT_ROWS) of a [*, cols] tile at src into dst
-// (row stride SBT_XS): zeros for rows from nrows on.  16-byte copies where
-// `vec` (cols a multiple of 4, src 16-byte aligned), else 4-byte ones.
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          int nrows, int cols, bool vec) {
-  if (vec) {
-    const int c4 = cols / 4;
-    for (int e = threadIdx.x; e < SBT_ROWS * c4; e += blockDim.x) {
-      const int r = e / c4, c = 4 * (e % c4);
-      const bool in = r < nrows;
-      probav::cp_async16_zfill(dst + r * SBT_XS + c,
-                               in ? src + r * cols + c : src, in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < SBT_ROWS * cols; e += blockDim.x) {
-      const int r = e / cols, c = e % cols;
-      const bool in = r < nrows;
-      probav::cp_async4_zfill(dst + r * SBT_XS + c, in ? src + e : src, in);
-    }
-  }
-}
-
 __global__ void __launch_bounds__(SBT_WARPS * 32, 1)
 seg_bwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dd,
                     const float* __restrict__ gy,
@@ -1234,10 +1191,10 @@ seg_bwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dd,
   auto stage = [&](long tile, int buf) {
     const long row0 = tile * SBT_ROWS;
     const int nrows = (int)min((long)SBT_ROWS, (long)n - row0);
-    copy_rows(xb + buf * SBT_ROWS * SBT_XS, x + row0 * c_in, nrows, c_in,
-              xvec);
-    copy_rows(db + buf * SBT_ROWS * SBT_XS, dd + row0 * c_dec, nrows, c_dec,
-              dvec);
+    copy_rows<SBT_ROWS, SBT_XS>(xb + buf * SBT_ROWS * SBT_XS, x + row0 * c_in,
+                                nrows, c_in, xvec);
+    copy_rows<SBT_ROWS, SBT_XS>(db + buf * SBT_ROWS * SBT_XS,
+                                dd + row0 * c_dec, nrows, c_dec, dvec);
     probav::cp_async_commit();
   };
 

@@ -60,6 +60,34 @@ __device__ __forceinline__ void split_tf32(const uint32_t (&v)[4],
   for (int j = 0; j < 4; ++j) split_tf32(__uint_as_float(v[j]), hi[j], lo[j]);
 }
 
+// One A (16x8) or B (8x8) fragment of mma_tf32, split into its TF32
+// halves.
+struct FragA { uint32_t h[4], l[4]; };
+struct FragB { uint32_t h[2], l[2]; };
+
+__device__ __forceinline__ void split_a(FragA& f, float a0, float a1,
+                                        float a2, float a3) {
+  split_tf32(a0, f.h[0], f.l[0]);
+  split_tf32(a1, f.h[1], f.l[1]);
+  split_tf32(a2, f.h[2], f.l[2]);
+  split_tf32(a3, f.h[3], f.l[3]);
+}
+
+__device__ __forceinline__ void split_b(FragB& f, float b0, float b1) {
+  split_tf32(b0, f.h[0], f.l[0]);
+  split_tf32(b1, f.h[1], f.l[1]);
+}
+
+// Term `term` of the 3xTF32 product: 0 hi hi, 1 lo hi, 2 hi lo.  Callers
+// sweep each term over several accumulators, so that no mma waits on the
+// one before.
+__device__ __forceinline__ void mma_term(float (&c)[4], const FragA& a,
+                                         const FragB& b, int term) {
+  if (term == 0) mma_tf32(c, a.h, b.h[0], b.h[1]);
+  else if (term == 1) mma_tf32(c, a.l, b.h[0], b.h[1]);
+  else mma_tf32(c, a.h, b.l[0], b.l[1]);
+}
+
 // Asynchronous copies from device memory into shared memory (cp.async).
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -96,6 +124,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Wait until at most N of this thread's committed groups are in flight.
 template <int N> __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying rows [0, ROWS) of a [*, cols] float tile at src into dst
+// (row stride STRIDE floats): zeros for rows from nrows on; columns from
+// cols to STRIDE are not written.  16-byte copies where `vec` (cols a
+// multiple of 4, src 16-byte aligned), else 4-byte ones.
+template <int ROWS, int STRIDE>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int nrows, int cols, bool vec) {
+  if (vec) {
+    const int c4 = cols / 4;
+    for (int e = threadIdx.x; e < ROWS * c4; e += blockDim.x) {
+      const int r = e / c4, c = 4 * (e % c4);
+      const bool in = r < nrows;
+      cp_async16_zfill(dst + r * STRIDE + c, in ? src + r * cols + c : src,
+                       in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * cols; e += blockDim.x) {
+      const int r = e / cols, c = e % cols;
+      const bool in = r < nrows;
+      cp_async4_zfill(dst + r * STRIDE + c, in ? src + e : src, in);
+    }
+  }
 }
 
 // Bytes of a raw buffer for a span of n bytes copied from the 16-byte chunk

@@ -15,19 +15,26 @@
 // FLOP per row (29,184 at the flagship's 32/256/25) against a few dozen
 // elements of traffic per row, compute-bound once the [N, C_mid] wide
 // activation never reaches device memory -- the point of the TPU kernel,
-// kept here.  conv_fwd at the flagship (128 patches of 22x22x9, 25 -> 32:
+// kept here: at the flagship's N = 557,568, 0.0987 ms of 3xTF32 products
+// at the TF32 peak in float32 (0.2429 ms on the CUDA cores), 0.019 ms of
+// bytes in bf16.  conv_fwd at the flagship (128 patches of 22x22x9, 25 -> 32:
 // N = 557,568 positions) reads d (27.9 MB) and x (35.7 MB) and writes out
 // (35.7 MB): 99 MB, 0.0296 ms at 3.35 TB/s; its 24.1 GFLOP (30.8 with the
 // decay channels padded to 32) take 0.024 ms at the bf16 tensor peak, so
 // in bf16 it is bound by bytes, and in float32 (0.36 ms at 67 TFLOP/s) by
 // operations.
 //
-// - seg_fwd, float32, runs on the CUDA cores (exact float32 products, as
-//   the JAX reference computes): each thread owns one row, holds the d
-//   accumulator (and, up to 64 + 64 channels, x) in registers and makes the
-//   wide activation one channel at a time; weights are staged in shared
-//   memory in chunks of SEG_MCH middle channels and read as broadcast
-//   float4 loads.
+// - seg_fwd, float32, runs on the tensor cores as 3xTF32 where their tiles
+//   cover the widths (c_in, c_dec <= 32, c_mid <= 256: the flagship's;
+//   seg_fwd_route): seg_fwd_tf32_kernel, mma.sync m16n8k8 on split
+//   operands, the expand and decay products chained in registers, float32
+//   sums (within the float32 tolerance of the JAX reference's exact
+//   products).  At wider widths it runs on the CUDA cores with exact
+//   float32 products (seg_fwd_kernel): each thread owns one row, holds
+//   the d accumulator (and, up to 64 + 64 channels, x) in registers and
+//   makes the wide activation one channel at a time; weights are staged
+//   in shared memory in chunks of SEG_MCH middle channels and read as
+//   broadcast float4 loads.
 // - seg_fwd, bf16, runs on the tensor cores (mma.sync m16n8k16, float32
 //   accumulators) and chains the expand and decay products in registers.
 //
@@ -58,17 +65,23 @@
 
 namespace {
 
+using probav::copy_async;
+using probav::copy_rows;
 using probav::cp_async_commit;
 using probav::cp_async_wait_all;
-using probav::copy_async;
+using probav::FragA;
+using probav::FragB;
 using probav::ldsm_x4;
 using probav::lds32;
 using probav::mma_bf16;
+using probav::mma_term;
 using probav::mma_tf32;
 using probav::pack2;
 using probav::pack_bf16;
 using probav::run_buf_bytes;
 using probav::sm_count;
+using probav::split_a;
+using probav::split_b;
 using probav::split_tf32;
 
 constexpr int SEG_ROWS = 256;   // rows per seg_fwd block = threads per block
@@ -233,6 +246,234 @@ cudaError_t dispatch_seg(const void* x, const void* w1, const void* b1,
           x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
     });
   });
+}
+
+// ------------------------------------------------------------------------ //
+// seg_fwd, float32, on the tensor cores as 3xTF32 (mma.sync m16n8k8):       //
+// seg_fwd_tf32_kernel, for c_in, c_dec <= 32 and c_mid <= 256               //
+// (seg_fwd_route; the flagship's 32/256/25).                                //
+// ------------------------------------------------------------------------ //
+//
+// - Tiles: a persistent grid walks tiles of SFT_ROWS = 192 rows; warp w of
+//   12 (three on each of the SM's four schedulers) owns rows 16 w .. 16 w
+//   + 15 of each.  x tiles are double-buffered: the next
+//   tile's rows arrive by cp.async (copy_rows: 16 bytes where c_in % 4 ==
+//   0 and x is 16-byte aligned, else 4; zeros past n) while this one
+//   computes, and one barrier a tile guards both buffers.
+// - Weights: W1 and W2 staged once per block as [c][j] planes (W2
+//   transposed), zero-padded to 32 x 256, row stride SFT_WS = 264 (8 mod
+//   32 banks), so every B fragment load is conflict-free; split at each
+//   load (as seg_bwd_tf32_kernel does).
+// - Expand: x's A fragments (rows g, g + 8; columns q, q + 4 of each of the
+//   four k-steps, zero from c_in on) are split once a tile.  Per pair of
+//   8-column n-tiles of C_mid: z = x W1 as three products (hi hi, lo hi,
+//   hi lo; lo lo dropped), + b1, h = relu(z).
+// - Decay, chained in registers: C columns 2q, 2q + 1 of h are the A
+//   columns q, q + 4 of the decay's k-step, and W2's B rows are read in the
+//   same order (a float2 at [c][j + 2q]): the order of k inside a dot
+//   product is free.  d (C_dec padded to 32: four n-tiles) += h W2.
+// - Sums: the tensor cores sum with truncation, so each 64-channel chunk's
+//   decay products go to fresh accumulators, added in float32 to the
+//   running d sums.
+// - Epilogue: + b2; each warp stages its 16 rows of d in its own rows of
+//   the x buffer it has read (x's padding columns are never read: the
+//   fragments mask them), then stores its c_dec real columns, a contiguous
+//   run of 16 c_dec floats, coalesced; nothing past n.
+// - Shared memory: 2 x 33,792 (w1, w2) + 1,152 (b1, b2) + 2 x 30,720 (x
+//   tiles): 130,176 B, one block an SM, 152 registers.  Measured against
+//   two blocks of 8 warps an SM (109,696 B each, 127 registers), one of
+//   8 and one of 16 (tools/seg_fwd_variants.py): 12 warps were the
+//   fastest, and at the flagship's N its 2,904 tiles split evenly over 132
+//   SMs; the chunk's four pairs of n-tiles fully unrolled beat two.
+//
+// What bounds it on an H100: 2 (c_in c_mid + c_mid c_dec) FLOP a row,
+// 16.27 GFLOP at the flagship's N = 557,568, three TF32 products each:
+// 0.0987 ms at the 494.7 TFLOP/s TF32 peak (0.2429 ms at the CUDA cores'
+// 67 TFLOP/s), against 127 MB of x and d (0.038 ms): operations.  It
+// issues C_dec padded to 32 (1.28x the decay's products), on mma.sync,
+// which issues near half the TF32 rate.
+
+constexpr int SFT_WARPS = 12;                  // 16 rows each
+constexpr int SFT_MINB = 1;                    // blocks per SM
+constexpr int SFT_ROWS = 16 * SFT_WARPS;       // rows per tile
+constexpr int SFT_CH = 64;                     // middle channels per chunk
+constexpr int SFT_XS = 40;                     // x (and d) tile row stride
+constexpr int SFT_WS = 256 + 8;                // [c][j] weight row stride
+
+__global__ void __launch_bounds__(SFT_WARPS * 32, SFT_MINB)
+seg_fwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                    const float* __restrict__ b1,
+                    const float* __restrict__ w2,
+                    const float* __restrict__ b2, float* __restrict__ d,
+                    int n, int c_in, int c_mid, int c_dec) {
+  extern __shared__ __align__(16) float smem[];
+  float* w1s = smem;                            // [32][WS]  w1[c][j]
+  float* w2s = w1s + 32 * SFT_WS;               // [32][WS]  w2[j][c] at [c][j]
+  float* b1s = w2s + 32 * SFT_WS;               // [256]
+  float* b2s = b1s + 256;                       // [32]
+  float* xb = b2s + 32;                         // [2][ROWS][XS]  x tiles
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+
+  for (int e = tid; e < 32 * 256; e += blockDim.x) {
+    const int c = e / 256, j = e % 256;
+    w1s[c * SFT_WS + j] = (c < c_in && j < c_mid) ? w1[(long)c * c_mid + j]
+                                                  : 0.f;
+    const int j2 = e / 32, c2 = e % 32;
+    w2s[c2 * SFT_WS + j2] =
+        (c2 < c_dec && j2 < c_mid) ? w2[(long)j2 * c_dec + c2] : 0.f;
+  }
+  for (int j = tid; j < 256; j += blockDim.x) b1s[j] = j < c_mid ? b1[j] : 0.f;
+  if (tid < 32) b2s[tid] = tid < c_dec ? b2[tid] : 0.f;
+
+  const bool xvec = c_in % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long tiles = ((long)n + SFT_ROWS - 1) / SFT_ROWS;
+  auto stage = [&](long tile, int buf) {
+    const long row0 = tile * SFT_ROWS;
+    const int nrows = (int)min((long)SFT_ROWS, (long)n - row0);
+    copy_rows<SFT_ROWS, SFT_XS>(xb + buf * SFT_ROWS * SFT_XS, x + row0 * c_in,
+                                nrows, c_in, xvec);
+    cp_async_commit();
+  };
+
+  const int rw = warp * 16;                     // this warp's rows
+  if (blockIdx.x < tiles) stage(blockIdx.x, 0);
+  int buf = 0;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    cp_async_wait_all();
+    // This tile's rows have landed, and every warp is done with the other
+    // buffer (the previous tile's x and d rows) and the weights.
+    __syncthreads();
+    if (tile + gridDim.x < tiles) stage(tile + gridDim.x, buf ^ 1);
+    float* xt = xb + (buf * SFT_ROWS + rw) * SFT_XS;
+
+    FragA ax[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = k * 8 + q;
+      const float* X = xt + g * SFT_XS + c;
+      const bool lo = c < c_in, hi = c + 4 < c_in;
+      split_a(ax[k], lo ? X[0] : 0.f, lo ? X[8 * SFT_XS] : 0.f,
+              hi ? X[4] : 0.f, hi ? X[8 * SFT_XS + 4] : 0.f);
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+#pragma unroll
+    for (int ch = 0; ch < 256 / SFT_CH; ++ch) {
+      const int j0 = ch * SFT_CH;
+      if (j0 >= c_mid) break;                   // uniform over the block
+      float dc[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        dc[t][0] = dc[t][1] = dc[t][2] = dc[t][3] = 0.f;
+#pragma unroll
+      for (int p = 0; p < SFT_CH / 16; ++p) {
+        const int jn = j0 + p * 16;
+        float z[2][4] = {};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          FragB bw[2];
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const float* Wz = w1s + (k * 8 + q) * SFT_WS + jn + t * 8 + g;
+            split_b(bw[t], Wz[0], Wz[4 * SFT_WS]);
+          }
+#pragma unroll
+          for (int term = 0; term < 3; ++term)
+#pragma unroll
+            for (int t = 0; t < 2; ++t) mma_term(z[t], ax[k], bw[t], term);
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int jl = jn + t * 8 + 2 * q;    // middle channel of C's 2q
+          const float bb0 = b1s[jl], bb1 = b1s[jl + 1];
+          // d += h W2 over these 8 middle channels: C columns 2q, 2q+1 are
+          // A columns q, q+4, and B rows q, q+4 are W2[j0+jl], [+1].
+          FragA ah;
+          split_a(ah, fmaxf(z[t][0] + bb0, 0.f), fmaxf(z[t][2] + bb0, 0.f),
+                  fmaxf(z[t][1] + bb1, 0.f), fmaxf(z[t][3] + bb1, 0.f));
+          FragB bd[4];
+#pragma unroll
+          for (int ct = 0; ct < 4; ++ct) {
+            const float2 w = *reinterpret_cast<const float2*>(
+                w2s + (ct * 8 + g) * SFT_WS + jl);
+            split_b(bd[ct], w.x, w.y);
+          }
+#pragma unroll
+          for (int term = 0; term < 3; ++term)
+#pragma unroll
+            for (int ct = 0; ct < 4; ++ct) mma_term(dc[ct], ah, bd[ct], term);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[t][i] += dc[t][i];
+    }
+
+    // d = acc + b2, staged in this warp's rows of the x buffer, then its
+    // c_dec real columns stored: rows r0 .. r0 + 15 are contiguous in d.
+    __syncwarp();                               // every lane's x read
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) {
+      const int c = ct * 8 + 2 * q;
+      const float bb0 = b2s[c], bb1 = b2s[c + 1];
+      *reinterpret_cast<float2*>(xt + g * SFT_XS + c) =
+          make_float2(acc[ct][0] + bb0, acc[ct][1] + bb1);
+      *reinterpret_cast<float2*>(xt + (g + 8) * SFT_XS + c) =
+          make_float2(acc[ct][2] + bb0, acc[ct][3] + bb1);
+    }
+    __syncwarp();
+    const long r0 = tile * SFT_ROWS + rw;
+    const int nr = (int)max(0L, min(16L, (long)n - r0));
+    float* dst = d + r0 * c_dec;
+    for (int e = lane; e < nr * c_dec; e += 32) {
+      const int r = e / c_dec, c = e % c_dec;
+      dst[e] = xt[r * SFT_XS + c];
+    }
+  }
+}
+
+cudaError_t launch_seg_fwd_tf32(const void* x, const void* w1, const void* b1,
+                                const void* w2, const void* b2, void* d,
+                                int n, int c_in, int c_mid, int c_dec,
+                                cudaStream_t s) {
+  const size_t smem =
+      sizeof(float) * ((size_t)2 * 32 * SFT_WS + 256 + 32 +
+                       2 * SFT_ROWS * SFT_XS);
+  auto kern = seg_fwd_tf32_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      SFT_WARPS * 32, smem);
+  if (err != cudaSuccess) return err;
+  const long tiles = ((long)n + SFT_ROWS - 1) / SFT_ROWS;
+  const long grid = std::min(tiles, (long)std::max(per_sm, 1) * sm_count());
+  kern<<<(unsigned)grid, SFT_WARPS * 32, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(d), n, c_in, c_mid,
+      c_dec);
+  return cudaGetLastError();
+}
+
+// Which kernel probav_seg_fwd runs, from the dtype and widths alone: bf16
+// on seg_fwd_mma_kernel at every width; float32 on the tensor cores where
+// their tiles cover the widths (c_in, c_dec <= 32, c_mid <= 256), else on
+// seg_fwd_kernel (CUDA cores).
+enum SegFwdRoute { SEG_FWD_CUDA_CORES = 0, SEG_FWD_BF16_MMA = 1,
+                   SEG_FWD_TF32_MMA = 2 };
+
+SegFwdRoute seg_fwd_route(int dtype, int c_in, int c_mid, int c_dec) {
+  if (dtype == 1) return SEG_FWD_BF16_MMA;
+  if (c_in > 32 || c_dec > 32 || c_mid > 256) return SEG_FWD_CUDA_CORES;
+  return SEG_FWD_TF32_MMA;
 }
 
 // ------------------------------------------------------------------------ //
@@ -1170,24 +1411,37 @@ cudaError_t probav::conv_dispatch(int dtype, bool residual, const void* d,
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  x, w1, w2,
-// d in that dtype; b1, b2 in float32.  c_in, c_dec any count from 1 to
-// MAX_CH = 128; c_mid any positive count (staged in chunks).
+// dtype: 0 = float32 (tensor cores as 3xTF32 at c_in, c_dec <= 32 and
+// c_mid <= 256, else CUDA cores: seg_fwd_route), 1 = bfloat16 (tensor
+// cores).  x, w1, w2, d in that dtype; b1, b2 in float32.  c_in, c_dec any
+// count from 1 to MAX_CH = 128; c_mid any positive count (staged in
+// chunks).
 int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* d, int n, int c_in,
                    int c_mid, int c_dec, void* stream) {
   if (n < 0 || c_in < 1 || c_in > probav::MAX_CH || c_dec < 1 ||
-      c_dec > probav::MAX_CH || c_mid < 1)
+      c_dec > probav::MAX_CH || c_mid < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_seg(x, w1, b1, w2, b2, d, n, c_in, c_mid,
-                                    c_dec, s);
-  if (dtype == 1)
-    return (int)dispatch_seg_mma(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec,
-                                 s);
-  return (int)cudaErrorInvalidValue;
+  switch (seg_fwd_route(dtype, c_in, c_mid, c_dec)) {
+    case SEG_FWD_BF16_MMA:
+      return (int)dispatch_seg_mma(x, w1, b1, w2, b2, d, n, c_in, c_mid,
+                                   c_dec, s);
+    case SEG_FWD_TF32_MMA:
+      return (int)launch_seg_fwd_tf32(x, w1, b1, w2, b2, d, n, c_in, c_mid,
+                                      c_dec, s);
+    default:
+      return (int)dispatch_seg(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec,
+                               s);
+  }
+}
+
+// The kernel probav_seg_fwd launches for these widths: 0 = seg_fwd_kernel
+// (CUDA cores), 1 = seg_fwd_mma_kernel (bf16 mma), 2 = seg_fwd_tf32_kernel
+// (float32 as 3xTF32 mma).
+int probav_seg_fwd_route(int dtype, int c_in, int c_mid, int c_dec) {
+  return (int)seg_fwd_route(dtype, c_in, c_mid, c_dec);
 }
 
 // dtype: 0 = float32 (tensor cores, 3xTF32), 1 = bfloat16 (tensor

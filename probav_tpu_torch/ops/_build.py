@@ -37,6 +37,8 @@ SIGNATURES = {
     # G, B, H, W, T, c_in, c_mid, c_dec, stream
     "probav_blk_bwd": [_I] + [_P] * 11 + [_I] * 8 + [_P],
     # dtype, c_in, c_mid, c_dec
+    "probav_seg_fwd_route": [_I] * 4,
+    # dtype, c_in, c_mid, c_dec
     "probav_seg_bwd_route": [_I] * 4,
     # dtype, c_in, c_dec, W, T
     "probav_wgrad_route": [_I] * 5,

@@ -22,16 +22,16 @@ its backward runs ``blk_bwd`` for the blocks in reverse order.
 tensor cores at both dtypes: bf16 products at bf16, float32 products as
 3xTF32 (each operand split into two TF32 halves, three products summed in
 float32: about 2**-22 relative error per product, within the float32
-tolerance that plain TF32 misses).  ``blk_bwd``'s expand/decay backward
-(``seg_bwd_route``) runs on the tensor cores too where C, C_dec <= 32
-and C_mid <= 256 (the flagship's widths): bf16 products at bf16, float32
-as 3xTF32; so does its ``wgrad`` (dWc) at C, C_dec <= 32 where a row's
-halo fits shared memory (``wgrad_route``; at float32 rows up to the
-flagship's 22 x 9).  The float32 ``seg_fwd``, the ``wgrad`` on larger
-rows and ``blk_bwd`` at wider widths run on the CUDA cores with exact
-float32 products (bf16 widened); bf16 ``seg_fwd`` runs on the
-tensor cores (``mma.sync``, float32 accumulation).  All round where the
-TPU kernels round.
+tolerance that plain TF32 misses).  ``seg_fwd`` runs on the tensor cores
+at bf16 at every width, and at float32 as 3xTF32 where C, C_dec <= 32 and
+C_mid <= 256 (the flagship's widths; ``seg_fwd_route``).  ``blk_bwd``'s
+expand/decay backward (``seg_bwd_route``) runs on the tensor cores within
+the same widths: bf16 products at bf16, float32 as 3xTF32; so does its
+``wgrad`` (dWc) at C, C_dec <= 32 where a row's halo fits shared memory
+(``wgrad_route``; at float32 rows up to the flagship's 22 x 9).  Beyond
+those widths and rows the float32 ``seg_fwd``, the ``wgrad`` and
+``blk_bwd`` run on the CUDA cores with exact float32 products (bf16
+widened).  All round where the TPU kernels round.
 
 ``t_tier_refusal`` states the channel widths the kernels take, once: any C
 and C_dec from 1 to 128 (``MAX_CHANNELS``), forward and backward.  The
@@ -149,6 +149,25 @@ def _check_widths(name, c, c_dec):
         raise ValueError(f"{name}: {why}")
 
 
+# The kernels seg_fwd may launch, by the code that csrc/tstack.cu's
+# seg_fwd_route gives.
+SEG_FWD_ROUTES = ("seg_fwd_kernel (CUDA cores)",
+                  "seg_fwd_mma_kernel (bf16 mma)",
+                  "seg_fwd_tf32_kernel (3xTF32 mma)")
+
+
+def seg_fwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
+    """The kernel that ``seg_fwd`` runs for these widths on the card, as
+    its C entry chooses it (from the dtype and widths alone, before any
+    launch): bf16 on the tensor cores at every width; float32 as 3xTF32 on
+    the tensor cores at C, C_dec <= 32 and C_mid <= 256, else on the CUDA
+    cores.  Builds the kernels."""
+    from probav_tpu_torch.ops import _build
+    code = _build.library().probav_seg_fwd_route(_DTYPE_CODE[dtype], c,
+                                                 c_mid, c_dec)
+    return SEG_FWD_ROUTES[code]
+
+
 # The kernels blk_bwd's expand/decay backward may launch, by the code that
 # csrc/blk_bwd.cu's seg_bwd_route gives.
 SEG_BWD_ROUTES = ("seg_bwd_kernel (CUDA cores)",
@@ -215,7 +234,8 @@ def seg_fwd(x, w1, b1, w2, b2):
     """x [N, C_in] -> d [N, C_dec]: relu(x @ w1 + b1) @ w2 + b2.
 
     Weights are cast to x's dtype, biases to float32, as the TPU kernel's
-    caller does (pallas_tstack.py:265-266).
+    caller does (pallas_tstack.py:265-266).  On the card the kernel is the
+    one ``seg_fwd_route`` names for x's dtype and these widths.
     """
     if x.device.type == "cpu":
         return seg_fwd_plain(x, w1, b1, w2, b2)

@@ -14,10 +14,12 @@ compare two trees of the port on one card.
 (blk_bwd and wide_bwd on the dyadic inputs of ``tools/dyadic.py``), then
 ``--rounds`` rounds of the median of 20 single CUDA-event-timed calls and
 of 20 calls queued back to back (device time, without the host's launch
-latency).  For blk_bwd also the wgrad route, at float32 the error of
-its dWc against float64 on random-normal inputs (``dwc_rel_err_f64``), and
-its four sub-kernels (``BLK_BWD_PARTS``): the
-device time of each per call, by the kernel names of a ``torch.profiler``
+latency).  For seg_fwd also its route and, at float32, the error of its
+d against float64 on random-normal inputs (``rel_err_f64``).  For blk_bwd
+also the wgrad route, at float32 the error of its dWc against float64 on
+random-normal inputs (``dwc_rel_err_f64``), and its four sub-kernels
+(``BLK_BWD_PARTS``): the device time of each per call, by the kernel
+names of a ``torch.profiler``
 trace of 10 calls back to back, beside its bound (``blk_bwd_part_costs``),
 and in each round the one PyTorch call that computes the dd conv and the
 dWc of the same inputs (cuDNN's conv3d dgrad and weight gradient,
@@ -174,6 +176,29 @@ def dwc_rel_err_f64(ts, dev, seed=12):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+def seg_fwd_f64(x, w1, b1, w2, b2):
+    """seg_fwd in float64: relu(x w1 + b1) w2 + b2."""
+    import torch
+    return (torch.relu(x.double() @ w1.double() + b1.double()) @
+            w2.double() + b2.double())
+
+
+def seg_fwd_rel_err_f64(ts, dev, seed=12):
+    """max|d - ref| / max|ref| of float32 seg_fwd at the flagship on
+    random-normal x and weights, ref ``seg_fwd_f64``.  Reads the error of
+    whichever kernel the tree routes float32 to."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s, sc=1.0: torch.randn(s, generator=g, device=dev) * sc
+    n = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
+    w = (rn(C_OUT, C_MID, sc=C_OUT ** -0.5), rn(C_MID, sc=0.1),
+         rn(C_MID, C_DEC, sc=C_MID ** -0.5), rn(C_DEC, sc=0.1))
+    x = rn(n, C_OUT)
+    ref = seg_fwd_f64(x, *w)
+    got = ts.seg_fwd(x, *w).double()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
 def back_to_back(call, n=20):
     """ms per call of n calls queued back to back (CUDA events)."""
     import torch
@@ -299,6 +324,12 @@ def main(argv=None):
                 result[key]["library_b2b_ms"] = lib_b2b
                 result[key]["library_b2b_median"] = {
                     part: statistics.median(v) for part, v in lib_b2b.items()}
+            if name == "seg_fwd":
+                if hasattr(ts, "seg_fwd_route"):   # a parent may lack it
+                    result[key]["route"] = ts.seg_fwd_route(
+                        dtype, C_OUT, C_MID, C_DEC)
+                if dn == "float32":
+                    result[key]["rel_err_f64"] = seg_fwd_rel_err_f64(ts, dev)
             if name == "blk_bwd":
                 result[key]["wgrad_route"] = ts.wgrad_route(
                     dtype, C_OUT, C_DEC, SHAPE[2], SHAPE[3])

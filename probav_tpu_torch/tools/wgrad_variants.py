@@ -64,6 +64,11 @@ VARIANTS = {
 }
 
 _HELPERS = """
+using probav::FragA;
+using probav::FragB;
+using probav::mma_term;
+using probav::split_a;
+using probav::split_b;
 __device__ __forceinline__ void raw_a(FragA& f, float a0, float a1, float a2,
                                       float a3) {
   const float v[4] = {a0, a1, a2, a3};
@@ -93,17 +98,15 @@ __device__ __forceinline__ void trunc_b(FragB& f, float b0, float b1) {
 
 
 def source(names) -> str:
-    """One .cu: the fragment helpers of blk_bwd.cu, then each variant's copy
+    """One .cu: the fragment helpers of common.cuh, then each variant's copy
     of the kernel's section in namespace v<i>, then an extern "C"
     ``launch(i, ...)``."""
     from probav_tpu_torch.ops import _build
     text = (_build.SRC_DIR / "blk_bwd.cu").read_text()
-    helpers = text[text.index("// One A (16x8) or B (8x8) fragment"):
-                   text.index("// Start copying rows")]
     section = text[text.index("constexpr int WGT_WARPS"):
                    text.index("// Which wgrad blk_bwd runs")]
     parts = [f'#include "{_build.SRC_DIR / "common.cuh"}"',
-             "namespace {", helpers, _HELPERS]
+             "namespace {", _HELPERS]
     cases = []
     for i, name in enumerate(names):
         body = section
@@ -122,33 +125,47 @@ def source(names) -> str:
     return "\n".join(parts)
 
 
-def build(names):
-    """(ctypes library, {variant: registers}) of the variants' kernels."""
+def compile_variants(src: str, kernel: str, names, argtypes):
+    """(ctypes library, {variant: registers}, {variant: spill bytes}) of
+    ``src``, whose variant i holds ``kernel`` in namespace v<i> and whose
+    extern "C" ``launch`` takes ``argtypes``; compiled by nvcc with ptxas's
+    register report."""
     from probav_tpu_torch.ops import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
-    cu, so = os.path.join(tmp, "wgrad_variants.cu"), os.path.join(tmp, "v.so")
+    cu, so = os.path.join(tmp, "variants.cu"), os.path.join(tmp, "v.so")
     with open(cu, "w") as f:
-        f.write(source(names))
+        f.write(src)
     r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas",
                         "-v", "-shared", "-o", so, cu], capture_output=True,
                        text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc ({r.returncode}):\n{r.stderr[-3000:]}")
-    regs, current = {}, None
+    regs, spills, current = {}, {}, None
     for line in (r.stdout + r.stderr).splitlines():
-        m = re.search(r"Compiling entry function '\w*v(\d+)17"
-                      r"wgrad_tf32_kernel", line)
+        m = re.search(rf"Compiling entry function '\w*v(\d+){len(kernel)}"
+                      rf"{kernel}", line)
         if m:
             current = names[int(m.group(1))]
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and current:
+            spills[current] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
             regs[current], current = int(m.group(1)), None
     lib = ctypes.CDLL(so)
     shutil.rmtree(tmp, ignore_errors=True)   # loaded: the files can go
+    lib.launch.argtypes = argtypes
+    lib.launch.restype = ctypes.c_int
+    return lib, regs, spills
+
+
+def build(names):
+    """(ctypes library, {variant: registers}) of the variants' kernels."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.launch.argtypes = [I, P, P, P, ctypes.c_long] + [I] * 7 + [P]
-    lib.launch.restype = I
+    lib, regs, _ = compile_variants(
+        source(names), "wgrad_tf32_kernel", names,
+        [I, P, P, P, ctypes.c_long] + [I] * 7 + [P])
     return lib, regs
 
 

@@ -18,7 +18,7 @@ from probav_tpu_torch.ops import tstack as ts
 from probav_tpu_torch.ops import wide_block as wb
 from probav_tpu_torch.tools.dyadic import (blk_bwd_inputs, shift_table_inputs,
                                            wide_bwd_inputs)
-from probav_tpu_torch.tools.time_conv import dwc_float64
+from probav_tpu_torch.tools.time_conv import dwc_float64, seg_fwd_f64
 
 torch.set_num_threads(1)
 
@@ -269,6 +269,79 @@ def test_f32_conv_fwd_on_card_takes_views_at_any_alignment(cuda):
     x = torch.randn(n * 32 + 3, device=cuda)[3:].view(*shape, 32)
     out = ts.conv_fwd(d, x, wc, bc)
     assert max_rel(out, ts.conv_fwd_plain(d, x, wc, bc)) < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128 * 4356, 1, 127, 129, 1000],
+                         ids=["n557568", "n1", "n127", "n129", "n1000"])
+@pytest.mark.parametrize("c,cmid,cdec,route", [
+    (32, 256, 25, "seg_fwd_tf32_kernel"), (7, 100, 12, "seg_fwd_tf32_kernel"),
+    (32, 257, 25, "seg_fwd_kernel"), (48, 384, 38, "seg_fwd_kernel")],
+    ids=["flagship", "c7", "cmid257", "c48"])
+def test_f32_seg_fwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
+                                                route):
+    """float32 seg_fwd within the tensor cores' widths (C, C_dec <= 32,
+    C_mid <= 256) takes the 3xTF32 kernel, C_mid 257 and 48 channels the
+    CUDA-core one: all within 2e-5 of max|ref| of plain, at the flagship's
+    N, one row, rows either side of a 128-row tile and a ragged count;
+    each call counted once, and two calls bit for bit equal."""
+    assert ts.seg_fwd_route(torch.float32, c, cmid, cdec).startswith(route)
+    w1, b1, w2, b2, _, _ = params(c, cmid, cdec, seed=n % 7, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(n, c)).astype(np.float32)).to(cuda)
+    before = ts.LAUNCHES["seg_fwd"]
+    d = ts.seg_fwd(x, w1, b1, w2, b2)
+    again = ts.seg_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["seg_fwd"] == before + 2
+    assert d.shape == (n, cdec) and d.dtype == torch.float32
+    assert max_rel(d, ts.seg_fwd_plain(x, w1, b1, w2, b2)) < 2e-5
+    assert torch.equal(d, again)
+
+
+@pytest.mark.cuda
+def test_seg_fwd_routes_on_card(cuda):
+    """bf16 takes seg_fwd_mma_kernel at every width; float32 the 3xTF32
+    kernel up to 32/256/32 and the CUDA-core one beyond any of them."""
+    for widths in ((32, 256, 25), (1, 1, 1), (32, 256, 32), (33, 256, 25),
+                   (32, 257, 25), (32, 256, 33), (128, 1024, 102)):
+        assert ts.seg_fwd_route(torch.bfloat16, *widths) == \
+            ts.SEG_FWD_ROUTES[1]
+        tc = widths[0] <= 32 and widths[1] <= 256 and widths[2] <= 32
+        assert ts.seg_fwd_route(torch.float32, *widths) == \
+            ts.SEG_FWD_ROUTES[2 if tc else 0], widths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,offset", [(32, 1), (32, 4), (7, 3), (25, 2)],
+                         ids=["c32_off1", "c32_off4", "c7_off3", "c25_off2"])
+def test_f32_seg_fwd_on_card_takes_views_at_any_alignment(cuda, c, offset):
+    """x as a contiguous view `offset` floats into a larger buffer: off
+    the 16-byte grid (4-byte copies) or on it (16-byte copies where C is a
+    multiple of 4), at 1,000 rows."""
+    n = 1000
+    w1, b1, w2, b2, _, _ = params(c, 256, 25, device=cuda)
+    x = torch.randn(n * c + offset, device=cuda)[offset:].view(n, c)
+    d = ts.seg_fwd(x, w1, b1, w2, b2)
+    assert max_rel(d, ts.seg_fwd_plain(x, w1, b1, w2, b2)) < 2e-5
+
+
+@pytest.mark.cuda
+def test_f32_seg_fwd_on_random_normal_inputs_is_within_1e5_of_float64(cuda):
+    """The 3xTF32 seg_fwd at the flagship's N and widths on random-normal
+    x and weights (numpy seed 12): within 1e-5 of max|ref| of float64.  The
+    products drop lo_a lo_b (~2**-22 each) and the tensor cores sum each
+    64-channel chunk's decay products with truncation before the float32
+    running sums."""
+    assert ts.seg_fwd_route(torch.float32, 32, 256, 25).startswith(
+        "seg_fwd_tf32_kernel")
+    w1, b1, w2, b2, _, _ = params(32, 256, 25, seed=12, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(128 * 4356, 32)).astype(np.float32)).to(cuda)
+    ref = seg_fwd_f64(x, w1, b1, w2, b2)
+    got = ts.seg_fwd(x, w1, b1, w2, b2).double()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-5, err
 
 
 # blk_bwd outputs: dx, dwc, dw1, db1, dw2, db2, dbc.
