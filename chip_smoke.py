@@ -23,10 +23,11 @@ Phases, each printing its result:
    seg_fwd_kernel at 64/512/51 and the width phase's widths; bounds
    counted on the units of that route); blk_bwd and wide_bwd are fed dyadic
    inputs (blk_bwd's log names the seg_bwd and the wgrad kernel its C
-   entry routes each width to: at float32 the 3xTF32 tensor-core seg_bwd
-   at the flagship, the CUDA-core one at 64/512/51; the tensor-core wgrad
-   from 1 to 32 channels where its rows fit, which the flagship must take
-   at both dtypes) and the shift tables
+   entry routes each width to: the tensor-core seg_bwd at the flagship,
+   seg_bwd_bf16_kernel at bf16 and the 3xTF32 seg_bwd_tf32_kernel at
+   float32, the CUDA-core one at 64/512/51; the tensor-core wgrad from 1
+   to 32 channels where its rows fit; the flagship must take both on the
+   tensor cores at both dtypes) and the shift tables
    integer planes (probav_tpu_torch/tools/dyadic.py), on which both
    versions take the same relu, sign and rounding decisions;
 4. widths: the four block-stack kernels beyond the flagship's channels,
@@ -459,15 +460,21 @@ def phase_kernels(torch, ts, dev, card):
         errs = check_outputs(f"blk_bwd {dn}", BWD_NAMES, got,
                              ts.blk_bwd_plain(*args), tol_of)
         wroute = ts.wgrad_route(dtype, C, CDEC, HW, T)
+        sroute = ts.seg_bwd_route(dtype, C, CMID, CDEC)
         log(f"kernel blk_bwd {dn}: max|diff| " + ", ".join(
             f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, errs)) +
             f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|);"
-            f" seg_bwd route {ts.seg_bwd_route(dtype, C, CMID, CDEC)}, "
-            f"wgrad route {wroute}")
-        want_route = ts.WGRAD_ROUTES[1 if dn == "bfloat16" else 2]
-        if wroute != want_route:
-            raise AssertionError(f"blk_bwd {dn} wgrad route {wroute}, "
-                                 f"expected {want_route}")
+            f" seg_bwd route {sroute}, wgrad route {wroute}")
+        # The flagship takes the tensor cores in both: seg_bwd_bf16_kernel
+        # / wgrad_ring_kernel at bf16, seg_bwd_tf32_kernel /
+        # wgrad_tf32_kernel at float32.
+        for part, got_route, routes in (("seg_bwd", sroute,
+                                         ts.SEG_BWD_ROUTES),
+                                        ("wgrad", wroute, ts.WGRAD_ROUTES)):
+            want_route = routes[1 if dn == "bfloat16" else 2]
+            if got_route != want_route:
+                raise AssertionError(f"blk_bwd {dn} {part} route "
+                                     f"{got_route}, expected {want_route}")
         pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
                         lambda: ts.blk_bwd(*args), reps=10)
         row("blk_bwd", dn, errs[0], ms, pms, None)

@@ -32,21 +32,24 @@
 // Kernels 2 and 3 come in several versions, chosen from the dtype and the
 // widths before any launch.  At c_in, c_dec <= 32 and c_mid <= 256 (the
 // flagship's 32/256/25) seg_bwd runs on the tensor cores at both dtypes
-// (seg_bwd_route): bf16 as seg_bwd_mma_kernel (mma.sync m16n8k16, float32
-// sums), float32 as seg_bwd_tf32_kernel (3xTF32 on mma.sync m16n8k8); so
-// does the wgrad where its rows fit shared memory (wgrad_route: bf16
-// wgrad_ring_kernel, ldmatrix.trans on channels-last halo rows staged by
-// cp.async; float32 wgrad_tf32_kernel, 3xTF32 on halo rows copied straight
-// into a ring of four slots).  Both kernels at wider widths (the 64-filter
-// model's 64/512/51, up to 128/1024/102), and the wgrad on larger rows,
-// run on the CUDA cores (wgrad_kernel, seg_bwd_kernel: bf16 data widened
-// to float32, whose products of bf16 values are exact), so every width
-// from 1 to MAX_CH = 128 channels has a kernel.
+// (seg_bwd_route): bf16 as seg_bwd_bf16_kernel (mma.sync m16n8k16, float32
+// sums, products taken transposed so that each C fragment feeds the next
+// product in registers, fragments by ldmatrix from channels-last tiles
+// staged by cp.async), float32 as seg_bwd_tf32_kernel (3xTF32 on mma.sync
+// m16n8k8); so does the wgrad where its rows fit shared memory
+// (wgrad_route: bf16 wgrad_ring_kernel, ldmatrix.trans on channels-last
+// halo rows staged by cp.async; float32 wgrad_tf32_kernel, 3xTF32 on halo
+// rows copied straight into a ring of four slots).  Both kernels at wider
+// widths (the 64-filter model's 64/512/51, up to 128/1024/102), and the
+// wgrad on larger rows, run on the CUDA cores (wgrad_kernel,
+// seg_bwd_kernel: bf16 data widened to float32, whose products of bf16
+// values are exact), so every width from 1 to MAX_CH = 128 channels has a
+// kernel.
 //
 // Reductions across blocks: kernels 2 and 3 run a persistent grid of G
 // blocks; each block owns one float32 slot of the partial buffer and sums
 // into it over all its tiles, in registers written once at the end (the
-// wgrad kernels, seg_bwd_mma, seg_bwd_tf32) or in the slot itself
+// wgrad kernels, seg_bwd_bf16, seg_bwd_tf32) or in the slot itself
 // (seg_bwd), with no atomics.  Kernel 4 sums the G slots in a fixed order, so a run is
 // deterministic, as the per-tile partials of pallas_tstack.py:445-449 are.
 //
@@ -58,10 +61,9 @@
 // 91 us at the 989 TFLOP/s bf16 peak; float32 0.545 ms as 3xTF32 at the
 // 494.7 TFLOP/s TF32 peak (1.34 ms at the CUDA cores' 67 TFLOP/s).  This
 // version keeps the wide activation out of device memory and the dd conv,
-// seg_bwd and the wgrad on the tensor cores at the flagship's widths; the
-// dd conv, the float32 seg_bwd and both tensor-core wgrads pipeline their
-// staging (cp.async), and all use mma.sync, not wgmma, which is later
-// work.
+// seg_bwd and the wgrad on the tensor cores at the flagship's widths; all
+// four of them pipeline their staging (cp.async), and all use mma.sync,
+// not wgmma, which is later work.
 //
 // Rounding points (pallas_tstack.py:356-379): dd summed in float32 then
 // rounded; dz from float32 W2 dd, masked by z > 0 on the float32 z, then
@@ -76,7 +78,7 @@
 // dW2, db2 (db2 = sum dy).  It is seg_bwd_kernel with WIDE set: the same
 // CUDA-core tiles and per-block partial slots (in a layout without dWc and
 // dbc) and the same fixed-order reduce, but dz and relu(z) stay float32 as
-// in _bwd_kernel, so bf16 takes this kernel too and not seg_bwd_mma, whose
+// in _bwd_kernel, so bf16 takes this kernel too and not seg_bwd_bf16, whose
 // A fragments would round dz to bf16.  The TPU row tiling (_pick_tile,
 // _pad_rows) is a VMEM rule and is not ported: any N is taken.  Bound on
 // an H100 at the flagship N = 557,568, 32/256/25: 2 N c_mid (3 c_in +
@@ -813,287 +815,519 @@ cudaError_t dispatch_seg_bwd(const void* x, const void* dd, const void* gy,
 
 // ------------------------------------------------------------------------ //
 // seg_bwd, bf16 on the tensor cores (mma.sync.m16n8k16, float32 sums), for  //
-// c_in, c_dec <= 32 and c_mid <= 256 (the flagship's 32/256/25).            //
-//                                                                          //
-// A tile is 128 rows; each of the 8 warps owns 16 of them.  Phase A, per    //
-// warp and 16 middle channels at a time: z = x W1 + b1 and W2 dd come out   //
-// of the mma in the C layout, dz and h = relu(z) are rounded to bf16 in     //
-// registers and, since two adjacent C tiles are one A fragment, feed       //
-// dx += dz W1^T at once; dz and h are also stored transposed ([j][row]) in  //
-// shared memory.  Phase B, block-wide: dW1 += x^T dz and dW2 += h^T dd as   //
-// mma over the tile's 128 rows (K), from the transposed tiles, into        //
-// accumulators that stay in registers across all of the block's tiles      //
-// (warp w owns 8 of the 64 16x8 output tiles of each).  No RMW, no atomics. //
+// c_in, c_dec <= 32 and c_mid <= 256 (the flagship's 32/256/25):           //
+// seg_bwd_bf16_kernel.  It computes what seg_bwd_kernel<__nv_bfloat16, ..., //
+// false> computes, into the same slot layout, with the same rounding       //
+// points.                                                                  //
 // ------------------------------------------------------------------------ //
+//
+// - Transposed products, so that every C fragment feeds the next product
+//   in registers.  Warp w owns the middle channels j of 32 w .. 32 w + 31
+//   (two 16-row m-tiles) over every row of a tile, 16 rows at a time:
+//   z^T = W1^T x^T + b1 and W2 dd^T come out of the mma as 16 j x 8 row C
+//   tiles, dz^T = relu'(z) (W2 dd) and h^T = relu(z) are rounded to bf16
+//   in registers, and two C tiles adjacent in rows are the A fragment of
+//   dW1^T += dz^T x and of dW2 += h^T dd (K = the 16 rows).  So the warp's
+//   weight gradients sum in its own registers across all of the block's
+//   tiles, written once to the block's slot, and W1^T and W2's A fragments
+//   (its 32 j x 32 c of each) are loaded once per block and stay in
+//   registers.  h never leaves registers.  A warp whose j are all past
+//   c_mid runs too: its weights and b1 are zero, so it writes zero dz.
+// - dx = dz W1^T + gy needs every j of a row: dz^T goes to shared memory as
+//   bf16x2 words ([j][row], stride ROWS + 8: conflict-free), into one of
+//   two buffers, and warp w computes dx for 16 rows (phase C), A = dz from
+//   dz^T and B = W1^T from the one [j][c] copy of W1, both by
+//   ldmatrix.trans.  Phase C of a tile runs during the block's next tile,
+//   two of its 16 k-steps beside each 16 rows' products, so that its mma
+//   and loads fill the gaps of the products' relu and rounding: one
+//   barrier a tile.
+// - Row-major channels-last tiles and ldmatrix fragments: x [row][40]
+//   (80-byte rows: the 8 rows of an ldmatrix in distinct banks) gives the B
+//   of z^T by ldmatrix and the B of dW1^T by ldmatrix.trans, and dd the
+//   same for W2 dd^T and dW2.  x rows (64 bytes at c_in = 32) land by
+//   16-byte cp.async into a double buffer, the next tile's while this one
+//   computes.  dd rows are 50 bytes (c_dec = 25): warp w copies its 16
+//   rows of the next tile's dd, one contiguous span, into its own raw
+//   buffer (16-byte cp.async from the chunk below the span's start) and
+//   repacks them into [row][40], zeros past c_dec and past n; and copies
+//   the gy of those rows.  Only warp-level barriers guard its own copies.
+// - Epilogue: dx + gy in float32, rounded to bf16, staged in place of the
+//   warp's gy rows, and stored as 16-byte row pieces; dbc sums gy from the
+//   same loads.  db1 sums dz^T's C fragments and db2 dd's B fragments
+//   (warp w those of row group w), per lane, reduced over the lanes and
+//   warps in a fixed order at the end: no serial row walk.
+// - Zeros past n: x and gy rows are zero-filled and dd rows repacked as
+//   zeros, so rows past n add nothing (h there is relu(b1), against dd =
+//   0).
+//
+// What bounds it on an H100 at the flagship (N = 557,568): 2 N c_mid (3 c_in
+// + 2 c_dec) = 41.7 GFLOP (0.042 ms at the 989 TFLOP/s bf16 peak; the mma
+// issue 45.7 GFLOP at c_dec padded to 32) against 135 MB of x, dd, gy read
+// and dx written (0.040 ms): operations.  What holds it is mma.sync issue
+// serialised with the relu and rounding (tools/seg_bwd_variants.py: the
+// products alone would take about half its time).  One block of 8 warps an
+// SM: 231,680 bytes of shared memory (W1 [256][40], two dz^T buffers
+// [256][136], the first holding W2 while the fragments load, two each of
+// the x, dd and gy tiles, the warps' raw dd spans), 234 registers.
 
-constexpr int SBM_ROWS = 128;            // rows per tile
-constexpr int SBM_WARPS = 8;
-constexpr int SBM_RSP = SBM_ROWS + 8;    // transposed-tile row stride (bf16)
-constexpr int SBM_CIP = 40;              // [j][c] weight row stride (bf16)
-constexpr int SBM_CMP = 256 + 8;         // [c][j] weight row stride (bf16)
+constexpr int SBB_WARPS = 8;     // each owns 256 / SBB_WARPS middle channels
+constexpr int SBB_ROWS = 128;    // rows per tile
+constexpr int SBB_MINB = 1;      // blocks an SM (__launch_bounds__)
+constexpr int SBB_CS = 40;       // bf16 row stride: x, dd, gy tiles; W1, W2
+constexpr int SBB_ZS = SBB_ROWS + 8;   // dz^T [j][row] row stride
+constexpr int SBB_RAWW = (16 * 64 + 43) / 16 * 8;   // a warp's raw dd span
 
-__global__ void __launch_bounds__(SBM_WARPS * 32)
-seg_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ dd,
-                   const __nv_bfloat16* __restrict__ gy,
-                   const __nv_bfloat16* __restrict__ w1,
-                   const float* __restrict__ b1,
-                   const __nv_bfloat16* __restrict__ w2,
-                   __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
-                   long slot_len, int n, int c_in, int c_mid, int c_dec) {
-  using probav::lds32;
+size_t seg_bwd_bf16_smem() {
+  return sizeof(__nv_bfloat16) *
+             ((size_t)256 * (SBB_CS + 2 * SBB_ZS) + 6 * SBB_ROWS * SBB_CS +
+              SBB_WARPS * SBB_RAWW) +
+         sizeof(float) * 2 * SBB_WARPS * 32;
+}
+
+// bf16x2 of (max(lo, 0), max(hi, 0)), each rounded to nearest even.
+__device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__global__ void __launch_bounds__(SBB_WARPS * 32, SBB_MINB)
+seg_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ dd,
+                    const __nv_bfloat16* __restrict__ gy,
+                    const __nv_bfloat16* __restrict__ w1,
+                    const float* __restrict__ b1,
+                    const __nv_bfloat16* __restrict__ w2,
+                    __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
+                    long slot_len, int n, int c_in, int c_mid, int c_dec) {
+  using E = __nv_bfloat16;
+  using probav::ldsm_x4;
+  using probav::ldsm_x4_trans;
   using probav::mma_bf16;
+  using probav::pack2;
   using probav::pack_bf16;
+  constexpr int ROWS = SBB_ROWS, CS = SBB_CS, ZS = SBB_ZS;
+  constexpr int MT = 256 / (16 * SBB_WARPS);   // 16-j m-tiles a warp
+  constexpr int RG = ROWS / 16;                // 16-row groups a tile
+  constexpr int WPR = SBB_WARPS / RG;          // phase-C warps a row group
+  constexpr int CTW = 4 / WPR;                 // phase-C 8-column tiles a warp
+  constexpr int KPG = 16 / RG;                 // phase-C k-steps a row group
+  static_assert(MT >= 1 && MT * 16 * SBB_WARPS == 256, "j per warp");
+  static_assert(WPR >= 1 && WPR * RG == SBB_WARPS && CTW % 2 == 0,
+                "phase-C rows and columns per warp");
+  static_assert(KPG * RG == 16, "phase C's k-steps spread over the groups");
+  static_assert(256 * ZS * 2 >= 256 * 32 * 4, "dW1 staged in the dz^T space");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xT = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dT = xT + 32 * SBM_RSP;          // dd^T [32][RSP]
-  __nv_bfloat16* zT = dT + 32 * SBM_RSP;          // dz^T [256][RSP]
-  __nv_bfloat16* hT = zT + 256 * SBM_RSP;         // h^T  [256][RSP]
-  __nv_bfloat16* w1T = hT + 256 * SBM_RSP;        // [256][CIP]  w1[c][j]
-  __nv_bfloat16* w2s = w1T + 256 * SBM_CIP;       // [256][CIP]  w2[j][c]
-  __nv_bfloat16* w1n = w2s + 256 * SBM_CIP;       // [32][CMP]   w1[c][j]
-  float* b1s = reinterpret_cast<float*>(w1n + 32 * SBM_CMP);   // [256]
-  float* red = b1s + 256;                                       // [8][32]
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  E* w1s = reinterpret_cast<E*>(smem_raw);   // [256][CS]  w1[c][j] at [j][c]
+  E* zt = w1s + 256 * CS;                    // [2][256][ZS]  dz^T of tiles
+  E* w2s = zt;                               // [256][CS]  w2, while loading
+  E* xb = zt + 2 * 256 * ZS;                 // [2][ROWS][CS]  x tiles
+  E* dbt = xb + 2 * ROWS * CS;               // [2][ROWS][CS]  dd tiles
+  E* gyb = dbt + 2 * ROWS * CS;              // [2][ROWS][CS]  gy tiles
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  E* raw = gyb + 2 * ROWS * CS + warp * SBB_RAWW;   // this warp's dd span
+  float* red = reinterpret_cast<float*>(gyb + 2 * ROWS * CS +
+                                        SBB_WARPS * SBB_RAWW);   // [2][W][32]
+  const E zero = __float2bfloat16_rn(0.f);
   const int g = lane / 4, q = lane % 4;
-  const int c_mid16 = (c_mid + 15) / 16 * 16;
+  const int J0 = warp * 16 * MT;             // this warp's middle channels
+  const int pr0 = 16 * (warp % RG);          // its phase-C rows
+  const int ct0 = CTW * (warp / RG);         // and 8-column tiles of dx
 
-  for (int e = tid; e < 256 * 32; e += blockDim.x) {
-    const int j = e / 32, c = e % 32;
-    const bool jin = j < c_mid;
-    w1T[j * SBM_CIP + c] = (jin && c < c_in) ? w1[(long)c * c_mid + j] : zero;
-    w2s[j * SBM_CIP + c] = (jin && c < c_dec) ? w2[(long)j * c_dec + c]
-                                               : zero;
-    w1n[c * SBM_CMP + j] = (jin && c < c_in) ? w1[(long)c * c_mid + j] : zero;
+  // W1, W2 as [j][c], zero-padded to 256 x 32 (padded z, dz, h are 0); the
+  // tiles zeroed once (the copies never write x's and gy's columns from
+  // c_in on), and the dbc and db2 sums.
+#pragma unroll
+  for (int e = tid; e < 256 * 32; e += SBB_WARPS * 32) {
+    const int c = e / 256, j = e % 256;
+    w1s[j * CS + c] = (c < c_in && j < c_mid) ? w1[(long)c * c_mid + j] : zero;
+    const int j2 = e / 32, c2 = e % 32;
+    w2s[j2 * CS + c2] =
+        (j2 < c_mid && c2 < c_dec) ? w2[(long)j2 * c_dec + c2] : zero;
   }
-  for (int j = tid; j < 256; j += blockDim.x) b1s[j] = j < c_mid ? b1[j] : 0.f;
+  for (int e = tid; e < 6 * ROWS * CS / 8; e += blockDim.x)
+    reinterpret_cast<uint4*>(xb)[e] = make_uint4(0, 0, 0, 0);
+  for (int e = tid; e < 2 * SBB_WARPS * 32; e += blockDim.x) red[e] = 0.f;
+  __syncthreads();
 
-  float acc1[2][4][4], acc2[2][4][4];   // dW1 (mt, nt), dW2 (mt, nt) tiles
+  // This warp's A fragments of W1^T and W2 (M = its j, K = c) and its b1.
+  uint32_t wa[MT][2][4], wb[MT][2][4];
+  float bias[MT][2];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int mt = 0; mt < MT; ++mt) {
+    const int row = J0 + 16 * mt + 8 * ((lane / 8) % 2) + lane % 8;
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc1[a][b][i] = acc2[a][b][i] = 0.f;
-  float db1a = 0.f, db2a = 0.f, dbca[4][2] = {};
-
-  const int rw = warp * 16;             // this warp's rows in the tile
-  const long tiles = ((long)n + SBM_ROWS - 1) / SBM_ROWS;
-  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long row0 = tile * SBM_ROWS;
-    const int nrows = (int)min((long)SBM_ROWS, (long)n - row0);
-    __syncthreads();   // weights staged / previous tile's phase B done
-    for (int e = tid; e < SBM_ROWS * 32; e += blockDim.x) {
-      const int r = e / 32, c = e % 32;
-      const bool rin = r < nrows;
-      xT[c * SBM_RSP + r] =
-          (rin && c < c_in) ? x[(row0 + r) * c_in + c] : zero;
-      dT[c * SBM_RSP + r] =
-          (rin && c < c_dec) ? dd[(row0 + r) * c_dec + c] : zero;
+    for (int ks = 0; ks < 2; ++ks) {
+      ldsm_x4(wa[mt][ks], w1s + row * CS + 16 * ks + 8 * (lane / 16));
+      ldsm_x4(wb[mt][ks], w2s + row * CS + 16 * ks + 8 * (lane / 16));
     }
-    __syncthreads();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int j = J0 + 16 * mt + g + 8 * hh;
+      bias[mt][hh] = j < c_mid ? b1[j] : 0.f;
+    }
+  }
+  __syncthreads();   // w2s read: zt may be written
 
-    // Phase A.  A fragments of x and dd (rows rw + g, rw + g + 8).
-    uint32_t ax[2][4], ad[2][4];
+  float acc1[MT][4][4], acc2[MT][4][4];   // dW1^T (j, c), dW2 (j, c) tiles
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const int c0 = kk * 16 + 2 * q;
-      const __nv_bfloat16* X = xT + rw + g;
-      const __nv_bfloat16* D = dT + rw + g;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {          // columns c0 (+8)
-        const int c = c0 + 8 * hi;
-        ax[kk][2 * hi] = pack_bf16(__bfloat162float(X[c * SBM_RSP]),
-                                   __bfloat162float(X[(c + 1) * SBM_RSP]));
-        ax[kk][2 * hi + 1] =
-            pack_bf16(__bfloat162float(X[c * SBM_RSP + 8]),
-                      __bfloat162float(X[(c + 1) * SBM_RSP + 8]));
-        ad[kk][2 * hi] = pack_bf16(__bfloat162float(D[c * SBM_RSP]),
-                                   __bfloat162float(D[(c + 1) * SBM_RSP]));
-        ad[kk][2 * hi + 1] =
-            pack_bf16(__bfloat162float(D[c * SBM_RSP + 8]),
-                      __bfloat162float(D[(c + 1) * SBM_RSP + 8]));
+    for (int ct = 0; ct < 4; ++ct)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc1[mt][ct][i] = acc2[mt][ct][i] = 0.f;
+  float db1a[MT][2] = {}, db2a[4] = {}, dbca[CTW][2] = {}, dxc[CTW][4];
+
+  const bool vec = c_in % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(gy) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  const long tiles = ((long)n + ROWS - 1) / ROWS;
+  auto rows_of = [&](long t) {
+    return (int)min((long)ROWS, (long)n - t * ROWS);
+  };
+  // Rows [0, nr) of x from tile t into dst (zeros past nr), block-wide:
+  // 16-byte cp.async where `vec`, else plain copies.
+  auto stage_x = [&](E* dst, long t, int nr) {
+    const E* src = x + t * ROWS * c_in;
+    if (vec) {
+      const int c8 = c_in / 8;
+      for (int e = tid; e < ROWS * c8; e += blockDim.x) {
+        const int r = e / c8, c = 8 * (e % c8);
+        const bool in = r < nr;
+        probav::cp_async16_zfill(dst + r * CS + c,
+                                 in ? src + r * c_in + c : src, in);
+      }
+    } else {
+      for (int e = tid; e < ROWS * c_in; e += blockDim.x) {
+        const int r = e / c_in, c = e % c_in;
+        dst[r * CS + c] = r < nr ? src[r * c_in + c] : zero;
       }
     }
-    float dxa[4][4];
+  };
+  // This warp's 16 rows of dd from tile t: the span of its real rows, by
+  // 16-byte cp.async from the chunk below its start; returns the element
+  // offset of the span in raw.
+  auto copy_dd = [&](long t) {
+    const int nrw = min(16, rows_of(t) - pr0);
+    if (nrw <= 0) return 0;
+    const uintptr_t s = reinterpret_cast<uintptr_t>(
+        dd + (t * ROWS + pr0) * c_dec);
+    const uintptr_t a = s & ~uintptr_t(15);
+    const int chunks = (int)((s + 2 * (uintptr_t)(nrw * c_dec) + 15 - a) / 16);
+    for (int i = lane; i < chunks; i += 32)
+      probav::cp_async16(raw + 8 * i, a + 16 * (uintptr_t)i);
+    return (int)((s - a) / 2);
+  };
+  // ... and its repack into rows pr0 .. pr0 + 15 of a dd tile: 8 channels
+  // a step, zeros from c_dec and past the tile's nr rows.
+  auto repack = [&](E* dst, int skew, int nr) {
+    const E* src = raw + skew;
+    for (int u = lane; u < 16 * 4; u += 32) {
+      const int p = u / 4, j = u % 4;
+      const E* s = src + p * c_dec + 8 * j;
+      const bool in = pr0 + p < nr;
+      uint32_t v[4];
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
-      dxa[t][0] = dxa[t][1] = dxa[t][2] = dxa[t][3] = 0.f;
+      for (int k = 0; k < 4; ++k) {
+        const int c = 8 * j + 2 * k;
+        v[k] = pack2(in && c < c_dec ? s[2 * k] : zero,
+                     in && c + 1 < c_dec ? s[2 * k + 1] : zero);
+      }
+      *reinterpret_cast<uint4*>(dst + (pr0 + p) * CS + 8 * j) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+  // This warp's gy rows of tile t into a gy tile (zeros past n).
+  auto stage_gy = [&](E* dst, long t) {
+    const int nrw = min(16, rows_of(t) - pr0);
+    const E* src = gy + (t * ROWS + pr0) * c_in;
+    if (vec) {
+      for (int e = lane; e < 16 * CTW; e += 32) {
+        const int r = e / CTW, c = 8 * (ct0 + e % CTW);
+        const bool in = r < nrw && c < c_in;
+        probav::cp_async16_zfill(dst + (pr0 + r) * CS + c,
+                                 in ? src + r * c_in + c : gy, in);
+      }
+    } else {
+      for (int e = lane; e < 16 * 8 * CTW; e += 32) {
+        const int r = e / (8 * CTW), c = 8 * ct0 + e % (8 * CTW);
+        dst[(pr0 + r) * CS + c] = r < nrw && c < c_in ? src[r * c_in + c]
+                                                        : zero;
+      }
+    }
+  };
+  // Phase C, k-steps ks0 .. ks0 + nks - 1 (16 j each) of dx = dz W1^T for
+  // rows pr0 .. pr0 + 15 and this warp's dx tiles, from the dz^T buffer z:
+  // A = dz and B = W1^T, both by ldmatrix.trans.
+  const int zoff = (8 * (lane / 16) + lane % 8) * ZS + pr0 +
+                   8 * ((lane / 8) % 2);
+  const E* wp = w1s + (8 * ((lane / 8) % 2) + lane % 8) * CS +
+                8 * (ct0 + lane / 16);
+  auto phase_c = [&](const E* z, int ks0, int nks) {
+#pragma unroll
+    for (int kk = 0; kk < nks; ++kk) {
+      const int ks = ks0 + kk;
+      uint32_t a[4];
+      ldsm_x4_trans(a, z + zoff + ks * 16 * ZS);
+#pragma unroll
+      for (int p = 0; p < CTW / 2; ++p) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, wp + ks * 16 * CS + 16 * p);
+        mma_bf16(dxc[2 * p], a, b[0], b[1]);
+        mma_bf16(dxc[2 * p + 1], a, b[2], b[3]);
+      }
+    }
+  };
+  // The epilogue of tile t (gy and dx staged in the gy tile y): dx + gy in
+  // float32, bf16, staged in place of this warp's gy, stored as 16-byte
+  // pieces of rows; dbc sums gy.
+  auto epilogue = [&](E* y, long t) {
+    const int nrw = min(16, rows_of(t) - pr0);
+#pragma unroll
+    for (int c = 0; c < CTW; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int off = (pr0 + g + 8 * hh) * CS + 8 * (ct0 + c) + 2 * q;
+        const float2 gv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(y + off));
+        dbca[c][0] += gv.x;
+        dbca[c][1] += gv.y;
+        *reinterpret_cast<uint32_t*>(y + off) =
+            pack_bf16(dxc[c][2 * hh] + gv.x, dxc[c][2 * hh + 1] + gv.y);
+      }
+    __syncwarp();
+    E* dst = dx + (t * ROWS + pr0) * c_in;
+    if (vec) {
+      for (int e = lane; e < 16 * CTW; e += 32) {
+        const int r = e / CTW, c = 8 * (ct0 + e % CTW);
+        if (r < nrw && c < c_in)
+          *reinterpret_cast<uint4*>(dst + r * c_in + c) =
+              *reinterpret_cast<const uint4*>(y + (pr0 + r) * CS + c);
+      }
+    } else {
+      for (int e = lane; e < 16 * 8 * CTW; e += 32) {
+        const int r = e / (8 * CTW), c = 8 * ct0 + e % (8 * CTW);
+        if (r < nrw && c < c_in) dst[r * c_in + c] = y[(pr0 + r) * CS + c];
+      }
+    }
+  };
 
-    for (int s = 0; s < c_mid16 / 16; ++s) {
-      uint32_t adz[4];
+  if (blockIdx.x < tiles) {
+    stage_x(xb, blockIdx.x, rows_of(blockIdx.x));
+    const int skew = copy_dd(blockIdx.x);
+    probav::cp_async_commit();
+    probav::cp_async_wait_all();
+    __syncwarp();
+    repack(dbt, skew, rows_of(blockIdx.x));
+  }
+  // Tile k of this block in buffers k % 2; its phase C and epilogue run in
+  // step k + 1, the phase C interleaved with tile k + 1's phases A and B.
+  int buf = 0;
+  long prev = -1;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    __syncthreads();   // x, dd of this tile staged; dz^T of prev complete
+    const long next = tile + gridDim.x;
+    int skew = 0;
+    if (next < tiles) {
+      stage_x(xb + (buf ^ 1) * ROWS * CS, next, rows_of(next));
+      skew = copy_dd(next);
+    }
+    probav::cp_async_commit();            // group: the next tile's x, dd
+    stage_gy(gyb + buf * ROWS * CS, tile);
+    probav::cp_async_commit();            // group: this tile's gy
+
+    const E* xt = xb + buf * ROWS * CS;
+    const E* dt = dbt + buf * ROWS * CS;
+    E* zw = zt + buf * 256 * ZS;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int n0 = s * 16 + half * 8;
-        float z[4] = {0.f, 0.f, 0.f, 0.f}, gg[4] = {0.f, 0.f, 0.f, 0.f};
-        const __nv_bfloat16* wz = w1T + (n0 + g) * SBM_CIP + 2 * q;
-        const __nv_bfloat16* wg = w2s + (n0 + g) * SBM_CIP + 2 * q;
+    for (int t = 0; t < CTW; ++t)
+      dxc[t][0] = dxc[t][1] = dxc[t][2] = dxc[t][3] = 0.f;
+#pragma unroll 1
+    for (int rg = 0; rg < RG; ++rg) {
+      const int r0 = 16 * rg;
+      // Phases A and B: this warp's j over rows r0 .. r0 + 15.  B of z^T
+      // and W2 dd^T (K = c, N = 8 rows): plain, rows r0 + 8 nt; B of dW1^T
+      // and dW2 (K = 16 rows, N = 8 c): .trans, c-tile pairs.
+      uint32_t xf[2][4], df[2][4], xtr[2][4], dtr[2][4];
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          mma_bf16(z, ax[kk], lds32(wz + kk * 16), lds32(wz + kk * 16 + 8));
-          mma_bf16(gg, ad[kk], lds32(wg + kk * 16), lds32(wg + kk * 16 + 8));
+      for (int t = 0; t < 2; ++t) {
+        const int pl = (r0 + 8 * t + lane % 8) * CS + 8 * (lane / 8);
+        ldsm_x4(xf[t], xt + pl);
+        ldsm_x4(df[t], dt + pl);
+        const int tr = (r0 + 8 * ((lane / 8) % 2) + lane % 8) * CS +
+                       8 * (2 * t + lane / 16);
+        ldsm_x4_trans(xtr[t], xt + tr);
+        ldsm_x4_trans(dtr[t], dt + tr);
+      }
+      float z[MT][2][4], gg[MT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) z[mt][nt][i] = gg[mt][nt][i] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            mma_bf16(z[mt][nt], wa[mt][ks], xf[nt][2 * ks],
+                     xf[nt][2 * ks + 1]);
+            mma_bf16(gg[mt][nt], wb[mt][ks], df[nt][2 * ks],
+                     df[nt][2 * ks + 1]);
+          }
         }
-        const int j = n0 + 2 * q;
-        const float bb0 = b1s[j], bb1 = b1s[j + 1];
-        z[0] += bb0; z[1] += bb1; z[2] += bb0; z[3] += bb1;
-        float dz[4], h[4];
+      // The previous tile's phase C, KPG of its k-steps, beside these
+      // products (at a block's first tile it reads what the other dz^T
+      // buffer holds, and nothing of it is stored).
+      phase_c(zt + (buf ^ 1) * 256 * ZS, rg * KPG, KPG);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        // C tile (mt, nt): j = J0 + 16 mt + g + 8 hh at registers 2 hh
+        // and 2 hh + 1, rows r0 + 8 nt + 2q and + 1: dz = bf16(W2 dd)
+        // masked by z > 0, h = bf16(relu(z)), as bf16x2 words.
+        uint32_t adz[4], ah[4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float z0 = z[mt][nt][2 * hh] + bias[mt][hh];
+            const float z1 = z[mt][nt][2 * hh + 1] + bias[mt][hh];
+            const uint32_t dzp =
+                pack_bf16(gg[mt][nt][2 * hh], gg[mt][nt][2 * hh + 1]) &
+                ((z0 > 0.f ? 0xffffu : 0u) | (z1 > 0.f ? 0xffff0000u : 0u));
+            adz[2 * nt + hh] = dzp;
+            ah[2 * nt + hh] = relu_bf16x2(z0, z1);
+            db1a[mt][hh] += __uint_as_float(dzp << 16) +
+                            __uint_as_float(dzp & 0xffff0000u);
+            E* zp = zw + (J0 + 16 * mt + g + 8 * hh) * ZS;
+            *reinterpret_cast<uint32_t*>(zp + r0 + 8 * nt + 2 * q) = dzp;
+          }
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          mma_bf16(acc1[mt][2 * t], adz, xtr[t][0], xtr[t][1]);
+          mma_bf16(acc1[mt][2 * t + 1], adz, xtr[t][2], xtr[t][3]);
+          mma_bf16(acc2[mt][2 * t], ah, dtr[t][0], dtr[t][1]);
+          mma_bf16(acc2[mt][2 * t + 1], ah, dtr[t][2], dtr[t][3]);
+        }
+      }
+      // db2: dd at rows r0 + 2q (+1, +8, +9), c = 8 ct + g; row group rg
+      // is summed by warp rg mod the warps.
+      const float on = rg % SBB_WARPS == warp ? 1.f : 0.f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          dz[i] = z[i] > 0.f ? round_to<__nv_bfloat16>(gg[i]) : 0.f;
-          h[i] = fmaxf(z[i], 0.f);
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&dtr[t][i]));
+          db2a[2 * t + i / 2] = fmaf(on, v.x + v.y, db2a[2 * t + i / 2]);
         }
-        adz[2 * half] = pack_bf16(dz[0], dz[1]);
-        adz[2 * half + 1] = pack_bf16(dz[2], dz[3]);
-        const int r = rw + g;
-        zT[j * SBM_RSP + r] = __float2bfloat16_rn(dz[0]);
-        zT[(j + 1) * SBM_RSP + r] = __float2bfloat16_rn(dz[1]);
-        zT[j * SBM_RSP + r + 8] = __float2bfloat16_rn(dz[2]);
-        zT[(j + 1) * SBM_RSP + r + 8] = __float2bfloat16_rn(dz[3]);
-        hT[j * SBM_RSP + r] = __float2bfloat16_rn(h[0]);
-        hT[(j + 1) * SBM_RSP + r] = __float2bfloat16_rn(h[1]);
-        hT[j * SBM_RSP + r + 8] = __float2bfloat16_rn(h[2]);
-        hT[(j + 1) * SBM_RSP + r + 8] = __float2bfloat16_rn(h[3]);
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const __nv_bfloat16* wb = w1n + (t * 8 + g) * SBM_CMP + s * 16 + 2 * q;
-        mma_bf16(dxa[t], adz, lds32(wb), lds32(wb + 8));
-      }
     }
-
-    // dx = W1 dz + gy, summed in float32, stored in bf16; dbc sums gy.
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rw + g + (i < 2 ? 0 : 8);
-        const int c = t * 8 + 2 * q + (i & 1);
-        if (r < nrows && c < c_in) {
-          const long idx = (row0 + r) * c_in + c;
-          const float gv = __bfloat162float(gy[idx]);
-          dbca[t][i & 1] += gv;
-          dx[idx] = __float2bfloat16_rn(dxa[t][i] + gv);
-        }
-      }
-    __syncthreads();   // zT, hT complete
-
-    // Phase B: K = the tile's 128 rows.
-#pragma unroll 1
-    for (int kk = 0; kk < SBM_ROWS / 16; ++kk) {
-      const int k0 = kk * 16 + 2 * q;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {     // x^T rows c = mt*16 + g (+8)
-        const __nv_bfloat16* A = xT + (mt * 16 + g) * SBM_RSP + k0;
-        a[mt][0] = lds32(A);
-        a[mt][1] = lds32(A + 8 * SBM_RSP);
-        a[mt][2] = lds32(A + 8);
-        a[mt][3] = lds32(A + 8 * SBM_RSP + 8);
-      }
-#pragma unroll
-      for (int nl = 0; nl < 4; ++nl) {     // dz^T rows j = nt*8 + g
-        const int nt = warp * 4 + nl;
-        if (nt * 8 >= c_mid16) break;
-        const __nv_bfloat16* Bp = zT + (nt * 8 + g) * SBM_RSP + k0;
-        const uint32_t b0 = lds32(Bp), b1v = lds32(Bp + 8);
-        mma_bf16(acc1[0][nl], a[0], b0, b1v);
-        mma_bf16(acc1[1][nl], a[1], b0, b1v);
-      }
-      uint32_t bd[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {     // dd^T rows c = nt*8 + g
-        const __nv_bfloat16* Bp = dT + (nt * 8 + g) * SBM_RSP + k0;
-        bd[nt][0] = lds32(Bp);
-        bd[nt][1] = lds32(Bp + 8);
-      }
-#pragma unroll
-      for (int ml = 0; ml < 2; ++ml) {     // h^T rows j = mt*16 + g (+8)
-        const int mt = warp * 2 + ml;
-        if (mt * 16 >= c_mid16) break;
-        const __nv_bfloat16* A = hT + (mt * 16 + g) * SBM_RSP + k0;
-        uint32_t ah[4] = {lds32(A), lds32(A + 8 * SBM_RSP), lds32(A + 8),
-                          lds32(A + 8 * SBM_RSP + 8)};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc2[ml][nt], ah, bd[nt][0], bd[nt][1]);
-      }
+    if (prev >= 0) {
+      probav::cp_async_wait_group<2>();   // prev's gy
+      __syncwarp();
+      epilogue(gyb + (buf ^ 1) * ROWS * CS, prev);
     }
-    // Bias sums over the tile's rows (zero beyond nrows), pairs of rows
-    // at a time into four independent sums, combined in a fixed order.
-    auto rowsum = [&](const __nv_bfloat16* row) {
-      float s4[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int r = 0; r < SBM_ROWS; r += 2) {
-        const float2 v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(row + r));
-        s4[(r / 2) % 4] += v.x + v.y;
-      }
-      return (s4[0] + s4[1]) + (s4[2] + s4[3]);
-    };
-    if (tid < c_mid) db1a += rowsum(zT + tid * SBM_RSP);
-    if (tid < c_dec) db2a += rowsum(dT + tid * SBM_RSP);
+    if (next < tiles) {
+      probav::cp_async_wait_group<1>();   // the next tile's x, dd
+      __syncwarp();
+      repack(dbt + (buf ^ 1) * ROWS * CS, skew, rows_of(next));
+    }
+    prev = tile;
   }
+  if (prev >= 0) {   // the last tile's phase C and epilogue
+    __syncthreads();   // its dz^T complete
+#pragma unroll
+    for (int t = 0; t < CTW; ++t)
+      dxc[t][0] = dxc[t][1] = dxc[t][2] = dxc[t][3] = 0.f;
+#pragma unroll 1
+    for (int rg = 0; rg < RG; ++rg)
+      phase_c(zt + (buf ^ 1) * 256 * ZS, rg * KPG, KPG);
+    probav::cp_async_wait_group<0>();
+    __syncwarp();
+    epilogue(gyb + (buf ^ 1) * ROWS * CS, prev);
+  }
+  probav::cp_async_wait_all();
 
-  // Write this block's partial slot: every entry of dW1..dbc.
+  // Write this block's partial slot, every entry of dW1..dbc: dW1, then
+  // dW2, staged in the dz^T space in the slot's order and stored in
+  // coalesced runs.
   const Slot sl(c_in, c_mid, c_dec);
   float* slot = part + blockIdx.x * slot_len;
+  float* sbuf = reinterpret_cast<float*>(zt);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = g + (i < 2 ? 0 : 8), cc = 2 * q + (i & 1);
+  for (int pass = 0; pass < 2; ++pass) {
+    __syncthreads();   // the dz^T space (then sbuf) read
 #pragma unroll
-    for (int nl = 0; nl < 4; ++nl)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int c = mt * 16 + rr, j = (warp * 4 + nl) * 8 + cc;
-        if (c < c_in && j < c_mid)
-          slot[sl.w1 + (long)c * c_mid + j] = acc1[mt][nl][i];
-      }
+      for (int ct = 0; ct < 4; ++ct)
 #pragma unroll
-    for (int ml = 0; ml < 2; ++ml)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int j = (warp * 2 + ml) * 16 + rr, c = nt * 8 + cc;
-        if (j < c_mid && c < c_dec)
-          slot[sl.w2 + (long)j * c_dec + c] = acc2[ml][nt][i];
-      }
+        for (int i = 0; i < 4; ++i) {
+          const int j = J0 + 16 * mt + g + 8 * (i / 2);
+          const int c = 8 * ct + 2 * q + (i & 1);
+          if (pass == 0 && j < c_mid && c < c_in)
+            sbuf[c * c_mid + j] = acc1[mt][ct][i];
+          if (pass == 1 && j < c_mid && c < c_dec)
+            sbuf[j * c_dec + c] = acc2[mt][ct][i];
+        }
+    __syncthreads();
+    const int len = pass == 0 ? c_in * c_mid : c_mid * c_dec;
+    float* dst = slot + (pass == 0 ? sl.w1 : sl.w2);
+    for (int e = tid; e < len; e += blockDim.x) dst[e] = sbuf[e];
   }
-  if (tid < c_mid) slot[sl.b1 + tid] = db1a;
-  if (tid < c_dec) slot[sl.b2 + tid] = db2a;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    // db1: lanes q hold rows 2q, 2q + 1 (mod 8) of j; summed in order.
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = db1a[mt][hh];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const int j = J0 + 16 * mt + g + 8 * hh;
+      if (q == 0 && j < c_mid) slot[sl.b1 + j] = v;
+    }
+  }
+#pragma unroll
+  for (int ct = 0; ct < 4; ++ct) {   // db2 of this warp's row groups
+    float v = db2a[ct];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (q == 0) red[(SBB_WARPS + warp) * 32 + 8 * ct + g] = v;
+  }
   // dbc: sum the 8 row groups (lanes g) of each warp, then the warps.
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+  for (int t = 0; t < CTW; ++t)
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       float v = dbca[t][u];
       v += __shfl_xor_sync(0xffffffffu, v, 4);
       v += __shfl_xor_sync(0xffffffffu, v, 8);
       v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (g == 0) red[warp * 32 + t * 8 + 2 * q + u] = v;
+      if (g == 0) red[warp * 32 + 8 * (ct0 + t) + 2 * q + u] = v;
     }
   __syncthreads();
   if (tid < c_in) {
     float sum = 0.f;
-    for (int w = 0; w < SBM_WARPS; ++w) sum += red[w * 32 + tid];
+    for (int w = 0; w < SBB_WARPS; ++w) sum += red[w * 32 + tid];
     slot[sl.bc + tid] = sum;
+  }
+  if (tid < c_dec) {
+    float sum = 0.f;
+    for (int w = 0; w < SBB_WARPS; ++w) sum += red[(SBB_WARPS + w) * 32 + tid];
+    slot[sl.b2 + tid] = sum;
   }
 }
 
-cudaError_t launch_seg_bwd_mma(const void* x, const void* dd, const void* gy,
-                               const void* w1, const float* b1,
-                               const void* w2, void* dx, float* part,
-                               long slot_len, int G, int n, int c_in,
-                               int c_mid, int c_dec, cudaStream_t s) {
-  const size_t smem =
-      sizeof(__nv_bfloat16) * ((size_t)(2 * 32 + 2 * 256) * SBM_RSP +
-                               2 * 256 * SBM_CIP + 32 * SBM_CMP) +
-      sizeof(float) * (256 + SBM_WARPS * 32);
-  auto kern = seg_bwd_mma_kernel;
+cudaError_t launch_seg_bwd_bf16(const void* x, const void* dd, const void* gy,
+                                const void* w1, const float* b1,
+                                const void* w2, void* dx, float* part,
+                                long slot_len, int G, int n, int c_in,
+                                int c_mid, int c_dec, cudaStream_t s) {
+  const size_t smem = seg_bwd_bf16_smem();
+  auto kern = seg_bwd_bf16_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   using B16 = __nv_bfloat16;
-  kern<<<G, SBM_WARPS * 32, smem, s>>>(
+  kern<<<G, SBB_WARPS * 32, smem, s>>>(
       static_cast<const B16*>(x), static_cast<const B16*>(dd),
       static_cast<const B16*>(gy), static_cast<const B16*>(w1), b1,
       static_cast<const B16*>(w2), static_cast<B16*>(dx), part, slot_len, n,
@@ -1709,7 +1943,7 @@ WgradRoute wgrad_route(int dtype, int c_dec, int c_out, int W, int Tn) {
 
 // Which seg_bwd blk_bwd runs, from the dtype and widths alone: the tensor
 // cores where their tiles cover the widths (c_in, c_dec <= 32, c_mid <=
-// 256), bf16 on seg_bwd_mma_kernel and float32 on seg_bwd_tf32_kernel;
+// 256), bf16 on seg_bwd_bf16_kernel and float32 on seg_bwd_tf32_kernel;
 // elsewhere seg_bwd_kernel on the CUDA cores.
 enum SegBwdRoute { SEG_BWD_CUDA_CORES = 0, SEG_BWD_BF16_MMA = 1,
                    SEG_BWD_TF32_MMA = 2 };
@@ -1767,8 +2001,8 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
   if (err != cudaSuccess) return err;
   switch (seg_bwd_route(dtype, c_in, c_mid, c_dec)) {
     case SEG_BWD_BF16_MMA:
-      err = launch_seg_bwd_mma(x, dd, gy, w1, b1, w2, dx, part, sl.len, G, n,
-                               c_in, c_mid, c_dec, s);
+      err = launch_seg_bwd_bf16(x, dd, gy, w1, b1, w2, dx, part, sl.len, G,
+                                n, c_in, c_mid, c_dec, s);
       break;
     case SEG_BWD_TF32_MMA:
       err = launch_seg_bwd_tf32(x, dd, gy, w1, b1, w2, dx, part, sl.len, G,
@@ -1832,7 +2066,7 @@ int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
 }
 
 // The seg_bwd kernel probav_blk_bwd launches for these widths: 0 =
-// seg_bwd_kernel (CUDA cores), 1 = seg_bwd_mma_kernel (bf16 mma), 2 =
+// seg_bwd_kernel (CUDA cores), 1 = seg_bwd_bf16_kernel (bf16 mma), 2 =
 // seg_bwd_tf32_kernel (float32 as 3xTF32 mma).
 int probav_seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return (int)seg_bwd_route(dtype, c_in, c_mid, c_dec);

@@ -111,19 +111,31 @@ def blk_bwd_plain(gy, x, d, w1, b1, w2, wc):
     g5 = gy.to(dt).float()
     gc = g5.permute(0, 4, 1, 2, 3)                        # [B, C, H, W, T]
     w = wc.to(dt).float().permute(4, 3, 0, 1, 2)          # [C, C_dec, k^3]
-    dd5 = F.conv_transpose3d(gc, w, padding=1).to(dt).float()
+    dd5 = F.conv_transpose3d(gc, w, padding=1).to(dt)
     dwc = torch.nn.grad.conv3d_weight(
         d.float().permute(0, 4, 1, 2, 3), w.shape, gc, padding=1)
     dwc = dwc.permute(2, 3, 4, 1, 0)                      # [k^3, C_dec, C]
-    x2 = x.reshape(-1, c).float()
-    dd2 = dd5.permute(0, 2, 3, 4, 1).reshape(-1, c_dec)
+    dx, *grads = seg_bwd_plain(
+        x.reshape(-1, c), dd5.permute(0, 2, 3, 4, 1).reshape(-1, c_dec),
+        gy.reshape(-1, c), w1, b1, w2)
+    return (dx.reshape(x.shape), dwc, *grads)
+
+
+def seg_bwd_plain(x, dd, gy, w1, b1, w2):
+    """The expand/decay part of ``blk_bwd_plain`` on rows: x, gy [N, C] and
+    dd [N, C_dec] in the working dtype (x's) -> (dx [N, C] in that dtype,
+    dw1, db1, dw2, db2, dbc in float32): z = x W1 + b1 recomputed, dz =
+    (W2 dd) where z > 0, rounded to the working dtype, and relu(z) rounded
+    too; sums in float32."""
+    dt = x.dtype
+    x2, dd2, g2 = x.float(), dd.to(dt).float(), gy.to(dt).float()
     w1f, w2f = w1.to(dt).float(), w2.to(dt).float()
     z = torch.matmul(x2, w1f) + b1.float()
     dz = torch.where(z > 0, torch.matmul(dd2, w2f.t()), 0.0).to(dt).float()
-    dx = (torch.matmul(dz, w1f.t()) + g5.reshape(-1, c)).to(dt)
+    dx = (torch.matmul(dz, w1f.t()) + g2).to(dt)
     h = torch.relu(z).to(dt).float()
-    return (dx.reshape(x.shape), dwc, torch.matmul(x2.t(), dz), dz.sum(0),
-            torch.matmul(h.t(), dd2), dd2.sum(0), g5.reshape(-1, c).sum(0))
+    return (dx, torch.matmul(x2.t(), dz), dz.sum(0), torch.matmul(h.t(), dd2),
+            dd2.sum(0), g2.sum(0))
 
 
 # ---------------------------------------------------------------------- #
@@ -171,7 +183,7 @@ def seg_fwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
 # The kernels blk_bwd's expand/decay backward may launch, by the code that
 # csrc/blk_bwd.cu's seg_bwd_route gives.
 SEG_BWD_ROUTES = ("seg_bwd_kernel (CUDA cores)",
-                  "seg_bwd_mma_kernel (bf16 mma)",
+                  "seg_bwd_bf16_kernel (bf16 mma)",
                   "seg_bwd_tf32_kernel (3xTF32 mma)")
 
 

@@ -52,7 +52,7 @@ BLK_BWD_PARTS = (("dd conv", (("conv_ring_kernel", ", false>"),)),
                  ("wgrad", (("wgrad_kernel", ""), ("wgrad_ring_kernel", ""),
                             ("wgrad_tf32_kernel", ""))),
                  ("seg_bwd", (("seg_bwd_kernel", ", false>"),
-                              ("seg_bwd_mma_kernel", ""),
+                              ("seg_bwd_bf16_kernel", ""),
                               ("seg_bwd_tf32_kernel", ""))),
                  ("reduce", (("reduce_partials_kernel", ""),)))
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores,

@@ -418,6 +418,37 @@ def test_f32_blk_bwd_seg_bwd_routes_match_plain_on_card(cuda, shape, c, cmid,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,c,cmid,cdec,route", [
+    ((128, 22, 22, 9), 32, 256, 25, "seg_bwd_bf16_kernel"),
+    ((3, 7, 6, 5), 8, 64, 6, "seg_bwd_bf16_kernel"),
+    ((3, 7, 6, 5), 24, 200, 19, "seg_bwd_bf16_kernel"),
+    ((2, 22, 22, 9), 32, 256, 32, "seg_bwd_bf16_kernel"),
+    ((1, 3, 5, 7), 32, 256, 25, "seg_bwd_bf16_kernel"),
+    ((3, 7, 6, 5), 33, 256, 25, "seg_bwd_kernel")],
+    ids=["flagship_b128", "c8", "cmid200", "cdec32", "rows105", "c33"])
+def test_bf16_blk_bwd_seg_bwd_routes_match_plain_on_card(cuda, shape, c, cmid,
+                                                         cdec, route):
+    """bf16 within the tensor cores' widths takes seg_bwd_bf16_kernel: the
+    flagship at batch 128, 8/64/6 (two warps' middle channels real, six
+    warps' all padding), c_mid 200 (a warp's channels cut short), c_dec 32
+    (dd rows of 64 bytes), 105 rows (less than a tile); 33 channels take
+    the CUDA-core seg_bwd.  All match plain on the dyadic inputs to the
+    bf16 tolerances, and two calls agree bit for bit."""
+    assert ts.seg_bwd_route(torch.bfloat16, c, cmid, cdec).startswith(route)
+    args = blk_bwd_inputs(shape, c, cmid, cdec, seed=9, device=cuda,
+                          dtype=torch.bfloat16)
+    got = ts.blk_bwd(*args)
+    again = ts.blk_bwd(*args)
+    torch.cuda.synchronize()
+    want = ts.blk_bwd_plain(*args)
+    tol = blk_bwd_tolerances(torch.bfloat16)
+    for name, a, a2, b in zip(BWD_NAMES, got, again, want):
+        assert a.shape == b.shape, name
+        assert max_rel(a, b) < tol[name], (name, max_rel(a, b))
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,cmid,cdec,route", [
     ((128, 22, 22, 9), 32, 256, 25, "wgrad_ring_kernel"),
     ((3, 7, 6, 5), 8, 64, 6, "wgrad_ring_kernel"),
     ((2, 4, 48, 9), 32, 256, 25, "wgrad_ring_kernel"),
