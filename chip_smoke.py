@@ -20,16 +20,18 @@ Phases, each printing its result:
    and the 64-filter widths at T = 19; seg_fwd's log names the kernel its
    C entry routes each width to (at float32 the 3xTF32 tensor-core
    seg_fwd_tf32_kernel, which the flagship must take, and the CUDA-core
-   seg_fwd_kernel at 64/512/51 and the width phase's widths; bounds
-   counted on the units of that route); blk_bwd and wide_bwd are fed dyadic
-   inputs (blk_bwd's log names the seg_bwd and the wgrad kernel its C
-   entry routes each width to: the tensor-core seg_bwd at the flagship,
-   seg_bwd_bf16_kernel at bf16 and the 3xTF32 seg_bwd_tf32_kernel at
-   float32, the CUDA-core one at 64/512/51; the tensor-core wgrad from 1
-   to 32 channels where its rows fit; the flagship must take both on the
-   tensor cores at both dtypes) and the shift tables
-   integer planes (probav_tpu_torch/tools/dyadic.py), on which both
-   versions take the same relu, sign and rounding decisions;
+   seg_fwd_kernel at 64/512/51 and the width phase's widths; at bf16
+   seg_fwd_bf16_kernel, which the flagship must take, and
+   seg_fwd_mma_kernel, which 64/512/51 and the width phase's widths must
+   take; bounds counted on the units of that route); blk_bwd and wide_bwd
+   are fed dyadic inputs (blk_bwd's log names the seg_bwd and the wgrad
+   kernel its C entry routes each width to: the tensor-core seg_bwd at the
+   flagship, seg_bwd_bf16_kernel at bf16 and the 3xTF32
+   seg_bwd_tf32_kernel at float32, the CUDA-core one at 64/512/51; the
+   tensor-core wgrad from 1 to 32 channels where its rows fit; the
+   flagship must take both on the tensor cores at both dtypes) and the
+   shift tables integer planes (probav_tpu_torch/tools/dyadic.py), on
+   which both versions take the same relu, sign and rounding decisions;
 4. widths: the four block-stack kernels beyond the flagship's channels,
    at the widths of the 48-, 72- and 128-filter models (48/384/38,
    72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
@@ -294,6 +296,17 @@ def seg_fwd_route(dn, c, cmid, cdec):
     return ts.seg_fwd_route(getattr(torch, dn), c, cmid, cdec)
 
 
+def wide_seg_route(dn, c, cmid, cdec):
+    """Beyond 32/256/32 bf16 seg_fwd keeps seg_fwd_mma_kernel (the
+    route of seg_fwd_bf16_kernel ends there); raises otherwise."""
+    from probav_tpu_torch.ops import tstack as ts
+    if dn == "bfloat16" and seg_fwd_route(dn, c, cmid, cdec) != \
+            ts.SEG_FWD_ROUTES[1]:
+        raise AssertionError(f"seg_fwd bf16 {c}/{cmid}/{cdec} route "
+                             f"{seg_fwd_route(dn, c, cmid, cdec)}, expected "
+                             f"{ts.SEG_FWD_ROUTES[1]}")
+
+
 def kernel_costs(name, n, c, cmid, cdec, dn):
     """(FLOP, bytes, peak FLOP/s, route) of one launch: each input read
     once, each output written once (biases and weight grads in float32);
@@ -422,7 +435,7 @@ def phase_kernels(torch, ts, dev, card):
         route = seg_fwd_route(dn, C, CMID, CDEC)
         log(f"kernel seg_fwd {dn}: max|diff| {err:.3e} (max|ref| "
             f"{scale:.3e}, tol {TOL[dn]:g}); route {route}")
-        want_route = ts.SEG_FWD_ROUTES[1 if dn == "bfloat16" else 2]
+        want_route = ts.SEG_FWD_ROUTES[3 if dn == "bfloat16" else 2]
         if route != want_route:
             raise AssertionError(f"seg_fwd {dn} route {route}, expected "
                                  f"{want_route}")
@@ -525,6 +538,7 @@ def phase_kernels(torch, ts, dev, card):
             f"; blk_bwd seg_bwd route {ts.seg_bwd_route(dtype, 64, 512, 51)}"
             f", wgrad route {ts.wgrad_route(dtype, 64, 51, HW, T)}")
         del args
+        wide_seg_route(dn, 64, 512, 51)
         for label, shape, cd, co in CONV_ENVELOPE:
             g = torch.Generator(device=dev).manual_seed(11)
             rn = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=dev)
@@ -609,6 +623,7 @@ def phase_widths(torch, ts, dev, card):
             report("seg_fwd", dn, widths, err, ms, pms)
             log(f"width seg_fwd {dn} [{'/'.join(map(str, widths))}]: route "
                 f"{seg_fwd_route(dn, *widths)}")
+            wide_seg_route(dn, *widths)
 
             d5 = d.reshape(x.shape[:-1] + (cdec,))
             err, _ = check(f"width conv_fwd {widths} {dn}",

@@ -884,13 +884,6 @@ size_t seg_bwd_bf16_smem() {
          sizeof(float) * 2 * SBB_WARPS * 32;
 }
 
-// bf16x2 of (max(lo, 0), max(hi, 0)), each rounded to nearest even.
-__device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
 __global__ void __launch_bounds__(SBB_WARPS * 32, SBB_MINB)
 seg_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ dd,
@@ -906,6 +899,7 @@ seg_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   using probav::mma_bf16;
   using probav::pack2;
   using probav::pack_bf16;
+  using probav::relu_bf16x2;
   constexpr int ROWS = SBB_ROWS, CS = SBB_CS, ZS = SBB_ZS;
   constexpr int MT = 256 / (16 * SBB_WARPS);   // 16-j m-tiles a warp
   constexpr int RG = ROWS / 16;                // 16-row groups a tile

@@ -37,6 +37,10 @@
 //   broadcast float4 loads.
 // - seg_fwd, bf16, runs on the tensor cores (mma.sync m16n8k16, float32
 //   accumulators) and chains the expand and decay products in registers.
+//   Within the widths of the float32 tensor-core route it runs
+//   seg_fwd_bf16_kernel: x tiles staged by cp.async, weight fragments by
+//   ldmatrix reused over each warp's row tiles, d stored as contiguous
+//   spans; wider, seg_fwd_mma_kernel.
 //
 // Every kernel takes C and C_dec from 1 to 128 (probav::MAX_CH), in
 // 32-channel buckets of its compile-time widths (probav::by_bucket).
@@ -78,6 +82,7 @@ using probav::mma_term;
 using probav::mma_tf32;
 using probav::pack2;
 using probav::pack_bf16;
+using probav::relu_bf16x2;
 using probav::run_buf_bytes;
 using probav::sm_count;
 using probav::split_a;
@@ -463,17 +468,17 @@ cudaError_t launch_seg_fwd_tf32(const void* x, const void* w1, const void* b1,
   return cudaGetLastError();
 }
 
-// Which kernel probav_seg_fwd runs, from the dtype and widths alone: bf16
-// on seg_fwd_mma_kernel at every width; float32 on the tensor cores where
-// their tiles cover the widths (c_in, c_dec <= 32, c_mid <= 256), else on
-// seg_fwd_kernel (CUDA cores).
+// Which kernel probav_seg_fwd runs, from the dtype and widths alone: where
+// the tensor-core tiles cover the widths (c_in, c_dec <= 32, c_mid <= 256)
+// seg_fwd_bf16_kernel at bf16 and seg_fwd_tf32_kernel at float32; beyond,
+// seg_fwd_mma_kernel at bf16 and seg_fwd_kernel (CUDA cores) at float32.
 enum SegFwdRoute { SEG_FWD_CUDA_CORES = 0, SEG_FWD_BF16_MMA = 1,
-                   SEG_FWD_TF32_MMA = 2 };
+                   SEG_FWD_TF32_MMA = 2, SEG_FWD_BF16_LDSM = 3 };
 
 SegFwdRoute seg_fwd_route(int dtype, int c_in, int c_mid, int c_dec) {
-  if (dtype == 1) return SEG_FWD_BF16_MMA;
-  if (c_in > 32 || c_dec > 32 || c_mid > 256) return SEG_FWD_CUDA_CORES;
-  return SEG_FWD_TF32_MMA;
+  const bool tiles = c_in <= 32 && c_dec <= 32 && c_mid <= 256;
+  if (dtype == 1) return tiles ? SEG_FWD_BF16_LDSM : SEG_FWD_BF16_MMA;
+  return tiles ? SEG_FWD_TF32_MMA : SEG_FWD_CUDA_CORES;
 }
 
 // ------------------------------------------------------------------------ //
@@ -659,6 +664,305 @@ cudaError_t dispatch_seg_mma(const void* x, const void* w1, const void* b1,
           x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec, s);
     });
   });
+}
+
+// ------------------------------------------------------------------------ //
+// seg_fwd, bf16, designed for Hopper: seg_fwd_bf16_kernel, for c_in, c_dec //
+// <= 32 and c_mid <= 256 (seg_fwd_route; the flagship's 32/256/25).  It    //
+// replaces the TPU kernel pallas_tstack.py:244 seg_fwd at bf16 there and   //
+// computes what seg_fwd_mma_kernel computes, with the same rounding        //
+// points: z = x W1 + b1 summed in float32, h = relu(z) rounded to bf16,    //
+// d = bf16(h W2 + b2) summed in float32.                                   //
+// ------------------------------------------------------------------------ //
+//
+// - Tiles: a persistent grid (blocks an SM from the occupancy API times the
+//   SMs, at most the tile count) walks tiles of SFB_ROWS = 256 rows; warp w
+//   of 8 owns rows 32 w .. 32 w + 31 of each, SFB_MT = 2 row tiles of 16.
+//   x tiles are double-buffered as [row][40] bf16 (80-byte rows: the 8 rows
+//   of an ldmatrix fall in distinct banks); the next tile's rows arrive by
+//   16-byte cp.async (where c_in % 8 == 0 and x is 16-byte aligned, else
+//   plain copies; zeros past n) while this one computes, and one barrier a
+//   tile guards both buffers.  Columns c_in..31 of both buffers are zeroed
+//   once and never written: the fragments read them against zero rows of
+//   W1, and 0 x NaN would be NaN.
+// - Weights staged once per block, zero-padded to 256 x 32: W1 as [j][k]
+//   rows of 40, W2 as [c][j] rows of 264 (8 words mod 32: conflict-free
+//   rows), b1 in float32; b2 in registers.  Plain ldmatrix.x4 of W1 [j][k]
+//   gives the expand's B fragments (16 middle channels x 32 inputs in two),
+//   of W2 [c][j] the decay's (32 outputs x 16 middle channels in two).
+// - A step is 16 middle channels: its 4 ldmatrix.x4 of weights feed 8 mma
+//   for each of the warp's SFB_MT row tiles, whose x A fragments are loaded
+//   once a tile.  z = x W1 starts from b1 in the mma's sums; relu and the
+//   rounding to bf16 are one cvt.rn.relu.bf16x2.f32 a pair, and the two
+//   8-column C tiles of z are the A fragment of the decay's 16-wide k-step
+//   (C columns 2q, 2q+1 are A columns 2q, 2q+1), so h never leaves
+//   registers.  The 16 steps are unrolled, each step's weight fragments
+//   loaded during the step before; steps past c_mid are not run (uniform
+//   over the block), and padded middle channels give z = h = 0.
+// - Epilogue: + b2, rounded to bf16, staged in the warp's own buffer as the
+//   contiguous span of its rows' c_dec columns at d's 16-byte skew, then
+//   stored by the warp as 16-byte pieces (element by element at the span's
+//   two ends); nothing past n.
+//
+// - Shared memory: 20,480 (W1) + 16,896 (W2) + 2 x 20,480 (x tiles) +
+//   8 x 2,064 (spans) + 1,024 (b1) = 95,872 B; two blocks an SM, at most
+//   128 registers each.  Measured against one block of 8, 12 or 16 warps,
+//   two of 6, three of 4, 1 or 4 row tiles a warp and the steps rolled
+//   (tools/seg_fwd_variants.py, PERF.md): the fastest.
+//
+// What bounds it on an H100 at the flagship (N = 557,568): 35.7 MB of x
+// read and 27.9 MB of d written, 0.019 ms at 3.35 TB/s, against 16.3 GFLOP
+// (0.0165 ms at the 989 TFLOP/s bf16 peak; mma issues C_dec padded to 32):
+// bytes.  mma.sync issues near half that peak, so the products alone take
+// about as long as the bytes; they do not overlap the weight fragments'
+// shared-memory reads, the relu and rounding and the epilogue well
+// (without the mma it takes about 55% of its time).
+
+constexpr int SFB_WARPS = 8;                       // warps per block
+constexpr int SFB_MT = 2;                          // 16-row tiles per warp
+constexpr int SFB_MINB = 2;                        // blocks per SM
+constexpr int SFB_ROWS = 16 * SFB_MT * SFB_WARPS;  // rows per tile
+constexpr int SFB_XS = 40;                         // x tile, W1 [j][k] stride
+constexpr int SFB_WS = 256 + 8;                    // W2 [c][j] row stride
+constexpr int SFB_DS = 16 * SFB_MT * 32 + 8;       // a warp's d span buffer
+
+constexpr size_t seg_fwd_bf16_smem() {
+  return sizeof(__nv_bfloat16) *
+             ((size_t)256 * SFB_XS + 32 * SFB_WS + 2 * SFB_ROWS * SFB_XS +
+              SFB_WARPS * SFB_DS) +
+         sizeof(float) * 256;
+}
+
+// dst[j] = buf[skew + j] for j < cnt, by the lanes of one warp: skew is
+// dst's element offset in its 16-byte chunk, so buf's chunks line up with
+// dst's; whole chunks go as 16-byte stores, the span's two ends element by
+// element.
+__device__ __forceinline__ void store_span_warp(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* buf,
+                                                int skew, int cnt,
+                                                int lane) {
+  const int chunks = (skew + cnt + 7) / 8;
+  for (int i = lane; i < chunks; i += 32) {
+    const int j0 = 8 * i - skew;   // span index of the chunk's first element
+    if (j0 >= 0 && j0 + 8 <= cnt) {
+      *reinterpret_cast<uint4*>(dst + j0) =
+          *reinterpret_cast<const uint4*>(buf + 8 * i);
+    } else {
+      for (int k = 0; k < 8; ++k)
+        if (j0 + k >= 0 && j0 + k < cnt) dst[j0 + k] = buf[8 * i + k];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(SFB_WARPS * 32, SFB_MINB)
+seg_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ w1,
+                    const float* __restrict__ b1,
+                    const __nv_bfloat16* __restrict__ w2,
+                    const float* __restrict__ b2,
+                    __nv_bfloat16* __restrict__ d, int n, int c_in,
+                    int c_mid, int c_dec) {
+  using E = __nv_bfloat16;
+  constexpr int NTH = SFB_WARPS * 32, MT = SFB_MT, ROWS = SFB_ROWS;
+  constexpr int XS = SFB_XS, WS = SFB_WS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* w1s = reinterpret_cast<E*>(smem_raw);   // [256][XS]  w1[k][j] at [j][k]
+  E* w2s = w1s + 256 * XS;                   // [32][WS]   w2[j][c] at [c][j]
+  E* xb = w2s + 32 * WS;                     // [2][ROWS][XS]  x tiles
+  E* spans = xb + 2 * ROWS * XS;             // [WARPS][DS]  d spans
+  float* b1s = reinterpret_cast<float*>(spans + SFB_WARPS * SFB_DS);  // [256]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const E zero = __float2bfloat16_rn(0.f);
+
+  const bool xvec = c_in % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long tiles = ((long)n + ROWS - 1) / ROWS;
+  // Rows of tile t into buffer `buf`, zeros past n: 16-byte cp.async where
+  // `xvec`, else plain copies.
+  auto stage = [&](long t, int buf) {
+    const E* src = x + t * ROWS * c_in;
+    const int nr = (int)min((long)ROWS, (long)n - t * ROWS);
+    E* dst = xb + buf * ROWS * XS;
+    if (xvec) {
+      const int c8 = c_in / 8;
+      for (int e = tid; e < ROWS * c8; e += NTH) {
+        const int r = e / c8, c = 8 * (e % c8);
+        const bool in = r < nr;
+        probav::cp_async16_zfill(dst + r * XS + c,
+                                 in ? src + r * c_in + c : src, in);
+      }
+      cp_async_commit();
+    } else {
+      for (int e = tid; e < ROWS * c_in; e += NTH) {
+        const int r = e / c_in, c = e % c_in;
+        dst[r * XS + c] = r < nr ? src[r * c_in + c] : zero;
+      }
+    }
+  };
+
+  // The first tile's rows are on their way while the weights are staged,
+  // in the global arrays' order, 8 loads of each in flight; x's pad columns
+  // in both buffers (the copies write columns 0 .. c_in - 1 only, so no
+  // barrier orders them); b2 at this lane's C columns.
+  if (blockIdx.x < tiles) stage(blockIdx.x, 0);
+  for (int e0 = tid; e0 < 256 * 32; e0 += 8 * NTH) {
+    E v1[8], v2[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * NTH;
+      const int k = e / 256, j = e % 256, j2 = e / 32, c = e % 32;
+      v1[u] = (k < c_in && j < c_mid) ? w1[k * c_mid + j] : zero;
+      v2[u] = (j2 < c_mid && c < c_dec) ? w2[j2 * c_dec + c] : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * NTH;
+      if (e < 256 * 32) {
+        w1s[(e % 256) * XS + e / 256] = v1[u];
+        w2s[(e % 32) * WS + e / 32] = v2[u];
+      }
+    }
+  }
+  for (int j = tid; j < 256; j += NTH) b1s[j] = j < c_mid ? b1[j] : 0.f;
+  if (c_in < 32) {
+    const int pad = 32 - c_in;
+    for (int e = tid; e < 2 * ROWS * pad; e += NTH)
+      xb[(e / pad) * XS + c_in + e % pad] = zero;
+  }
+  float bo[4][2];
+#pragma unroll
+  for (int ct = 0; ct < 4; ++ct)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int c = 8 * ct + 2 * q + k;
+      bo[ct][k] = c < c_dec ? b2[c] : 0.f;
+    }
+
+  // This lane's ldmatrix rows: x's A tiles (rows lane % 16, 16 bytes of
+  // columns from lane / 16 on), W1's B tiles (middle channel lane % 8,
+  // inputs from 8 (lane / 8) on), W2's (output 8 (lane / 16) + lane % 8,
+  // middle channels from 8 ((lane / 8) % 2) on).
+  const int xoff = (lane % 8 + 8 * ((lane / 8) % 2)) * XS + 8 * (lane / 16);
+  const int w1off = (lane % 8) * XS + 8 * (lane / 8);
+  const int w2off = (8 * (lane / 16) + lane % 8) * WS + 8 * ((lane / 8) % 2);
+  const int steps = (c_mid + 15) / 16;
+  const int rw = warp * 16 * MT;             // this warp's rows of a tile
+  E* span = spans + warp * SFB_DS;           // and its d span buffer
+
+  int buf = 0;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    cp_async_wait_all();
+    // This tile's rows have landed, every warp is done with the other
+    // buffer, and (the first time) the weights are staged.
+    __syncthreads();
+    if (tile + gridDim.x < tiles) stage(tile + gridDim.x, buf ^ 1);
+    const E* xt = xb + (buf * ROWS + rw) * XS;
+
+    uint32_t ax[MT][2][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        ldsm_x4(ax[m][ks], xt + m * 16 * XS + 16 * ks + xoff);
+    float acc[MT][4][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct)
+        acc[m][ct][0] = acc[m][ct][1] = acc[m][ct][2] = acc[m][ct][3] = 0.f;
+
+    // Step s's fragments: fw[t] = W1's B of middle channels 16 s + 8 t ..
+    // (registers: inputs 0-7, 8-15, 16-23, 24-31), fd[p] = W2's B of
+    // outputs 16 p .. 16 p + 15 (registers: outputs 16 p .. + 7 at middle
+    // channels 16 s .. + 7 and + 8 .. + 15, then outputs 16 p + 8 ..).
+    uint32_t fw[2][4], fd[2][4];
+    auto load = [&](int s) {
+      ldsm_x4(fw[0], w1s + 16 * s * XS + w1off);
+      ldsm_x4(fw[1], w1s + (16 * s + 8) * XS + w1off);
+      ldsm_x4(fd[0], w2s + 16 * s + w2off);
+      ldsm_x4(fd[1], w2s + 16 * WS + 16 * s + w2off);
+    };
+    load(0);
+#pragma unroll
+    for (int s = 0; s < 16; ++s) {
+      if (s >= steps) break;                   // uniform over the block
+      uint32_t cw[2][4], cd[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cw[t][i] = fw[t][i], cd[t][i] = fd[t][i];
+      if (s + 1 < 16) load(s + 1);             // rows past c_mid are zeros
+      const float2 bb0 = *reinterpret_cast<const float2*>(b1s + 16 * s +
+                                                           2 * q);
+      const float2 bb1 = *reinterpret_cast<const float2*>(b1s + 16 * s + 8 +
+                                                           2 * q);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float z[2][4] = {{bb0.x, bb0.y, bb0.x, bb0.y},
+                         {bb1.x, bb1.y, bb1.x, bb1.y}};
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks)
+            mma_bf16(z[t], ax[m][ks], cw[t][2 * ks], cw[t][2 * ks + 1]);
+        // relu, rounded to bf16 before the decay (pallas_tstack.py:237-238).
+        const uint32_t ah[4] = {relu_bf16x2(z[0][0], z[0][1]),
+                                relu_bf16x2(z[0][2], z[0][3]),
+                                relu_bf16x2(z[1][0], z[1][1]),
+                                relu_bf16x2(z[1][2], z[1][3])};
+#pragma unroll
+        for (int ct = 0; ct < 4; ++ct)
+          mma_bf16(acc[m][ct], ah, cd[ct / 2][2 * (ct % 2)],
+                   cd[ct / 2][2 * (ct % 2) + 1]);
+      }
+    }
+
+    // d = acc + b2, rounded, staged as the span of this warp's rows (rows
+    // r0 .. r0 + 16 MT - 1 are contiguous in d), then stored (the tile's
+    // barrier ordered the previous span's stores before these writes).
+    const long r0 = tile * ROWS + rw;
+    const int nr = (int)max(0L, min((long)(16 * MT), (long)n - r0));
+    E* dst = d + r0 * c_dec;
+    const int skew = (int)((reinterpret_cast<uintptr_t>(dst) & 15) /
+                           sizeof(E));
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 16 * m + g + 8 * (i / 2), c = 8 * ct + 2 * q + i % 2;
+          if (c < c_dec)
+            span[skew + r * c_dec + c] =
+                __float2bfloat16_rn(acc[m][ct][i] + bo[ct][i % 2]);
+        }
+    __syncwarp();
+    store_span_warp(dst, span, skew, nr * c_dec, lane);
+  }
+}
+
+cudaError_t launch_seg_fwd_bf16(const void* x, const void* w1, const void* b1,
+                                const void* w2, const void* b2, void* d,
+                                int n, int c_in, int c_mid, int c_dec,
+                                cudaStream_t s) {
+  constexpr size_t smem = seg_fwd_bf16_smem();
+  auto kern = seg_fwd_bf16_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      SFB_WARPS * 32, smem);
+  if (err != cudaSuccess) return err;
+  const long tiles = ((long)n + SFB_ROWS - 1) / SFB_ROWS;
+  const long grid = std::min(tiles, (long)std::max(per_sm, 1) * sm_count());
+  kern<<<(unsigned)grid, SFB_WARPS * 32, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
+      static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
+      static_cast<__nv_bfloat16*>(d), n, c_in, c_mid, c_dec);
+  return cudaGetLastError();
 }
 
 // conv_fwd: an implicit GEMM on the tensor cores, M = positions, N = 8*NT
@@ -1413,9 +1717,10 @@ extern "C" {
 
 // dtype: 0 = float32 (tensor cores as 3xTF32 at c_in, c_dec <= 32 and
 // c_mid <= 256, else CUDA cores: seg_fwd_route), 1 = bfloat16 (tensor
-// cores).  x, w1, w2, d in that dtype; b1, b2 in float32.  c_in, c_dec any
-// count from 1 to MAX_CH = 128; c_mid any positive count (staged in
-// chunks).
+// cores: seg_fwd_bf16_kernel within the same widths, else
+// seg_fwd_mma_kernel).  x, w1, w2, d in that dtype; b1, b2 in float32.
+// c_in, c_dec any count from 1 to MAX_CH = 128; c_mid any positive count
+// (staged in chunks).
 int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* d, int n, int c_in,
                    int c_mid, int c_dec, void* stream) {
@@ -1428,6 +1733,9 @@ int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
     case SEG_FWD_BF16_MMA:
       return (int)dispatch_seg_mma(x, w1, b1, w2, b2, d, n, c_in, c_mid,
                                    c_dec, s);
+    case SEG_FWD_BF16_LDSM:
+      return (int)launch_seg_fwd_bf16(x, w1, b1, w2, b2, d, n, c_in, c_mid,
+                                      c_dec, s);
     case SEG_FWD_TF32_MMA:
       return (int)launch_seg_fwd_tf32(x, w1, b1, w2, b2, d, n, c_in, c_mid,
                                       c_dec, s);
@@ -1439,7 +1747,7 @@ int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
 
 // The kernel probav_seg_fwd launches for these widths: 0 = seg_fwd_kernel
 // (CUDA cores), 1 = seg_fwd_mma_kernel (bf16 mma), 2 = seg_fwd_tf32_kernel
-// (float32 as 3xTF32 mma).
+// (float32 as 3xTF32 mma), 3 = seg_fwd_bf16_kernel (bf16 mma, ldmatrix).
 int probav_seg_fwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return (int)seg_fwd_route(dtype, c_in, c_mid, c_dec);
 }

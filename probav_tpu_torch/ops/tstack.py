@@ -23,8 +23,9 @@ tensor cores at both dtypes: bf16 products at bf16, float32 products as
 3xTF32 (each operand split into two TF32 halves, three products summed in
 float32: about 2**-22 relative error per product, within the float32
 tolerance that plain TF32 misses).  ``seg_fwd`` runs on the tensor cores
-at bf16 at every width, and at float32 as 3xTF32 where C, C_dec <= 32 and
-C_mid <= 256 (the flagship's widths; ``seg_fwd_route``).  ``blk_bwd``'s
+at bf16 at every width (a kernel of its own where C, C_dec <= 32 and C_mid
+<= 256), and at float32 as 3xTF32 within those widths (the flagship's;
+``seg_fwd_route``).  ``blk_bwd``'s
 expand/decay backward (``seg_bwd_route``) runs on the tensor cores within
 the same widths: bf16 products at bf16, float32 as 3xTF32; so does its
 ``wgrad`` (dWc) at C, C_dec <= 32 where a row's halo fits shared memory
@@ -165,15 +166,17 @@ def _check_widths(name, c, c_dec):
 # seg_fwd_route gives.
 SEG_FWD_ROUTES = ("seg_fwd_kernel (CUDA cores)",
                   "seg_fwd_mma_kernel (bf16 mma)",
-                  "seg_fwd_tf32_kernel (3xTF32 mma)")
+                  "seg_fwd_tf32_kernel (3xTF32 mma)",
+                  "seg_fwd_bf16_kernel (bf16 mma, ldmatrix)")
 
 
 def seg_fwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
     """The kernel that ``seg_fwd`` runs for these widths on the card, as
     its C entry chooses it (from the dtype and widths alone, before any
-    launch): bf16 on the tensor cores at every width; float32 as 3xTF32 on
-    the tensor cores at C, C_dec <= 32 and C_mid <= 256, else on the CUDA
-    cores.  Builds the kernels."""
+    launch): at C, C_dec <= 32 and C_mid <= 256 ``seg_fwd_bf16_kernel`` at
+    bf16 and 3xTF32 on the tensor cores at float32; beyond, bf16 on the
+    tensor cores in ``seg_fwd_mma_kernel`` and float32 on the CUDA cores.
+    Builds the kernels."""
     from probav_tpu_torch.ops import _build
     code = _build.library().probav_seg_fwd_route(_DTYPE_CODE[dtype], c,
                                                  c_mid, c_dec)

@@ -1,5 +1,5 @@
-"""Inputs for holding ``blk_bwd``, ``wide_bwd`` and the shift-table kernels
-against their plain twins exactly.
+"""Inputs for holding ``blk_bwd``, ``wide_bwd``, ``seg_fwd`` and the
+shift-table kernels against their plain twins exactly.
 
 The block backward takes two discontinuous decisions per element: the relu
 derivative (z > 0) and, at bf16, the rounding of dd, dz and relu(z) to
@@ -28,6 +28,14 @@ decision, z > 0, and keeps dz in float32: with x and dy on the grid of x
 above and w1, b1, w2 on theirs, z (|z| <= 64.25 at 128 input channels,
 on a 2**-10 grid) and W2 dy (|W2 dy| <= 64 at 128 output channels, on a
 2**-9 grid) are exact in any order at every width the kernel takes.
+
+``seg_fwd`` (expand -> relu -> decay) rounds h = relu(z) to bf16 before
+the decay.  With x, w1, b1 on the grids above, w2 in [-0.25, 0.25] step
+2**-3 and b2 in [-0.25, 0.25] step 2**-6, at C <= 32 and C_mid <= 256: z
+is exact (|z| <= 16.25 on a 2**-10 grid), h stays on that grid in bf16,
+each h w2 sits on a 2**-13 grid with |h w2| <= 4.0625, so every partial
+sum of d (|d| <= 256 * 4.0625 + 0.25 < 2**11) holds in float32's 24 bits
+in any order, and the kernels and the plain version agree bit for bit.
 
 The shift tables decide sign(r) for the L1 backward.  With integer planes
 below 2**12 and a 0/1 mask, the window sums of m, hr and p*m (at most
@@ -67,6 +75,16 @@ def wide_bwd_inputs(n, c, cmid, cdec, seed=0, device="cpu",
     return (t(grid(r, (n, c), 32, 4)), t(grid(r, (c, cmid), 16, 6)),
             t(grid(r, (cmid,), 16, 6)), t(grid(r, (cmid, cdec), 8, 5)),
             t(grid(r, (n, cdec), 32, 4)))
+
+
+def seg_fwd_inputs(n, c, cmid, cdec, seed=0, device="cpu",
+                   dtype=torch.float32):
+    """(x [n, c], w1, b1, w2, b2) on the seg_fwd grids above."""
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device, dtype)
+    return (t(grid(r, (n, c), 32, 4)), t(grid(r, (c, cmid), 16, 6)),
+            t(grid(r, (cmid,), 16, 6)), t(grid(r, (cmid, cdec), 2, 3)),
+            t(grid(r, (cdec,), 16, 6)))
 
 
 def shift_table_inputs(b, size=48, border=3, clear=0.8, seed=0,

@@ -79,7 +79,9 @@ VARIANTS = {
                   "for (long tile = tiles; tile < tiles;"),),
 }
 
-_HELPERS = """
+# mma_bf16 without the instruction: its operands are still loaded and
+# kept live (also the bf16 seg_fwd variants' no_mma).
+FAKE_MMA = """
 __device__ __forceinline__ void fake_mma(float (&c)[4],
                                          const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -102,7 +104,7 @@ def source(names) -> str:
     section = text[text.index("constexpr int SBB_WARPS"):
                    text.rindex("\n", 0, text.rindex("\n", 0, end)) + 1]
     parts = [f'#include "{_build.SRC_DIR / "common.cuh"}"',
-             "#include <algorithm>", "namespace {", slot, _HELPERS]
+             "#include <algorithm>", "namespace {", slot, FAKE_MMA]
     cases = []
     for i, name in enumerate(names):
         body = section

@@ -300,14 +300,47 @@ def test_f32_seg_fwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [128 * 4356, 1, 127, 129, 1000],
+                         ids=["n557568", "n1", "n127", "n129", "n1000"])
+@pytest.mark.parametrize("c,cmid,cdec,route", [
+    (32, 256, 25, "seg_fwd_bf16_kernel"), (7, 100, 12, "seg_fwd_bf16_kernel"),
+    (32, 256, 32, "seg_fwd_bf16_kernel"), (32, 257, 25, "seg_fwd_mma_kernel"),
+    (48, 384, 38, "seg_fwd_mma_kernel")],
+    ids=["flagship", "c7", "cdec32", "cmid257", "c48"])
+def test_bf16_seg_fwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
+                                                 route):
+    """bf16 seg_fwd within the tensor-core tiles' widths (C, C_dec <= 32,
+    C_mid <= 256) takes seg_fwd_bf16_kernel (at C = 7 on plain copies of
+    x), C_mid 257 and 48 channels seg_fwd_mma_kernel: all within 2e-2 of
+    max|ref| of plain, the bf16 tolerance, at the flagship's N, one row,
+    rows either side of a 128-row tile and a ragged count (ragged 384-row
+    tiles and warps with no row); each call counted once, and two calls
+    bit for bit equal."""
+    assert ts.seg_fwd_route(torch.bfloat16, c, cmid, cdec).startswith(route)
+    w1, b1, w2, b2, _, _ = params(c, cmid, cdec, seed=n % 7, device=cuda,
+                                  dtype=torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(n, c)).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = ts.LAUNCHES["seg_fwd"]
+    d = ts.seg_fwd(x, w1, b1, w2, b2)
+    again = ts.seg_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["seg_fwd"] == before + 2
+    assert d.shape == (n, cdec) and d.dtype == torch.bfloat16
+    assert max_rel(d, ts.seg_fwd_plain(x, w1, b1, w2, b2)) < 2e-2
+    assert torch.equal(d, again)
+
+
+@pytest.mark.cuda
 def test_seg_fwd_routes_on_card(cuda):
-    """bf16 takes seg_fwd_mma_kernel at every width; float32 the 3xTF32
-    kernel up to 32/256/32 and the CUDA-core one beyond any of them."""
+    """Up to 32/256/32 bf16 takes seg_fwd_bf16_kernel and float32 the
+    3xTF32 kernel; beyond any of those widths bf16 takes
+    seg_fwd_mma_kernel and float32 the CUDA-core kernel."""
     for widths in ((32, 256, 25), (1, 1, 1), (32, 256, 32), (33, 256, 25),
                    (32, 257, 25), (32, 256, 33), (128, 1024, 102)):
-        assert ts.seg_fwd_route(torch.bfloat16, *widths) == \
-            ts.SEG_FWD_ROUTES[1]
         tc = widths[0] <= 32 and widths[1] <= 256 and widths[2] <= 32
+        assert ts.seg_fwd_route(torch.bfloat16, *widths) == \
+            ts.SEG_FWD_ROUTES[3 if tc else 1], widths
         assert ts.seg_fwd_route(torch.float32, *widths) == \
             ts.SEG_FWD_ROUTES[2 if tc else 0], widths
 
@@ -324,6 +357,26 @@ def test_f32_seg_fwd_on_card_takes_views_at_any_alignment(cuda, c, offset):
     x = torch.randn(n * c + offset, device=cuda)[offset:].view(n, c)
     d = ts.seg_fwd(x, w1, b1, w2, b2)
     assert max_rel(d, ts.seg_fwd_plain(x, w1, b1, w2, b2)) < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,offset", [(32, 1), (32, 4), (32, 8), (8, 1),
+                                      (7, 3)],
+                         ids=["c32_off1", "c32_off4", "c32_off8", "c8_off1",
+                              "c7_off3"])
+def test_bf16_seg_fwd_on_card_takes_views_at_any_alignment(cuda, c, offset):
+    """bf16 x as a contiguous view `offset` elements into a larger buffer:
+    off the 16-byte grid (plain copies) or on it (16-byte cp.async where C
+    is a multiple of 8), at 1,000 rows, on seg_fwd_bf16_kernel."""
+    assert ts.seg_fwd_route(torch.bfloat16, c, 256, 25).startswith(
+        "seg_fwd_bf16_kernel")
+    n = 1000
+    w1, b1, w2, b2, _, _ = params(c, 256, 25, device=cuda,
+                                  dtype=torch.bfloat16)
+    x = torch.randn(n * c + offset, device=cuda).bfloat16()[offset:] \
+        .view(n, c)
+    d = ts.seg_fwd(x, w1, b1, w2, b2)
+    assert max_rel(d, ts.seg_fwd_plain(x, w1, b1, w2, b2)) < 2e-2
 
 
 @pytest.mark.cuda
