@@ -29,7 +29,11 @@ Phases, each printing its result:
    flagship, seg_bwd_bf16_kernel at bf16 and the 3xTF32
    seg_bwd_tf32_kernel at float32, the CUDA-core one at 64/512/51; the
    tensor-core wgrad from 1 to 32 channels where its rows fit; the
-   flagship must take both on the tensor cores at both dtypes) and the
+   flagship must take both on the tensor cores at both dtypes; wide_bwd's
+   log names its route: wide_bwd_bf16_kernel, which the bf16 flagship must
+   take, and seg_bwd_kernel on the CUDA cores, which float32 and bf16 at
+   64/512/51 and the width phase's widths must take; its bf16 bound counts
+   the three bf16 products of each product with a float32 operand) and the
    shift tables integer planes (probav_tpu_torch/tools/dyadic.py), on
    which both versions take the same relu, sign and rounding decisions;
 4. widths: the four block-stack kernels beyond the flagship's channels,
@@ -307,6 +311,17 @@ def wide_seg_route(dn, c, cmid, cdec):
                              f"{ts.SEG_FWD_ROUTES[1]}")
 
 
+def wide_cuda_core_route(dtype, c, cmid, cdec):
+    """Beyond 32/256/32 (and at float32 everywhere) wide_bwd keeps
+    seg_bwd_kernel on the CUDA cores (the route of wide_bwd_bf16_kernel ends
+    there); raises otherwise."""
+    from probav_tpu_torch.ops import wide_block as wb
+    route = wb.wide_bwd_route(dtype, c, cmid, cdec)
+    if route != wb.WIDE_BWD_ROUTES[0]:
+        raise AssertionError(f"wide_bwd {dtype} {c}/{cmid}/{cdec} route "
+                             f"{route}, expected {wb.WIDE_BWD_ROUTES[0]}")
+
+
 def kernel_costs(name, n, c, cmid, cdec, dn):
     """(FLOP, bytes, peak FLOP/s, route) of one launch: each input read
     once, each output written once (biases and weight grads in float32);
@@ -315,9 +330,23 @@ def kernel_costs(name, n, c, cmid, cdec, dn):
     itemsize, peak = (4 if dn == "float32" else 2), PEAK_FLOPS[dn]
     if name == "wide_bwd":
         grads = c * cmid + cmid * cdec + cmid + cdec
-        return (2 * n * cmid * (3 * c + 2 * cdec),
-                itemsize * (n * (2 * c + cdec) + c * cmid + cmid * cdec) +
-                4 * (cmid + grads), peak, "")
+        nbytes = itemsize * (n * (2 * c + cdec) + c * cmid + cmid * cdec) + \
+            4 * (cmid + grads)
+        # z = x W1 and W2 dy multiply bf16 by bf16; dx = dz W1^T, dW1 = x^T
+        # dz and dW2 = relu(z)^T dy have one float32 operand (dz, relu(z)).
+        both, one = 2 * n * cmid * (c + cdec), 2 * n * cmid * (2 * c + cdec)
+        if dn == "float32":
+            # On the CUDA cores; the 3xTF32 bound logged beside it.
+            tf32 = bound(3 * (both + one), nbytes, PEAK_TF32)[0]
+            return (both + one, nbytes, peak,
+                    f" on the CUDA cores (as 3xTF32 {tf32:.4f} ms)")
+        # bf16 units: the float32 operand split into three bf16 pieces, so
+        # three bf16 products each (wide_bwd_bf16_kernel); one bf16 product
+        # each logged beside it.
+        return (both + 3 * one, nbytes, peak,
+                f" as bf16 products, dx/dW1/dW2 three each (float32 dz and "
+                f"relu(z) split three ways; one each "
+                f"{bound(both + one, nbytes, peak)[0]:.4f} ms)")
     if name == "seg_fwd":
         flops = 2 * n * (c * cmid + cmid * cdec)
         nbytes = itemsize * (n * (c + cdec) + c * cmid + cmid * cdec) + \
@@ -501,9 +530,17 @@ def phase_kernels(torch, ts, dev, card):
         torch.cuda.synchronize()
         errs = check_outputs(f"wide_bwd {dn}", WIDE_NAMES, got,
                              wb.wide_bwd_plain(*args), tol_of)
+        wroute = wb.wide_bwd_route(dtype, C, CMID, CDEC)
         log(f"kernel wide_bwd {dn}: max|diff| " + ", ".join(
             f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, errs)) +
-            f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|)")
+            f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|);"
+            f" route {wroute}")
+        # The flagship takes wide_bwd_bf16_kernel at bf16, seg_bwd_kernel
+        # (CUDA cores) at float32.
+        want_route = wb.WIDE_BWD_ROUTES[1 if dn == "bfloat16" else 0]
+        if wroute != want_route:
+            raise AssertionError(f"wide_bwd {dn} route {wroute}, expected "
+                                 f"{want_route}")
         pms, ms = timed(torch, lambda: wb.wide_bwd_plain(*args),
                         lambda: wb.wide_bwd(*args), reps=10)
         row("wide_bwd", dn, errs[0], ms, pms, None)
@@ -536,9 +573,11 @@ def phase_kernels(torch, ts, dev, card):
                 f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, e4)) +
             f"; seg_fwd route {seg_fwd_route(dn, 64, 512, 51)}"
             f"; blk_bwd seg_bwd route {ts.seg_bwd_route(dtype, 64, 512, 51)}"
-            f", wgrad route {ts.wgrad_route(dtype, 64, 51, HW, T)}")
+            f", wgrad route {ts.wgrad_route(dtype, 64, 51, HW, T)}"
+            f"; wide_bwd route {wb.wide_bwd_route(dtype, 64, 512, 51)}")
         del args
         wide_seg_route(dn, 64, 512, 51)
+        wide_cuda_core_route(dtype, 64, 512, 51)
         for label, shape, cd, co in CONV_ENVELOPE:
             g = torch.Generator(device=dev).manual_seed(11)
             rn = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=dev)
@@ -670,6 +709,9 @@ def phase_widths(torch, ts, dev, card):
             pms, ms = timed(torch, lambda: wb.wide_bwd_plain(*args),
                             lambda: wb.wide_bwd(*args), reps=10)
             report("wide_bwd", dn, widths, max(errs), ms, pms)
+            log(f"width wide_bwd {dn} [{'/'.join(map(str, widths))}]: route "
+                f"{wb.wide_bwd_route(dtype, *widths)}")
+            wide_cuda_core_route(dtype, *widths)
             del args
             counts = launches()
             if any(counts[k] <= 0 for k in ("seg_fwd", "conv_fwd", "blk_bwd",

@@ -75,16 +75,22 @@
 // backward of the flat [N, C] expand -> relu -> decay segment alone, for
 // `--fused-stack flat` and WDSRBlock(fused=True).  Given x, W1, b1, W2 and
 // dy it recomputes z and returns dx = W1 dz (no residual) and dW1, db1,
-// dW2, db2 (db2 = sum dy).  It is seg_bwd_kernel with WIDE set: the same
-// CUDA-core tiles and per-block partial slots (in a layout without dWc and
-// dbc) and the same fixed-order reduce, but dz and relu(z) stay float32 as
-// in _bwd_kernel, so bf16 takes this kernel too and not seg_bwd_bf16, whose
-// A fragments would round dz to bf16.  The TPU row tiling (_pick_tile,
-// _pad_rows) is a VMEM rule and is not ported: any N is taken.  Bound on
-// an H100 at the flagship N = 557,568, 32/256/25: 2 N c_mid (3 c_in +
-// 2 c_dec) = 41.7 GFLOP against ~89 elements per row moved, so operations:
-// 0.62 ms at the float32 CUDA-core peak.  Its float32 products at bf16 run
-// on the CUDA cores as well, which is what this first version accepts.
+// dW2, db2 (db2 = sum dy), with dz and relu(z) kept float32 as in
+// _bwd_kernel, into per-block partial slots (in a layout without dWc and
+// dbc) and the same fixed-order reduce.  The TPU row tiling (_pick_tile,
+// _pad_rows) is a VMEM rule and is not ported: any N is taken.  Two
+// kernels, chosen from the dtype and widths before any launch
+// (wide_bwd_route): bf16 at c_in, c_dec <= 32 and c_mid <= 256 (the
+// flagship's 32/256/25) runs wide_bwd_bf16_kernel on the tensor cores, the
+// layout of seg_bwd_bf16_kernel with dz and relu(z) split three ways into
+// bf16 pieces where they meet a product, so that nothing is rounded to
+// bf16 but dx; float32 at every width, and bf16 beyond, seg_bwd_kernel
+// with WIDE set on the CUDA cores.  Bound on an H100 at the flagship N =
+// 557,568, 32/256/25: 2 N c_mid (3 c_in + 2 c_dec) = 41.7 GFLOP against
+// ~89 elements per row moved, so operations: float32 0.253 ms as 3xTF32
+// (0.62 ms at the CUDA-core peak, which the float32 kernel runs at); bf16
+// 0.094 ms, counting z and W2 dy once and dx, dW1 and dW2 (one float32
+// operand each) three times at the bf16 peak.
 
 #include "common.cuh"
 
@@ -1947,6 +1953,520 @@ SegBwdRoute seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return dtype == 1 ? SEG_BWD_BF16_MMA : SEG_BWD_TF32_MMA;
 }
 
+// ------------------------------------------------------------------------ //
+// wide_bwd, bf16 on the tensor cores (mma.sync.m16n8k16, float32 sums), for //
+// c_in, c_dec <= 32 and c_mid <= 256 (the flagship's 32/256/25):           //
+// wide_bwd_bf16_kernel.  It computes what seg_bwd_kernel<__nv_bfloat16,    //
+// ..., true> computes (ops/wide_block.wide_bwd_plain), into the same slot  //
+// layout (no dWc, no dbc), with dz and relu(z) kept in float32.            //
+// ------------------------------------------------------------------------ //
+//
+// Replaces, at bf16, the TPU kernel _bwd of
+// probav_tpu/ops/pallas_wide_block.py:110 (body _bwd_kernel :78).
+// - The products of seg_bwd_bf16_kernel, taken transposed: warp w of 8 owns
+//   the middle channels j of 32 w .. 32 w + 31 over every row of a tile, 16
+//   rows at a time; z^T = W1^T x^T + b1 and W2 dy^T come out of the mma as
+//   16 j x 8 row C tiles (W1^T and W2's A fragments stay in registers for
+//   the block's life), and two C tiles adjacent in rows are the A fragment
+//   of dW1^T += dz^T x and dW2 += h^T dy, whose B fragments are x and dy by
+//   ldmatrix.trans.  dW1^T and dW2 sum in the warp's registers over all of
+//   the block's tiles and are written once.
+// - Float32 operands on bf16 units: dz^T = relu'(z) (W2 dy^T) and h^T =
+//   relu(z) stay float32 in the C registers.  Each pair splits into three
+//   bf16x2 words, hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid)
+//   (split3_bf16x2): both differences are exact in float32 and hi + mid +
+//   lo = v for every float32 v whose pieces stay normal, and a piece times
+//   a bf16 value is exact in float32, so three mma (lo, mid, then hi, into
+//   the same sums) give each product to float32 accuracy.  No value is
+//   rounded to bf16 once: that is seg_bwd_bf16_kernel's dz and h.
+// - dx = dz W1^T needs every j of a row: dz goes to shared memory as float32
+//   [row][j] (row stride 260, 4 mod 32: the C-fragment stores and the
+//   ldmatrix rows below are conflict-free), one buffer of a 128-row tile,
+//   and phase C, after the tile's products (a barrier on each side),
+//   computes dx for 16 rows and all 32 columns a warp, so each dz value is
+//   loaded and split once.  (Two buffers of 64-row tiles, with phase C
+//   beside the next tile's products, split each dz twice, for two warps'
+//   16 columns: 13% slower, tools/seg_bwd_variants.py --section wide; two
+//   128-row buffers do not fit.)  Its A fragments come by plain ldmatrix of the
+//   float32 rows: ldmatrix hands lane (g, q) word q of row g of each 8x8
+//   b16 matrix, here dz[g][j0 + 4 i + q] of matrix i, so the fragment's k
+//   order is permuted (k = 2q, 2q + 1, 2q + 8, 2q + 9 hold j0 + q, + 4 + q,
+//   + 8 + q, + 12 + q) and W1^T's B fragments (ldmatrix.trans of the one
+//   [j][c] copy of W1) take their rows in the same order.  Each pair is
+//   split three ways there too; dx sums in float32 and is rounded to bf16
+//   once, staged per warp and stored as 16-byte row pieces.
+// - Staging: x by 16-byte cp.async into [row][40] double buffers (plain
+//   copies where c_in % 8 != 0 or x or dx is off the 16-byte grid), zeros
+//   past n; warp w copies the dy of rows 16 w .. 16 w + 15 of the next tile,
+//   one contiguous span, into its own raw buffer and repacks it to [row][40],
+//   zeros past c_dec and past n.  x's pad columns c_in .. 31 are zeroed once
+//   and nothing writes there: the fragments read them against W1's zero
+//   rows, and 0 x NaN is NaN.
+// - db1 sums dz^T's float32 C fragments per lane, db2 dy's .trans B
+//   fragments (warp w those of row group w); both are reduced over the
+//   lanes and warps in a fixed order.  Rows past n add nothing (dy = 0
+//   there, so dz = 0, against h = relu(b1)).
+//
+// What bounds it on an H100 at the flagship (N = 557,568): z and W2 dy are
+// 16.3 GFLOP of bf16 products; dx, dW1 and dW2 are 25.4 GFLOP with one
+// float32 operand, three bf16 products each here: 92.5 GFLOP at the 989
+// TFLOP/s bf16 peak, 0.094 ms, against 99 MB of x, dy and dx (0.030 ms):
+// operations.  What holds it is mma.sync (11 products a row where
+// seg_bwd_bf16_kernel has 5): without them it takes a quarter of its time
+// (tools/seg_bwd_variants.py --section wide), and the splits' ALU work
+// shares the two warps a scheduler's issue slots.  One block of 8 warps an
+// SM: 214,272 bytes of shared memory (the dz buffer [128][260] float32,
+// holding W2 while the fragments load; W1 [256][40]; two each of the x and
+// dy tiles; the dx tile; the warps' raw dy spans; the db2 sums).  So the
+// launch is one wave of as many blocks as are resident, the rest of the
+// wrapper's G slots zeroed: G blocks in two waves, each staging W1, W2 and
+// the fragments again, were 3% slower.
+
+constexpr int WBB_WARPS = 8;       // each owns 256 / WBB_WARPS middle channels
+constexpr int WBB_ROWS = 128;      // rows per tile: phase C's 16 a warp
+constexpr int WBB_CS = 40;         // bf16 row stride: x, dy, dx tiles; W1, W2
+constexpr int WBB_ZS = 256 + 4;    // float32 dz [row][j] row stride
+constexpr int WBB_RPW = WBB_ROWS / WBB_WARPS;            // dy rows a warp
+constexpr int WBB_RAWW = (WBB_RPW * 64 + 43) / 16 * 8;   // its raw dy span
+
+size_t wide_bwd_bf16_smem() {
+  return sizeof(float) * ((size_t)WBB_ROWS * WBB_ZS + WBB_WARPS * 32) +
+         sizeof(__nv_bfloat16) * ((size_t)256 * WBB_CS +
+                                  5 * WBB_ROWS * WBB_CS +
+                                  WBB_WARPS * WBB_RAWW);
+}
+
+// hi, mid and lo of the float32 pair (v0, v1) as bf16x2 words, v0 in the
+// low half: v = hi + mid + lo, each difference taken exactly.
+__device__ __forceinline__ void split3_bf16x2(float v0, float v1,
+                                              uint32_t& hi, uint32_t& mid,
+                                              uint32_t& lo) {
+  using probav::pack_bf16;
+  hi = pack_bf16(v0, v1);
+  const float r0 = v0 - __uint_as_float(hi << 16);
+  const float r1 = v1 - __uint_as_float(hi & 0xffff0000u);
+  mid = pack_bf16(r0, r1);
+  lo = pack_bf16(r0 - __uint_as_float(mid << 16),
+                 r1 - __uint_as_float(mid & 0xffff0000u));
+}
+
+__global__ void __launch_bounds__(WBB_WARPS * 32, 1)
+wide_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w1,
+                     const float* __restrict__ b1,
+                     const __nv_bfloat16* __restrict__ w2,
+                     const __nv_bfloat16* __restrict__ dy,
+                     __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
+                     long slot_len, int n, int c_in, int c_mid, int c_dec) {
+  using E = __nv_bfloat16;
+  using probav::ldsm_x4;
+  using probav::ldsm_x4_trans;
+  using probav::mma_bf16;
+  using probav::pack2;
+  using probav::pack_bf16;
+  constexpr int ROWS = WBB_ROWS, CS = WBB_CS, ZS = WBB_ZS, RPW = WBB_RPW;
+  constexpr int MT = 256 / (16 * WBB_WARPS);   // 16-j m-tiles a warp
+  constexpr int RG = ROWS / 16;                // 16-row groups a tile
+  static_assert(MT >= 1 && MT * 16 * WBB_WARPS == 256, "j per warp");
+  static_assert(RG == WBB_WARPS, "phase C: a row group a warp");
+  static_assert(ROWS * ZS >= 256 * 32, "W2 and dW1 staged in the dz space");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* zb = reinterpret_cast<float*>(smem_raw);   // [ROWS][ZS] dz
+  E* w2s = reinterpret_cast<E*>(zb);                // [256][CS] w2, loading
+  E* w1s = reinterpret_cast<E*>(zb + ROWS * ZS);    // [256][CS]
+  E* xb = w1s + 256 * CS;                    // [2][ROWS][CS]  x tiles
+  E* dyt = xb + 2 * ROWS * CS;               // [2][ROWS][CS]  dy tiles
+  E* dxs = dyt + 2 * ROWS * CS;              // [ROWS][CS]  dx staging
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  E* raw = dxs + ROWS * CS + warp * WBB_RAWW;   // this warp's dy span
+  float* red = reinterpret_cast<float*>(dxs + ROWS * CS +
+                                        WBB_WARPS * WBB_RAWW);   // [W][32]
+  const E zero = __float2bfloat16_rn(0.f);
+  const int g = lane / 4, q = lane % 4;
+  const int J0 = warp * 16 * MT;             // this warp's middle channels
+  const int dr0 = RPW * warp;                // and the dy rows it stages
+
+  // W1, W2 as [j][c], zero-padded to 256 x 32 (padded z, dz, h are 0); the
+  // x tiles zeroed once (the copies never write their columns from c_in
+  // on).
+  for (int e = tid; e < 256 * 32; e += blockDim.x) {
+    const int c = e / 256, j = e % 256;
+    w1s[j * CS + c] = (c < c_in && j < c_mid) ? w1[(long)c * c_mid + j] : zero;
+    const int j2 = e / 32, c2 = e % 32;
+    w2s[j2 * CS + c2] =
+        (j2 < c_mid && c2 < c_dec) ? w2[(long)j2 * c_dec + c2] : zero;
+  }
+  for (int e = tid; e < 2 * ROWS * CS / 8; e += blockDim.x)
+    reinterpret_cast<uint4*>(xb)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  // This warp's A fragments of W1^T and W2 (M = its j, K = c) and its b1.
+  uint32_t wa[MT][2][4], wb[MT][2][4];
+  float bias[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int row = J0 + 16 * mt + 8 * ((lane / 8) % 2) + lane % 8;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      ldsm_x4(wa[mt][ks], w1s + row * CS + 16 * ks + 8 * (lane / 16));
+      ldsm_x4(wb[mt][ks], w2s + row * CS + 16 * ks + 8 * (lane / 16));
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int j = J0 + 16 * mt + g + 8 * hh;
+      bias[mt][hh] = j < c_mid ? b1[j] : 0.f;
+    }
+  }
+  __syncthreads();   // w2s read: zb may be written
+
+  float acc1[MT][4][4], acc2[MT][4][4];   // dW1^T (j, c), dW2 (j, c) tiles
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc1[mt][ct][i] = acc2[mt][ct][i] = 0.f;
+  float db1a[MT][2] = {}, db2a[4] = {};
+
+  const bool vec = c_in % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  const long tiles = ((long)n + ROWS - 1) / ROWS;
+  auto rows_of = [&](long t) {
+    return (int)min((long)ROWS, (long)n - t * ROWS);
+  };
+  // Rows [0, nr) of x from tile t into dst (zeros past nr), block-wide:
+  // 16-byte cp.async where `vec`, else plain copies.
+  auto stage_x = [&](E* dst, long t, int nr) {
+    const E* src = x + t * ROWS * c_in;
+    if (vec) {
+      const int c8 = c_in / 8;
+      for (int e = tid; e < ROWS * c8; e += blockDim.x) {
+        const int r = e / c8, c = 8 * (e % c8);
+        const bool in = r < nr;
+        probav::cp_async16_zfill(dst + r * CS + c,
+                                 in ? src + r * c_in + c : src, in);
+      }
+    } else {
+      for (int e = tid; e < ROWS * c_in; e += blockDim.x) {
+        const int r = e / c_in, c = e % c_in;
+        dst[r * CS + c] = r < nr ? src[r * c_in + c] : zero;
+      }
+    }
+  };
+  // This warp's RPW rows of dy from tile t: the span of its real rows, by
+  // 16-byte cp.async from the chunk below its start; returns the element
+  // offset of the span in raw.
+  auto copy_dy = [&](long t) {
+    const int nrw = min(RPW, rows_of(t) - dr0);
+    if (nrw <= 0) return 0;
+    const uintptr_t s = reinterpret_cast<uintptr_t>(
+        dy + (t * ROWS + dr0) * c_dec);
+    const uintptr_t a = s & ~uintptr_t(15);
+    const int chunks = (int)((s + 2 * (uintptr_t)(nrw * c_dec) + 15 - a) / 16);
+    for (int i = lane; i < chunks; i += 32)
+      probav::cp_async16(raw + 8 * i, a + 16 * (uintptr_t)i);
+    return (int)((s - a) / 2);
+  };
+  // ... and its repack into rows dr0 .. dr0 + RPW - 1 of a dy tile: 8
+  // channels a step, zeros from c_dec and past the tile's nr rows.
+  auto repack = [&](E* dst, int skew, int nr) {
+    const E* src = raw + skew;
+    for (int u = lane; u < RPW * 4; u += 32) {
+      const int p = u / 4, j = u % 4;
+      const E* s = src + p * c_dec + 8 * j;
+      const bool in = dr0 + p < nr;
+      uint32_t v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = 8 * j + 2 * k;
+        v[k] = pack2(in && c < c_dec ? s[2 * k] : zero,
+                     in && c + 1 < c_dec ? s[2 * k + 1] : zero);
+      }
+      *reinterpret_cast<uint4*>(dst + (dr0 + p) * CS + 8 * j) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  const int pr0 = 16 * warp;                 // this warp's phase-C rows
+  float dxc[4][4];                           // and its dx tiles (8 columns)
+  // Phase C, k-steps 2 kp and 2 kp + 1 (16 j each) of dx = dz W1^T for rows
+  // pr0 .. pr0 + 15 and all 32 columns: A by plain ldmatrix of the dz
+  // buffer's float32 words (rows pr0 + l % 8, and + 8, words j0 + 4 (l /
+  // 8) ..), split three ways; B = W1^T by ldmatrix.trans, rows in the A
+  // fragment's k order.
+  const int zoff = (pr0 + lane % 8) * ZS + 4 * (lane / 8);
+  const E* wp = w1s + (8 * ((lane / 8) % 2) + 4 * (lane % 2) +
+                       (lane % 8) / 2) * CS + 8 * (lane / 16);
+  auto phase_c = [&](int kp) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int ks = 2 * kp + kk;
+      uint32_t r[4], s[4], a[3][4], b[2][4];
+      ldsm_x4(r, zb + zoff + 16 * ks);
+      ldsm_x4(s, zb + zoff + 8 * ZS + 16 * ks);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {   // rows g (i = 0, 2), g + 8 (1, 3)
+        split3_bf16x2(__uint_as_float(r[2 * i]), __uint_as_float(r[2 * i + 1]),
+                      a[0][2 * i], a[1][2 * i], a[2][2 * i]);
+        split3_bf16x2(__uint_as_float(s[2 * i]), __uint_as_float(s[2 * i + 1]),
+                      a[0][2 * i + 1], a[1][2 * i + 1], a[2][2 * i + 1]);
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        ldsm_x4_trans(b[p], wp + ks * 16 * CS + 16 * p);
+#pragma unroll
+      for (int pc = 2; pc >= 0; --pc)   // lo, mid, hi
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          mma_bf16(dxc[2 * p], a[pc], b[p][0], b[p][1]);
+          mma_bf16(dxc[2 * p + 1], a[pc], b[p][2], b[p][3]);
+        }
+    }
+  };
+  // The epilogue of tile t: dx in bf16, staged in this warp's rows of the
+  // dx tile, stored as 16-byte pieces of rows.
+  auto epilogue = [&](long t) {
+    const int nrw = min(16, rows_of(t) - pr0);
+    __syncwarp();   // the previous epilogue's loads of the dx tile done
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(dxs + (pr0 + g + 8 * hh) * CS + 8 * c +
+                                     2 * q) =
+            pack_bf16(dxc[c][2 * hh], dxc[c][2 * hh + 1]);
+    __syncwarp();
+    E* dst = dx + (t * ROWS + pr0) * c_in;
+    if (vec) {
+      for (int e = lane; e < 16 * 4; e += 32) {
+        const int r = e / 4, c = 8 * (e % 4);
+        if (r < nrw && c < c_in)
+          *reinterpret_cast<uint4*>(dst + r * c_in + c) =
+              *reinterpret_cast<const uint4*>(dxs + (pr0 + r) * CS + c);
+      }
+    } else {
+      for (int e = lane; e < 16 * 32; e += 32) {
+        const int r = e / 32, c = e % 32;
+        if (r < nrw && c < c_in) dst[r * c_in + c] = dxs[(pr0 + r) * CS + c];
+      }
+    }
+  };
+
+  if (blockIdx.x < tiles) {
+    stage_x(xb, blockIdx.x, rows_of(blockIdx.x));
+    const int skew = copy_dy(blockIdx.x);
+    probav::cp_async_commit();
+    probav::cp_async_wait_all();
+    __syncwarp();
+    repack(dyt, skew, rows_of(blockIdx.x));
+  }
+  // Tile k of this block in the x and dy buffers k % 2: its products, then
+  // its phase C and epilogue.
+  int buf = 0;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    // x, dy of this tile staged; the previous tile's phase C done.
+    __syncthreads();
+    const long next = tile + gridDim.x;
+    int skew = 0;
+    if (next < tiles) {
+      stage_x(xb + (buf ^ 1) * ROWS * CS, next, rows_of(next));
+      skew = copy_dy(next);
+    }
+    probav::cp_async_commit();            // group: the next tile's x, dy
+
+    const E* xt = xb + buf * ROWS * CS;
+    const E* dt = dyt + buf * ROWS * CS;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      dxc[t][0] = dxc[t][1] = dxc[t][2] = dxc[t][3] = 0.f;
+#pragma unroll 1
+    for (int rg = 0; rg < RG; ++rg) {
+      const int r0 = 16 * rg;
+      // Phases A and B: this warp's j over rows r0 .. r0 + 15.  B of z^T
+      // and W2 dy^T (K = c, N = 8 rows): plain, rows r0 + 8 nt; B of dW1^T
+      // and dW2 (K = 16 rows, N = 8 c): .trans, c-tile pairs.
+      uint32_t xf[2][4], df[2][4], xtr[2][4], dtr[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int pl = (r0 + 8 * t + lane % 8) * CS + 8 * (lane / 8);
+        ldsm_x4(xf[t], xt + pl);
+        ldsm_x4(df[t], dt + pl);
+        const int tr = (r0 + 8 * ((lane / 8) % 2) + lane % 8) * CS +
+                       8 * (2 * t + lane / 16);
+        ldsm_x4_trans(xtr[t], xt + tr);
+        ldsm_x4_trans(dtr[t], dt + tr);
+      }
+      float z[MT][2][4], gg[MT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) z[mt][nt][i] = gg[mt][nt][i] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            mma_bf16(z[mt][nt], wa[mt][ks], xf[nt][2 * ks],
+                     xf[nt][2 * ks + 1]);
+            mma_bf16(gg[mt][nt], wb[mt][ks], df[nt][2 * ks],
+                     df[nt][2 * ks + 1]);
+          }
+        }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        // C tile (mt, nt): j = J0 + 16 mt + g + 8 hh at registers 2 hh
+        // and 2 hh + 1, rows r0 + 8 nt + 2q and + 1: dz = W2 dy masked by
+        // z > 0 and h = relu(z), float32, split into A fragments.
+        uint32_t adz[3][4], ah[3][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float z0 = z[mt][nt][2 * hh] + bias[mt][hh];
+            const float z1 = z[mt][nt][2 * hh + 1] + bias[mt][hh];
+            const float dz0 = z0 > 0.f ? gg[mt][nt][2 * hh] : 0.f;
+            const float dz1 = z1 > 0.f ? gg[mt][nt][2 * hh + 1] : 0.f;
+            const int i = 2 * nt + hh;
+            split3_bf16x2(dz0, dz1, adz[0][i], adz[1][i], adz[2][i]);
+            split3_bf16x2(fmaxf(z0, 0.f), fmaxf(z1, 0.f), ah[0][i],
+                          ah[1][i], ah[2][i]);
+            db1a[mt][hh] += dz0 + dz1;
+            float* zp = zb + (r0 + 8 * nt + 2 * q) * ZS + J0 + 16 * mt + g +
+                        8 * hh;
+            zp[0] = dz0;
+            zp[ZS] = dz1;
+          }
+#pragma unroll
+        for (int pc = 2; pc >= 0; --pc)   // lo, mid, hi
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            mma_bf16(acc1[mt][2 * t], adz[pc], xtr[t][0], xtr[t][1]);
+            mma_bf16(acc1[mt][2 * t + 1], adz[pc], xtr[t][2], xtr[t][3]);
+            mma_bf16(acc2[mt][2 * t], ah[pc], dtr[t][0], dtr[t][1]);
+            mma_bf16(acc2[mt][2 * t + 1], ah[pc], dtr[t][2], dtr[t][3]);
+          }
+      }
+      // db2: dy at rows r0 + 2q (+1, +8, +9), c = 8 ct + g; row group rg
+      // is summed by warp rg.
+      const float on = rg == warp ? 1.f : 0.f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&dtr[t][i]));
+          db2a[2 * t + i / 2] = fmaf(on, v.x + v.y, db2a[2 * t + i / 2]);
+        }
+    }
+    __syncthreads();   // this tile's dz complete
+#pragma unroll 1
+    for (int kp = 0; kp < 8; ++kp) phase_c(kp);
+    epilogue(tile);
+    if (next < tiles) {
+      probav::cp_async_wait_group<0>();   // the next tile's x, dy
+      __syncwarp();
+      repack(dyt + (buf ^ 1) * ROWS * CS, skew, rows_of(next));
+    }
+  }
+  probav::cp_async_wait_all();
+
+  // Write this block's slot, every entry: dW1, then dW2, staged in the dz
+  // space in the slot's order and stored in coalesced runs.
+  const Slot sl(c_in, c_mid, c_dec, false);
+  float* slot = part + blockIdx.x * slot_len;
+  float* sbuf = zb;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    __syncthreads();   // the dz space (then sbuf) read
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = J0 + 16 * mt + g + 8 * (i / 2);
+          const int c = 8 * ct + 2 * q + (i & 1);
+          if (pass == 0 && j < c_mid && c < c_in)
+            sbuf[c * c_mid + j] = acc1[mt][ct][i];
+          if (pass == 1 && j < c_mid && c < c_dec)
+            sbuf[j * c_dec + c] = acc2[mt][ct][i];
+        }
+    __syncthreads();
+    const int len = pass == 0 ? c_in * c_mid : c_mid * c_dec;
+    float* dst = slot + (pass == 0 ? sl.w1 : sl.w2);
+    for (int e = tid; e < len; e += blockDim.x) dst[e] = sbuf[e];
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    // db1: lanes q hold rows 2q, 2q + 1 (mod 8) of j; summed in order.
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = db1a[mt][hh];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const int j = J0 + 16 * mt + g + 8 * hh;
+      if (q == 0 && j < c_mid) slot[sl.b1 + j] = v;
+    }
+  }
+#pragma unroll
+  for (int ct = 0; ct < 4; ++ct) {   // db2 of this warp's row groups
+    float v = db2a[ct];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (q == 0) red[warp * 32 + 8 * ct + g] = v;
+  }
+  __syncthreads();
+  if (tid < c_dec) {
+    float sum = 0.f;
+    for (int w = 0; w < WBB_WARPS; ++w) sum += red[w * 32 + tid];
+    slot[sl.b2 + tid] = sum;
+  }
+}
+
+cudaError_t launch_wide_bwd_bf16(const void* x, const void* w1,
+                                 const float* b1, const void* w2,
+                                 const void* dy, void* dx, float* part,
+                                 long slot_len, int G, int n, int c_in,
+                                 int c_mid, int c_dec, cudaStream_t s) {
+  const size_t smem = wide_bwd_bf16_smem();
+  auto kern = wide_bwd_bf16_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // One wave: as many blocks as are resident at once (one an SM), each
+  // taking every G1-th tile; the slots of the blocks not launched zeroed.
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, WBB_WARPS * 32, smem);
+  if (err != cudaSuccess) return err;
+  const int G1 = std::min(G, std::max(1, sms * per_sm));
+  if (G1 < G) {
+    err = cudaMemsetAsync(part + (long)G1 * slot_len, 0,
+                          sizeof(float) * (size_t)(G - G1) * slot_len, s);
+    if (err != cudaSuccess) return err;
+  }
+  using B16 = __nv_bfloat16;
+  kern<<<G1, WBB_WARPS * 32, smem, s>>>(
+      static_cast<const B16*>(x), static_cast<const B16*>(w1), b1,
+      static_cast<const B16*>(w2), static_cast<const B16*>(dy),
+      static_cast<B16*>(dx), part, slot_len, n, c_in, c_mid, c_dec);
+  return cudaGetLastError();
+}
+
+// Which kernel wide_bwd runs, from the dtype and widths alone: bf16 where
+// the tensor cores' tiles cover the widths (c_in, c_dec <= 32, c_mid <=
+// 256) on wide_bwd_bf16_kernel; float32 at every width, and bf16 beyond,
+// on seg_bwd_kernel with WIDE (the CUDA cores).
+enum WideBwdRoute { WIDE_BWD_CUDA_CORES = 0, WIDE_BWD_BF16_MMA = 1 };
+
+WideBwdRoute wide_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
+  if (dtype != 1 || c_in > 32 || c_dec > 32 || c_mid > 256)
+    return WIDE_BWD_CUDA_CORES;
+  return WIDE_BWD_BF16_MMA;
+}
+
 // out[i] = sum over g of part[g][i], g in order.
 __global__ void reduce_partials_kernel(const float* __restrict__ part,
                                        float* __restrict__ out, int G,
@@ -2013,12 +2533,16 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
 template <typename T>
 cudaError_t wide_bwd(const void* x, const void* w1, const float* b1,
                      const void* w2, const void* dy, void* dx, float* part,
-                     float* out, int G, int n, int c_in, int c_mid, int c_dec,
-                     cudaStream_t s) {
+                     float* out, int G, int n, int c_in, int c_mid,
+                     int c_dec, cudaStream_t s) {
   const Slot sl(c_in, c_mid, c_dec, false);
-  cudaError_t err = dispatch_seg_bwd<T, true>(x, dy, nullptr, w1, b1, w2, dx,
-                                              part, sl.len, G, n, c_in, c_mid,
-                                              c_dec, s);
+  constexpr int dtype = std::is_same<T, __nv_bfloat16>::value ? 1 : 0;
+  cudaError_t err =
+      wide_bwd_route(dtype, c_in, c_mid, c_dec) == WIDE_BWD_BF16_MMA
+          ? launch_wide_bwd_bf16(x, w1, b1, w2, dy, dx, part, sl.len, G, n,
+                                 c_in, c_mid, c_dec, s)
+          : dispatch_seg_bwd<T, true>(x, dy, nullptr, w1, b1, w2, dx, part,
+                                      sl.len, G, n, c_in, c_mid, c_dec, s);
   if (err != cudaSuccess) return err;
   return reduce_partials(part, out, G, sl.len, s);
 }
@@ -2096,6 +2620,13 @@ int probav_wide_bwd(int dtype, const void* x, const void* w1, const void* b1,
     return (int)wide_bwd<__nv_bfloat16>(x, w1, b1f, w2, dy, dx, pf, of, G, n,
                                         c_in, c_mid, c_dec, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The kernel probav_wide_bwd launches for these widths: 0 = seg_bwd_kernel
+// with WIDE (CUDA cores), 1 = wide_bwd_bf16_kernel (bf16 mma, float32
+// operands split three ways).
+int probav_wide_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
+  return (int)wide_bwd_route(dtype, c_in, c_mid, c_dec);
 }
 
 }  // extern "C"

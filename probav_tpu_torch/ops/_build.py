@@ -45,6 +45,8 @@ SIGNATURES = {
     # dtype, x, w1, b1, w2, dy, dx, part, out, G, n, c_in, c_mid, c_dec,
     # stream
     "probav_wide_bwd": [_I] + [_P] * 8 + [_I] * 5 + [_P],
+    # dtype, c_in, c_mid, c_dec
+    "probav_wide_bwd_route": [_I] * 4,
     # hr, m, p, out, B, H, W, border, squared, stream
     "probav_shift_table_fwd": [_P] * 4 + [_I] * 5 + [_P],
     # hr, m, p, g, dp, B, H, W, border, squared, stream

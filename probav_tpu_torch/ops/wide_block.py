@@ -13,7 +13,11 @@ the four weight gradients (replaces ``pallas_wide_block._bwd``):
 dy, z, relu(z) and dz stay float32 at both dtypes, as in ``_bwd_kernel``;
 dx is stored in x's dtype, the weight gradients are float32.  The TPU row
 tiling (``_pick_tile``, ``_pad_rows``) is not ported: any N is taken, and
-any C_in and C_out from 1 to 128 (``tstack.t_tier_refusal``).
+any C_in and C_out from 1 to 128 (``tstack.t_tier_refusal``).  The C entry
+picks the kernel from the dtype and widths before any launch
+(``wide_bwd_route``): bf16 at C_in, C_out <= 32 and C_mid <= 256 (the
+flagship's 32/256/25) runs on the tensor cores with dz and relu(z) split
+three ways into bf16 pieces, everything else on the CUDA cores.
 
 Dispatch as in ``ops/tstack.py``: CPU tensors run ``wide_bwd_plain``; CUDA
 tensors launch the kernel, count it in ``LAUNCHES``, or raise.
@@ -34,6 +38,24 @@ LAUNCHES = {"wide_bwd": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# The kernels wide_bwd may launch, by the code that csrc/blk_bwd.cu's
+# wide_bwd_route gives.
+WIDE_BWD_ROUTES = ("seg_bwd_kernel (CUDA cores, WIDE)",
+                   "wide_bwd_bf16_kernel (bf16 mma, 3-way split)")
+
+
+def wide_bwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
+    """The kernel that ``wide_bwd`` runs for these widths on the card, as
+    its C entry chooses it (from the dtype and widths alone, before any
+    launch): bf16 at C, C_dec <= 32 and C_mid <= 256 on the tensor cores,
+    float32 at every width and bf16 beyond on the CUDA cores.  Builds the
+    kernels."""
+    from probav_tpu_torch.ops import _build
+    code = _build.library().probav_wide_bwd_route(_DTYPE_CODE[dtype], c,
+                                                  c_mid, c_dec)
+    return WIDE_BWD_ROUTES[code]
 
 
 def wide_bwd_plain(x, w1, b1, w2, dy):

@@ -20,8 +20,9 @@ sum (device busy); the idle share is 1 - busy / the median step time; and
 in the "t" variants blk_bwd's four sub-kernels (dd conv, wgrad, seg_bwd,
 reduce; see ``time_conv.BLK_BWD_PARTS``) per step, with the kernels that
 ran.  A
-JSON summary goes to ``<out>/profile_train.json``.  Needs a CUDA card;
-float32 runs with TF32 off.
+JSON summary goes to ``<out>/profile_train.json``.  ``--variants`` runs
+only the named ones (a comma list of ``VARIANTS``' names).  Needs a CUDA
+card; float32 runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -143,7 +144,12 @@ def main(argv=None) -> dict:
     p.add_argument("--cfg", default="cfg/p16t9c85r12.cfg")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", default="chiprun_out")
+    p.add_argument("--variants", help="comma list of VARIANTS' names")
     opt = p.parse_args(argv)
+    names = [v[0] for v in VARIANTS]
+    chosen = opt.variants.split(",") if opt.variants else names
+    if not set(chosen) <= set(names):
+        raise SystemExit(f"--variants: a comma list of {', '.join(names)}")
     import torch
 
     from probav_tpu_torch.config import Config
@@ -164,6 +170,8 @@ def main(argv=None) -> dict:
                   for a in synthetic_batch(n))
     summary = {}
     for name, dtype, tier, use_kernel in VARIANTS:
+        if name not in chosen:
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             tr = make_trainer(cfg, dtype, tier, "cuda", tmp,
                               use_kernel=use_kernel)

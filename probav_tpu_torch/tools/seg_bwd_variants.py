@@ -1,24 +1,28 @@
 """Variants of ``seg_bwd_bf16_kernel`` (the bf16 expand/decay backward of
-``blk_bwd`` on the tensor cores), timed side by side on one card.
+``blk_bwd`` on the tensor cores) or of ``wide_bwd_bf16_kernel`` (the bf16
+``wide_bwd``), timed side by side on one card.
 
-    python3 probav_tpu_torch/tools/seg_bwd_variants.py [--variants a,b] \\
-        [--rounds 5] [--out DIR]
+    python3 probav_tpu_torch/tools/seg_bwd_variants.py [--section wide] \\
+        [--variants a,b] [--rounds 5] [--out DIR]
 
-Each variant is the kernel's section of ``csrc/blk_bwd.cu`` (from
-``constexpr int SBB_WARPS`` to the float32 seg_bwd) with the text
-substitutions of ``VARIANTS`` (``kernel`` is the section as it is), in a
-namespace of its own; all are compiled into one library by nvcc
+Each variant is the kernel's section of ``csrc/blk_bwd.cu`` (``SECTIONS``:
+for ``seg_bwd``, the default, from ``constexpr int SBB_WARPS`` to the
+float32 seg_bwd; for ``wide`` from ``constexpr int WBB_WARPS`` to
+``wide_bwd_route``) with the text substitutions of its table (``VARIANTS``
+or ``WIDE_VARIANTS``; ``kernel`` is the section as it is), in a namespace
+of its own; all are compiled into one library by nvcc
 (``wgrad_variants.compile_variants``, with ptxas's register and spill
 report) and launched at the flagship's shape (N = 557,568 rows, 32/256/25)
-into the G partial slots that blk_bwd gives them, on bf16 x, dd, gy and
-weights on the dyadic grids of ``tools/dyadic.py`` (numpy seed 12).  For
-each: its registers and spilled bytes, the ms per launch of 20 launches
-back to back (CUDA events) in ``--rounds`` rounds taken in turn across the
-variants, and the largest error over max|ref| of its dx and of its summed
-slots (dW1, db1, dW2, db2, dbc) against ``tstack.seg_bwd_plain``.
-Variants that drop work give wrong results by design.  Prints one JSON
-line, also appended to ``DIR/seg_bwd_variants.jsonl`` with ``--out``.
-Needs a CUDA card.
+into the G partial slots that blk_bwd or wide_bwd gives them, on bf16
+inputs and weights on the dyadic grids of ``tools/dyadic.py`` (numpy seed
+12): x, dd, gy for seg_bwd, x, dy for wide.  For each: its registers and
+spilled bytes, the ms per launch of 20 launches back to back (CUDA events)
+in ``--rounds`` rounds taken in turn across the variants, and the largest
+error over max|ref| of its dx and of its summed slots (dW1, db1, dW2, db2,
+and dbc for seg_bwd) against ``tstack.seg_bwd_plain`` or
+``wide_block.wide_bwd_plain``.  Variants that drop work give wrong results
+by design.  Prints one JSON line, also appended to
+``DIR/seg_bwd_variants.jsonl`` with ``--out``.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -79,6 +83,199 @@ VARIANTS = {
                   "for (long tile = tiles; tile < tiles;"),),
 }
 
+# The 64-row layouts of wide_bwd_bf16_kernel, which the shipped 128-row
+# layout replaced, as substitutions.  At 64 rows two warps share each
+# 16-row group in phase C, each for 16 of dx's 32 columns, so phase C's
+# rows, columns and k-steps are split in general terms.
+_PHASE_C_64 = r"""  constexpr int WPR = WBB_WARPS / RG;          // phase-C warps a row group
+  constexpr int CTW = 4 / WPR;                 // their 8-column tiles of dx
+  constexpr int KPG = 16 / RG;                 // phase-C k-steps a row group
+  static_assert(WPR * RG == WBB_WARPS && CTW % 2 == 0 && KPG * RG == 16,
+                "phase C's rows, columns and k-steps per warp");
+  const int pr0 = 16 * (warp % RG);          // this warp's phase-C rows
+  const int ct0 = CTW * (warp / RG);         // and 8-column tiles of dx
+  float dxc[CTW][4];
+  // Phase C, k-steps ks0 .. ks0 + nks - 1 of dx = dz W1^T for rows pr0 ..
+  // pr0 + 15 and this warp's dx tiles, from the dz buffer z.
+  const int zoff = (pr0 + lane % 8) * ZS + 4 * (lane / 8);
+  const E* wp = w1s + (8 * ((lane / 8) % 2) + 4 * (lane % 2) +
+                       (lane % 8) / 2) * CS + 8 * (ct0 + lane / 16);
+  auto phase_c = [&](const float* z, int ks0, int nks) {
+#pragma unroll
+    for (int kk = 0; kk < nks; ++kk) {
+      const int ks = ks0 + kk;
+      uint32_t r[4], s[4], a[3][4], b[CTW / 2][4];
+      ldsm_x4(r, z + zoff + 16 * ks);
+      ldsm_x4(s, z + zoff + 8 * ZS + 16 * ks);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        split3_bf16x2(__uint_as_float(r[2 * i]), __uint_as_float(r[2 * i + 1]),
+                      a[0][2 * i], a[1][2 * i], a[2][2 * i]);
+        split3_bf16x2(__uint_as_float(s[2 * i]), __uint_as_float(s[2 * i + 1]),
+                      a[0][2 * i + 1], a[1][2 * i + 1], a[2][2 * i + 1]);
+      }
+#pragma unroll
+      for (int p = 0; p < CTW / 2; ++p)
+        ldsm_x4_trans(b[p], wp + ks * 16 * CS + 16 * p);
+#pragma unroll
+      for (int pc = 2; pc >= 0; --pc)
+#pragma unroll
+        for (int p = 0; p < CTW / 2; ++p) {
+          mma_bf16(dxc[2 * p], a[pc], b[p][0], b[p][1]);
+          mma_bf16(dxc[2 * p + 1], a[pc], b[p][2], b[p][3]);
+        }
+    }
+  };
+  auto epilogue = [&](long t) {
+    const int nrw = min(16, rows_of(t) - pr0);
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < CTW; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(dxs + (pr0 + g + 8 * hh) * CS +
+                                     8 * (ct0 + c) + 2 * q) =
+            pack_bf16(dxc[c][2 * hh], dxc[c][2 * hh + 1]);
+    __syncwarp();
+    E* dst = dx + (t * ROWS + pr0) * c_in;
+    if (vec) {
+      for (int e = lane; e < 16 * CTW; e += 32) {
+        const int r = e / CTW, c = 8 * (ct0 + e % CTW);
+        if (r < nrw && c < c_in)
+          *reinterpret_cast<uint4*>(dst + r * c_in + c) =
+              *reinterpret_cast<const uint4*>(dxs + (pr0 + r) * CS + c);
+      }
+    } else {
+      for (int e = lane; e < 16 * 8 * CTW; e += 32) {
+        const int r = e / (8 * CTW), c = 8 * ct0 + e % (8 * CTW);
+        if (r < nrw && c < c_in) dst[r * c_in + c] = dxs[(pr0 + r) * CS + c];
+      }
+    }
+  };
+
+"""
+_PHASE_C_LOOP = "for (int kp = 0; kp < 8; ++kp) phase_c(kp);"
+_LAST_PHASE_C = r"""  if (prev >= 0) {   // the last tile's phase C and epilogue
+    __syncthreads();   // its dz complete
+#pragma unroll
+    for (int t = 0; t < CTW; ++t)
+      dxc[t][0] = dxc[t][1] = dxc[t][2] = dxc[t][3] = 0.f;
+#pragma unroll 1
+    for (int rg = 0; rg < RG; ++rg)
+      phase_c(zb + (buf ^ 1) * ROWS * ZS, rg * KPG, KPG);
+    epilogue(prev);
+  }
+"""
+
+
+def _rows64(beside):
+    """Substitutions giving the wide kernel 64-row tiles, with phase C split
+    over two warps a row group: with `beside`, two dz buffers (184,576 B)
+    and each tile's phase C run beside the next tile's products, else one
+    buffer and phase C after the tile's products."""
+    subs = [(r"constexpr int WBB_ROWS = \d+;", "constexpr int WBB_ROWS = 64;"),
+            (r"  static_assert\(RG == WBB_WARPS, [^;]*;\n", ""),
+            (r"  const int pr0 = 16 \* warp;.*?(?=  if \(blockIdx\.x < tiles\))",
+             lambda m: _PHASE_C_64),
+            (r"(for \(int t = 0; t < )4(; \+\+t\)\n\s+dxc\[t\]\[0\])",
+             r"\1CTW\2")]
+    if not beside:
+        return tuple(subs) + ((re.escape(_PHASE_C_LOOP), "for (int rg = 0; "
+                               "rg < RG; ++rg) phase_c(zb, rg * KPG, KPG);"),)
+    return tuple(subs) + (
+        (r"\(size_t\)WBB_ROWS \* WBB_ZS", "(size_t)2 * WBB_ROWS * WBB_ZS"),
+        (r"zb \+ ROWS \* ZS\);", "zb + 2 * ROWS * ZS);"),
+        (r"  int buf = 0;\n", "  int buf = 0;\n  long prev = -1;\n"),
+        (r"(    const E\* dt = dyt \+ buf \* ROWS \* CS;\n)",
+         r"\1    float* zw = zb + buf * ROWS * ZS;\n"),
+        (r"float\* zp = zb \+", "float* zp = zw +"),
+        # The previous tile's phase C beside this tile's products (at a
+        # block's first tile it reads the other buffer, and nothing of it
+        # is stored).
+        (r"(\n#pragma unroll\n      for \(int mt = 0; mt < MT; \+\+mt\) \{\n"
+         r"        // C tile)",
+         r"\n      phase_c(zb + (buf ^ 1) * ROWS * ZS, rg * KPG, KPG);\1"),
+        (r"    __syncthreads\(\);   // this tile's dz complete\n.*?"
+         r"epilogue\(tile\);\n", "    if (prev >= 0) epilogue(prev);\n"),
+        (r"(rows_of\(next\)\);\n    \}\n)", r"\1    prev = tile;\n"),
+        (r"(  probav::cp_async_wait_all\(\);\n\n  // Write)",
+         lambda m: _LAST_PHASE_C + m.group(1)))
+
+
+_SPLIT_TRUNC = r"""  const uint32_t u0 = __float_as_uint(v0), u1 = __float_as_uint(v1);
+  hi = __byte_perm(u0, u1, 0x7632);
+  const float r0 = v0 - __uint_as_float(u0 & 0xffff0000u);
+  const float r1 = v1 - __uint_as_float(u1 & 0xffff0000u);
+  const uint32_t s0 = __float_as_uint(r0), s1 = __float_as_uint(r1);
+  mid = __byte_perm(s0, s1, 0x7632);
+  lo = __byte_perm(__float_as_uint(r0 - __uint_as_float(s0 & 0xffff0000u)),
+                   __float_as_uint(r1 - __uint_as_float(s1 & 0xffff0000u)),
+                   0x7632);
+"""
+
+# name: ((pattern, replacement), ...) applied to wide_bwd_bf16_kernel's
+# section.
+WIDE_VARIANTS = {
+    "kernel": (),
+    # 64-row tiles with two dz buffers: phase C beside the next tile's
+    # products, one barrier a tile, as in seg_bwd_bf16_kernel, but each
+    # warp's phase C covers 16 columns, so every dz value is loaded and
+    # split twice.  Two 128-row buffers do not fit.
+    "rows64": _rows64(beside=True),
+    # 64-row tiles, one dz buffer: phase C after the products.
+    "rows64_after": _rows64(beside=False),
+    # Phases removed: every mma (operands still loaded and kept live),
+    # phase C, the dz stores, every tile (the block's set-up and slot).
+    "no_mma": ((r"\bmma_bf16\(", "fake_mma("),),
+    "no_phase_c": ((re.escape(_PHASE_C_LOOP), "(void)0;"),),
+    "no_dz_store": ((r"zp\[0\] = dz0;\s*zp\[ZS\] = dz1;", "(void)zp;"),),
+    "no_tiles": ((r"for \(long tile = blockIdx.x; tile < tiles;",
+                  "for (long tile = tiles; tile < tiles;"),),
+    # One or two bf16 pieces of each float32 operand (wrong by design: one
+    # piece rounds dz and relu(z) to bf16 once): the products' loops over
+    # the pieces start at hi or at mid.
+    "split1": ((r"for \(int pc = 2;", "for (int pc = 0;"),),
+    "split2": ((r"for \(int pc = 2;", "for (int pc = 1;"),),
+    # The pieces cut by truncation (the top 16 bits of each float32, by
+    # byte permutes) instead of rounding: as exact a split (the last
+    # remainder still fits 8 bits), cheaper instructions.
+    "split_trunc": ((r"  hi = pack_bf16\(v0, v1\);\n.*?0xffff0000u\)\);\n",
+                     _SPLIT_TRUNC),),
+    # The 16-row group loop unrolled 2 deep, not 1.
+    "unroll_2": ((r"#pragma unroll 1(\s+for \(int rg = 0; rg < RG; \+\+rg\) "
+                  r"\{)", r"#pragma unroll 2\1"),),
+    # G blocks (2 an SM) in two waves, each re-staging W1, W2 and the
+    # fragments, not one wave of one block an SM.
+    "g_blocks": ((r"const int G1 = std::min\(G, [^;]*;", "const int G1 = G;"),),
+}
+
+# Each section: where it starts and ends in blk_bwd.cu, its kernel and
+# launcher, the launcher's arguments, its variants.
+SECTIONS = {
+    "seg_bwd": dict(start="constexpr int SBB_WARPS",
+                    end="// seg_bwd, float32 on the tensor cores",
+                    kernel="seg_bwd_bf16_kernel",
+                    launcher="launch_seg_bwd_bf16",
+                    args="x, dd, gy, w1, b1, w2, dx, part, slot_len, G, n, "
+                         "c_in, c_mid, c_dec, s",
+                    params="const void* x, const void* dd, const void* gy, "
+                           "const void* w1, const float* b1, const void* w2, "
+                           "void* dx, float* part, long slot_len, int G, "
+                           "int n, int c_in, int c_mid, int c_dec",
+                    variants=VARIANTS),
+    "wide": dict(start="constexpr int WBB_WARPS",
+                 end="// Which kernel wide_bwd runs",
+                 kernel="wide_bwd_bf16_kernel",
+                 launcher="launch_wide_bwd_bf16",
+                 args="x, w1, b1, w2, dy, dx, part, slot_len, G, n, c_in, "
+                      "c_mid, c_dec, s",
+                 params="const void* x, const void* w1, const float* b1, "
+                        "const void* w2, const void* dy, void* dx, "
+                        "float* part, long slot_len, int G, int n, "
+                        "int c_in, int c_mid, int c_dec",
+                 variants=WIDE_VARIANTS),
+}
+
 # mma_bf16 without the instruction: its operands are still loaded and
 # kept live (also the bf16 seg_fwd variants' no_mma).
 FAKE_MMA = """
@@ -92,66 +289,69 @@ __device__ __forceinline__ void fake_mma(float (&c)[4],
 """
 
 
-def source(names) -> str:
+def source(names, section="seg_bwd") -> str:
     """One .cu: ``Slot`` and the helpers, then each variant's copy of the
-    kernel's section in namespace v<i>, then an extern "C"
+    section's kernel in namespace v<i>, then an extern "C"
     ``launch(i, ...)``."""
     from probav_tpu_torch.ops import _build
+    sec = SECTIONS[section]
     text = (_build.SRC_DIR / "blk_bwd.cu").read_text()
     slot = text[text.index("struct Slot {"):text.index("};", text.index(
         "struct Slot {")) + 2]
-    end = text.index("// seg_bwd, float32 on the tensor cores")
-    section = text[text.index("constexpr int SBB_WARPS"):
-                   text.rindex("\n", 0, text.rindex("\n", 0, end)) + 1]
+    end = text.index(sec["end"])
+    body0 = text[text.index(sec["start"]):
+                 text.rindex("\n", 0, text.rindex("\n", 0, end)) + 1]
     parts = [f'#include "{_build.SRC_DIR / "common.cuh"}"',
              "#include <algorithm>", "namespace {", slot, FAKE_MMA]
     cases = []
     for i, name in enumerate(names):
-        body = section
-        for pattern, new in VARIANTS[name]:
-            body, hits = re.subn(pattern, new, body)
+        body = body0
+        for pattern, new in sec["variants"][name]:
+            body, hits = re.subn(pattern, new, body, flags=re.S)
             if not hits:
                 raise ValueError(f"variant {name}: {pattern!r} not in the "
                                  "kernel")
         parts.append(f"namespace v{i} {{\n{body}}}  // namespace v{i}")
-        cases.append(f"  if (v == {i}) return v{i}::launch_seg_bwd_bf16(x, "
-                     "dd, gy, w1, b1, w2, dx, part, slot_len, G, n, c_in, "
-                     "c_mid, c_dec, s);")
-    parts += ["}  // namespace", 'extern "C" int launch(int v, const void* x, '
-              "const void* dd, const void* gy, const void* w1, "
-              "const float* b1, const void* w2, void* dx, float* part, "
-              "long slot_len, int G, int n, int c_in, int c_mid, int c_dec, "
+        cases.append(f"  if (v == {i}) return v{i}::{sec['launcher']}("
+                     f"{sec['args']});")
+    parts += ["}  // namespace",
+              f'extern "C" int launch(int v, {sec["params"]}, '
               "void* stream) {",
               "  cudaStream_t s = static_cast<cudaStream_t>(stream);",
               *cases, "  return -1;", "}"]
     return "\n".join(parts)
 
 
-def slot_offsets(c_in, c_mid, c_dec):
-    """(w1, w2, b1, b2, bc, len) of blk_bwd.cu's ``Slot``: dWc first."""
-    w1 = 27 * c_dec * c_in
+def slot_offsets(c_in, c_mid, c_dec, conv=True):
+    """(w1, w2, b1, b2, bc, len) of blk_bwd.cu's ``Slot``: dWc first; no
+    dWc and no dbc without ``conv`` (wide_bwd's slots)."""
+    w1 = 27 * c_dec * c_in if conv else 0
     w2 = w1 + c_in * c_mid
     b1 = w2 + c_mid * c_dec
     b2 = b1 + c_mid
     bc = b2 + c_dec
-    return w1, w2, b1, b2, bc, bc + c_in
+    return w1, w2, b1, b2, bc, bc + (c_in if conv else 0)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--section", choices=tuple(SECTIONS), default="seg_bwd")
+    ap.add_argument("--variants")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out")
     opt = ap.parse_args(argv)
-    names = opt.variants.split(",")
-    if not set(names) <= set(VARIANTS):
-        raise SystemExit(f"--variants: a comma list of {', '.join(VARIANTS)}")
+    sec = SECTIONS[opt.section]
+    table = sec["variants"]
+    names = (opt.variants or ",".join(table)).split(",")
+    if not set(names) <= set(table):
+        raise SystemExit(f"--variants: a comma list of {', '.join(table)}")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     import numpy as np
     import torch
 
     from probav_tpu_torch.ops import tstack as ts
+    from probav_tpu_torch.ops import wide_block as wb
     from probav_tpu_torch.tools.dyadic import grid
     from probav_tpu_torch.tools.time_conv import back_to_back
     from probav_tpu_torch.tools.wgrad_variants import compile_variants
@@ -162,28 +362,38 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     P, I = ctypes.c_void_p, ctypes.c_int
+    wide = opt.section == "wide"
+    npt = sec["params"].count("*")   # pointer arguments before slot_len
     lib, regs, spills = compile_variants(
-        source(names), "seg_bwd_bf16_kernel", names,
-        [I] + [P] * 8 + [ctypes.c_long] + [I] * 5 + [P])
+        source(names, opt.section), sec["kernel"], names,
+        [I] + [P] * npt + [ctypes.c_long] + [I] * 5 + [P])
     dev = torch.device("cuda")
     r = np.random.default_rng(12)
     t = lambda a: torch.from_numpy(a).to(dev, torch.bfloat16)
-    x, dd, gy = (t(grid(r, (N, C), 32, 4)), t(grid(r, (N, C_DEC), 32, 4)),
-                 t(grid(r, (N, C), 32, 4)))
+    x = t(grid(r, (N, C), 32, 4))
+    if wide:
+        dy = t(grid(r, (N, C_DEC), 32, 4))
+    else:
+        dd, gy = t(grid(r, (N, C_DEC), 32, 4)), t(grid(r, (N, C), 32, 4))
     w1, w2 = t(grid(r, (C, C_MID), 16, 6)), t(grid(r, (C_MID, C_DEC), 8, 5))
     b1 = torch.from_numpy(grid(r, (C_MID,), 16, 6)).to(dev)
-    ref = ts.seg_bwd_plain(x, dd, gy, w1, b1, w2)
+    if wide:
+        ref = wb.wide_bwd_plain(x, w1, b1, w2, dy)
+        ins = (x, w1, b1, w2, dy)
+    else:
+        ref = ts.seg_bwd_plain(x, dd, gy, w1, b1, w2)
+        ins = (x, dd, gy, w1, b1, w2)
     groups = ts.partial_slots(dev, C, C_DEC)
-    o1, o2, ob1, ob2, obc, slot_len = slot_offsets(C, C_MID, C_DEC)
+    o1, o2, ob1, ob2, obc, slot_len = slot_offsets(C, C_MID, C_DEC,
+                                                   conv=not wide)
     part = torch.empty(groups, slot_len, device=dev)
     dx = torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [a.data_ptr() for a in ins] + [dx.data_ptr(), part.data_ptr()]
 
     def call(i):
-        err = lib.launch(i, x.data_ptr(), dd.data_ptr(), gy.data_ptr(),
-                         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                         dx.data_ptr(), part.data_ptr(), slot_len, groups, N,
-                         C, C_MID, C_DEC, stream)
+        err = lib.launch(i, *ptrs, slot_len, groups, N, C, C_MID, C_DEC,
+                         stream)
         if err:
             raise RuntimeError(f"variant {names[i]}: CUDA error {err}")
 
@@ -191,8 +401,8 @@ def main(argv=None):
         b = b.double()
         return float((a.double() - b).abs().max() / b.abs().max())
 
-    result = dict(card=card, n=N, widths=[C, C_MID, C_DEC], groups=groups,
-                  variants={})
+    result = dict(card=card, section=opt.section, n=N,
+                  widths=[C, C_MID, C_DEC], groups=groups, variants={})
     for i, name in enumerate(names):
         dx.fill_(float("nan"))
         part.fill_(float("nan"))
@@ -201,6 +411,8 @@ def main(argv=None):
         s = part.double().sum(0)
         got = (dx, s[o1:o2].reshape(C, C_MID), s[ob1:ob2],
                s[o2:ob1].reshape(C_MID, C_DEC), s[ob2:obc], s[obc:])
+        if wide:   # wide_bwd_plain's order: dx, dW1, db1, dW2, db2
+            got = got[:5]
         errs = [rel(a, b) for a, b in zip(got, ref)]
         result["variants"][name] = dict(
             registers=regs.get(name), spill_bytes=spills.get(name), ms=[],
