@@ -30,8 +30,9 @@ Phases, each printing its result:
    seg_bwd_tf32_kernel at float32, the CUDA-core one at 64/512/51; the
    tensor-core wgrad from 1 to 32 channels where its rows fit; the
    flagship must take both on the tensor cores at both dtypes; wide_bwd's
-   log names its route: wide_bwd_bf16_kernel, which the bf16 flagship must
-   take, and seg_bwd_kernel on the CUDA cores, which float32 and bf16 at
+   log names its route: wide_bwd_bf16_kernel and the 3xTF32
+   wide_bwd_tf32_kernel, which the bf16 and the float32 flagship must
+   take, and seg_bwd_kernel on the CUDA cores, which both dtypes at
    64/512/51 and the width phase's widths must take; its bf16 bound counts
    the three bf16 products of each product with a float32 operand) and the
    shift tables integer planes (probav_tpu_torch/tools/dyadic.py), on
@@ -312,9 +313,9 @@ def wide_seg_route(dn, c, cmid, cdec):
 
 
 def wide_cuda_core_route(dtype, c, cmid, cdec):
-    """Beyond 32/256/32 (and at float32 everywhere) wide_bwd keeps
-    seg_bwd_kernel on the CUDA cores (the route of wide_bwd_bf16_kernel ends
-    there); raises otherwise."""
+    """Beyond 32/256/32 wide_bwd keeps seg_bwd_kernel on the CUDA cores at
+    both dtypes (the routes of wide_bwd_bf16_kernel and
+    wide_bwd_tf32_kernel end there); raises otherwise."""
     from probav_tpu_torch.ops import wide_block as wb
     route = wb.wide_bwd_route(dtype, c, cmid, cdec)
     if route != wb.WIDE_BWD_ROUTES[0]:
@@ -336,6 +337,17 @@ def kernel_costs(name, n, c, cmid, cdec, dn):
         # dz and dW2 = relu(z)^T dy have one float32 operand (dz, relu(z)).
         both, one = 2 * n * cmid * (c + cdec), 2 * n * cmid * (2 * c + cdec)
         if dn == "float32":
+            import torch
+
+            from probav_tpu_torch.ops import wide_block as wb
+            cores = bound(both + one, nbytes, peak)[0]
+            if wb.wide_bwd_route(torch.float32, c, cmid, cdec) == \
+                    wb.WIDE_BWD_ROUTES[2]:
+                # 3xTF32 on the tensor cores (wide_bwd_tf32_kernel); the
+                # CUDA cores' bound logged beside it.
+                return (3 * (both + one), nbytes, PEAK_TF32,
+                        f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} "
+                        f"TFLOP/s; on the CUDA cores {cores:.4f} ms)")
             # On the CUDA cores; the 3xTF32 bound logged beside it.
             tf32 = bound(3 * (both + one), nbytes, PEAK_TF32)[0]
             return (both + one, nbytes, peak,
@@ -535,9 +547,9 @@ def phase_kernels(torch, ts, dev, card):
             f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, errs)) +
             f" (tol dx {BWD_TOL[dn]:g}, grads {BWD_GRAD_TOL:g} of max|ref|);"
             f" route {wroute}")
-        # The flagship takes wide_bwd_bf16_kernel at bf16, seg_bwd_kernel
-        # (CUDA cores) at float32.
-        want_route = wb.WIDE_BWD_ROUTES[1 if dn == "bfloat16" else 0]
+        # The flagship takes the tensor cores: wide_bwd_bf16_kernel at
+        # bf16, wide_bwd_tf32_kernel at float32.
+        want_route = wb.WIDE_BWD_ROUTES[1 if dn == "bfloat16" else 2]
         if wroute != want_route:
             raise AssertionError(f"wide_bwd {dn} route {wroute}, expected "
                                  f"{want_route}")

@@ -78,19 +78,20 @@
 // dW2, db2 (db2 = sum dy), with dz and relu(z) kept float32 as in
 // _bwd_kernel, into per-block partial slots (in a layout without dWc and
 // dbc) and the same fixed-order reduce.  The TPU row tiling (_pick_tile,
-// _pad_rows) is a VMEM rule and is not ported: any N is taken.  Two
+// _pad_rows) is a VMEM rule and is not ported: any N is taken.  Three
 // kernels, chosen from the dtype and widths before any launch
-// (wide_bwd_route): bf16 at c_in, c_dec <= 32 and c_mid <= 256 (the
-// flagship's 32/256/25) runs wide_bwd_bf16_kernel on the tensor cores, the
-// layout of seg_bwd_bf16_kernel with dz and relu(z) split three ways into
-// bf16 pieces where they meet a product, so that nothing is rounded to
-// bf16 but dx; float32 at every width, and bf16 beyond, seg_bwd_kernel
+// (wide_bwd_route).  At c_in, c_dec <= 32 and c_mid <= 256 (the flagship's
+// 32/256/25) both dtypes run on the tensor cores: bf16 as
+// wide_bwd_bf16_kernel, the layout of seg_bwd_bf16_kernel with dz and
+// relu(z) split three ways into bf16 pieces where they meet a product, so
+// that nothing is rounded to bf16 but dx; float32 as wide_bwd_tf32_kernel,
+// the WIDE flavour of seg_bwd_tf32_kernel (3xTF32).  Beyond, seg_bwd_kernel
 // with WIDE set on the CUDA cores.  Bound on an H100 at the flagship N =
 // 557,568, 32/256/25: 2 N c_mid (3 c_in + 2 c_dec) = 41.7 GFLOP against
 // ~89 elements per row moved, so operations: float32 0.253 ms as 3xTF32
-// (0.62 ms at the CUDA-core peak, which the float32 kernel runs at); bf16
-// 0.094 ms, counting z and W2 dy once and dx, dW1 and dW2 (one float32
-// operand each) three times at the bf16 peak.
+// (0.62 ms at the CUDA-core peak); bf16 0.094 ms, counting z and W2 dy
+// once and dx, dW1 and dW2 (one float32 operand each) three times at the
+// bf16 peak.
 
 #include "common.cuh"
 
@@ -1339,7 +1340,13 @@ cudaError_t launch_seg_bwd_bf16(const void* x, const void* dd, const void* gy,
 // seg_bwd, float32 on the tensor cores as 3xTF32 (mma.sync.m16n8k8, float32 //
 // sums; split_tf32 in common.cuh), for c_in, c_dec <= 32 and c_mid <= 256   //
 // (the flagship's 32/256/25).  It computes what seg_bwd_kernel<float, ...,  //
-// false> computes, with the same slot layout and no rounding point.         //
+// false> computes, with the same slot layout and no rounding point.  Its    //
+// WIDE flavour, wide_bwd_tf32_kernel, is the float32 wide_bwd (replacing    //
+// the TPU kernel _bwd of probav_tpu/ops/pallas_wide_block.py:110): what     //
+// seg_bwd_kernel<float, ..., true> computes, with dy in dd's place, no gy   //
+// (dx = W1 dz), no dbc, the slot without dWc and dbc, and one wave of      //
+// min(G, resident) blocks, the other slots zeroed by a memset.  Both share  //
+// one body, seg_bwd_tf32_body<WIDE>.                                        //
 //                                                                          //
 // Bound at the flagship (N = 557,568): 2 N c_mid (3 c_in + 2 c_dec) = 41.7  //
 // GFLOP, three TF32 products each, 0.253 ms at the 494.7 TFLOP/s TF32 peak  //
@@ -1371,8 +1378,8 @@ cudaError_t launch_seg_bwd_bf16(const void* x, const void* dd, const void* gy,
 // 4) while this one computes.  The weights are staged once per block and   //
 // split at each load: their hi/lo planes would not fit beside the tiles.   //
 // Shared memory: 2 x 33,792 (w1, w2 as [c][j]) + 1,024 (b1) + 2 x 36,864  //
-// (dz, h) + 4 x 20,480 (x, dd, two buffers) + 1,024: 225,280 B, one block  //
-// per SM.                                                                  //
+// (dz, h) + 4 x 20,480 (x, dd, two buffers) + 1,024 (dbc): 225,280 B      //
+// (WIDE 224,256 B), one block per SM.                                      //
 // ------------------------------------------------------------------------ //
 
 constexpr int SBT_ROWS = 128;            // rows per tile
@@ -1383,14 +1390,16 @@ constexpr int SBT_XS = 40;               // x / dd row stride (floats)
 constexpr int SBT_ZS = SBT_CH + 8;       // dz / h row stride
 constexpr int SBT_WS = 256 + 8;          // [c][j] weight row stride
 
-__global__ void __launch_bounds__(SBT_WARPS * 32, 1)
-seg_bwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dd,
-                    const float* __restrict__ gy,
-                    const float* __restrict__ w1,
-                    const float* __restrict__ b1,
-                    const float* __restrict__ w2, float* __restrict__ dx,
-                    float* __restrict__ part, long slot_len, int n, int c_in,
-                    int c_mid, int c_dec) {
+// The body of seg_bwd_tf32_kernel (WIDE false) and of wide_bwd_tf32_kernel
+// (WIDE true: dd is dy, gy is not read, dx = W1 dz, no dbc, and the slot
+// has no dWc and no dbc).
+template <bool WIDE>
+__device__ __forceinline__ void seg_bwd_tf32_body(
+    const float* __restrict__ x, const float* __restrict__ dd,
+    const float* __restrict__ gy, const float* __restrict__ w1,
+    const float* __restrict__ b1, const float* __restrict__ w2,
+    float* __restrict__ dx, float* __restrict__ part, long slot_len, int n,
+    int c_in, int c_mid, int c_dec) {
   extern __shared__ __align__(16) float smem[];
   float* w1s = smem;                            // [32][WS]  w1[c][j]
   float* w2s = w1s + 32 * SBT_WS;               // [32][WS]  w2[j][c] at [c][j]
@@ -1588,7 +1597,7 @@ seg_bwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dd,
       __syncthreads();   // phase B done with zs, hs (and, last, the tile)
     }
 
-    // dx = W1 dz + gy, summed in float32; dbc sums gy.
+    // dx = W1 dz + gy, summed in float32; dbc sums gy.  WIDE: dx = W1 dz.
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
@@ -1597,16 +1606,20 @@ seg_bwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dd,
         const int c = t * 8 + 2 * q + (i & 1);
         if (r < nrows && c < c_in) {
           const long idx = (row0 + r) * c_in + c;
-          const float gv = gy[idx];
-          dbca[t][i & 1] += gv;
-          dx[idx] = dxa[t][i] + gv;
+          if constexpr (WIDE) {
+            dx[idx] = dxa[t][i];
+          } else {
+            const float gv = gy[idx];
+            dbca[t][i & 1] += gv;
+            dx[idx] = dxa[t][i] + gv;
+          }
         }
       }
   }
   probav::cp_async_wait_all();
 
-  // Write this block's partial slot: every entry of dW1..dbc.
-  const Slot sl(c_in, c_mid, c_dec);
+  // Write this block's partial slot: every entry of dW1..dbc (WIDE: ..db2).
+  const Slot sl(c_in, c_mid, c_dec, !WIDE);
   float* slot = part + blockIdx.x * slot_len;
 #pragma unroll
   for (int ch = 0; ch < SBT_NCH; ++ch) {
@@ -1638,23 +1651,45 @@ seg_bwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dd,
     const int c = nd + t * 8 + g;
     if (warp < 2 && q == 0 && c < c_dec) slot[sl.b2 + c] = v;
   }
-  // dbc: sum the 8 row groups (lanes g) of each warp, then the warps.
+  if constexpr (!WIDE) {
+    // dbc: sum the 8 row groups (lanes g) of each warp, then the warps.
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+    for (int t = 0; t < 4; ++t)
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      float v = dbca[t][u];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (g == 0) red[warp * 32 + t * 8 + 2 * q + u] = v;
+      for (int u = 0; u < 2; ++u) {
+        float v = dbca[t][u];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) red[warp * 32 + t * 8 + 2 * q + u] = v;
+      }
+    __syncthreads();
+    if (tid < c_in) {
+      float sum = 0.f;
+      for (int w = 0; w < SBT_WARPS; ++w) sum += red[w * 32 + tid];
+      slot[sl.bc + tid] = sum;
     }
-  __syncthreads();
-  if (tid < c_in) {
-    float sum = 0.f;
-    for (int w = 0; w < SBT_WARPS; ++w) sum += red[w * 32 + tid];
-    slot[sl.bc + tid] = sum;
   }
+}
+
+__global__ void __launch_bounds__(SBT_WARPS * 32, 1)
+seg_bwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dd,
+                    const float* __restrict__ gy,
+                    const float* __restrict__ w1,
+                    const float* __restrict__ b1,
+                    const float* __restrict__ w2, float* __restrict__ dx,
+                    float* __restrict__ part, long slot_len, int n, int c_in,
+                    int c_mid, int c_dec) {
+  seg_bwd_tf32_body<false>(x, dd, gy, w1, b1, w2, dx, part, slot_len, n,
+                           c_in, c_mid, c_dec);
+}
+
+// Shared memory of both: the weights, b1, dz and h, the x and dd (dy)
+// tiles, and blk_bwd's dbc sums.
+size_t seg_bwd_tf32_smem(bool wide) {
+  return sizeof(float) * ((size_t)2 * 32 * SBT_WS + 256 +
+                          2 * SBT_ROWS * SBT_ZS + 4 * SBT_ROWS * SBT_XS +
+                          (wide ? 0 : SBT_WARPS * 32));
 }
 
 cudaError_t launch_seg_bwd_tf32(const void* x, const void* dd, const void* gy,
@@ -1662,9 +1697,7 @@ cudaError_t launch_seg_bwd_tf32(const void* x, const void* dd, const void* gy,
                                 const void* w2, void* dx, float* part,
                                 long slot_len, int G, int n, int c_in,
                                 int c_mid, int c_dec, cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * 32 * SBT_WS + 256 + 2 * SBT_ROWS * SBT_ZS +
-                       4 * SBT_ROWS * SBT_XS + SBT_WARPS * 32);
+  const size_t smem = seg_bwd_tf32_smem(false);
   auto kern = seg_bwd_tf32_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1674,6 +1707,47 @@ cudaError_t launch_seg_bwd_tf32(const void* x, const void* dd, const void* gy,
       static_cast<const float*>(gy), static_cast<const float*>(w1), b1,
       static_cast<const float*>(w2), static_cast<float*>(dx), part, slot_len,
       n, c_in, c_mid, c_dec);
+  return cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(SBT_WARPS * 32, 1)
+wide_bwd_tf32_kernel(const float* __restrict__ x,
+                     const float* __restrict__ w1,
+                     const float* __restrict__ b1,
+                     const float* __restrict__ w2,
+                     const float* __restrict__ dy, float* __restrict__ dx,
+                     float* __restrict__ part, long slot_len, int n,
+                     int c_in, int c_mid, int c_dec) {
+  seg_bwd_tf32_body<true>(x, dy, nullptr, w1, b1, w2, dx, part, slot_len, n,
+                          c_in, c_mid, c_dec);
+}
+
+cudaError_t launch_wide_bwd_tf32(const void* x, const void* w1,
+                                 const float* b1, const void* w2,
+                                 const void* dy, void* dx, float* part,
+                                 long slot_len, int G, int n, int c_in,
+                                 int c_mid, int c_dec, cudaStream_t s) {
+  const size_t smem = seg_bwd_tf32_smem(true);
+  auto kern = wide_bwd_tf32_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // One wave: as many blocks as are resident at once (one an SM), each
+  // taking every G1-th tile; the slots of the blocks not launched zeroed.
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      SBT_WARPS * 32, smem);
+  if (err != cudaSuccess) return err;
+  const int G1 = std::min(G, std::max(1, per_sm * probav::sm_count()));
+  if (G1 < G) {
+    err = cudaMemsetAsync(part + (long)G1 * slot_len, 0,
+                          sizeof(float) * (size_t)(G - G1) * slot_len, s);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<G1, SBT_WARPS * 32, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1), b1,
+      static_cast<const float*>(w2), static_cast<const float*>(dy),
+      static_cast<float*>(dx), part, slot_len, n, c_in, c_mid, c_dec);
   return cudaGetLastError();
 }
 
@@ -2455,16 +2529,19 @@ cudaError_t launch_wide_bwd_bf16(const void* x, const void* w1,
   return cudaGetLastError();
 }
 
-// Which kernel wide_bwd runs, from the dtype and widths alone: bf16 where
-// the tensor cores' tiles cover the widths (c_in, c_dec <= 32, c_mid <=
-// 256) on wide_bwd_bf16_kernel; float32 at every width, and bf16 beyond,
-// on seg_bwd_kernel with WIDE (the CUDA cores).
-enum WideBwdRoute { WIDE_BWD_CUDA_CORES = 0, WIDE_BWD_BF16_MMA = 1 };
+// Which kernel wide_bwd runs, from the dtype and widths alone: where the
+// tensor cores' tiles cover the widths (c_in, c_dec <= 32, c_mid <= 256)
+// bf16 on wide_bwd_bf16_kernel and float32 on wide_bwd_tf32_kernel; beyond,
+// seg_bwd_kernel with WIDE (the CUDA cores).
+enum WideBwdRoute {
+  WIDE_BWD_CUDA_CORES = 0,
+  WIDE_BWD_BF16_MMA = 1,
+  WIDE_BWD_TF32_MMA = 2
+};
 
 WideBwdRoute wide_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
-  if (dtype != 1 || c_in > 32 || c_dec > 32 || c_mid > 256)
-    return WIDE_BWD_CUDA_CORES;
-  return WIDE_BWD_BF16_MMA;
+  if (c_in > 32 || c_dec > 32 || c_mid > 256) return WIDE_BWD_CUDA_CORES;
+  return dtype == 1 ? WIDE_BWD_BF16_MMA : WIDE_BWD_TF32_MMA;
 }
 
 // out[i] = sum over g of part[g][i], g in order.
@@ -2537,12 +2614,20 @@ cudaError_t wide_bwd(const void* x, const void* w1, const float* b1,
                      int c_dec, cudaStream_t s) {
   const Slot sl(c_in, c_mid, c_dec, false);
   constexpr int dtype = std::is_same<T, __nv_bfloat16>::value ? 1 : 0;
-  cudaError_t err =
-      wide_bwd_route(dtype, c_in, c_mid, c_dec) == WIDE_BWD_BF16_MMA
-          ? launch_wide_bwd_bf16(x, w1, b1, w2, dy, dx, part, sl.len, G, n,
-                                 c_in, c_mid, c_dec, s)
-          : dispatch_seg_bwd<T, true>(x, dy, nullptr, w1, b1, w2, dx, part,
+  cudaError_t err;
+  switch (wide_bwd_route(dtype, c_in, c_mid, c_dec)) {
+    case WIDE_BWD_BF16_MMA:
+      err = launch_wide_bwd_bf16(x, w1, b1, w2, dy, dx, part, sl.len, G, n,
+                                 c_in, c_mid, c_dec, s);
+      break;
+    case WIDE_BWD_TF32_MMA:
+      err = launch_wide_bwd_tf32(x, w1, b1, w2, dy, dx, part, sl.len, G, n,
+                                 c_in, c_mid, c_dec, s);
+      break;
+    default:
+      err = dispatch_seg_bwd<T, true>(x, dy, nullptr, w1, b1, w2, dx, part,
                                       sl.len, G, n, c_in, c_mid, c_dec, s);
+  }
   if (err != cudaSuccess) return err;
   return reduce_partials(part, out, G, sl.len, s);
 }
@@ -2624,7 +2709,8 @@ int probav_wide_bwd(int dtype, const void* x, const void* w1, const void* b1,
 
 // The kernel probav_wide_bwd launches for these widths: 0 = seg_bwd_kernel
 // with WIDE (CUDA cores), 1 = wide_bwd_bf16_kernel (bf16 mma, float32
-// operands split three ways).
+// operands split three ways), 2 = wide_bwd_tf32_kernel (float32 as 3xTF32
+// mma).
 int probav_wide_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return (int)wide_bwd_route(dtype, c_in, c_mid, c_dec);
 }

@@ -15,9 +15,10 @@ dx is stored in x's dtype, the weight gradients are float32.  The TPU row
 tiling (``_pick_tile``, ``_pad_rows``) is not ported: any N is taken, and
 any C_in and C_out from 1 to 128 (``tstack.t_tier_refusal``).  The C entry
 picks the kernel from the dtype and widths before any launch
-(``wide_bwd_route``): bf16 at C_in, C_out <= 32 and C_mid <= 256 (the
-flagship's 32/256/25) runs on the tensor cores with dz and relu(z) split
-three ways into bf16 pieces, everything else on the CUDA cores.
+(``wide_bwd_route``): at C_in, C_out <= 32 and C_mid <= 256 (the
+flagship's 32/256/25) both dtypes run on the tensor cores, bf16 with dz
+and relu(z) split three ways into bf16 pieces, float32 as 3xTF32; wider
+widths on the CUDA cores.
 
 Dispatch as in ``ops/tstack.py``: CPU tensors run ``wide_bwd_plain``; CUDA
 tensors launch the kernel, count it in ``LAUNCHES``, or raise.
@@ -43,14 +44,15 @@ def reset_launches() -> None:
 # The kernels wide_bwd may launch, by the code that csrc/blk_bwd.cu's
 # wide_bwd_route gives.
 WIDE_BWD_ROUTES = ("seg_bwd_kernel (CUDA cores, WIDE)",
-                   "wide_bwd_bf16_kernel (bf16 mma, 3-way split)")
+                   "wide_bwd_bf16_kernel (bf16 mma, 3-way split)",
+                   "wide_bwd_tf32_kernel (3xTF32 mma)")
 
 
 def wide_bwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
     """The kernel that ``wide_bwd`` runs for these widths on the card, as
     its C entry chooses it (from the dtype and widths alone, before any
-    launch): bf16 at C, C_dec <= 32 and C_mid <= 256 on the tensor cores,
-    float32 at every width and bf16 beyond on the CUDA cores.  Builds the
+    launch): at C, C_dec <= 32 and C_mid <= 256 on the tensor cores (bf16
+    and float32 each its own kernel), beyond on the CUDA cores.  Builds the
     kernels."""
     from probav_tpu_torch.ops import _build
     code = _build.library().probav_wide_bwd_route(_DTYPE_CODE[dtype], c,

@@ -60,6 +60,9 @@ def main(argv=None) -> dict:
                                                  write_submission)
     from probav_tpu_torch.models.wdsr import build_model
 
+    if not opt.bf16:   # float32 products in float32: no one-pass TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(opt.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available "

@@ -1,28 +1,33 @@
 """Variants of ``seg_bwd_bf16_kernel`` (the bf16 expand/decay backward of
-``blk_bwd`` on the tensor cores) or of ``wide_bwd_bf16_kernel`` (the bf16
-``wide_bwd``), timed side by side on one card.
+``blk_bwd`` on the tensor cores), of ``wide_bwd_bf16_kernel`` (the bf16
+``wide_bwd``) or of ``wide_bwd_tf32_kernel`` (the float32 ``wide_bwd``),
+timed side by side on one card.
 
-    python3 probav_tpu_torch/tools/seg_bwd_variants.py [--section wide] \\
-        [--variants a,b] [--rounds 5] [--out DIR]
+    python3 probav_tpu_torch/tools/seg_bwd_variants.py \\
+        [--section seg_bwd|wide|wide_tf32] [--variants a,b] [--rounds 5] \\
+        [--out DIR]
 
 Each variant is the kernel's section of ``csrc/blk_bwd.cu`` (``SECTIONS``:
 for ``seg_bwd``, the default, from ``constexpr int SBB_WARPS`` to the
 float32 seg_bwd; for ``wide`` from ``constexpr int WBB_WARPS`` to
-``wide_bwd_route``) with the text substitutions of its table (``VARIANTS``
-or ``WIDE_VARIANTS``; ``kernel`` is the section as it is), in a namespace
-of its own; all are compiled into one library by nvcc
-(``wgrad_variants.compile_variants``, with ptxas's register and spill
-report) and launched at the flagship's shape (N = 557,568 rows, 32/256/25)
-into the G partial slots that blk_bwd or wide_bwd gives them, on bf16
-inputs and weights on the dyadic grids of ``tools/dyadic.py`` (numpy seed
-12): x, dd, gy for seg_bwd, x, dy for wide.  For each: its registers and
-spilled bytes, the ms per launch of 20 launches back to back (CUDA events)
-in ``--rounds`` rounds taken in turn across the variants, and the largest
-error over max|ref| of its dx and of its summed slots (dW1, db1, dW2, db2,
-and dbc for seg_bwd) against ``tstack.seg_bwd_plain`` or
-``wide_block.wide_bwd_plain``.  Variants that drop work give wrong results
-by design.  Prints one JSON line, also appended to
-``DIR/seg_bwd_variants.jsonl`` with ``--out``.  Needs a CUDA card.
+``wide_bwd_route``; for ``wide_tf32`` from ``constexpr int SBT_ROWS`` to
+the float32 wgrad) with the text substitutions of its table
+(``VARIANTS``, ``WIDE_VARIANTS`` or ``WIDE_TF32_VARIANTS``; ``kernel`` is
+the section as it is), in a namespace of its own; all are compiled into
+one library by nvcc (``wgrad_variants.compile_variants``, with ptxas's
+register and spill report) and launched at the flagship's shape (N =
+557,568 rows, 32/256/25) into the G partial slots that blk_bwd or
+wide_bwd gives them, on inputs and weights in the section's dtype (bf16,
+float32 for ``wide_tf32``) on the dyadic grids of ``tools/dyadic.py``
+(numpy seed 12): x, dd, gy for seg_bwd, x, dy for the wide sections.  For
+each: its registers and spilled bytes, the ms per launch of 20 launches
+back to back (CUDA events) in ``--rounds`` rounds taken in turn across
+the variants, and the largest error over max|ref| of its dx and of its
+summed slots (dW1, db1, dW2, db2, and dbc for seg_bwd) against
+``tstack.seg_bwd_plain`` or ``wide_block.wide_bwd_plain``.  Variants that
+drop work give wrong results by design.  Prints one JSON line, also
+appended to ``DIR/seg_bwd_variants.jsonl`` with ``--out``.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -249,6 +254,20 @@ WIDE_VARIANTS = {
     "g_blocks": ((r"const int G1 = std::min\(G, [^;]*;", "const int G1 = G;"),),
 }
 
+# name: ((pattern, replacement), ...) applied to the float32 section
+# (seg_bwd_tf32_body, whose WIDE flavour wide_bwd_tf32_kernel is launched).
+WIDE_TF32_VARIANTS = {
+    "kernel": (),
+    # G blocks (one an SM) in two waves, each re-staging the weights, not
+    # one wave of min(G, resident) blocks.
+    "g_blocks": ((r"const int G1 = std::min\(G, [^;]*;", "const int G1 = G;"),),
+    # Phases removed: every mma (operands still split and kept live),
+    # phase B (dW1, dW2 and db1: two of the five product sets).
+    "no_mma": ((r"\bmma_term\(", "fake_mma_tf32("),),
+    "no_phase_b": ((r"for \(int kk = 0; kk < SBT_ROWS / 8; \+\+kk\)",
+                    "for (int kk = 0; kk < 0; ++kk)"),),
+}
+
 # Each section: where it starts and ends in blk_bwd.cu, its kernel and
 # launcher, the launcher's arguments, its variants.
 SECTIONS = {
@@ -274,6 +293,17 @@ SECTIONS = {
                         "float* part, long slot_len, int G, int n, "
                         "int c_in, int c_mid, int c_dec",
                  variants=WIDE_VARIANTS),
+    "wide_tf32": dict(start="constexpr int SBT_ROWS",
+                      end="// wgrad, float32 on the tensor cores",
+                      kernel="wide_bwd_tf32_kernel",
+                      launcher="launch_wide_bwd_tf32",
+                      args="x, w1, b1, w2, dy, dx, part, slot_len, G, n, "
+                           "c_in, c_mid, c_dec, s",
+                      params="const void* x, const void* w1, const float* "
+                             "b1, const void* w2, const void* dy, void* dx, "
+                             "float* part, long slot_len, int G, int n, "
+                             "int c_in, int c_mid, int c_dec",
+                      variants=WIDE_TF32_VARIANTS),
 }
 
 # mma_bf16 without the instruction: its operands are still loaded and
@@ -286,13 +316,24 @@ __device__ __forceinline__ void fake_mma(float (&c)[4],
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
                  "r"(b1));
 }
+
+__device__ __forceinline__ void fake_mma_tf32(float (&c)[4],
+                                              const probav::FragA& a,
+                                              const probav::FragB& b,
+                                              int term) {
+  asm volatile("" : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a.h[0]), "r"(a.h[1]), "r"(a.h[2]), "r"(a.h[3]),
+                 "r"(a.l[0]), "r"(a.l[1]), "r"(a.l[2]), "r"(a.l[3]),
+                 "r"(b.h[0]), "r"(b.h[1]), "r"(b.l[0]), "r"(b.l[1]),
+                 "r"(term));
+}
 """
 
 
 def source(names, section="seg_bwd") -> str:
-    """One .cu: ``Slot`` and the helpers, then each variant's copy of the
-    section's kernel in namespace v<i>, then an extern "C"
-    ``launch(i, ...)``."""
+    """One .cu: blk_bwd.cu's ``using`` declarations, ``Slot`` and the
+    helpers, then each variant's copy of the section's kernel in namespace
+    v<i>, then an extern "C" ``launch(i, ...)``."""
     from probav_tpu_torch.ops import _build
     sec = SECTIONS[section]
     text = (_build.SRC_DIR / "blk_bwd.cu").read_text()
@@ -301,8 +342,10 @@ def source(names, section="seg_bwd") -> str:
     end = text.index(sec["end"])
     body0 = text[text.index(sec["start"]):
                  text.rindex("\n", 0, text.rindex("\n", 0, end)) + 1]
+    usings = [ln for ln in text.splitlines()
+              if ln.startswith("using probav::")]
     parts = [f'#include "{_build.SRC_DIR / "common.cuh"}"',
-             "#include <algorithm>", "namespace {", slot, FAKE_MMA]
+             "#include <algorithm>", "namespace {", *usings, slot, FAKE_MMA]
     cases = []
     for i, name in enumerate(names):
         body = body0
@@ -362,14 +405,15 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     P, I = ctypes.c_void_p, ctypes.c_int
-    wide = opt.section == "wide"
+    wide = opt.section != "seg_bwd"
     npt = sec["params"].count("*")   # pointer arguments before slot_len
     lib, regs, spills = compile_variants(
         source(names, opt.section), sec["kernel"], names,
         [I] + [P] * npt + [ctypes.c_long] + [I] * 5 + [P])
     dev = torch.device("cuda")
     r = np.random.default_rng(12)
-    t = lambda a: torch.from_numpy(a).to(dev, torch.bfloat16)
+    dtype = torch.float32 if opt.section == "wide_tf32" else torch.bfloat16
+    t = lambda a: torch.from_numpy(a).to(dev, dtype)
     x = t(grid(r, (N, C), 32, 4))
     if wide:
         dy = t(grid(r, (N, C_DEC), 32, 4))

@@ -47,7 +47,8 @@ KERNELS = ("conv_fwd", "seg_fwd", "blk_bwd", "wide_bwd")
 # blk_bwd's sub-kernels: (part, ((kernel name, what its name must also
 # hold), ...)).  The dd conv is conv_ring_kernel without the residual (its
 # last template argument false; conv_fwd's is true); seg_bwd_kernel with
-# WIDE true is wide_bwd's, not blk_bwd's.
+# WIDE true and wide_bwd_tf32_kernel (seg_bwd_tf32_kernel's WIDE flavour,
+# a name of its own) are wide_bwd's, not blk_bwd's.
 BLK_BWD_PARTS = (("dd conv", (("conv_ring_kernel", ", false>"),)),
                  ("wgrad", (("wgrad_kernel", ""), ("wgrad_ring_kernel", ""),
                             ("wgrad_tf32_kernel", ""))),

@@ -109,6 +109,9 @@ def main(argv=None) -> dict:
 
     from probav_tpu_torch.config import Config
 
+    if not opt.bf16:   # float32 products in float32: no one-pass TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     if torch.device(opt.device).type == "cuda" and \
             not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available "

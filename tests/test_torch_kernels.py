@@ -640,7 +640,7 @@ def wide_bwd_tolerance(dtype, i):
          "c48", "c72", "c128_b2", "n1", "n127", "n129"])
 def test_wide_bwd_matches_plain_on_card(cuda, dtype, n, c, cmid, cdec):
     """The tolerances of ``wide_bwd_tolerance``; 1, 127 and 129 rows cut
-    the bf16 kernel's 128-row tiles short."""
+    the tensor-core kernels' 128-row tiles short."""
     args = wide_bwd_inputs(n, c, cmid, cdec, seed=6, device=cuda,
                            dtype=dtype)
     before = wb.LAUNCHES["wide_bwd"]
@@ -657,9 +657,9 @@ def test_wide_bwd_matches_plain_on_card(cuda, dtype, n, c, cmid, cdec):
 
 @pytest.mark.cuda
 def test_wide_bwd_routes_on_card(cuda):
-    """bf16 at C, C_dec <= 32 and C_mid <= 256 takes the tensor cores
-    (wide_bwd_bf16_kernel); float32 at every width, and bf16 beyond, the
-    CUDA cores (seg_bwd_kernel with WIDE)."""
+    """At C, C_dec <= 32 and C_mid <= 256 both dtypes take the tensor
+    cores (bf16 wide_bwd_bf16_kernel, float32 wide_bwd_tf32_kernel);
+    beyond, the CUDA cores (seg_bwd_kernel with WIDE)."""
     for widths in ((32, 256, 25), (7, 256, 25), (32, 256, 32), (1, 1, 1),
                    (32, 257, 25), (33, 256, 25), (32, 256, 33),
                    (48, 384, 38), (64, 512, 51), (128, 1024, 102)):
@@ -667,7 +667,7 @@ def test_wide_bwd_routes_on_card(cuda):
         assert wb.wide_bwd_route(torch.bfloat16, *widths) == \
             wb.WIDE_BWD_ROUTES[1 if tc else 0], widths
         assert wb.wide_bwd_route(torch.float32, *widths) == \
-            wb.WIDE_BWD_ROUTES[0], widths
+            wb.WIDE_BWD_ROUTES[2 if tc else 0], widths
 
 
 @pytest.mark.cuda
@@ -710,6 +710,72 @@ def test_bf16_wide_bwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
             tol = wide_bwd_tolerance(torch.bfloat16, i)
             assert max_rel(a, b) < tol, (i, max_rel(a, b))
         assert torch.equal(a, a2), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,cmid,cdec,seed,route", [
+    (128 * 4356, 32, 256, 25, 10, "wide_bwd_tf32_kernel"),
+    (1000, 7, 100, 12, 10, "wide_bwd_tf32_kernel"),
+    (385, 8, 64, 7, 10, "wide_bwd_tf32_kernel"),
+    (2000, 1, 1, 1, 11, "wide_bwd_tf32_kernel"),
+    (2000, 1, 1, 1, 10, "wide_bwd_tf32_kernel"),
+    (1000, 32, 256, 32, 10, "wide_bwd_tf32_kernel"),
+    (129, 32, 256, 25, 10, "wide_bwd_tf32_kernel"),
+    (1000, 32, 257, 25, 10, "seg_bwd_kernel"),
+    (300, 48, 384, 38, 10, "seg_bwd_kernel")],
+    ids=["flagship_b128", "c7", "c8_cmid64", "c1", "c1_dz0", "cdec32",
+         "n129", "cmid257", "c48"])
+def test_f32_wide_bwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
+                                                 seed, route):
+    """float32 within the tensor cores' widths takes wide_bwd_tf32_kernel:
+    the flagship at batch 128, 7/100/12 (4-byte copies, two of the four
+    64-channel chunks), 8/64/7 (one chunk), 1/1/1 (one middle channel; at
+    seed 10 w2's one draw is 0, so dz is 0 and dx, dW1 and db1 are all
+    zeros, compared exactly), c_dec 32, 129 rows (a tile of one row);
+    c_mid 257 and 48 channels take seg_bwd_kernel.  All match plain on the
+    dyadic inputs at ``wide_bwd_tolerance``, and two calls agree bit for
+    bit."""
+    assert wb.wide_bwd_route(torch.float32, c, cmid, cdec).startswith(route)
+    args = wide_bwd_inputs(n, c, cmid, cdec, seed=seed, device=cuda)
+    got = wb.wide_bwd(*args)
+    again = wb.wide_bwd(*args)
+    torch.cuda.synchronize()
+    want = wb.wide_bwd_plain(*args)
+    zeros = [i for i, b in enumerate(want) if not b.abs().max()]
+    assert zeros == ([0, 1, 2] if (c, seed) == (1, 10) else []), zeros
+    for i, (a, a2, b) in enumerate(zip(got, again, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        if i in zeros:   # max|ref| = 0: no relative error, exact zeros
+            assert torch.equal(a, b), i
+        else:
+            tol = wide_bwd_tolerance(torch.float32, i)
+            assert max_rel(a, b) < tol, (i, max_rel(a, b))
+        assert torch.equal(a, a2), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,offset", [(32, 1), (32, 4), (7, 1), (25, 2)],
+                         ids=["c32_off1", "c32_off4", "c7_off1", "c25_off2"])
+def test_f32_wide_bwd_on_card_takes_views_at_any_alignment(cuda, c, offset):
+    """float32 x and dy as contiguous views `offset` elements into larger
+    buffers: off the 16-byte grid (4-byte copies) or on it (16-byte
+    cp.async where C and C_dec are multiples of 4), at 1,000 rows, on
+    wide_bwd_tf32_kernel."""
+    assert wb.wide_bwd_route(torch.float32, c, 256, 25).startswith(
+        "wide_bwd_tf32_kernel")
+    x0, w1, b1, w2, dy0 = wide_bwd_inputs(1000, c, 256, 25, seed=11,
+                                          device=cuda)
+
+    def view(t):
+        buf = torch.zeros(t.numel() + offset, device=cuda)
+        buf[offset:] = t.flatten()
+        return buf[offset:].view(t.shape)
+
+    got = wb.wide_bwd(view(x0), w1, b1, w2, view(dy0))
+    want = wb.wide_bwd_plain(x0, w1, b1, w2, dy0)
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = wide_bwd_tolerance(torch.float32, i)
+        assert max_rel(a, b) < tol, (i, max_rel(a, b))
 
 
 @pytest.mark.cuda

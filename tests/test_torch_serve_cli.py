@@ -50,10 +50,27 @@ def tree(tmp_path):
     return cfgp, cfg, lr, jm, params, npz
 
 
-def test_serve_cli_matches_jax_submission(tree, tmp_path):
+def tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.fixture
+def tf32_on(monkeypatch):
+    """cuDNN's and cuBLAS's TF32 switched on (cuDNN's default), restored
+    after the test."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+
+
+def test_serve_cli_matches_jax_submission(tree, tmp_path, tf32_on):
+    """The float32 CLI also turns TF32 off (cuDNN and matmul), so its convs
+    compute float32 products on the card."""
     cfgp, cfg, lr, jm, params, npz = tree
+    assert tf32_flags() == (True, True)
     res = serve.main(["--cfg", cfgp, "--band", "NIR", "--totest", "TEST",
                       "--params", npz, "--device", "cpu"])
+    assert tf32_flags() == (False, False)
     names = [os.path.basename(p) for p in res["written"]]
     assert names == ["imgset1306.png", "imgset1307.png"]
     patches = lr.transpose(0, 1, 4, 5, 2, 3)

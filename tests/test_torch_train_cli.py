@@ -44,11 +44,23 @@ def stage5_tree(tmp_path, epochs=2):
     return cfgp, cfg
 
 
-def test_train_cli_trains_logs_checkpoints_and_resumes(tmp_path):
+@pytest.fixture
+def tf32_on(monkeypatch):
+    """cuDNN's and cuBLAS's TF32 switched on (cuDNN's default), restored
+    after the test."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+
+
+def test_train_cli_trains_logs_checkpoints_and_resumes(tmp_path, tf32_on):
+    """The float32 CLI also turns TF32 off (cuDNN and matmul), so its convs
+    compute float32 products on the card."""
     cfgp, cfg = stage5_tree(tmp_path)
     args = ["--cfg", cfgp, "--band", "NIR", "--device", "cpu",
             "--eval-step", "2"]
     res = cli.main(args)["NIR"]
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
     assert res["steps"] == 4 and np.isfinite(res["train_loss"])
     ckpts = sorted(os.listdir(cfg.ckpt_dir("NIR")))
     assert ckpts[-1] == "step_00000004.pt"
