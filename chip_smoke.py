@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card.
+"""Drive the PyTorch port's serving, scoring and training paths on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -59,7 +60,17 @@ Phases, each printing its result:
 7. serve: ``probav_tpu_torch.serve.main()`` on a synthetic tree at bf16 and
    float32, with and without --tta, and --plain at both; PNG names, launch
    counts and the float32 kernel-vs-plain agreement (within one count) are
-   checked.  Each CLI run is one cold run;
+   checked.  Each CLI run is one cold run.  Then the scoring step:
+   ``probav_tpu_torch.evaluate.main()`` on the card scores the float32
+   output (benchmark) and the bf16 output (candidate) against a synthetic
+   stage-2 NIR truth (the float32 output plus noise, 10% masked with its
+   data kept): each scene's score against the same scorer on CPU tensors,
+   the report's means, the pairing path (by position: the TEST ids lie
+   outside the TRAIN ranges) and the scoring rates (the device scorer
+   alone, with its transfers, evaluate.main end to end on the port's own
+   unfiltered PNGs); and the kernel loss's cPSNR of 384^2 scenes, which
+   the shift-table kernel cannot stage: it must refuse them with a
+   ValueError, uncounted;
 8. warm resolve: ``Resolver.resolve_all`` at bf16 and float32, kernels and
    plain: the median and range of timed runs after a warm-up;
 9. train: ``probav_tpu_torch.train`` (through ``main(argv)``) on a
@@ -110,6 +121,12 @@ C, CMID, CDEC = 32, 256, 25
 PARAMS = 535_267
 SERVE_SCENES, TTA_SCENES = 16, 2
 WARM_REPEATS = 5
+# The scoring step: a synthetic stage-2 truth, the f32 serve output plus
+# Gaussian noise of SCORE_NOISE counts, SCORE_HIDDEN of its pixels masked
+# with their data kept; the card's scores against the same scorer on CPU
+# tensors within the JAX scorer's bound (tests/test_eval_scorer.py).
+SCORE_NOISE, SCORE_HIDDEN = 300.0, 0.1
+SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-4
 # blk_bwd on dyadic inputs (same relu and rounding decisions in both
 # versions, so only summation order differs): dx 2e-5 of max|ref| at
 # float32 (as the forward kernels), one bf16 step (2**-8) plus margin at
@@ -1024,6 +1041,9 @@ def phase_serve(torch, dev, card):
                 f"included): resolve {scenes / res['resolve_s']:.3f} "
                 f"scenes/s, CLI end to end {scenes / wall:.3f} scenes/s "
                 f"[{card}]")
+        served = os.path.join(tmp, "full", "testout_p16t9c85r12_")
+        phase_score(torch, dev, card, tmp, served + "f32", served + "bf16",
+                    results["f32"])
     diff = np.abs(results["f32"] - results["f32 plain"]).max()
     if diff > 1:
         raise AssertionError(f"f32 kernels vs f32 plain: {diff} counts")
@@ -1034,6 +1054,131 @@ def phase_serve(torch, dev, card):
             f"{float((dlt > 0).mean()) * 100:.3f}% of pixels differ")
     log(f"serve f32 kernels vs f32 plain: max {int(diff)} counts")
     return main_counts
+
+
+def phase_score(torch, dev, card, tmp, f32_dir, bf16_dir, f32_imgs):
+    """The scoring step, on the serve phase's outputs: ``evaluate.main``
+    on the card scores the float32 run (benchmark) and the bf16 run
+    (candidate) against a synthetic stage-2 NIR truth made from the
+    float32 output; each scene's card score is held to the same scorer on
+    CPU tensors, the report's means to the per-scene scores.  Then the
+    rates (the device scorer alone, with transfers, evaluate.main end to
+    end over the port's unfiltered PNGs; other writers' filtered rows
+    decode slower, see tools/time_png.py) and the kernel loss's cPSNR at
+    384^2, which the shift-table kernel must refuse.  The scorer runs no
+    hand kernel: every count stays 0."""
+    import logging
+
+    from probav_tpu_torch import evaluate
+    from probav_tpu_torch.evaluation import compare
+    from probav_tpu_torch.ops.shift_loss import ShiftCompensatedLosses
+
+    r = np.random.default_rng(5)
+    n, size = f32_imgs.shape[:2]
+    hr = np.clip(f32_imgs + r.normal(0, SCORE_NOISE, f32_imgs.shape), 0,
+                 65535).astype(np.float32)
+    hidden = r.uniform(size=hr.shape) < SCORE_HIDDEN
+    if not hr[hidden].any():
+        raise AssertionError("score: no masked truth pixel holds data")
+    base = os.path.join(tmp, "score")
+    resolver = os.path.join(base, "data", "resolverDir")
+    os.makedirs(resolver)
+    np.ma.masked_array(hr[:, None, None], mask=hidden[:, None, None]).dump(
+        os.path.join(resolver, "TRAINimgHR_NIR.npy"), protocol=4)
+    pre = os.path.join(base, "data")
+    argv = ["--cfg", write_cfg(base), "--benchmark", f32_dir, "--toCompare",
+            bf16_dir, "--bands", "NIR", "--red-count", "0", "--device",
+            "cuda", "--score-json", os.path.join(base, "score.json"),
+            "--out", os.path.join(base, "comparison.png")]
+
+    reset_launches()
+    t0 = time.perf_counter()
+    report = evaluate.main(argv)
+    first = time.perf_counter() - t0
+    if launches() != expect():
+        raise AssertionError(f"score: launches {launches()}")
+    walls = []
+    for _ in range(WARM_REPEATS):
+        t0 = time.perf_counter()
+        evaluate.main(argv)
+        walls.append(time.perf_counter() - t0)
+
+    pairing = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: pairing.append(rec.getMessage())
+    clog = logging.getLogger(compare.__name__)
+    clog.addHandler(handler)
+    clog.setLevel(logging.INFO)
+    try:
+        got = compare.compare_runs(pre, f32_dir, bf16_dir, red_count=0,
+                                   bands=("NIR",), device=dev)["NIR"]
+    finally:
+        clog.removeHandler(handler)
+    # The serve outputs are imgset1306.., TEST ids outside NIR's TRAIN
+    # range (594..), so the scenes pair by position.
+    if pairing != [f"pairing {n} scenes by position"]:
+        raise AssertionError(f"score: pairing {pairing}")
+    want = compare.compare_runs(pre, f32_dir, bf16_dir, red_count=0,
+                                bands=("NIR",), device="cpu")["NIR"]
+    worst = 0.0
+    for k in ("benchmark", "candidate"):
+        if got[k].shape != (n,) or not np.isfinite(got[k]).all():
+            raise AssertionError(f"score: {k} scores {got[k]}")
+        np.testing.assert_allclose(got[k], want[k], rtol=SCORE_RTOL,
+                                   atol=SCORE_ATOL, err_msg=f"score: {k}")
+        worst = max(worst, float(np.abs(got[k] - want[k]).max()))
+        mean = report["bands"]["NIR"][f"{k}_mean_cpsnr"]
+        if not abs(mean - float(np.mean(got[k]))) <= 1e-6 * abs(mean):
+            raise AssertionError(f"score: report {k} mean {mean} vs "
+                                 f"{np.mean(got[k])}")
+    if report["bands"]["NIR"]["scenes"] != n:
+        raise AssertionError(f"score: report {report}")
+    log(f"score: evaluate.main --device cuda, the f32 serve output "
+        f"(benchmark) and bf16 (candidate) against a synthetic NIR truth "
+        f"(f32 output + N(0, {SCORE_NOISE:g}^2), {hidden.mean() * 100:.1f}% "
+        f"masked with data kept): {n} scenes, {pairing[0]}; mean cPSNR "
+        f"benchmark {report['bands']['NIR']['benchmark_mean_cpsnr']:.4f} "
+        f"dB, candidate {report['bands']['NIR']['candidate_mean_cpsnr']:.4f}"
+        f" dB; card vs CPU scorer max |diff| {worst:.3e} dB (rtol "
+        f"{SCORE_RTOL:g}, atol {SCORE_ATOL:g}); no kernel launched")
+
+    truth = compare.load_hr_scenes(pre, bands=("NIR",))
+    data, mask = np.asarray(truth, np.float32), ~np.ma.getmaskarray(truth)
+    preds = [compare.load_scene_dir(d) for d in (f32_dir, bf16_dir)]
+    on_card = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    hd, md = on_card(data), on_card(mask)
+    pds = [on_card(p) for p in preds]
+    score_all = lambda: [compare.cpsnr_batch(hd, md, p) for p in pds]
+    single, = timed(torch, score_all)
+    b2b, = back_to_back(torch, score_all)
+    batch = timed(torch, lambda: compare._score_batches(
+        data, mask, preds, device=dev), reps=WARM_REPEATS)[0]
+
+    log(f"score rate, {n} scenes (each scored for both stacks): device "
+        f"scorer (cpsnr_batch x 2 on the card) {n / single * 1e3:.1f} "
+        f"scenes/s single call ({single:.3f} ms), {n / b2b * 1e3:.1f} back "
+        f"to back ({b2b:.3f} ms); with H2D and D2H (_score_batches) "
+        f"{n / batch * 1e3:.1f} ({batch:.3f} ms); evaluate.main end to "
+        f"end {n / first:.2f} first run, median of {WARM_REPEATS} "
+        f"{n / statistics.median(walls):.2f} (min {n / max(walls):.2f}, "
+        f"max {n / min(walls):.2f}), port-written (unfiltered) PNGs [{card}]")
+
+    # The kernel loss's cPSNR of whole scenes: the table kernel cannot
+    # stage a 384^2 sample, so the wrapper refuses it before any launch.
+    reset_launches()
+    try:
+        ShiftCompensatedLosses((size, size, 1), use_kernel=True).cpsnr(
+            hd[:2], md[:2].float(), pds[1][:2])
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"kernel-loss cPSNR at {size}^2 ran")
+    torch.cuda.synchronize()
+    if launches() != expect() or "shared memory" not in refusal:
+        raise AssertionError(f"kernel-loss cPSNR at {size}^2: launches "
+                             f"{launches()}, {refusal}")
+    log(f"kernel-loss cPSNR at {size}^2, 2 scenes: refused before any "
+        f"launch ({refusal})")
 
 
 def phase_warm(torch, dev, card):

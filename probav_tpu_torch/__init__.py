@@ -1,7 +1,7 @@
 """probav_tpu_torch — the PyTorch / CUDA port of ``probav_tpu``.
 
-The serving path of the flagship WDSR-B model, on PyTorch with
-hand-written Hopper kernels for the block stack:
+The serving, training and scoring paths of the flagship WDSR-B model, on
+PyTorch with hand-written Hopper kernels for the block stack:
 
 - ``probav_tpu_torch.models``   ``WDSRConv3D`` and its weight-normalized
                                  layers (flax parameter names and layouts).
@@ -10,6 +10,9 @@ hand-written Hopper kernels for the block stack:
 - ``probav_tpu_torch.infer``    the scene resolver and submission writer.
 - ``probav_tpu_torch.convert``  flax parameter tree <-> ``state_dict``.
 - ``probav_tpu_torch.serve``    the ``test.py`` counterpart CLI.
+- ``probav_tpu_torch.evaluation``  per-scene cPSNR scoring of submission
+                                 directories against the stage-2 truth.
+- ``probav_tpu_torch.evaluate``  the ``evaluate.py`` counterpart CLI.
 
 Importing the package (or any module of it) initializes no CUDA context,
 builds no kernel and needs neither JAX nor triton: kernels are built at

@@ -10,7 +10,8 @@ XLA.  With ``use_kernel`` (the counterpart of JAX's opt-in ``use_pallas``)
 the [S, B] table and its gradient come from the hand-written CUDA kernels
 of ``ops/shift_table.py`` wherever ``shift_table.supports`` holds
 (grayscale square patches); other shapes take the plain path, as JAX's
-``_maybe_pallas`` does.
+``_maybe_pallas`` does.  On the card the kernels stage patches up to
+130x130 and refuse larger planes with a ``ValueError``.
 
 Reference quirks kept: the ground truth enters the residual UNMASKED
 (occluded HR pixels add |HR| while the prediction is zeroed there), and the

@@ -24,7 +24,10 @@ The TPU's 8-sample batch padding is not ported: any B is taken.  Dispatch
 as in ``ops/tstack.py``: CPU tensors run the ``*_plain`` twins (the
 formulas above, vectorised over the shifts; the backward is the formula,
 not autograd of the forward); CUDA tensors launch the kernel, count it in
-``LAUNCHES``, or raise.
+``LAUNCHES``, or raise.  A block stages a sample's three planes in shared
+memory, so the launchers refuse planes beyond 130x130 (a 384x384 scene's
+among them), which the TPU kernel covers: on the card such planes raise a
+``ValueError`` before any launch, and are never handed to the plain twins.
 """
 
 from __future__ import annotations
@@ -92,6 +95,22 @@ def _check_planes(name, *planes):
                              f" on {[str(p.device) for p in planes]}")
 
 
+# What the launchers return, before any launch, for planes their valid()
+# (csrc/shift_loss.cu) refuses: cudaErrorInvalidValue.
+_REFUSED = 1
+
+
+def _check_launch(err: int, name: str, p2, border: int) -> None:
+    from probav_tpu_torch.ops import _build
+    if err == _REFUSED:
+        raise ValueError(
+            f"{name}: the kernel refuses planes {list(p2.shape)} at border "
+            f"{border}: a sample's three float32 planes must fit one "
+            f"block's shared memory (valid() in csrc/shift_loss.cu; up to "
+            f"130x130); take the plain path (use_kernel=False) for them")
+    _build.check(err, name)
+
+
 def shift_table_fwd(hr2, m2, p2, border: int, squared: bool):
     """The arguments and result of ``shift_table_fwd_plain``."""
     if p2.device.type == "cpu":
@@ -104,7 +123,7 @@ def shift_table_fwd(hr2, m2, p2, border: int, squared: bool):
     err = _build.library().probav_shift_table_fwd(
         hr2.data_ptr(), m2.data_ptr(), p2.data_ptr(), out.data_ptr(), b, h, w,
         border, int(squared), _stream(p2))
-    _build.check(err, "shift_table_fwd")
+    _check_launch(err, "shift_table_fwd", p2, border)
     LAUNCHES["shift_table_fwd"] += 1
     return out
 
@@ -124,7 +143,7 @@ def shift_table_bwd(hr2, m2, p2, g, border: int, squared: bool):
     err = _build.library().probav_shift_table_bwd(
         hr2.data_ptr(), m2.data_ptr(), p2.data_ptr(), g.data_ptr(),
         dp.data_ptr(), b, h, w, border, int(squared), _stream(p2))
-    _build.check(err, "shift_table_bwd")
+    _check_launch(err, "shift_table_bwd", p2, border)
     LAUNCHES["shift_table_bwd"] += 1
     return dp
 

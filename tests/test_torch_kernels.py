@@ -1,6 +1,7 @@
 """The kernel wrappers (probav_tpu_torch/ops/tstack.py, wide_block.py,
 shift_table.py): dispatch on the CPU, and the CUDA kernels against their
-plain versions on a card.
+plain versions on a card; on a card also the cPSNR scorer
+(evaluation/compare.py) against itself on the CPU.
 
 This file imports neither JAX nor the JAX package, so the ``cuda`` tests
 also run on a machine without them:
@@ -12,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from probav_tpu_torch.evaluation.compare import per_scene_cpsnr
 from probav_tpu_torch.ops import block_stack as bs
 from probav_tpu_torch.ops import shift_table as st
 from probav_tpu_torch.ops import tstack as ts
 from probav_tpu_torch.ops import wide_block as wb
+from probav_tpu_torch.ops.shift_loss import ShiftCompensatedLosses
 from probav_tpu_torch.tools.dyadic import (blk_bwd_inputs, shift_table_inputs,
                                            wide_bwd_inputs)
 from probav_tpu_torch.tools.time_conv import dwc_float64, seg_fwd_f64
@@ -826,6 +829,77 @@ def test_shift_tables_match_plain_on_card(cuda, squared, b, size, border):
     want = st.shift_table_bwd_plain(hr, m, p, g, border, squared)
     torch.testing.assert_close(dp, want, rtol=1e-4,
                                atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_kernel_loss_cpsnr_launches_the_table_at_130_on_card(cuda):
+    """ShiftCompensatedLosses(use_kernel=True).cpsnr of 130^2 planes, the
+    largest the table kernel stages: one shift_table_fwd launch, within
+    1e-5 of the unfold path."""
+    hr, mask, pred = cpsnr_planes(130, cuda)
+    want = ShiftCompensatedLosses((130, 130, 1)).cpsnr(hr, mask, pred)
+    before = dict(st.LAUNCHES)
+    got = ShiftCompensatedLosses((130, 130, 1), use_kernel=True).cpsnr(
+        hr, mask, pred)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES == dict(before, shift_table_fwd=before[
+        "shift_table_fwd"] + 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [131, 384])
+def test_kernel_loss_cpsnr_refuses_planes_beyond_shared_memory_on_card(
+        cuda, size):
+    """Beyond 130^2, a 384^2 scene's planes among them, the kernel loss
+    raises a ValueError that names the shared-memory bound, launches
+    nothing and does not run the plain version in the kernel's place."""
+    hr, mask, pred = cpsnr_planes(size, cuda)
+    before = dict(st.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        ShiftCompensatedLosses((size, size, 1), use_kernel=True).cpsnr(
+            hr, mask, pred)
+    assert st.LAUNCHES == before
+
+
+def cpsnr_planes(size, device):
+    r = np.random.default_rng(size)
+    hr, pred = (torch.from_numpy(r.uniform(0, 65535, (2, size, size, 1))
+                                 .astype(np.float32)).to(device)
+                for _ in range(2))
+    mask = torch.from_numpy(r.uniform(size=(2, size, size, 1)) < 0.9
+                            ).float().to(device)
+    return hr, mask, pred
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squared", [False, True])
+def test_shift_table_launch_beyond_shared_memory_raises_on_card(cuda,
+                                                                squared):
+    """Both launchers refuse 131^2 planes with a ValueError, uncounted."""
+    hr, m, p, g = shift_table_inputs(2, 131, 3, seed=8, device=cuda)
+    before = dict(st.LAUNCHES)
+    with pytest.raises(ValueError, match="shift_table_fwd.*shared memory"):
+        st.shift_table_fwd(hr, m, p, 3, squared)
+    with pytest.raises(ValueError, match="shift_table_bwd.*shared memory"):
+        st.shift_table_bwd(hr, m, p, g, 3, squared)
+    assert st.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,size,batch", [(5, 24, 2), (3, 384, 2)])
+def test_scorer_on_card_equals_scorer_on_cpu(cuda, n, size, batch):
+    """per_scene_cpsnr on the card against the same scorer on CPU tensors,
+    rtol 1e-5 and atol 1e-4 dB (the JAX scorer's bound), ragged tails
+    included, 10% of the truth masked with its data kept."""
+    r = np.random.default_rng(n)
+    data = r.uniform(0, 60000, (n, size, size, 1)).astype(np.float32)
+    hr = np.ma.masked_array(data, mask=r.uniform(size=data.shape) < 0.1)
+    pred = np.clip(data + r.normal(0, 300, data.shape), 0, 65535)
+    got = per_scene_cpsnr(hr, pred, batch=batch, device=cuda)
+    want = per_scene_cpsnr(hr, pred, batch=batch, device="cpu")
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
 def rel_l2(got, ref):

@@ -120,12 +120,13 @@ def test_png_round_trip_against_imageio(tmp_path):
     np.testing.assert_array_equal(read_png(path), [[65535, 0]])
 
 
-@pytest.mark.parametrize("depth,ftype", [(8, 0), (16, 2)],
+@pytest.mark.parametrize("depth,ftype", [(8, 0), (16, 5)],
                          ids=["8-bit", "filtered"])
 def test_png_reader_refuses_what_the_writer_never_writes(tmp_path, depth,
                                                          ftype):
-    """The reader covers only the writer's format (16-bit gray, filter 0);
-    anything else raises rather than decoding wrongly."""
+    """The reader covers the writer's format, 16-bit gray, with any of the
+    PNG filter types 0-4 (tests/test_torch_evaluation.py); another depth
+    or filter type raises rather than decoding wrongly."""
     raw = bytes([ftype]) + bytes(2 * depth // 8)          # one 2-px row
     ihdr = struct.pack(">IIBBBBB", 2, 1, depth, 0, 0, 0, 0)
     path = tmp_path / "x.png"

@@ -168,3 +168,24 @@ def test_supports_gate(shape, border, ok):
     """The gate of pallas_shift_loss.supports, case by case."""
     assert st.supports(torch.zeros(shape), border) is ok
     assert psl.supports(jnp.zeros(shape), border) is ok
+
+
+@pytest.mark.parametrize("size", [48, 130, 131, 384])
+def test_supports_gate_at_patch_and_scene_sizes(size):
+    """The gate is JAX's at every size: the card's launchers, not the
+    gate, refuse planes beyond their shared memory (the card test
+    test_kernel_loss_cpsnr_refuses_planes_beyond_shared_memory_on_card)."""
+    assert st.supports(torch.zeros(2, size, size, 1), 3)
+    assert psl.supports(jnp.zeros((2, size, size, 1)), 3)
+
+
+def test_kernel_loss_cpsnr_of_a_scene_on_cpu_runs_the_plain_twin():
+    """cPSNR of 384^2 scenes with use_kernel on CPU tensors: the table's
+    plain twin, within 1e-5 of the unfold path."""
+    hr, mask, pred = (torch.from_numpy(a) for a in make(25, 2))
+    big = lambda a: a.repeat(1, 8, 8, 1)                      # 384^2
+    want = ShiftCompensatedLosses((384, 384, 1)).cpsnr(
+        big(hr), big(mask), big(pred))
+    got = ShiftCompensatedLosses((384, 384, 1), use_kernel=True).cpsnr(
+        big(hr), big(mask), big(pred))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
