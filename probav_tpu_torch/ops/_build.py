@@ -51,6 +51,8 @@ SIGNATURES = {
     "probav_shift_table_fwd": [_P] * 4 + [_I] * 5 + [_P],
     # hr, m, p, g, dp, B, H, W, border, squared, stream
     "probav_shift_table_bwd": [_P] * 5 + [_I] * 5 + [_P],
+    # B, H, W, border, out int[8]
+    "probav_shift_table_plan": [_I] * 4 + [ctypes.POINTER(_I)],
 }
 
 

@@ -24,10 +24,15 @@ The TPU's 8-sample batch padding is not ported: any B is taken.  Dispatch
 as in ``ops/tstack.py``: CPU tensors run the ``*_plain`` twins (the
 formulas above, vectorised over the shifts; the backward is the formula,
 not autograd of the forward); CUDA tensors launch the kernel, count it in
-``LAUNCHES``, or raise.  A block stages a sample's three planes in shared
-memory, so the launchers refuse planes beyond 130x130 (a 384x384 scene's
-among them), which the TPU kernel covers: on the card such planes raise a
-``ValueError`` before any launch, and are never handed to the plain twins.
+``LAUNCHES``, or raise.  One launch a call: a thread-block cluster per
+sample splits the crop rows into bands, and each block stages its band's
+rows (in tiles where a band does not fit) in shared memory
+(``card_plan``), so every plane that ``supports`` lets
+through launches, a 384x384 scene's among them, up to the int32 index
+limit of a plane.  Only a border whose per-shift sums leave no shared
+memory for one tile row (33 and beyond on an H100) is refused: a
+``ValueError`` before any launch, never the plain twins in the kernel's
+place.
 """
 
 from __future__ import annotations
@@ -50,6 +55,26 @@ def supports(hr: torch.Tensor, border: int) -> bool:
     coverage (``pallas_shift_loss.supports``)."""
     return (hr.dim() == 4 and hr.shape[-1] == 1 and
             hr.shape[1] == hr.shape[2] and hr.shape[1] > 2 * border)
+
+
+def card_plan(b: int, h: int, w: int, border: int):
+    """The launch plan of [b, h, w] planes as the C entry computes it on
+    this card for the forward L1 kernel (``plan_for`` in
+    ``csrc/shift_loss.cu``), None where it refuses: blocks a sample's
+    cluster (``nb``), crop rows a band (``R``), crop rows and columns a
+    tile (``RT``, ``CT``), warps a block (``NW``), parts of the items
+    (``P``), dynamic shared memory bytes a block (``smem``), and
+    ``clusters``: how many of its clusters the card holds at once."""
+    import ctypes
+
+    from probav_tpu_torch.ops import _build
+    out = (ctypes.c_int * 8)()
+    err = _build.library().probav_shift_table_plan(b, h, w, border, out)
+    if err == _REFUSED:
+        return None
+    _build.check(err, "shift_table plan")
+    return dict(zip(("nb", "R", "RT", "CT", "NW", "P", "smem", "clusters"),
+                    out))
 
 
 def _windows(hr2, m2, p2, border):
@@ -95,9 +120,9 @@ def _check_planes(name, *planes):
                              f" on {[str(p.device) for p in planes]}")
 
 
-# What the launchers return, before any launch, for planes their valid()
-# (csrc/shift_loss.cu) refuses: cudaErrorInvalidValue.
-_REFUSED = 1
+# What the C entries return, before any launch, for planes their plan()
+# (csrc/shift_loss.cu) refuses: REFUSED, a code apart from CUDA's errors.
+_REFUSED = -1
 
 
 def _check_launch(err: int, name: str, p2, border: int) -> None:
@@ -105,9 +130,10 @@ def _check_launch(err: int, name: str, p2, border: int) -> None:
     if err == _REFUSED:
         raise ValueError(
             f"{name}: the kernel refuses planes {list(p2.shape)} at border "
-            f"{border}: a sample's three float32 planes must fit one "
-            f"block's shared memory (valid() in csrc/shift_loss.cu; up to "
-            f"130x130); take the plain path (use_kernel=False) for them")
+            f"{border}: a plane beyond the int32 index limit, or per-shift "
+            f"sums that leave one block's shared memory no room for a tile "
+            f"row (plan() in csrc/shift_loss.cu); take the "
+            f"plain path (use_kernel=False) for them")
     _build.check(err, name)
 
 

@@ -19,9 +19,10 @@ median patches/s is the warm throughput.  One more step runs under
 sum (device busy); the idle share is 1 - busy / the median step time; and
 in the "t" variants blk_bwd's four sub-kernels (dd conv, wgrad, seg_bwd,
 reduce; see ``time_conv.BLK_BWD_PARTS``) per step, with the kernels that
-ran.  A
+ran, and the shift-table kernels' device time per step.  A
 JSON summary goes to ``<out>/profile_train.json``.  ``--variants`` runs
-only the named ones (a comma list of ``VARIANTS``' names).  Needs a CUDA
+only the named ones (a comma list of ``VARIANTS``' names, or a
+semicolon list, which can name "bf16 kernels, kernel loss").  Needs a CUDA
 card; float32 runs with TF32 off.
 """
 
@@ -144,12 +145,14 @@ def main(argv=None) -> dict:
     p.add_argument("--cfg", default="cfg/p16t9c85r12.cfg")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", default="chiprun_out")
-    p.add_argument("--variants", help="comma list of VARIANTS' names")
+    p.add_argument("--variants", help="comma list of VARIANTS' names "
+                   "(a semicolon list where a name holds a comma)")
     opt = p.parse_args(argv)
     names = [v[0] for v in VARIANTS]
-    chosen = opt.variants.split(",") if opt.variants else names
+    sep = ";" if opt.variants and ";" in opt.variants else ","
+    chosen = opt.variants.split(sep) if opt.variants else names
     if not set(chosen) <= set(names):
-        raise SystemExit(f"--variants: a comma list of {', '.join(names)}")
+        raise SystemExit(f"--variants: a comma list of {'; '.join(names)}")
     import torch
 
     from probav_tpu_torch.config import Config
@@ -188,10 +191,13 @@ def main(argv=None) -> dict:
                 p["ms"] += t
                 p["calls"] += c
                 p["kernels"].append(k[:90])
+        shift = [(t, c) for t, k, c in rows if "shift_table" in k]
         summary[name] = dict(rates=rates, median=med, profiled_wall_ms=wall,
                              device_busy_ms=busy, idle=idle,
                              top=[(t, k[:90], c) for t, k, c in rows[:16]],
-                             blk_bwd_parts=parts)
+                             blk_bwd_parts=parts,
+                             shift_table_ms=sum(t for t, _ in shift),
+                             shift_table_calls=sum(c for _, c in shift))
         print(f"== {name}: train step at batch {n}, patches/s "
               f"{['%.1f' % x for x in rates]} median {med:.1f}; device "
               f"busy {busy:.2f} ms, idle {100 * idle:.1f}% of the median "
@@ -199,6 +205,9 @@ def main(argv=None) -> dict:
         for t, k, c in rows[:16]:
             print(f"   {t:9.3f} ms  {100 * t / busy:5.1f}%  x{c:<5d} "
                   f"{k[:100]}", flush=True)
+        if shift:
+            print(f"   shift tables: {sum(t for t, _ in shift):.3f} ms a "
+                  f"step, {sum(c for _, c in shift)} calls", flush=True)
         for part, p in parts.items():
             print(f"   blk_bwd {part}: {p['ms']:.3f} ms a step, "
                   f"{p['calls']} calls ({'; '.join(p['kernels'])})",

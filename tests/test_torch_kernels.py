@@ -22,6 +22,7 @@ from probav_tpu_torch.ops.shift_loss import ShiftCompensatedLosses
 from probav_tpu_torch.tools.dyadic import (blk_bwd_inputs, shift_table_inputs,
                                            wide_bwd_inputs)
 from probav_tpu_torch.tools.time_conv import dwc_float64, seg_fwd_f64
+from shift_plan import launch_plan
 
 torch.set_num_threads(1)
 
@@ -809,57 +810,122 @@ def test_bf16_wide_bwd_on_card_takes_views_at_any_alignment(cuda, c, offset):
         assert max_rel(a, b) < tol, (i, max_rel(a, b))
 
 
+def assert_table_close(got, want, rtol, atol_frac=0.0):
+    """Elementwise rtol, atol of max|ref| over the finite values, NaN where
+    the plain twin has NaN (a window with no clear pixel)."""
+    atol = atol_frac * float(want[want.isfinite()].abs().max())
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               equal_nan=True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("squared", [False, True], ids=["l1", "l2"])
-@pytest.mark.parametrize("b,size,border", [(5, 48, 3), (128, 48, 3),
-                                           (3, 20, 2)])
+@pytest.mark.parametrize("b,size,border", [
+    (5, 48, 3), (128, 48, 3), (3, 20, 2), (3, 7, 3), (4, 48, 0),
+    (2, 131, 3), (2, 384, 3), (16, 384, 3)])
 def test_shift_tables_match_plain_on_card(cuda, squared, b, size, border):
     """Table rtol 3e-5, d/dpred rtol 1e-4 (atol 1e-6 max|ref|), as
     tests/test_pallas.py holds the TPU kernels; on integer planes both
-    versions compute the same residuals, so the L1 signs agree."""
+    versions compute the same residuals, so the L1 signs agree.  7^2 at
+    border 3 has one crop pixel, so some windows have no clear pixel and
+    give NaN in both."""
     hr, m, p, g = shift_table_inputs(b, size, border, seed=7, device=cuda)
     before = dict(st.LAUNCHES)
     tab = st.shift_table_fwd(hr, m, p, border, squared)
     dp = st.shift_table_bwd(hr, m, p, g, border, squared)
     torch.cuda.synchronize()
     assert st.LAUNCHES == {k: v + 1 for k, v in before.items()}
-    torch.testing.assert_close(
-        tab, st.shift_table_fwd_plain(hr, m, p, border, squared), rtol=3e-5,
-        atol=0)
-    want = st.shift_table_bwd_plain(hr, m, p, g, border, squared)
-    torch.testing.assert_close(dp, want, rtol=1e-4,
-                               atol=1e-6 * float(want.abs().max()))
+    assert_table_close(tab, st.shift_table_fwd_plain(hr, m, p, border,
+                                                     squared), 3e-5)
+    assert_table_close(dp, st.shift_table_bwd_plain(hr, m, p, g, border,
+                                                    squared), 1e-4, 1e-6)
 
 
 @pytest.mark.cuda
-def test_kernel_loss_cpsnr_launches_the_table_at_130_on_card(cuda):
-    """ShiftCompensatedLosses(use_kernel=True).cpsnr of 130^2 planes, the
-    largest the table kernel stages: one shift_table_fwd launch, within
-    1e-5 of the unfold path."""
-    hr, mask, pred = cpsnr_planes(130, cuda)
-    want = ShiftCompensatedLosses((130, 130, 1)).cpsnr(hr, mask, pred)
+@pytest.mark.parametrize("b,size,border", [(1, 1024, 3), (1, 2100, 3),
+                                           (2, 48, 8), (2, 40, 5)],
+                         ids=["row-tiles", "column-tiles", "border-8",
+                              "border-5"])
+def test_shift_tables_in_tiles_and_shift_row_groups_on_card(cuda, b, size,
+                                                            border):
+    """Bands staged in row tiles (1024^2) and in column tiles too
+    (2100^2), and borders whose shift rows take several groups of 7, L2,
+    with the bounds above."""
+    hr, m, p, g = shift_table_inputs(b, size, border, seed=9, device=cuda)
+    plan = st.card_plan(b, size, size, border)
+    if size == 1024:
+        assert plan["RT"] < plan["R"] and plan["CT"] == size - 2 * border
+    if size == 2100:
+        assert plan["CT"] < size - 2 * border
+    assert_table_close(st.shift_table_fwd(hr, m, p, border, True),
+                       st.shift_table_fwd_plain(hr, m, p, border, True),
+                       3e-5)
+    assert_table_close(st.shift_table_bwd(hr, m, p, g, border, True),
+                       st.shift_table_bwd_plain(hr, m, p, g, border, True),
+                       1e-4, 1e-6)
+
+
+@pytest.mark.cuda
+def test_shift_tables_take_a_fractional_mask_on_card(cuda):
+    """The mask is not assumed binary: weights 0, 1/4, 1/2 and 1 (powers
+    of two, so both versions round (p + bias) m alike), with the same
+    bounds against the plain twins."""
+    hr, m, p, g = shift_table_inputs(4, 48, 3, seed=10, device=cuda)
+    r = np.random.default_rng(10)
+    m = torch.from_numpy(r.choice(np.float32([0, 0.25, 0.5, 1]), m.shape)
+                         ).to(cuda)
+    for sq in (False, True):
+        assert_table_close(st.shift_table_fwd(hr, m, p, 3, sq),
+                           st.shift_table_fwd_plain(hr, m, p, 3, sq), 3e-5)
+        assert_table_close(st.shift_table_bwd(hr, m, p, g, 3, sq),
+                           st.shift_table_bwd_plain(hr, m, p, g, 3, sq),
+                           1e-4, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,size", [(128, 48), (16, 384)])
+def test_shift_tables_are_bitwise_deterministic_on_card(cuda, b, size):
+    """Two runs of each table, L1 and L2, are equal bit for bit: the bands
+    meet in rank order, with no atomics."""
+    hr, m, p, g = shift_table_inputs(b, size, 3, seed=11, device=cuda)
+    for sq in (False, True):
+        assert torch.equal(st.shift_table_fwd(hr, m, p, 3, sq),
+                           st.shift_table_fwd(hr, m, p, 3, sq))
+        assert torch.equal(st.shift_table_bwd(hr, m, p, g, 3, sq),
+                           st.shift_table_bwd(hr, m, p, g, 3, sq))
+
+
+@pytest.mark.cuda
+def test_launch_plan_matches_the_launcher_on_card(cuda):
+    """launch_plan at the cluster size the C entry picks on this card gives
+    the C entry's plan, and the card holds that plan's clusters; a refused
+    border is refused by both."""
+    for b, size, border in [(128, 48, 3), (16, 384, 3), (2, 131, 3),
+                            (3, 7, 3), (4, 48, 0), (1, 2100, 3),
+                            (2, 48, 8)]:
+        got = st.card_plan(b, size, size, border)
+        assert got.pop("clusters") >= 1
+        assert got == launch_plan(b, size, size, border,
+                                     got["nb"]), (b, size, border)
+    assert st.card_plan(2, 200, 200, 40) is None
+    assert launch_plan(2, 200, 200, 40, 16) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [130, 131, 384])
+def test_kernel_loss_cpsnr_launches_the_table_on_card(cuda, size):
+    """ShiftCompensatedLosses(use_kernel=True).cpsnr of 130^2, 131^2 and
+    384^2 planes (a scene's: beyond what one block can stage, so in
+    bands): one shift_table_fwd launch, within 1e-5 of the unfold path."""
+    hr, mask, pred = cpsnr_planes(size, cuda)
+    want = ShiftCompensatedLosses((size, size, 1)).cpsnr(hr, mask, pred)
     before = dict(st.LAUNCHES)
-    got = ShiftCompensatedLosses((130, 130, 1), use_kernel=True).cpsnr(
+    got = ShiftCompensatedLosses((size, size, 1), use_kernel=True).cpsnr(
         hr, mask, pred)
     torch.cuda.synchronize()
     assert st.LAUNCHES == dict(before, shift_table_fwd=before[
         "shift_table_fwd"] + 1)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("size", [131, 384])
-def test_kernel_loss_cpsnr_refuses_planes_beyond_shared_memory_on_card(
-        cuda, size):
-    """Beyond 130^2, a 384^2 scene's planes among them, the kernel loss
-    raises a ValueError that names the shared-memory bound, launches
-    nothing and does not run the plain version in the kernel's place."""
-    hr, mask, pred = cpsnr_planes(size, cuda)
-    before = dict(st.LAUNCHES)
-    with pytest.raises(ValueError, match="shared memory"):
-        ShiftCompensatedLosses((size, size, 1), use_kernel=True).cpsnr(
-            hr, mask, pred)
-    assert st.LAUNCHES == before
 
 
 def cpsnr_planes(size, device):
@@ -873,16 +939,34 @@ def cpsnr_planes(size, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("squared", [False, True])
-def test_shift_table_launch_beyond_shared_memory_raises_on_card(cuda,
-                                                                squared):
-    """Both launchers refuse 131^2 planes with a ValueError, uncounted."""
-    hr, m, p, g = shift_table_inputs(2, 131, 3, seed=8, device=cuda)
+@pytest.mark.parametrize("squared", [False, True], ids=["l1", "l2"])
+@pytest.mark.parametrize("size", [131, 384])
+def test_shift_table_launches_beyond_130_on_card(cuda, size, squared):
+    """Both launchers take 131^2 and 384^2 planes, one launch each, and
+    match the plain twins with the bounds above."""
+    hr, m, p, g = shift_table_inputs(2, size, 3, seed=8, device=cuda)
+    before = dict(st.LAUNCHES)
+    tab = st.shift_table_fwd(hr, m, p, 3, squared)
+    dp = st.shift_table_bwd(hr, m, p, g, 3, squared)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert_table_close(tab, st.shift_table_fwd_plain(hr, m, p, 3, squared),
+                       3e-5)
+    assert_table_close(dp, st.shift_table_bwd_plain(hr, m, p, g, 3, squared),
+                       1e-4, 1e-6)
+
+
+@pytest.mark.cuda
+def test_shift_table_refuses_a_border_beyond_shared_memory_on_card(cuda):
+    """A border whose 81^2 shifts' sums leave no shared memory for a tile
+    row raises a ValueError before any launch, uncounted, and never runs
+    the plain twin in the kernel's place."""
+    hr, m, p, g = shift_table_inputs(2, 200, 40, seed=8, device=cuda)
     before = dict(st.LAUNCHES)
     with pytest.raises(ValueError, match="shift_table_fwd.*shared memory"):
-        st.shift_table_fwd(hr, m, p, 3, squared)
+        st.shift_table_fwd(hr, m, p, 40, False)
     with pytest.raises(ValueError, match="shift_table_bwd.*shared memory"):
-        st.shift_table_bwd(hr, m, p, g, 3, squared)
+        st.shift_table_bwd(hr, m, p, g, 40, True)
     assert st.LAUNCHES == before
 
 

@@ -172,9 +172,9 @@ def test_supports_gate(shape, border, ok):
 
 @pytest.mark.parametrize("size", [48, 130, 131, 384])
 def test_supports_gate_at_patch_and_scene_sizes(size):
-    """The gate is JAX's at every size: the card's launchers, not the
-    gate, refuse planes beyond their shared memory (the card test
-    test_kernel_loss_cpsnr_refuses_planes_beyond_shared_memory_on_card)."""
+    """The gate is JAX's at every size, and the card's launchers take every
+    plane it lets through, a 384^2 scene's among them (the card test
+    test_kernel_loss_cpsnr_launches_the_table_on_card)."""
     assert st.supports(torch.zeros(2, size, size, 1), 3)
     assert psl.supports(jnp.zeros((2, size, size, 1)), 3)
 
