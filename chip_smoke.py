@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, scoring and training paths on one
-CUDA card.
+"""Drive the PyTorch port's preprocessing, serving, scoring and training
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -86,7 +86,20 @@ Phases, each printing its result:
    counterpart (loss, metric, gradients; for "t" also the parameters
    after the update); then the warm train throughput of the variants of
    probav_tpu_torch.tools.profile_train (which adds the device-time
-   breakdown).
+   breakdown);
+10. preprocess: a raw NIR tree written with the port's PNG writer (24
+   train and 8 test scenes of 9-19 frames of 128^2, 384^2 HR, planted
+   integer shifts within +-3 px); ``probav_tpu_torch.preprocess.main``
+   with registration on the card, all five stages ('freq'): stage rates,
+   one registration call per frame count and split, all on the card; the
+   chain on its output: the train CLI (float32, "t" stack, one epoch at
+   batch 128), the serve CLI --totest TRAIN without --params (the
+   trainer's newest checkpoint) and ``evaluate.main`` against its stage-2
+   TRAINimgHR (finite cPSNR of every scene), with the chain's wall time;
+   stages 1-2 with the host backend (trimmed arrays equal to the card's);
+   registration of the stage-1 scenes on the card (cold and warm) against
+   the host, 'freq' and 'time': every shift equal and the planted one,
+   'freq''s registered arrays equal; stages 1-2 with 'time' on the card.
 
 Before each path runs, every kernel's launch count is set to 0; the counts
 read after it are checked, and those of the path that runs a kernel are
@@ -1451,6 +1464,227 @@ def phase_train_warm(torch, dev, card):
                 f"[{card}]")
 
 
+# The preprocess phase: a raw NIR tree of PRE_TRAIN train and PRE_TEST test
+# scenes at the ESA geometry (128^2 LR and QM frames, PRE_FRAMES of them a
+# scene, drawn per scene; 384^2 HR and SM), each frame a window of one
+# smooth field moved by an integer shift within +-PRE_SHIFT px.
+PRE_TRAIN, PRE_TEST, PRE_FRAMES, PRE_SHIFT = 24, 8, (9, 19), 3
+PRE_LR = 128
+
+
+def write_raw_tree(raw, seed=0):
+    """The raw tree, written with the port's PNG writer; returns each
+    scene's planted (dy, dx) per frame, in file order, train then test.
+    Frame f is field[y + dy_f, x + dx_f], so aligning it to a reference
+    frame r takes (dy_f - dy_r, dx_f - dx_r).  Every third frame from the
+    second has a 24^2 block occluded in its QM; SM hides a 6^2 corner."""
+    from scipy import ndimage
+
+    from probav_tpu_torch.utils.png import write_png
+
+    r = np.random.default_rng(seed)
+    size, pad = PRE_LR, PRE_SHIFT
+    planted = []
+    for split, n in (("train", PRE_TRAIN), ("test", PRE_TEST)):
+        for s in range(n):
+            d = os.path.join(raw, split, "NIR", f"imgset{s:04d}")
+            os.makedirs(d)
+            field = ndimage.gaussian_filter(
+                r.normal(size=(size + 2 * pad,) * 2), 2.0)
+            field = 8000 + 3000 * field / field.std()
+            frames = int(r.integers(PRE_FRAMES[0], PRE_FRAMES[1] + 1))
+            shifts = r.integers(-pad, pad + 1, size=(frames, 2))
+            for f, (dy, dx) in enumerate(shifts):
+                win = field[pad + dy:pad + dy + size, pad + dx:pad + dx + size]
+                write_png(os.path.join(d, f"LR{f:03d}.png"),
+                          win + r.normal(0, 30, win.shape))
+                qm = np.full((size, size), 65535)
+                if f % 3 == 1:
+                    y0, x0 = r.integers(0, size - 24, size=2)
+                    qm[y0:y0 + 24, x0:x0 + 24] = 0
+                write_png(os.path.join(d, f"QM{f:03d}.png"), qm)
+            if split == "train":
+                hr = np.kron(field[pad:pad + size, pad:pad + size],
+                             np.ones((3, 3)))
+                write_png(os.path.join(d, "HR.png"), hr)
+                sm = np.full(hr.shape, 65535)
+                sm[:6, :6] = 0
+                write_png(os.path.join(d, "SM.png"), sm)
+            planted.append(shifts)
+    return planted
+
+
+def check_registration(torch, dev, card, stage1, planted, tech):
+    """Registration of the stage-1 scenes with the torch backend on the
+    card (a cold call, then a warm one) and the numpy backend on the host:
+    the same shift for every frame, the planted ones; for 'freq' also the
+    same registered arrays, exactly ('time' resamples on the host with
+    scipy's cubic spline, equal to the card's gather only to rounding)."""
+    from probav_tpu_torch.ops import registration as reg
+
+    imgs, msks = stage1
+    rates = []
+    for _ in range(2):
+        reg.reset_chunks()
+        t0 = time.perf_counter()
+        out, shifts = reg.register_scenes_torch(imgs, msks, dev, tech=tech,
+                                                return_shifts=True)
+        rates.append(len(imgs) / (time.perf_counter() - t0))
+        if set(reg.CHUNKS) != {dev.type}:
+            raise AssertionError(f"registration {tech}: device calls "
+                                 f"{reg.CHUNKS}, none on {dev}")
+    t0 = time.perf_counter()
+    host = [reg.register_image_set(i, m, tech=tech, return_shifts=True)
+            for i, m in zip(imgs, msks)]
+    host_rate = len(imgs) / (time.perf_counter() - t0)
+    frames = 0
+    for s, (img, msk, got, sh, (want, wsh)) in enumerate(
+            zip(imgs, msks, out, shifts, host)):
+        order = np.argsort([-np.count_nonzero(m) for m in msk])
+        truth = planted[s][order] - planted[s][order[0]]
+        if not (np.array_equal(sh, wsh[:, 1:]) and
+                np.array_equal(sh, truth)):
+            raise AssertionError(f"registration {tech} scene {s}: card "
+                                 f"{sh.tolist()}, host {wsh.tolist()}, "
+                                 f"planted {truth.tolist()}")
+        if tech == "freq" and not (
+                np.array_equal(got.data, want.data) and
+                np.array_equal(got.mask, want.mask)):
+            raise AssertionError(f"registration freq scene {s}: card and "
+                                 f"host arrays differ")
+        frames += len(img)
+    log(f"registration {tech}: {len(imgs)} scenes ({frames} frames of "
+        f"{PRE_LR}^2), torch on {dev} {rates[0]:.2f} scenes/s cold, "
+        f"{rates[1]:.2f} warm; numpy on the host {host_rate:.2f} scenes/s; "
+        f"every shift equal between the two and to the planted one"
+        f"{', registered arrays equal' if tech == 'freq' else ''} [{card}]")
+
+
+def phase_preprocess(torch, dev, card):
+    """The preprocessing stage on the card and the chain after it: a raw
+    NIR tree written with the port's PNG writer; ``preprocess.main`` with
+    registration on the card, all five stages with 'freq'; the train CLI
+    (float32, "t" stack, one epoch at batch 128) on its stage-5 arrays,
+    the serve CLI --totest TRAIN without --params (the trainer's newest
+    checkpoint), ``evaluate.main`` against its stage-2 TRAINimgHR.  Then
+    stages 1-2 with the host backend (trimmed arrays equal), registration
+    of the stage-1 scenes on the card against the host for both
+    techniques, and stages 1-2 with 'time' on the card."""
+    from probav_tpu_torch import evaluate, preprocess, serve
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.data import ingest
+    from probav_tpu_torch.ops import registration as reg
+    from probav_tpu_torch.train import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "raw")
+        t0 = time.perf_counter()
+        planted = write_raw_tree(raw)
+        log(f"preprocess: raw tree of {PRE_TRAIN} + {PRE_TEST} scenes, "
+            f"{sum(map(len, planted))} LR frames, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def tree(name, **keys):
+            base = os.path.join(tmp, name)
+            os.makedirs(base)
+            return base, write_cfg(base, raw_data=raw, epochs=1, **keys)
+
+        base, cfg = tree("freq")
+        reset_launches()
+        reg.reset_chunks()
+        t0 = time.perf_counter()
+        st = preprocess.main(["--cfg", cfg, "--band", "NIR",
+                              "--device", str(dev)])
+        pre_s = time.perf_counter() - t0
+        buckets = {len(p) for p in planted[:PRE_TRAIN]}, \
+            {len(p) for p in planted[PRE_TRAIN:]}
+        if reg.CHUNKS != {dev.type: sum(map(len, buckets))}:
+            raise AssertionError(f"preprocess: registration calls "
+                                 f"{reg.CHUNKS}, expected one per frame "
+                                 f"count and split on {dev}")
+        if launches() != expect():
+            raise AssertionError(f"preprocess: launches {launches()}")
+        sec = st["seconds"]
+        log(f"preprocess freq, registration torch on {dev}: stage 1 "
+            f"{st['scenes'][1] / sec[1]:.2f} scenes/s, stage 2 "
+            f"{st['scenes'][2] / sec[2]:.2f} scenes/s (registration "
+            f"{st['register_s']:.3f} s of {sec[2]:.3f}), stages 3-5 "
+            f"{sec[3]:.3f} + {sec[4]:.3f} + {sec[5]:.3f} s; "
+            f"{reg.CHUNKS[dev.type]} registration calls on {dev}; all five "
+            f"stages {pre_s:.1f} s, first calls included [{card}]")
+
+        c = Config.from_file(cfg)
+        t1 = time.perf_counter()
+        res = cli.main(["--cfg", cfg, "--band", "NIR", "--device", str(dev)])
+        train_s = time.perf_counter() - t1
+        got = launches()
+        steps = res["NIR"]["steps"]
+        if not (steps > 0 and np.isfinite(res["NIR"]["train_loss"]) and
+                got["blk_bwd"] == c.num_res_blocks * steps and
+                got["seg_fwd"] > 0):
+            raise AssertionError(f"chain train: {res}, launches {got}")
+        reset_launches()
+        t1 = time.perf_counter()
+        served = serve.main(["--cfg", cfg, "--band", "NIR", "--totest",
+                             "TRAIN", "--device", str(dev)])
+        serve_s = time.perf_counter() - t1
+        n_served = len(served["written"])
+        with open(os.path.join(base, "data", "removedTrainSetsNIR.txt")) as f:
+            removed = len(f.read().split())
+        if not (n_served == PRE_TRAIN - removed and
+                launches()["conv_fwd"] > 0):
+            raise AssertionError(f"chain serve: {n_served} scenes, "
+                                 f"launches {launches()}")
+        out = os.path.dirname(served["written"][0])
+        t1 = time.perf_counter()
+        report = evaluate.main(["--cfg", cfg, "--benchmark", out,
+                                "--toCompare", out, "--bands", "NIR",
+                                "--red-count", "0", "--device", str(dev),
+                                "--out", os.path.join(base, "cmp.png")])
+        eval_s = time.perf_counter() - t1
+        chain_s = time.perf_counter() - t0
+        nir = report["bands"]["NIR"]
+        if not (nir["scenes"] == n_served and
+                np.isfinite(nir["candidate_mean_cpsnr"])):
+            raise AssertionError(f"chain evaluate: {report}")
+        log(f"chain raw PNGs -> stages 1-5 on {dev} -> train -> serve from "
+            f"the checkpoint -> score: {chain_s:.1f} s (preprocess "
+            f"{pre_s:.1f}, train {steps} float32 't' steps at batch "
+            f"{c.batch_size} "
+            f"{train_s:.1f}, serve {n_served} TRAIN scenes {serve_s:.1f}, "
+            f"evaluate {eval_s:.1f}); mean cPSNR {nir['candidate_mean_cpsnr']:.3f}"
+            f" dB over {nir['scenes']} scenes, every one finite [{card}]")
+
+        hbase, hcfg = tree("host")
+        preprocess.main(["--cfg", hcfg, "--band", "NIR", "--ckpt", "1,2",
+                         "--reg-backend", "numpy"])
+        for name in sorted(os.listdir(os.path.join(base, "data",
+                                                   "trimmedArrayDir"))):
+            a, b = (np.load(os.path.join(d, "data", "trimmedArrayDir", name),
+                            allow_pickle=True) for d in (base, hbase))
+            if not (a.shape == b.shape and np.array_equal(a.data, b.data)
+                    and np.array_equal(a.mask, b.mask)):
+                raise AssertionError(f"stage 2 {name}: card and host "
+                                     f"backends differ")
+        (img, msk, _, _), (img_t, msk_t) = ingest.load_data(
+            os.path.join(base, "data", "arrayDir"), "NIR")
+        stage1 = (list(img) + list(img_t), list(msk) + list(msk_t))
+        for tech in ("freq", "time"):
+            check_registration(torch, dev, card, stage1, planted, tech)
+
+        tbase, tcfg = tree("time")
+        reg.reset_chunks()
+        st = preprocess.main(["--cfg", tcfg, "--band", "NIR", "--ckpt",
+                              "1,2", "--tech", "time", "--device", str(dev)])
+        if set(reg.CHUNKS) != {dev.type}:
+            raise AssertionError(f"preprocess time: calls {reg.CHUNKS}")
+        sec = st["seconds"]
+        log(f"preprocess time, registration torch on {dev}: stage 1 "
+            f"{st['scenes'][1] / sec[1]:.2f} scenes/s, stage 2 "
+            f"{st['scenes'][2] / sec[2]:.2f} scenes/s (registration "
+            f"{st['register_s']:.3f} s of {sec[2]:.3f}) [{card}]")
+
+
 def main():
     import torch
 
@@ -1489,6 +1723,7 @@ def main():
     train_launches = phase_train(torch, dev, card)
     loss_launches = phase_train_step(torch, dev, card)
     phase_train_warm(torch, dev, card)
+    phase_preprocess(torch, dev, card)
 
     # (name, source, the TPU kernel it replaces, the path whose counts
     # are its launches: each path's counts were reset just before it ran).

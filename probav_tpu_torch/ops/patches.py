@@ -1,9 +1,35 @@
-"""Pixel shuffle and full-scene reconstruction (port of
-``probav_tpu/ops/patches.py``)."""
+"""Patch extraction, pixel shuffle and full-scene reconstruction (port
+of ``probav_tpu/ops/patches.py``).
+
+``extract_patches_np`` is the host preprocessing pipeline's patcher
+(stage 3): a numpy stride-trick view that emits patches in the row-major
+(rows, then columns) order of ``torch.Tensor.unfold``, which the
+submission reconstruction depends on.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def _num_windows(size: int, patch: int, stride: int) -> int:
+    return (size - patch) // stride + 1
+
+
+def extract_patches_np(images: np.ndarray, patch: int,
+                       stride: int) -> np.ndarray:
+    """[..., H, W] -> [..., nH*nW, patch, patch], row-major window order.
+
+    Pure view-based (sliding_window_view + reshape copy at the end).
+    """
+    nh = _num_windows(images.shape[-2], patch, stride)
+    nw = _num_windows(images.shape[-1], patch, stride)
+    win = np.lib.stride_tricks.sliding_window_view(images, (patch, patch),
+                                                   axis=(-2, -1))
+    win = win[..., ::stride, ::stride, :, :]           # [..., nH, nW, p, p]
+    lead = images.shape[:-2]
+    return win.reshape(lead + (nh * nw, patch, patch))
 
 
 def depth_to_space(x: torch.Tensor, scale: int) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Inference/submission CLI of the PyTorch port (counterpart of ``test.py``).
 
     python3 -m probav_tpu_torch.serve --cfg cfg/p16t9c85r12.cfg --band NIR \\
-        --totest TEST --params nir_params.npz [--tta] [--bf16] [--plain]
+        --totest TEST [--params nir_params.npz] [--tta] [--bf16] [--plain]
 
 Reads ``{totest}patchesLR_{band}.npy`` from the cfg's ``resolverDir``,
-loads the parameters from an ``.npz`` (``tools/jax_params_to_npz.py``
-exports one from a JAX checkpoint), super-resolves every scene and writes
+restores the model parameters from the newest checkpoint that
+``python3 -m probav_tpu_torch.train`` wrote for the (cfg, band), as
+``test.py`` does, or loads them from ``--params``, an ``.npz``
+(``convert.save_npz``; ``tools/jax_params_to_npz.py`` exports one from a
+JAX checkpoint), super-resolves every scene and writes
 uint16 ``imgset%04d.png`` files with the reference numbering into the
 cfg's output directory.  The WDSR-B stack runs on the hand-written CUDA
 kernels unless ``--plain`` selects the plain PyTorch blocks.  ``--device``
@@ -34,8 +37,10 @@ def parse_args(argv=None):
                    help="temporal-permutation test-time augmentation (20)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute dtype (default float32)")
-    p.add_argument("--params", required=True,
-                   help=".npz of the model parameters (flat 'a/b/c' keys)")
+    p.add_argument("--params", default=None,
+                   help=".npz of the model parameters (flat 'a/b/c' keys); "
+                        "default: the newest checkpoint of the cfg's "
+                        "model_out/ckpt_<cfg>/<band>")
     p.add_argument("--device", default="cuda")
     p.add_argument("--plain", action="store_true",
                    help="plain PyTorch block stack instead of the kernels")
@@ -59,6 +64,7 @@ def main(argv=None) -> dict:
     from probav_tpu_torch.infer.resolver import (Resolver, load_removed_sets,
                                                  write_submission)
     from probav_tpu_torch.models.wdsr import build_model
+    from probav_tpu_torch.train.trainer import restore_params
 
     if not opt.bf16:   # float32 products in float32: no one-pass TF32
         torch.backends.cudnn.allow_tf32 = False
@@ -77,8 +83,9 @@ def main(argv=None) -> dict:
     model = build_model(cfg, opt.band, dtype=dtype,
                         fused_stack=not opt.plain)
     scene = cfg.patch_size * cfg.scale * int(np.sqrt(patches.shape[1]))
-    resolver = Resolver(model, load_npz(opt.params), scene_size=scene,
-                        device=device)
+    params = (load_npz(opt.params) if opt.params else
+              restore_params(cfg.ckpt_dir(opt.band)))
+    resolver = Resolver(model, params, scene_size=scene, device=device)
     t0 = time.perf_counter()
     scenes = resolver.resolve_all(patches, tta=opt.tta)
     resolve_s = time.perf_counter() - t0

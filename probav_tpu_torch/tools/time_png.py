@@ -38,13 +38,14 @@ import numpy as np
 SIZE = 384
 
 
-def predictors(raw: np.ndarray) -> list:
+def predictors(raw: np.ndarray, bpp: int = 2) -> list:
     """The five filters' predictions of each byte of [h, stride] raw
-    scanline bytes, as int32: None, Sub (the byte a pixel to the left),
-    Up, Average and Paeth (PNG specification, section 9)."""
+    scanline bytes, as int32: None, Sub (the byte a pixel to the left,
+    ``bpp`` bytes back: 2 at 16 bits, 1 at 8 bits and below), Up, Average
+    and Paeth (PNG specification, section 9)."""
     raw = raw.astype(np.int32)
     a, b, c = (np.zeros_like(raw) for _ in range(3))
-    a[:, 2:], b[1:], c[1:, 2:] = raw[:, :-2], raw[:-1], raw[:-1, :-2]
+    a[:, bpp:], b[1:], c[1:, bpp:] = raw[:, :-bpp], raw[:-1], raw[:-1, :-bpp]
     pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
     paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
     return [0 * raw, a, b, (a + b) // 2, paeth]

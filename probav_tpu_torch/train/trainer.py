@@ -44,6 +44,30 @@ MAX_TO_KEEP = 5
 _CKPT = re.compile(r"^step_(\d+)\.pt$")
 
 
+def list_checkpoints(ckpt_dir: str) -> list:
+    """(step, path) of the ``step_*.pt`` checkpoints in ckpt_dir, oldest
+    first."""
+    found = []
+    for name in os.listdir(ckpt_dir):
+        m = _CKPT.match(name)
+        if m:
+            found.append((int(m.group(1)), os.path.join(ckpt_dir, name)))
+    return sorted(found)
+
+
+def restore_params(ckpt_dir: str) -> dict:
+    """The model parameters (a state_dict on the CPU) of the newest
+    checkpoint that the trainer wrote under ckpt_dir (test.py's
+    ``restore_params``)."""
+    ckpts = list_checkpoints(ckpt_dir) if os.path.isdir(ckpt_dir) else []
+    if not ckpts:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    step, path = ckpts[-1]
+    ck = torch.load(path, map_location="cpu", weights_only=True)
+    logger.info("[ INFO ] Restored checkpoint at step %d.", step)
+    return ck["params"]
+
+
 class ModelTrainer:
     """Drives training of a ``WDSRConv3D`` with shift-compensated losses.
 
@@ -93,13 +117,7 @@ class ModelTrainer:
 
     def checkpoints(self) -> list:
         """(step, path) of the checkpoints in ckpt_dir, oldest first."""
-        found = []
-        for name in os.listdir(self.ckpt_dir):
-            m = _CKPT.match(name)
-            if m:
-                found.append((int(m.group(1)),
-                              os.path.join(self.ckpt_dir, name)))
-        return sorted(found)
+        return list_checkpoints(self.ckpt_dir)
 
     def restore(self) -> bool:
         """Resume from the latest checkpoint."""

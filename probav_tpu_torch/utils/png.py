@@ -1,10 +1,13 @@
 """Grayscale PNG codec in the standard library (zlib + struct).
 
-Replaces ``probav_tpu/utils/io.py``'s imageio-based ``write_png`` for the
-submission format (uint16 grayscale), and reads that format back from any
-PNG writer: ``read_png`` undoes the five scanline filters of the PNG
-specification (imageio, which the JAX package writes with, picks one per
-row, Paeth for most rows of a smooth scene).
+Replaces ``probav_tpu/utils/io.py``'s imageio-based PNG codec.
+``write_png`` writes the submission format (uint16 grayscale).
+``read_png`` reads every non-interlaced grayscale PNG, at bit depths 1, 2,
+4, 8 and 16, from any PNG writer, with the values and dtype that imageio
+gives: the preprocessing stage reads the dataset's frames and masks with
+it, the scorer the submissions.  It undoes the five scanline filters of
+the PNG specification (imageio, which the JAX package writes with, picks
+one per row, Paeth for most rows of a smooth scene).
 """
 
 from __future__ import annotations
@@ -40,11 +43,12 @@ def write_png(path: str, img: np.ndarray) -> None:
                 _chunk(b"IEND", b""))
 
 
-# Bytes per complete pixel of 16-bit grayscale: the filters' left offset.
-_BPP = 2
+# The grayscale bit depths of the specification.  Below 8, imageio (through
+# Pillow) gives depth 1 as bool and scales depths 2 and 4 to 0-255.
+DEPTHS = (1, 2, 4, 8, 16)
 
 
-def _unfilter_rows(kinds, raw):
+def _unfilter_rows(kinds, raw, bpp):
     """Rows of filter types 0-2 one at a time, each a few whole-row numpy
     operations: None, Sub (a running sum mod 256 along each byte column)
     and Up (the reconstructed row above)."""
@@ -54,7 +58,7 @@ def _unfilter_rows(kinds, raw):
         if kind == 0:
             out[y] = line
         elif kind == 1:
-            out[y] = np.add.accumulate(line.reshape(-1, _BPP), axis=0,
+            out[y] = np.add.accumulate(line.reshape(-1, bpp), axis=0,
                                        dtype=np.uint8).reshape(-1)
         else:
             out[y] = line + prev
@@ -62,7 +66,7 @@ def _unfilter_rows(kinds, raw):
     return out
 
 
-def _unfilter_wavefront(kinds, raw):
+def _unfilter_wavefront(kinds, raw, bpp):
     """Rows of any filter types 0-4, by anti-diagonals of pixels.
 
     Average and Paeth predict a byte from its reconstructed left neighbour
@@ -74,12 +78,12 @@ def _unfilter_wavefront(kinds, raw):
     diagonal is contiguous; ``s[0]``, ``s[1]`` and ``s[:, 0]``, like the
     entries no pixel maps to, stay zero, which is what the specification
     takes for neighbours outside the image."""
-    h, w = raw.shape[0], raw.shape[1] // _BPP
+    h, w = raw.shape[0], raw.shape[1] // bpp
     yy, xx = np.mgrid[0:h, 0:w]
-    filt = np.zeros((h + w - 1, h, _BPP), np.int16)
-    filt[yy + xx, yy] = raw.reshape(h, w, _BPP)
-    s = np.zeros((h + w + 1, h + 1, _BPP), np.int16)
-    rows = {t: np.broadcast_to((kinds == t)[:, None], (h, _BPP))
+    filt = np.zeros((h + w - 1, h, bpp), np.int16)
+    filt[yy + xx, yy] = raw.reshape(h, w, bpp)
+    s = np.zeros((h + w + 1, h + 1, bpp), np.int16)
+    rows = {t: np.broadcast_to((kinds == t)[:, None], (h, bpp))
             for t in range(4) if (kinds == t).any()}
     for d in range(h + w - 1):
         lo, hi = max(0, d - w + 1), min(h, d + 1)
@@ -96,23 +100,26 @@ def _unfilter_wavefront(kinds, raw):
     return s[yy + xx + 2, yy + 1].astype(np.uint8).reshape(h, -1)
 
 
-def _unfilter(rows):
-    """[h, 1 + stride] filtered scanlines -> [h, stride] raw bytes.  The
-    row above the first is zeros; the sums wrap mod 256, as the
-    specification's do."""
+def _unfilter(rows, bpp):
+    """[h, 1 + stride] filtered scanlines -> [h, stride] raw bytes, where
+    the filters' left neighbour lies bpp bytes back (one byte below 16
+    bits).  The row above the first is zeros; the sums wrap mod 256, as
+    the specification's do."""
     kinds, raw = rows[:, 0], rows[:, 1:]
     bad = np.flatnonzero(kinds > 4)
     if bad.size:
         raise ValueError(f"scanline {bad[0]}: filter type {kinds[bad[0]]} "
                          f"is not supported (the PNG filters are 0-4)")
     if (kinds >= 3).any():
-        return _unfilter_wavefront(kinds, raw)
-    return _unfilter_rows(kinds, raw)
+        return _unfilter_wavefront(kinds, raw, bpp)
+    return _unfilter_rows(kinds, raw, bpp)
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read a 16-bit grayscale, non-interlaced PNG as uint16 [H, W],
-    whatever filter each scanline was written with."""
+    """Read a non-interlaced grayscale PNG as [H, W], whatever filter each
+    scanline was written with: uint16 at 16 bits, uint8 at 8, uint8 scaled
+    to 0-255 at 4 and 2 (times 17 and 85), bool at 1, as imageio reads
+    them."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIG:
@@ -127,18 +134,31 @@ def read_png(path: str) -> np.ndarray:
             hdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"tRNS":
+            raise ValueError(f"{path}: a transparent colour (tRNS) is not "
+                             f"supported")
         elif kind == b"IEND":
             break
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = hdr
-    if color != 0 or depth != 16 or interlace != 0:
-        raise ValueError(f"{path}: only non-interlaced 16-bit grayscale is "
-                         f"supported (depth {depth}, color type {color}, "
-                         f"interlace {interlace})")
+    if color != 0 or depth not in DEPTHS or interlace != 0:
+        raise ValueError(f"{path}: only non-interlaced grayscale at depths "
+                         f"{DEPTHS} is supported (depth {depth}, color type "
+                         f"{color}, interlace {interlace})")
+    stride = (w * depth + 7) // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + _BPP * w):
+    if raw.size != h * (1 + stride):
         raise ValueError(f"{path}: {raw.size} bytes of scanlines for "
-                         f"{h} rows of {w} pixels")
-    rows = _unfilter(raw.reshape(h, 1 + _BPP * w))
-    return rows.view(">u2").astype(np.uint16)
+                         f"{h} rows of {w} pixels at {depth} bits")
+    rows = _unfilter(raw.reshape(h, 1 + stride), max(1, depth // 8))
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16)
+    if depth == 8:
+        return rows
+    bits = np.unpackbits(rows, axis=1, count=w * depth)
+    if depth == 1:
+        return bits.astype(bool)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    levels = bits.reshape(h, w, depth) @ weights
+    return levels.astype(np.uint8) * np.uint8(255 // (2 ** depth - 1))

@@ -1,11 +1,11 @@
-"""Importing the PyTorch port must need neither JAX nor imageio nor triton,
-touch no CUDA context and build no kernel.
+"""Importing the PyTorch port must need neither JAX nor imageio nor triton
+(nor sklearn nor tqdm), touch no CUDA context and build no kernel.
 
-The card's machine has no JAX, flax, orbax or imageio, and this one has no
-triton: a module-level import of any of them breaks the port there.  The
-port imports nothing of the JAX package, not even its stdlib-only modules
-(it keeps its own copy of ``config``).  Kernels are built at their first
-launch, never at import.
+The card's machine has no JAX, flax, orbax, imageio, sklearn or tqdm, and
+a CPU-only install has no triton: a module-level import of any of them
+breaks the port there.  The port imports nothing of the JAX package, not
+even its stdlib-only modules (it keeps its own copy of ``config``).
+Kernels are built at their first launch, never at import.
 """
 
 import subprocess
@@ -13,7 +13,8 @@ import sys
 
 SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "imageio", "triton"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "imageio", "triton",
+             "sklearn", "tqdm"):
     sys.modules[name] = None          # any import of them now fails
 import importlib, pkgutil
 import torch
@@ -30,12 +31,18 @@ for m in pkgutil.walk_packages(probav_tpu_torch.__path__,
 kernel_modules = {"probav_tpu_torch.ops." + n for n in (
     "tstack", "wide_block", "block_stack", "shift_table", "shift_loss")}
 assert kernel_modules <= names, kernel_modules - names
+preprocess_modules = {"probav_tpu_torch." + n for n in (
+    "preprocess", "ops.registration", "data.pipeline", "data.ingest",
+    "data.qc", "data._native", "data.augment", "data.random_patches")}
+assert preprocess_modules <= names, preprocess_modules - names
 jax_pkg = sorted(n for n in sys.modules
                  if n == "probav_tpu" or n.startswith("probav_tpu."))
 assert jax_pkg == [], jax_pkg
 assert not torch.cuda.is_initialized(), "an import initialized CUDA"
 from probav_tpu_torch.ops import _build
 assert _build.library.cache_info().currsize == 0, "kernels built at import"
+from probav_tpu_torch.data import _native
+assert _native.library.cache_info().currsize == 0, "selector built at import"
 print("IMPORT_SAFE")
 """
 
@@ -69,7 +76,7 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
-    """Imports inside functions too (the runtime check above sees only
+    """Nor imageio, sklearn or tqdm.  Imports inside functions too (the runtime check above sees only
     module-level ones): every import statement of probav_tpu_torch/**.py
     and chip_smoke.py, read from the source."""
     import ast
@@ -78,7 +85,8 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     root = Path(__file__).resolve().parent.parent
     files = sorted((root / "probav_tpu_torch").rglob("*.py")) + \
         [root / "chip_smoke.py"]
-    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "probav_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "probav_tpu",
+              "imageio", "sklearn", "tqdm")
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -93,6 +93,51 @@ def test_serve_cli_refuses_cuda_without_a_card(tree, monkeypatch):
         serve.main(["--cfg", cfgp, "--band", "NIR", "--params", npz])
 
 
+def test_serve_without_params_restores_the_trainers_checkpoint(tree,
+                                                                tmp_path):
+    """Without --params the CLI serves the newest checkpoint that the train
+    CLI wrote for the (cfg, band), as test.py does: the same PNGs as
+    serving that checkpoint's parameters through --params."""
+    from probav_tpu_torch.convert import save_npz
+    from probav_tpu_torch.train import cli
+    from probav_tpu_torch.train.trainer import restore_params
+    from test_torch_train_cli import stage5_tree
+
+    cfgp, cfg = stage5_tree(tmp_path)         # the same cfg as ``tree``'s
+    cli.main(["--cfg", cfgp, "--band", "NIR", "--device", "cpu"])
+    assert sorted(os.listdir(cfg.ckpt_dir("NIR")))[-1] == "step_00000004.pt"
+    args = ["--cfg", cfgp, "--band", "NIR", "--totest", "TEST",
+            "--device", "cpu"]
+    out = cfg.out_dir("TEST")
+    res = serve.main(args)
+    os.rename(out, out + "_ckpt")
+    npz = str(tmp_path / "trained.npz")
+    save_npz(npz, restore_params(cfg.ckpt_dir("NIR")))
+    want = serve.main(args + ["--params", npz])
+    assert [os.path.basename(p) for p in res["written"]] == \
+        [os.path.basename(p) for p in want["written"]] == \
+        ["imgset1306.png", "imgset1307.png"]
+    for p in want["written"]:
+        got = read_png(os.path.join(out + "_ckpt", os.path.basename(p)))
+        np.testing.assert_array_equal(got, read_png(p))
+    # and not the seeded init's: the trained parameters were served
+    init = str(tmp_path / "init.npz")
+    from probav_tpu_torch.models.wdsr import build_model
+    save_npz(init, build_model(cfg, "NIR", generator=torch.Generator()
+                               .manual_seed(0)).state_dict())
+    os.rename(out, out + "_npz")
+    fresh = serve.main(args + ["--params", init])
+    assert any((read_png(p) != read_png(os.path.join(
+        out + "_npz", os.path.basename(p)))).any() for p in fresh["written"])
+
+
+def test_serve_without_params_or_checkpoint_raises(tree):
+    cfgp, cfg = tree[:2]
+    with pytest.raises(FileNotFoundError, match="no checkpoint under .*"
+                       "ckpt_synth"):
+        serve.main(["--cfg", cfgp, "--band", "NIR", "--device", "cpu"])
+
+
 def test_profile_serve_warm_rates_on_the_cpu(tree):
     """The warm-throughput helpers that chip_smoke.py and
     tools/profile_serve share: a warm-up resolve, then timed repeats."""
@@ -120,15 +165,16 @@ def test_png_round_trip_against_imageio(tmp_path):
     np.testing.assert_array_equal(read_png(path), [[65535, 0]])
 
 
-@pytest.mark.parametrize("depth,ftype", [(8, 0), (16, 5)],
+@pytest.mark.parametrize("depth,color,ftype", [(8, 2, 0), (16, 0, 5)],
                          ids=["8-bit", "filtered"])
 def test_png_reader_refuses_what_the_writer_never_writes(tmp_path, depth,
-                                                         ftype):
-    """The reader covers the writer's format, 16-bit gray, with any of the
-    PNG filter types 0-4 (tests/test_torch_evaluation.py); another depth
-    or filter type raises rather than decoding wrongly."""
-    raw = bytes([ftype]) + bytes(2 * depth // 8)          # one 2-px row
-    ihdr = struct.pack(">IIBBBBB", 2, 1, depth, 0, 0, 0, 0)
+                                                         color, ftype):
+    """The reader covers grayscale at depths 1-16 with any of the PNG
+    filter types 0-4 (tests/test_torch_evaluation.py,
+    tests/test_torch_ingest.py); another colour type (8-bit RGB here) or
+    filter type raises rather than decoding wrongly."""
+    raw = bytes([ftype]) + bytes(2 * (3 if color == 2 else 1) * depth // 8)
+    ihdr = struct.pack(">IIBBBBB", 2, 1, depth, color, 0, 0, 0)
     path = tmp_path / "x.png"
     path.write_bytes(png._SIG + png._chunk(b"IHDR", ihdr) +
                      png._chunk(b"IDAT", zlib.compress(raw)) +
