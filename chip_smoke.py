@@ -87,7 +87,18 @@ Phases, each printing its result:
    after the update); then the warm train throughput of the variants of
    probav_tpu_torch.tools.profile_train (which adds the device-time
    breakdown);
-10. preprocess: a raw NIR tree written with the port's PNG writer (24
+10. train, the other losses and models: the train CLI on the flagship cfg
+   (float32, "t" stack, batch 128) with loss=sobel_l1_mix and with
+   loss=l1msssim (12 launches of each stack kernel per step, a falling
+   loss, a checkpoint), each loss and its gradient with respect to pred
+   on 128 patches on the card against the CPU, and their warm steps and
+   loss times beside the l1 step's; --modelType iwdsr at float32 and bf16
+   (no kernel launched, a falling loss, a checkpoint, warm patches/s and
+   peak memory, the float32 forward against the CPU); --modelType
+   fusionNet on 2 x 12 served 384^2 TRAIN scenes (RED first) at batch 8,
+   one warm FuseNet v3 step at 128 scenes of 384^2 with its time and peak
+   memory, and the v1 and v2 forwards against the CPU;
+11. preprocess: a raw NIR tree written with the port's PNG writer (24
    train and 8 test scenes of 9-19 frames of 128^2, 384^2 HR, planted
    integer shifts within +-3 px); ``probav_tpu_torch.preprocess.main``
    with registration on the card, all five stages ('freq'): stage rates,
@@ -1464,6 +1475,288 @@ def phase_train_warm(torch, dev, card):
                 f"[{card}]")
 
 
+# The phase of the other cfg losses and model types: the flagship cfg with
+# each loss through the train CLI (MORE_EPOCHS epochs of TRAIN_N patches);
+# the loss and d loss / d pred on the card against the CPU on one batch of
+# 128 (occluded truth zeroed, pred = truth + N(0, 300^2)), held as
+# tests/test_torch_sobel_msssim.py holds them to JAX; IWDSR at the flagship
+# width through the CLI and its forward against the CPU on IWDSR_CPU_N
+# patches (float32, MODEL_TOL); FuseNet through the CLI on FUSE_SCENES
+# served 384^2 TRAIN scenes of each band at batch FUSE_BATCH, and one warm
+# step at the cfg's batch of 128 scenes; v1 and v2 forwards on FUSE_CPU_N
+# scenes against the CPU.
+MORE_LOSSES = ("sobel_l1_mix", "l1msssim")
+MORE_TOL = {"sobel_l1_mix": 1e-5, "l1msssim": 1e-4}
+MORE_GRAD_TOL = 1e-4
+MORE_EPOCHS, MORE_STEPS, MORE_BATCH = 2, 5, 128
+IWDSR_CPU_N, IWDSR_TOL = 8, 1e-4
+FUSE_SCENES, FUSE_BATCH, FUSE_CPU_N, FUSE_TOL = 12, 8, 2, 1e-4
+FUSE_STEP_N = 128
+
+
+def loss_batch(torch, n, seed):
+    """(hr, mask, pred) [n, 48, 48, 1] on the CPU: the synthetic batch's
+    truth with its occluded pixels zeroed, pred = truth + N(0, 300^2)."""
+    from probav_tpu_torch.tools.profile_train import synthetic_batch
+
+    _, hr, mask = synthetic_batch(n, seed=seed)
+    pred = hr + np.random.default_rng(seed).normal(0, 300, hr.shape)
+    return [torch.from_numpy(np.asarray(a, np.float32))
+            for a in (hr * mask, mask, pred)]
+
+
+def loss_grad(torch, fn, hr, mask, pred):
+    p = pred.clone().requires_grad_()
+    loss = fn(hr, mask, p)
+    (g,) = torch.autograd.grad(loss, p)
+    return loss.detach(), g
+
+
+def warm_rate(torch, tr, batch):
+    """(median patches/s of MORE_STEPS warm steps, peak GB allocated from
+    the first of them on)."""
+    from probav_tpu_torch.tools.profile_train import warm_step_rates
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = warm_step_rates(tr, batch, MORE_STEPS)
+    return statistics.median(rates), torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_cli_run(name, res, steps, ckpt_dir, log_dir, got, want,
+                  falling=True):
+    """The train CLI's result: its steps, the checkpoint of the last step,
+    the launch counts and a finite train loss, falling where ``falling``."""
+    if res["steps"] != steps:
+        raise AssertionError(f"{name}: {res['steps']} steps, not {steps}")
+    if sorted(os.listdir(ckpt_dir))[-1] != f"step_{steps:08d}.pt":
+        raise AssertionError(f"{name}: checkpoints "
+                             f"{sorted(os.listdir(ckpt_dir))}")
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    losses = train_losses(log_dir)
+    if not all(np.isfinite(losses)) or \
+            (falling and not losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: losses {losses}")
+    return losses
+
+
+def write_served_tree(root, name, scenes, **overrides):
+    """A cfg copy in root/name whose TRAIN output dir holds ``scenes``
+    served 384^2 scenes of each band, numbered as serving RED and NIR
+    writes them (RED first), and whose resolverDir holds both bands'
+    stage-2 truths (10% masked, data kept); the served scene is the truth
+    plus N(0, 200^2)."""
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.infer.resolver import write_submission
+    from probav_tpu_torch.utils.io import dump_masked
+
+    base = os.path.join(root, name)
+    resolver = os.path.join(base, "data", "resolverDir")
+    os.makedirs(resolver)
+    cfg_path = write_cfg(base, **overrides)
+    cfg = Config.from_file(cfg_path)
+    r = np.random.default_rng(11)
+    for band in ("RED", "NIR"):
+        hr = r.uniform(4000, 12000, (scenes, 384, 384))
+        served = np.clip(hr + r.normal(0, 200, hr.shape), 0, 65535)
+        write_submission(served[..., None].astype(np.uint16),
+                         cfg.out_dir("TRAIN"), band, "TRAIN", removed=())
+        hidden = r.uniform(size=hr.shape) < 0.1
+        dump_masked(np.ma.masked_array(
+            hr[:, None, None], mask=hidden[:, None, None]).astype(np.float32),
+            os.path.join(resolver, f"TRAINimgHR_{band}.npy"))
+    return cfg_path
+
+
+def phase_train_more(torch, dev, card):
+    """The train CLI's other cfg losses and model types on the card: (a)
+    the flagship "t" step with sobel_l1_mix and with l1msssim, (b)
+    --modelType iwdsr at float32 and bf16, (c) --modelType fusionNet and
+    one step at 128 scenes of 384^2."""
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.data.augment import split_indices
+    from probav_tpu_torch.models.wdsr import FuseNetConv2D
+    from probav_tpu_torch.ops.shift_loss import ShiftCompensatedLosses
+    from probav_tpu_torch.tools.profile_train import (make_trainer,
+                                                      synthetic_batch)
+    from probav_tpu_torch.train import cli
+    from probav_tpu_torch.train.optim import build_optimizer
+    from probav_tpu_torch.train.trainer import ModelTrainer
+
+    steps_per_epoch = TRAIN_N // MORE_BATCH
+    steps = MORE_EPOCHS * steps_per_epoch
+    evals = (MORE_EPOCHS + 1) * -(-VAL_N // MORE_BATCH)
+    blocks = 12
+    lr_b, _, _ = synthetic_batch(MORE_BATCH, seed=2)
+    hr, mask, pred = loss_batch(torch, MORE_BATCH, seed=2)
+    batch = tuple(torch.as_tensor(a, device=dev) for a in
+                  (lr_b, hr.numpy(), mask.numpy()))
+    losses = ShiftCompensatedLosses(target_shape=(48, 48, 1))
+    fuse_losses = ShiftCompensatedLosses(target_shape=(384, 384, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the cfg losses on the "t" stack, float32.
+        rates = {}
+        for loss in ("l1",) + MORE_LOSSES:
+            cfg, ckpt_dir, log_dir = write_train_tree(
+                tmp, f"loss_{loss}", MORE_EPOCHS, loss=loss)
+            if loss != "l1":
+                reset_launches()
+                t0 = time.perf_counter()
+                res = cli.main(["--cfg", cfg, "--band", "NIR", "--eval-step",
+                                str(steps_per_epoch), "--device", str(dev)])
+                wall = time.perf_counter() - t0
+                got = launches()
+                want = expect(seg_fwd=blocks * (steps + evals),
+                              conv_fwd=blocks * (steps + evals),
+                              blk_bwd=blocks * steps)
+                tl = check_cli_run(f"train {loss}", res["NIR"], steps,
+                                   ckpt_dir, log_dir, got, want)
+                fn = losses.by_name(loss)
+                ref, gref = loss_grad(torch, fn, hr, mask, pred)
+                val, g = loss_grad(torch, fn, *(a.to(dev)
+                                                for a in (hr, mask, pred)))
+                lerr = abs(float(val) - float(ref)) / abs(float(ref))
+                gerr = rel_l2(g.cpu(), gref)
+                if not lerr <= MORE_TOL[loss] or not gerr <= MORE_GRAD_TOL:
+                    raise AssertionError(
+                        f"{loss} card vs CPU: loss rel {lerr:.3e}, d/dpred "
+                        f"||got-ref||/||ref|| {gerr:.3e}")
+                log(f"train {loss}: {steps} steps at batch {MORE_BATCH}, "
+                    f"f32 t, launches {got}; train loss {tl[0]:.4f} -> "
+                    f"{tl[-1]:.4f}; {wall:.1f} s cold; card vs CPU on "
+                    f"{MORE_BATCH} patches: loss {float(val):.6f} rel "
+                    f"{lerr:.3e} (tol {MORE_TOL[loss]:g}), d/dpred "
+                    f"{gerr:.3e} (tol {MORE_GRAD_TOL:g}) [{card}]")
+            tr = make_trainer(Config.from_file(cfg), "float32", "t", dev,
+                              os.path.join(tmp, f"warm_{loss}"))
+            rates[loss] = warm_rate(torch, tr, batch)
+            tr.logger_.close()
+            del tr
+            torch.cuda.empty_cache()
+        pd = tuple(a.to(dev) for a in (hr, mask, pred))
+        fns = [lambda f=losses.by_name(n): loss_grad(torch, f, *pd)
+               for n in ("l1",) + MORE_LOSSES]
+        ms, b2b = timed(torch, *fns), back_to_back(torch, *fns)
+        for (name, (rate, peak)), t, tb in zip(rates.items(), ms, b2b):
+            log(f"warm train f32 t, loss {name}: batch {MORE_BATCH}, "
+                f"median of {MORE_STEPS} steps {rate:.1f} patches/s, peak "
+                f"{peak:.2f} GB; the loss and d/dpred {t:.4f} ms a single "
+                f"call (CUDA events, median of 20), {tb:.4f} ms back to "
+                f"back [{card}]")
+
+        # (b) IWDSR at the flagship width, float32 and bf16.
+        for dn, flags in (("float32", []), ("bfloat16", ["--bf16"])):
+            cfg, ckpt_dir, log_dir = write_train_tree(tmp, f"iwdsr_{dn}",
+                                                      MORE_EPOCHS)
+            reset_launches()
+            t0 = time.perf_counter()
+            res = cli.main(["--cfg", cfg, "--band", "NIR", "--eval-step",
+                            str(steps_per_epoch), "--device", str(dev),
+                            "--modelType", "iwdsr"] + flags)
+            wall = time.perf_counter() - t0
+            tl = check_cli_run(f"train iwdsr {dn}", res["NIR"], steps,
+                               ckpt_dir, log_dir, launches(), expect())
+            tr = make_trainer(Config.from_file(cfg), dn, None, dev,
+                              os.path.join(tmp, f"warm_iwdsr_{dn}"),
+                              model_type="iwdsr")
+            rate, peak = warm_rate(torch, tr, batch)
+            msg = (f"train iwdsr {dn}: {steps} steps at batch {MORE_BATCH}, "
+                   f"no kernel launched; train loss {tl[0]:.4f} -> "
+                   f"{tl[-1]:.4f}; {wall:.1f} s cold; warm median of "
+                   f"{MORE_STEPS} steps {rate:.1f} patches/s "
+                   f"({MORE_BATCH / rate * 1e3:.1f} ms a step), peak "
+                   f"{peak:.2f} GB allocated")
+            if dn == "float32":
+                x = batch[0][:IWDSR_CPU_N]
+                with torch.no_grad():
+                    got = tr.model(x, tr.norm).cpu()
+                    m = tr.model.cpu()
+                    ref = m(x.cpu(), tr.norm.cpu())
+                err, scale = check("iwdsr f32 card vs CPU", got, ref,
+                                   IWDSR_TOL)
+                msg += (f"; forward on {len(x)} patches card vs CPU "
+                        f"max|diff| {err:.3e} (max|ref| {scale:.3e}, tol "
+                        f"{IWDSR_TOL:g})")
+            tr.logger_.close()
+            del tr
+            torch.cuda.empty_cache()
+            log(f"{msg} [{card}]")
+
+        # (c) FuseNet: the CLI on served scenes, one step at 128 scenes.
+        cfg = write_served_tree(tmp, "fusenet", FUSE_SCENES,
+                                batch_size=FUSE_BATCH, epochs=MORE_EPOCHS)
+        cwd = os.getcwd()
+        os.chdir(os.path.join(tmp, "fusenet"))
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = cli.main(["--cfg", cfg, "--device", str(dev),
+                            "--modelType", "fusionNet"])["NIR"]
+            wall = time.perf_counter() - t0
+            split = Config.from_file(cfg).split
+            n_tr = len(split_indices(2 * FUSE_SCENES, split)[0])
+            fsteps = MORE_EPOCHS * (n_tr // FUSE_BATCH)
+            # 2 * FUSE_SCENES / FUSE_BATCH steps of a net that starts near
+            # the identity: the loss is held finite, not falling.
+            tl = check_cli_run("train fusionNet", res, fsteps,
+                               "fuseNetCkpt", "fuseNetLogs", launches(),
+                               expect(), falling=False)
+        finally:
+            os.chdir(cwd)
+        log(f"train fusionNet: {2 * FUSE_SCENES} served 384^2 scenes (RED "
+            f"first), {fsteps} steps at batch {FUSE_BATCH}; train loss "
+            f"{tl[0]:.3f} -> {tl[-1]:.3f}; val cPSNR {res['val_psnr']:.3f}; "
+            f"{wall:.1f} s cold [{card}]")
+        r = np.random.default_rng(5)
+        truth = r.uniform(4000, 12000, (FUSE_STEP_N, 384, 384, 1))
+        scenes = [truth + r.normal(0, 200, truth.shape), truth,
+                  r.uniform(size=truth.shape) < 0.9]
+        fbatch = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                       for a in scenes)
+        del truth, scenes
+        fcfg = Config.from_file(cfg)
+        tr = ModelTrainer(
+            FuseNetConv2D(generator=torch.Generator().manual_seed(0)),
+            fuse_losses.l1, fuse_losses.cpsnr,
+            build_optimizer(fcfg.optimizer, fcfg.learning_rate),
+            ckpt_dir=os.path.join(tmp, "warm_fusenet", "ckpt"),
+            log_dir=os.path.join(tmp, "warm_fusenet", "logs"), device=dev)
+        tr.init_state()
+        t0 = time.perf_counter()
+        tr.train_step(*fbatch)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = tr.train_step(*fbatch)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"fusenet step: loss {float(loss)}")
+        tr.logger_.close()
+        del tr, fbatch
+        torch.cuda.empty_cache()
+        log(f"fusenet v3 step f32: {FUSE_STEP_N} scenes of 384^2, warm "
+            f"{warm:.3f} s ({FUSE_STEP_N / warm:.2f} scenes/s; first step "
+            f"{cold:.3f} s), peak "
+            f"{peak:.2f} GB allocated, loss {float(loss):.3f} [{card}]")
+        x = torch.rand(FUSE_CPU_N, 384, 384, 1,
+                       generator=torch.Generator().manual_seed(3))
+        for variant in ("v1", "v2"):
+            m = FuseNetConv2D(variant,
+                              generator=torch.Generator().manual_seed(4))
+            with torch.no_grad():
+                ref = m(x) - x
+                got = m.to(dev)(x.to(dev)).cpu() - x
+            err, scale = check(f"fusenet {variant} card vs CPU", got, ref,
+                               FUSE_TOL)
+            log(f"fusenet {variant} forward on {FUSE_CPU_N} scenes card vs "
+                f"CPU: max|diff| of the correction {err:.3e} (max|ref| "
+                f"{scale:.3e}, tol {FUSE_TOL:g}) [{card}]")
+
+
 # The preprocess phase: a raw NIR tree of PRE_TRAIN train and PRE_TEST test
 # scenes at the ESA geometry (128^2 LR and QM frames, PRE_FRAMES of them a
 # scene, drawn per scene; 384^2 HR and SM), each frame a window of one
@@ -1723,6 +2016,7 @@ def main():
     train_launches = phase_train(torch, dev, card)
     loss_launches = phase_train_step(torch, dev, card)
     phase_train_warm(torch, dev, card)
+    phase_train_more(torch, dev, card)
     phase_preprocess(torch, dev, card)
 
     # (name, source, the TPU kernel it replaces, the path whose counts

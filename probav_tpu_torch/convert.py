@@ -1,13 +1,16 @@
 """Carry parameters between the JAX package and the port.
 
-A flax parameter tree of ``WDSRConv3D`` (nested dicts of arrays, as
-``model.init(...)["params"]`` or an orbax restore gives it) or the flat
-``"a/b/c"``-keyed dict that an ``.npz`` written by
-``tools/jax_params_to_npz.py`` holds becomes the port's ``state_dict``, and
-back.  The port's modules carry the flax names and the flax layouts
-(``kernel_v [kh, kw, (kt,) I, O]``, ``wn_g``, ``bias``), so the mapping is
-a renaming: ``"resBlock_0/expand/kernel_v"`` is ``"resBlock_0.expand.
-kernel_v"``.
+A flax parameter tree of ``WDSRConv3D``, ``IWDSRConv3D`` or
+``FuseNetConv2D`` (nested dicts of arrays, as ``model.init(...)["params"]``
+or an orbax restore gives it) or the flat ``"a/b/c"``-keyed dict that an
+``.npz`` written by ``tools/jax_params_to_npz.py`` holds becomes the port's
+``state_dict``, and back.  The port's modules carry the flax names and the
+flax layouts (``WNConv``'s ``kernel_v [kh, kw, (kt,) I, O]``, ``wn_g``,
+``bias``; ``Conv``'s ``kernel [kh, kw, I, O]``, ``bias``;
+``InstanceNorm``'s ``gamma``, ``beta``), so the mapping is a renaming:
+``"resBlock_0/expand/kernel_v"`` is ``"resBlock_0.expand.kernel_v"``, and
+IWDSR's ``"expConv_0_in/gamma"`` (each conv's norm a sibling named
+``<conv>_in``) is ``"expConv_0_in.gamma"``.
 
 An optax adam/nadam state (its ``count``, ``mu`` and ``nu`` trees) maps to
 the port's optimizer state and back the same way, so a JAX checkpoint can

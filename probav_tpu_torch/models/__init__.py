@@ -1,5 +1,8 @@
-from probav_tpu_torch.models.layers import WNConv, reflect_pad
+from probav_tpu_torch.models.layers import (Conv, InstanceNorm, WNConv,
+                                            mish, reflect_pad)
 from probav_tpu_torch.models.wdsr import (
+    FuseNetConv2D,
+    IWDSRConv3D,
     WDSRBlock,
     WDSRConv3D,
     build_model,
@@ -7,5 +10,6 @@ from probav_tpu_torch.models.wdsr import (
     reduction_schedule,
 )
 
-__all__ = ["WNConv", "reflect_pad", "WDSRBlock", "WDSRConv3D",
+__all__ = ["Conv", "InstanceNorm", "WNConv", "mish", "reflect_pad",
+           "FuseNetConv2D", "IWDSRConv3D", "WDSRBlock", "WDSRConv3D",
            "build_model", "input_shape", "reduction_schedule"]

@@ -13,6 +13,16 @@ of ``ops/shift_table.py`` wherever ``shift_table.supports`` holds
 ``_maybe_pallas`` does.  On the card the kernels take every plane that
 ``supports`` lets through, whole 384x384 scenes among them.
 
+The four cfg losses (``by_name``): ``l1``, ``l2``, ``sobel_l1_mix``
+(``l1_edge``: a blend of the masked L1 and the L1 between Sobel edge maps
+of the 42x42 crops) and ``l1msssim`` (``rev_msssim``: a reversed
+multi-scale SSIM mixed with a window-weighted L1, batch-coupled, so it has
+no per-sample form).  Only ``l1``, ``l2`` and ``cpsnr`` take the kernel
+tables, as only they reach ``_maybe_pallas`` in the JAX package; the two
+others are plain PyTorch there and here, all 49 shifts (and, for
+``rev_msssim``, all 5 scales) batched into one computation as JAX's
+``vmap`` batches them.
+
 Reference quirks kept: the ground truth enters the residual UNMASKED
 (occluded HR pixels add |HR| while the prediction is zeroed there), and the
 normalizer is the count of clear pixels.  Losses take the min over shifts
@@ -27,9 +37,30 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from probav_tpu_torch.ops import shift_table
+from probav_tpu_torch.ops.sobel import sobel_edges
+
+
+def jnp_linspace(start: float, stop: float, num: int) -> np.ndarray:
+    """``jnp.linspace(start, stop, num)`` as float32 numpy, computed as the
+    JAX package's CPU build computes it, which ``torch.linspace`` is not to
+    the last ulp (27 of 42 entries differ at num = 42): XLA rewrites
+    ``start * (1 - step) + stop * step`` with ``step = i / (num - 1)`` into
+    ``fma(i, stop * r, start * (1 - i * r))`` with ``r = 1 / (num - 1)``,
+    then appends the endpoint.  The fma is taken in float64, exact for the
+    product of two float32 values.  The MS-SSIM window exponentiates this
+    (e^42 at sigma = 0.5), which doubles an ulp."""
+    f32 = np.float32
+    if num == 1:
+        return np.array([start], f32)
+    i = np.arange(num - 1, dtype=f32)
+    r = f32(1) / f32(num - 1)
+    head = f32(start) * (f32(1) - i * r)
+    out = i.astype(np.float64) * float(f32(stop) * r) + head
+    return np.append(out.astype(f32), f32(stop))
 
 
 class ShiftCompensatedLosses:
@@ -50,6 +81,15 @@ class ShiftCompensatedLosses:
         self.ch = self.th - self.max_shift
         self.cw = self.tw - self.max_shift
         self.use_kernel = use_kernel
+        self.pi = 0.7                        # SobelL1Mix blend
+        # Multi-scale SSIM constants.
+        self.sigma = (0.5, 1.0, 2.0, 4.0, 8.0)
+        self.C1 = (0.01 * self.num_bytes) ** 2
+        self.C2 = (0.03 * self.num_bytes) ** 2
+        self.C3 = self.C2 / 2.0
+        self.alpha = self.beta = self.gamma = 1.0
+        self.eta = 0.25
+        self._w2 = {}                        # (h, device) -> [5, h, h]
 
     def _shift_stack(self, x: torch.Tensor) -> torch.Tensor:
         """[B,H,W,C] -> [S,B,ch,cw,C] float32: all (max_shift+1)^2 crops,
@@ -101,24 +141,122 @@ class ShiftCompensatedLosses:
         val = 10.0 * (torch.log(self.num_bytes ** 2 / l2) / math.log(10.0))
         return val.max(dim=0).values
 
+    def _per_shift_l1_edge(self, hr, mask, pred):
+        """[S, B]: pi * masked L1 + (1 - pi) * L1 between the Sobel edge
+        maps of the unmasked truth crops and the corrected masked
+        prediction, both over the clear-pixel count."""
+        hr_s, _, corr, total = self._corrected(hr, mask, pred)
+        s, b = hr_s.shape[:2]
+        flat = lambda x: x.reshape((s * b,) + x.shape[2:])
+        sob_hr = sobel_edges(flat(hr_s)).reshape(hr_s.shape + (2,))
+        sob_sr = sobel_edges(flat(corr)).reshape(corr.shape + (2,))
+        l1 = (hr_s - corr).abs().sum(dim=(2, 3, 4)) / total
+        sob = (sob_hr - sob_sr).abs().sum(dim=(2, 3, 4, 5)) / total
+        return self.pi * l1 + (1.0 - self.pi) * sob
+
+    def l1_edge(self, hr, mask, pred):
+        """Shift-compensated Sobel-L1 mix (cfg ``sobel_l1_mix``): scalar."""
+        return self._per_shift_l1_edge(hr, mask, pred).min(dim=0) \
+            .values.mean()
+
+    def rev_msssim(self, hr, mask, pred):
+        """Shift-compensated reversed MS-SSIM (cfg ``l1msssim``): scalar.
+
+        Faithful to the reference formula, idiosyncrasies included: the
+        window is exp(-linspace / (2 sigma^2)), not squared, and luminance
+        is summed over the scales."""
+        return self.rev_msssim_weighted(hr, mask, pred, None)
+
+    def rev_msssim_weighted(self, hr, mask, pred, w):
+        """``rev_msssim`` over the w > 0 rows only, exactly: ``w`` is a [B]
+        0/1 sample weight (None: all ones).  The window is normalised per
+        sample, so zeroing a row's terms and dividing by ``sum(w) * C``
+        scores what an unpadded batch of the real rows scores."""
+        hr_s, mask_s, corr, _ = self._corrected(hr, mask, pred)
+        return self._rev_msssim_shifts(hr_s, mask_s, corr, w).min(dim=0) \
+            .values
+
+    def _window(self, h: int, device) -> torch.Tensor:
+        """[5, h, h] float32: each sigma's separable window, unmasked.  It
+        is built on the host once for each crop size and device, so that a
+        step copies nothing from the host (a pageable copy would wait for
+        the stream)."""
+        key = (h, device)
+        if key not in self._w2:
+            lin = torch.from_numpy(jnp_linspace(-h / 2.0, h / 2.0, h))
+            w1 = torch.stack([torch.exp(-1.0 * lin / (2.0 * sig ** 2))
+                              for sig in self.sigma])            # [5, h]
+            self._w2[key] = (w1[:, :, None] * w1[:, None, :]).to(device)
+        return self._w2[key]
+
+    def _windows(self, mask_s):
+        """[S, 5, B, h, w, C] float32: each sigma's separable window, masked
+        and normalised per shift and sample.  At sigma = 0.5 and h = 42 the
+        outer product peaks near 3e36 (float32 ends at 3.4e38), so the
+        order is that of the JAX package: outer product, mask, normalise."""
+        w2 = self._window(mask_s.shape[2], mask_s.device)        # [5, h, w]
+        win = w2[None, :, None, :, :, None] * mask_s[:, None]
+        return win / win.sum(dim=(3, 4, 5), keepdim=True)
+
+    def _rev_msssim_shifts(self, hr, mask, sr, w=None):
+        """[S]: the reversed MS-SSIM loss of every shift at once (JAX's
+        ``_rev_msssim_single`` under ``vmap``) over [S, B, h, w, C]
+        crops."""
+        b, c = hr.shape[1], hr.shape[4]
+        if w is None:
+            w = torch.ones(b, dtype=torch.float32, device=hr.device)
+        denom = w.sum() * c
+        wb = w[:, None, None, None]                              # [B,1,1,1]
+        weights = self._windows(mask)                            # [S,5,B,..]
+        hr, sr = hr[:, None], sr[:, None]                        # [S,1,B,..]
+        wsum = lambda x: x.sum(dim=(3, 4), keepdim=True)
+        mu_hr = wsum(weights * hr)
+        mu_sr = wsum(weights * sr)
+        var_hr = wsum(weights * hr ** 2) - mu_hr ** 2
+        var_sr = wsum(weights * sr ** 2) - mu_sr ** 2
+        cov = wsum(weights * hr * sr) - mu_sr * mu_hr
+
+        lum = (2.0 * mu_hr * mu_sr + self.C1) \
+            / (mu_hr ** 2 + mu_sr ** 2 + self.C1)
+        con = (2.0 * var_hr * var_sr + self.C1) \
+            / (var_hr ** 2 + var_sr ** 2 + self.C1)
+        struct = (2.0 * cov + self.C3) / (var_hr * var_sr + self.C3)
+
+        pcs = torch.prod((con ** self.beta) * (struct ** self.gamma), dim=1,
+                         keepdim=True)                           # [S,1,B,..]
+        per = (lum ** self.alpha) * pcs * wb
+        loss = 1.0 - per.sum(dim=(1, 2, 3, 4, 5)) / denom
+        # Mixed with a window-weighted normalised L1.
+        l1w = ((hr - sr).abs() * weights * wb).sum(dim=(1, 2, 3, 4, 5)) \
+            / denom / self.num_bytes
+        return self.eta * loss + (1.0 - self.eta) * l1w
+
     def by_name(self, name: str):
-        """Cfg loss-key dispatch."""
-        if name in ("sobel_l1_mix", "l1msssim"):
-            raise NotImplementedError(
-                f"loss {name!r} is not ported yet (l1 and l2 are)")
-        return {"l1": self.l1, "l2": self.l2}[name]
+        """Cfg loss-key dispatch; an unknown key raises KeyError."""
+        return {"l1": self.l1, "sobel_l1_mix": self.l1_edge,
+                "l2": self.l2, "l1msssim": self.rev_msssim}[name]
 
     def per_sample(self, name: str):
         """Per-sample [B] variant (min over shifts, no batch mean):
-        ``mean(per_sample(...)) == by_name(...)``."""
-        self.by_name(name)
-        return lambda hr, mask, pred: self._table(
-            name, hr, mask, pred).min(dim=0).values
+        ``mean(per_sample(...)) == by_name(...)``; None for ``l1msssim``,
+        which is batch-coupled (its luminance term sums over the batch)."""
+        def reduce(per_shift):
+            return lambda hr, mask, pred: per_shift(hr, mask, pred) \
+                .min(dim=0).values
+
+        return {
+            "l1": reduce(lambda h, m, p: self._table("l1", h, m, p)),
+            "l2": reduce(lambda h, m, p: self._table("l2", h, m, p)),
+            "sobel_l1_mix": reduce(self._per_shift_l1_edge),
+            "l1msssim": None,
+        }[name]
 
     def weighted(self, name: str):
-        """fn(hr, mask, pred, w[B]) -> sum(per_sample * w) / sum(w): equals
-        ``by_name(name)`` on the rows with w == 1 (padded eval rows carry
-        w == 0)."""
+        """fn(hr, mask, pred, w[B]) -> scalar, equal to ``by_name(name)`` on
+        the rows with w == 1 (padded eval rows carry w == 0): a weighted
+        mean of ``per_sample``, or ``rev_msssim_weighted``."""
+        if name == "l1msssim":
+            return self.rev_msssim_weighted
         ps = self.per_sample(name)
         return lambda hr, mask, pred, w: (ps(hr, mask, pred) * w).sum() \
             / w.sum()

@@ -1,7 +1,7 @@
 """Warm train-step throughput of the port, and where its device time goes.
 
     python3 -m probav_tpu_torch.tools.profile_train [--cfg CFG] \\
-        [--steps 10] [--out chiprun_out]
+        [--steps 10] [--out chiprun_out] [--losses l1,l1msssim]
 
 For each variant of ``VARIANTS`` (bf16 and float32 each with the "t"
 kernel stack, forward and ``blk_bwd``, with the plain stack and with the
@@ -22,8 +22,10 @@ reduce; see ``time_conv.BLK_BWD_PARTS``) per step, with the kernels that
 ran, and the shift-table kernels' device time per step.  A
 JSON summary goes to ``<out>/profile_train.json``.  ``--variants`` runs
 only the named ones (a comma list of ``VARIANTS``' names, or a
-semicolon list, which can name "bf16 kernels, kernel loss").  Needs a CUDA
-card; float32 runs with TF32 off.
+semicolon list, which can name "bf16 kernels, kernel loss").  ``--losses``
+runs each variant with each of the named cfg losses in turn (default: the
+cfg's own), keyed "<variant>; <loss>" when there are several.  Needs a
+CUDA card; float32 runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -69,11 +71,14 @@ def synthetic_batch(n: int, seed: int = 0, hr_clear: float = 0.9):
 
 def make_trainer(cfg, dtype: str, tier, device, workdir: str,
                  band: str = "NIR", use_kernel: bool = False,
-                 fused_block: bool = False):
-    """A ModelTrainer over the cfg's model from torch.Generator seed 0 with
-    stack tier ``tier`` (``fused_block`` in the "off" tier), with the cfg's
-    optimizer and loss (``use_kernel``: its tables on the shift-table
-    kernels); checkpoints and logs in workdir."""
+                 fused_block: bool = False, model_type: str = "wdsr",
+                 loss: str | None = None):
+    """A ModelTrainer over the cfg's model (``model_type`` "wdsr" or
+    "iwdsr") from torch.Generator seed 0 with stack tier ``tier``
+    (``fused_block`` in the "off" tier; "wdsr" only), with the cfg's
+    optimizer and loss (or ``loss``, a cfg loss key; ``use_kernel``: its
+    tables on the shift-table kernels); checkpoints and logs in
+    workdir."""
     import torch
 
     from probav_tpu_torch.models.wdsr import build_model
@@ -83,16 +88,18 @@ def make_trainer(cfg, dtype: str, tier, device, workdir: str,
 
     model = build_model(cfg, band, dtype=getattr(torch, dtype),
                         fused_stack=tier, fused_block=fused_block,
+                        model_type=model_type,
                         generator=torch.Generator().manual_seed(0))
     target = cfg.hr_patch_size
+    loss = loss or cfg.loss
     losses = ShiftCompensatedLosses(target_shape=(target, target, 1),
                                     use_kernel=use_kernel)
     trainer = ModelTrainer(
-        model, losses.by_name(cfg.loss), losses.cpsnr,
+        model, losses.by_name(loss), losses.cpsnr,
         build_optimizer(cfg.optimizer, cfg.learning_rate),
         ckpt_dir=os.path.join(workdir, "ckpt"),
         log_dir=os.path.join(workdir, "logs"),
-        loss_weighted_fn=losses.weighted(cfg.loss), device=device)
+        loss_weighted_fn=losses.weighted(loss), device=device)
     trainer.init_state()
     return trainer
 
@@ -147,6 +154,8 @@ def main(argv=None) -> dict:
     p.add_argument("--out", default="chiprun_out")
     p.add_argument("--variants", help="comma list of VARIANTS' names "
                    "(a semicolon list where a name holds a comma)")
+    p.add_argument("--losses", help="comma list of cfg loss keys to run "
+                   "each variant with (default: the cfg's loss)")
     opt = p.parse_args(argv)
     names = [v[0] for v in VARIANTS]
     sep = ";" if opt.variants and ";" in opt.variants else ","
@@ -168,16 +177,18 @@ def main(argv=None) -> dict:
     print(f"card: {card}", flush=True)
     os.makedirs(opt.out, exist_ok=True)
     cfg = Config.from_file(opt.cfg)
+    loss_keys = opt.losses.split(",") if opt.losses else [cfg.loss]
     n = cfg.batch_size
     batch = tuple(torch.as_tensor(a, device="cuda")
                   for a in synthetic_batch(n))
     summary = {}
-    for name, dtype, tier, use_kernel in VARIANTS:
-        if name not in chosen:
-            continue
+    runs = [(v, loss) for v in VARIANTS if v[0] in chosen
+            for loss in loss_keys]
+    for (variant, dtype, tier, use_kernel), loss in runs:
+        name = variant if len(loss_keys) == 1 else f"{variant}; {loss}"
         with tempfile.TemporaryDirectory() as tmp:
             tr = make_trainer(cfg, dtype, tier, "cuda", tmp,
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, loss=loss)
             rates = warm_step_rates(tr, batch, opt.steps)
             wall, busy, rows = device_breakdown(tr, batch)
             tr.logger_.close()

@@ -69,7 +69,10 @@ def restore_params(ckpt_dir: str) -> dict:
 
 
 class ModelTrainer:
-    """Drives training of a ``WDSRConv3D`` with shift-compensated losses.
+    """Drives training of any ``nn.Module`` called as ``model(x, norm)``
+    (``WDSRConv3D``, ``IWDSRConv3D``, ``FuseNetConv2D``) with
+    shift-compensated losses.  ``norm`` is ``[model.mean, model.std]`` as
+    data, ``[0, 1]`` for a model without them.
 
     ``loss_fn`` and ``metric_fn`` take (hr, mask, pred); ``loss_weighted_fn``
     (hr, mask, pred, w[B]) makes padded validation batches exact.

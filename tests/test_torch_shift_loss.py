@@ -98,10 +98,15 @@ def test_loss_gradient_matches_jax(losses, name, clear):
     assert np.abs(g.numpy() - gj).max() <= 1e-4 * np.abs(gj).max()
 
 
-def test_unported_losses_raise(losses):
-    port, _ = losses
+def test_unknown_loss_name_raises(losses):
+    """Every cfg key is ported (tests/test_torch_sobel_msssim.py holds the
+    two others); an unknown key raises KeyError, as JAX's dict lookup."""
+    port, jx = losses
     for name in ("sobel_l1_mix", "l1msssim"):
-        with pytest.raises(NotImplementedError, match=name):
-            port.by_name(name)
-        with pytest.raises(NotImplementedError):
-            port.weighted(name)
+        assert callable(port.by_name(name))
+        assert callable(port.weighted(name))
+    for fn in (port.by_name, port.per_sample, port.weighted):
+        with pytest.raises(KeyError):
+            fn("ssim")
+    with pytest.raises(KeyError):
+        jx.by_name("ssim")
