@@ -87,6 +87,20 @@ Phases, each printing its result:
    after the update); then the warm train throughput of the variants of
    probav_tpu_torch.tools.profile_train (which adds the device-time
    breakdown);
+9a. train_device: the train CLI with --device-data (ModelTrainer.fit_device,
+   the dataset on the card) at batch 128, bf16 and float32 "t" and float32
+   "flat": launch counts, a falling loss, checkpoints, and a restart that
+   resumes at the right step; fit and fit_device from the same init, seed
+   and data (float32 "t", two chunks): their logged chunk losses agree;
+   one chunk of fit_device (``_run_chunk``) under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host sync inside it;
+   --remat's gradients on the float32 "off" tier against the stored ones,
+   with both peak memories and step times, and with fused_block (12
+   wide_bwd launches a step, gradients against fused_block alone);
+   --profile-dir's trace of steps 10-19 names the three "t" kernels; and
+   the window busy share of both loops at bf16 "t" (steps 10-19 traced
+   with no sync between steps, tools/profile_train.loop_busy; its
+   ``--loops`` mode also times the loops);
 10. train, the other losses and models: the train CLI on the flagship cfg
    (float32, "t" stack, batch 128) with loss=sobel_l1_mix and with
    loss=l1msssim (12 launches of each stack kernel per step, a falling
@@ -1281,15 +1295,55 @@ def train_losses(log_dir):
     return [r["value"] for r in recs if r["tag"] == "Train loss"]
 
 
+def check_train_cli(name, args, legs, steps_per_epoch, tmp, tree,
+                    extra=()):
+    """The train CLI for each of ``legs`` (total epochs) on one tree:
+    steps, checkpoints, a falling loss; returns (launches, losses, the
+    last result, wall s)."""
+    from probav_tpu_torch.train import cli
+
+    reset_launches()
+    t0 = time.perf_counter()
+    for epochs in legs:
+        cfg, ckpt_dir, log_dir = write_train_tree(tmp, tree, epochs)
+        res = cli.main(["--cfg", cfg, "--band", "NIR", "--eval-step",
+                        str(steps_per_epoch)] + args + list(extra))["NIR"]
+        if res["steps"] != epochs * steps_per_epoch:
+            raise AssertionError(f"{name}: {res['steps']} steps after "
+                                 f"{epochs} epochs")
+        ckpts = sorted(os.listdir(ckpt_dir))
+        if ckpts[-1] != f"step_{res['steps']:08d}.pt" or len(ckpts) > 5:
+            raise AssertionError(f"{name}: checkpoints {ckpts}")
+    wall = time.perf_counter() - t0
+    got = launches()
+    losses = train_losses(log_dir)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses {losses}")
+    return got, losses, res, wall
+
+
+def cli_launches(name, legs, steps_per_epoch, val_batches, blocks=12):
+    """The launch counts of a train CLI run of ``legs``: 12 of each stack
+    kernel a step with "t" and a forward per validation batch (one pass an
+    epoch and a final one each leg; the flat tier's forward is plain
+    PyTorch), 12 of wide_bwd a step with "flat", none when plain."""
+    steps = legs[-1] * steps_per_epoch
+    evals = sum(e - s + 1 for s, e in zip([0] + legs[:-1], legs)) * \
+        val_batches
+    if "plain" in name:
+        return expect()
+    if "flat" in name:
+        return expect(wide_bwd=blocks * steps)
+    return expect(seg_fwd=blocks * (steps + evals),
+                  conv_fwd=blocks * (steps + evals), blk_bwd=blocks * steps)
+
+
 def phase_train(torch, dev, card):
     """The train CLI at batch 128; returns the launch counts of the bf16
     runs of the "t" tier (the production configuration: the main path)
     and of the "flat" tier (the path that runs wide_bwd), by run name."""
-    from probav_tpu_torch.train import cli
-
     steps_per_epoch = TRAIN_N // 128
     val_batches = -(-VAL_N // 128)
-    blocks = 12
     main_paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         flat = ["--fused-stack", "flat"]
@@ -1298,52 +1352,19 @@ def phase_train(torch, dev, card):
                 ("bf16 plain", ["--bf16", "--plain"]),
                 ("f32 plain", ["--plain"])]
         for name, flags in runs:
-            tree = name.replace(" ", "_")
             # The bf16 kernel runs train half their epochs, then a restart
             # with the full count resumes from the checkpoint.
             legs = ([TRAIN_EPOCHS // 2, TRAIN_EPOCHS]
                     if name in ("bf16", "bf16 flat")
                     else [TRAIN_EPOCHS // 2])
-            reset_launches()
-            t0 = time.perf_counter()
-            done = 0
-            for epochs in legs:
-                cfg, ckpt_dir, log_dir = write_train_tree(tmp, tree, epochs)
-                args = ["--cfg", cfg, "--band", "NIR",
-                        "--eval-step", str(steps_per_epoch),
-                        "--device", str(dev)] + flags
-                res = cli.main(args)["NIR"]
-                if res["steps"] != epochs * steps_per_epoch:
-                    raise AssertionError(f"train {name}: {res['steps']} "
-                                         f"steps after {epochs} epochs")
-                ckpts = sorted(os.listdir(ckpt_dir))
-                if ckpts[-1] != f"step_{res['steps']:08d}.pt" or \
-                        len(ckpts) > 5:
-                    raise AssertionError(f"train {name}: checkpoints "
-                                         f"{ckpts}")
-                done = epochs
-            wall = time.perf_counter() - t0
-            got = launches()
-            # Each leg: steps of training plus one validation pass per
-            # epoch and a final one, each of val_batches forwards (the
-            # flat tier's forward is plain PyTorch).
-            steps = done * steps_per_epoch
-            evals = sum(e - s + 1 for s, e in
-                        zip([0] + legs[:-1], legs)) * val_batches
-            if "plain" in name:
-                want = expect()
-            elif "flat" in name:
-                want = expect(wide_bwd=blocks * steps)
-            else:
-                want = expect(seg_fwd=blocks * (steps + evals),
-                              conv_fwd=blocks * (steps + evals),
-                              blk_bwd=blocks * steps)
+            got, losses, res, wall = check_train_cli(
+                f"train {name}", ["--device", str(dev)] + flags, legs,
+                steps_per_epoch, tmp, name.replace(" ", "_"))
+            steps = legs[-1] * steps_per_epoch
+            want = cli_launches(name, legs, steps_per_epoch, val_batches)
             if got != want:
                 raise AssertionError(f"train {name}: launches {got}, "
                                      f"expected {want}")
-            losses = train_losses(log_dir)
-            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-                raise AssertionError(f"train {name}: losses {losses}")
             if len(legs) > 1:
                 main_paths[name] = got
             log(f"train {name}: {steps} steps at batch 128 in {len(legs)} "
@@ -1353,6 +1374,194 @@ def phase_train(torch, dev, card):
                 f"{losses[-1]:.3f}; val cPSNR {res['val_psnr']:.3f}; "
                 f"{wall:.1f} s cold, first calls included [{card}]")
     return main_paths
+
+
+# The train_device phase: the first chunk's logged loss of fit and
+# fit_device agrees to FIT_TOL[0] relative, every later chunk's to
+# FIT_TOL[1] (cuDNN's weight gradients may sum in another order, and nadam
+# turns a sign flip of a near-zero gradient into a step of +-lr); the
+# --remat gradients to REMAT_TOL norm-wise.
+FIT_TOL, REMAT_TOL = (1e-5, 1e-4), 1e-6
+
+
+def phase_train_device(torch, dev, card):
+    """The train CLI's --device-data, --remat and --profile-dir, and
+    fit_device against fit (module docstring, 9a)."""
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.tools import profile_train
+    from probav_tpu_torch.tools.profile_train import (make_trainer,
+                                                      synthetic_batch)
+    from probav_tpu_torch.train.trainer import PROFILE_WINDOW
+    from probav_tpu_torch.utils.profiling import TRACE_FILE
+
+    steps_per_epoch = TRAIN_N // 128
+    val_batches = -(-VAL_N // 128)
+    blocks = 12
+    cfg = Config.from_file(CFG)
+    marks = [("start", time.perf_counter())]
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. --device-data through the CLI: launches, loss, resume.
+        flat = ["--fused-stack", "flat"]
+        for name, flags, legs in (
+                ("bf16", ["--bf16"], [TRAIN_EPOCHS // 2, TRAIN_EPOCHS]),
+                ("f32", [], [TRAIN_EPOCHS // 2]),
+                ("f32 flat", flat, [TRAIN_EPOCHS // 2])):
+            got, losses, res, wall = check_train_cli(
+                f"train --device-data {name}",
+                ["--device", str(dev), "--device-data"] + flags, legs,
+                steps_per_epoch, tmp, "dd_" + name.replace(" ", "_"))
+            steps = legs[-1] * steps_per_epoch
+            want = cli_launches(name, legs, steps_per_epoch, val_batches)
+            if got != want:
+                raise AssertionError(f"train --device-data {name}: launches "
+                                     f"{got}, expected {want}")
+            log(f"train --device-data {name}: {steps} steps at batch 128 in "
+                f"{len(legs)} run(s) (resumed at step "
+                f"{legs[0] * steps_per_epoch if len(legs) > 1 else 0}), "
+                f"launches {got}; train loss {losses[0]:.3f} -> "
+                f"{losses[-1]:.3f}; val cPSNR {res['val_psnr']:.3f}; "
+                f"{wall:.1f} s [{card}]")
+
+        marks.append(("--device-data", time.perf_counter()))
+        # 2. fit against fit_device, f32 "t", same init, seed and data.
+        lr, hr, mask = synthetic_batch(TRAIN_N + VAL_N, seed=1)
+        x, y = lr[:TRAIN_N], [hr[:TRAIN_N], mask[:TRAIN_N]]
+        val = [lr[TRAIN_N:], hr[TRAIN_N:], mask[TRAIN_N:]]
+        logged = {}
+        for loop in ("fit", "fit_device"):
+            tr = make_trainer(cfg, "float32", "t", dev,
+                              os.path.join(tmp, "loop_" + loop))
+            tr.eval_every = steps_per_epoch
+            getattr(tr, loop)(x, y, 128, 2, val_data=val,
+                              save_best_only=False)
+            tr.logger_.close()
+            logged[loop] = train_losses(os.path.join(tmp, "loop_" + loop,
+                                                     "logs"))
+        a, b = logged["fit"], logged["fit_device"]
+        if len(a) != 2 or len(b) != 2:
+            raise AssertionError(f"fit vs fit_device: chunks {a} {b}")
+        errs = [abs(p - q) / abs(p) for p, q in zip(a, b)]
+        if errs[0] > FIT_TOL[0] or max(errs[1:]) > FIT_TOL[1]:
+            raise AssertionError(f"fit vs fit_device: losses {a} vs {b}")
+        log(f"train f32 t, fit vs fit_device (2 epochs of "
+            f"{steps_per_epoch} steps, same init, seed, data): chunk losses "
+            f"{a} vs {b}, relative "
+            f"differences {', '.join(f'{e:.2e}' for e in errs)} (tol "
+            f"{FIT_TOL[0]:g} first, {FIT_TOL[1]:g} later) [{card}]")
+
+        marks.append(("fit vs fit_device", time.perf_counter()))
+        # 3. one chunk of fit_device with no host sync inside.
+        tr = make_trainer(cfg, "float32", "t", dev,
+                          os.path.join(tmp, "no_sync"))
+        data = tr.resident((x, y[0], y[1]))
+        idx = torch.randperm(TRAIN_N, generator=torch.Generator()
+                             .manual_seed(3)).reshape(-1, 128).to(dev)
+        float(tr._run_chunk(data, idx[:1])[0])        # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mean_loss, mean_psnr = tr._run_chunk(data, idx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = launches()
+        k = len(idx)
+        want = expect(seg_fwd=blocks * k, conv_fwd=blocks * k,
+                      blk_bwd=blocks * k)
+        if got != want or not np.isfinite(float(mean_loss)):
+            raise AssertionError(f"_run_chunk: launches {got}, expected "
+                                 f"{want}; loss {float(mean_loss)}")
+        tr.logger_.close()
+        del tr, data
+        log(f"fit_device chunk of {k} f32 t steps under "
+            f"set_sync_debug_mode('error'): no host sync, launches {got}, "
+            f"mean loss {float(mean_loss):.3f}, cPSNR "
+            f"{float(mean_psnr):.3f} [{card}]")
+
+        marks.append(("chunk", time.perf_counter()))
+        # 4. --remat on the f32 "off" tier: gradients and peak memory.
+        batch = tuple(torch.as_tensor(v, device=dev)
+                      for v in synthetic_batch(cfg.batch_size, seed=2))
+        reset_launches()
+        cost = profile_train.remat_cost(cfg, dev, batch, tmp, steps=1)
+        if launches() != expect():
+            raise AssertionError(f"remat: launches {launches()}")
+        (g0, peak0, ms0), (g1, peak1, ms1) = cost[False], cost[True]
+        gerr = {k: rel_l2(g1[k], g0[k]) for k in g0}
+        worst = max(gerr, key=lambda k: gerr[k])
+        if not gerr[worst] <= REMAT_TOL:
+            raise AssertionError(f"remat: gradient {worst} "
+                                 f"||d||/||ref|| {gerr[worst]:.3e}")
+        log(f"remat f32 off, batch {cfg.batch_size}: gradients of "
+            f"{len(gerr)} leaves, worst ||remat - stored||/||stored|| "
+            f"{worst} {gerr[worst]:.3e} (tol {REMAT_TOL:g}); peak memory "
+            f"{peak0 / 1e9:.2f} GB stored -> {peak1 / 1e9:.2f} GB remat; "
+            f"step {ms0:.1f} -> {ms1:.1f} ms [{card}]")
+        # With fused_block, remat recomputes fused_expand_decay's forward
+        # and its backward still runs wide_bwd once a block.
+        grads, got = {}, {}
+        for remat in (False, True):
+            tr = make_trainer(cfg, "float32", "off", dev,
+                              os.path.join(tmp, f"remat_fb_{remat}"),
+                              fused_block=True, remat=remat)
+            reset_launches()
+            grads[remat] = tr.loss_and_grads(*batch)[2]
+            got[remat] = launches()
+            tr.logger_.close()
+            del tr
+        gerr = {k: rel_l2(grads[True][k], grads[False][k])
+                for k in grads[False]}
+        worst = max(gerr, key=lambda k: gerr[k])
+        want = expect(wide_bwd=blocks)
+        if got[True] != want or got[False] != want or \
+                not gerr[worst] <= REMAT_TOL:
+            raise AssertionError(f"remat with fused_block: launches "
+                                 f"{got}, expected {want} each; gradient "
+                                 f"{worst} {gerr[worst]:.3e}")
+        del grads
+        torch.cuda.empty_cache()
+        log(f"remat f32 off with fused_block, batch {cfg.batch_size}: "
+            f"launches {got[True]} (as without remat), worst gradient "
+            f"||remat - stored||/||stored|| {worst} {gerr[worst]:.3e} (tol "
+            f"{REMAT_TOL:g}) [{card}]")
+
+        marks.append(("--remat", time.perf_counter()))
+        # 5. --profile-dir: the trace of steps 10-19 names the t kernels.
+        trace_dir = os.path.join(tmp, "trace")
+        got, losses, res, wall = check_train_cli(
+            "train --profile-dir", ["--device", str(dev), "--bf16"],
+            [TRAIN_EPOCHS], steps_per_epoch, tmp, "profiled",
+            extra=["--profile-dir", trace_dir])
+        names = profile_train.kernel_names(profile_train.trace_events(
+            os.path.join(trace_dir, TRACE_FILE)))
+        seen = {profile_train.t_kernel_of(n) for n in names} - {None}
+        if os.listdir(trace_dir) != [TRACE_FILE] or \
+                seen != {"seg_fwd", "conv_fwd", "blk_bwd"}:
+            raise AssertionError(f"--profile-dir: {os.listdir(trace_dir)}, "
+                                 f"t kernels {seen} of {sorted(names)}")
+        log(f"train --profile-dir (bf16 t, {res['steps']} steps): "
+            f"{TRACE_FILE} of steps 10-19 names "
+            f"{sorted(n for n in names if profile_train.t_kernel_of(n))} "
+            f"[{card}]")
+
+        marks.append(("--profile-dir", time.perf_counter()))
+        # 6. the window busy share of both loops, bf16 "t" (both ran above:
+        # they are warm).
+        data = profile_train.synthetic_set((PROFILE_WINDOW[1] + 1) * 128)
+        for loop in ("fit", "fit_device"):
+            bz = profile_train.loop_busy(cfg, "bfloat16", dev, loop, data,
+                                         val, os.path.join(tmp, "busy_" +
+                                                           loop))
+            if not bz["device_events"] or not 0 < bz["busy_share"] <= 1:
+                raise AssertionError(f"{loop} window busy: {bz}")
+            log(f"bf16 t {loop}: global steps {PROFILE_WINDOW[0]}-"
+                f"{PROFILE_WINDOW[1] - 1} traced with no sync: device busy "
+                f"{bz['busy_ms']:.2f} of {bz['window_ms']:.2f} ms, window "
+                f"busy share {100 * bz['busy_share']:.1f}% [{card}]")
+        marks.append(("window busy", time.perf_counter()))
+    parts = ", ".join(f"{name} {t - marks[i][1]:.1f}"
+                      for i, (name, t) in enumerate(marks[1:]))
+    log(f"train_device phase: {marks[-1][1] - marks[0][1]:.1f} s ({parts})")
 
 
 # The one-step float32 train checks: (name, stack tier, fused_block,
@@ -2014,6 +2223,7 @@ def main():
     serve_launches = phase_serve(torch, dev, card)
     phase_warm(torch, dev, card)
     train_launches = phase_train(torch, dev, card)
+    phase_train_device(torch, dev, card)
     loss_launches = phase_train_step(torch, dev, card)
     phase_train_warm(torch, dev, card)
     phase_train_more(torch, dev, card)

@@ -36,6 +36,13 @@ and ``False`` is ``"off"``.  This differs from the JAX package, where
 convs outside the stack are plain ``F.conv3d``/``F.conv2d``, as the JAX
 package leaves them to XLA.
 
+``remat`` (the JAX model's ``nn.remat``) runs each block of the ``"off"``
+tier under ``torch.utils.checkpoint``: a block keeps only its input for
+the backward, which recomputes its forward (with ``fused_block`` the
+forward of ``fused_expand_decay``, so ``wide_bwd`` still runs once a
+block).  The ``"t"`` and ``"flat"`` tiers ignore it, as the JAX model
+does: their stacks save only narrow residuals already.
+
 ``IWDSRConv3D`` and ``FuseNetConv2D`` have no kernel tier: the JAX package
 runs them as plain XLA, and the port as plain PyTorch (cuDNN's convs,
 ``F.instance_norm``) on any device.
@@ -48,6 +55,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from probav_tpu_torch.models.layers import (_ACTS, Conv, InstanceNorm,
                                             WNConv, leaky_relu, reflect_pad)
@@ -145,7 +153,7 @@ class WDSRConv3D(nn.Module):
     """Flagship WDSR-B 3D fusion net.  Call with [B, H, W, T, C] and an
     optional ``norm = [mean, std]`` tensor (the band statistics as data).
     ``fused_stack``: the stack tier (module docstring); ``fused_block``
-    applies in the "off" tier only."""
+    and ``remat`` apply in the "off" tier only."""
 
     def __init__(self, scale: int = 3, num_filters: int = 32,
                  kernel_size: Tuple[int, int, int] = (3, 3, 3),
@@ -155,12 +163,13 @@ class WDSRConv3D(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  fused_stack: Union[bool, str] = "t", in_channels: int = 1,
                  device=None, generator: Optional[torch.Generator] = None,
-                 fused_block: bool = False):
+                 fused_block: bool = False, remat: bool = False):
         super().__init__()
         self.scale, self.num_img_lr = scale, num_img_lr
         self.patch_size_lr = patch_size_lr
         self.mean, self.std = mean, std
         self.dtype, self.fused_stack = dtype, stack_tier(fused_stack)
+        self.remat = remat
         f, k = num_filters, tuple(kernel_size)
         why = t_tier_refusal(f, int(f * decay_rate))
         if self.fused_stack == "t" and why:
@@ -204,6 +213,9 @@ class WDSRConv3D(nn.Module):
             x = stack_apply_5d(x, [b.effective_params() for b in blocks])
         elif self.fused_stack == "flat":
             x = fused_block_stack(x, [b.effective_params() for b in blocks])
+        elif self.remat and torch.is_grad_enabled():
+            for b in blocks:
+                x = checkpoint(b, x, use_reentrant=False)
         else:
             for b in blocks:
                 x = b(x)
@@ -365,13 +377,14 @@ MODEL_TYPES = ("wdsr", "iwdsr", "fusenet")
 def build_model(cfg, band: str, dtype: torch.dtype = torch.float32,
                 fused_stack: Union[bool, str] = "t", device=None,
                 generator: Optional[torch.Generator] = None,
-                fused_block: bool = False, model_type: str = "wdsr"
-                ) -> nn.Module:
+                fused_block: bool = False, model_type: str = "wdsr",
+                remat: bool = False) -> nn.Module:
     """The model a Config (or the path of a ``.cfg`` file) describes, for
     one band (mirrors ``probav_tpu.models.build_model``): ``model_type``
-    "wdsr" (``WDSRConv3D``; ``fused_stack`` and ``fused_block`` as there),
-    "iwdsr" (``IWDSRConv3D``) or "fusenet" (``FuseNetConv2D`` v3, float32
-    only).  ``fused_stack`` and ``fused_block`` apply to "wdsr" only."""
+    "wdsr" (``WDSRConv3D``; ``fused_stack``, ``fused_block`` and ``remat``
+    as there), "iwdsr" (``IWDSRConv3D``) or "fusenet" (``FuseNetConv2D``
+    v3, float32 only).  ``fused_stack``, ``fused_block`` and ``remat``
+    apply to "wdsr" only."""
     if model_type not in MODEL_TYPES:
         raise ValueError(f"model_type {model_type!r}: one of {MODEL_TYPES}")
     if model_type == "fusenet":
@@ -393,7 +406,7 @@ def build_model(cfg, band: str, dtype: torch.dtype = torch.float32,
     if model_type == "iwdsr":
         return IWDSRConv3D(**common)
     return WDSRConv3D(fused_stack=fused_stack, fused_block=fused_block,
-                      **common)
+                      remat=remat, **common)
 
 
 def input_shape(cfg, batch: int = 1) -> Tuple[int, ...]:

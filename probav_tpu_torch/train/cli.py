@@ -3,7 +3,8 @@
     python3 -m probav_tpu_torch.train --cfg cfg/p16t9c85r12.cfg --band NIR \\
         [--modelType {patchNet,fusionNet,iwdsr}] [--bf16] [--staged-decay] \\
         [--eval-step N] [--save-best-only] [--device cuda] \\
-        [--fused-stack {off,flat,t}] [--plain]
+        [--fused-stack {off,flat,t}] [--plain] [--remat] [--device-data] \\
+        [--profile-dir DIR]
 
 ``patchNet`` (the default) and ``iwdsr`` load the stage-5 arrays from the
 cfg's ``augmentedPatchesDir`` (pickled masked arrays:
@@ -26,9 +27,25 @@ kernels, forward and backward; ``flat`` runs a plain forward and the
 plain PyTorch blocks.  ``iwdsr`` and ``fusionNet`` have no kernel tier: an
 explicit ``--fused-stack`` or ``--plain`` with them raises ValueError, as
 does ``--bf16`` with ``fusionNet`` (train.py drops them silently).
-``--device`` defaults to ``cuda`` and fails without a card; ``--device
-cpu`` runs the kernels' plain versions.  ``--band BOTH`` runs NIR, then
-RED.
+``--device-data`` (``patchNet`` and ``iwdsr``) trains with
+``ModelTrainer.fit_device``: the stage-5 arrays are copied to the device
+once, each batch is gathered there, and the host reads back one loss and
+cPSNR per chunk of ``min(eval_step, steps per epoch)`` steps.  The JAX CLI
+runs each chunk as one ``lax.scan``; the port runs the same eager steps,
+with no CUDA graph.  ``--remat`` (``patchNet`` with ``--plain``)
+recomputes each block's forward in the backward in the ``off`` tier
+(``torch.utils.checkpoint``); the ``t`` and ``flat`` tiers save only
+narrow residuals, so ``--remat`` with them raises ValueError (train.py
+ignores it there).
+``--profile-dir`` (``patchNet`` and ``iwdsr``) traces global steps 10 to
+19 of the streamed loop into that directory as a Chrome trace
+(``trace.json``; train.py writes an xplane).  ``--device-data``,
+``--remat`` and ``--profile-dir`` with ``fusionNet``, ``--remat`` with
+``iwdsr`` and ``--profile-dir`` with ``--device-data`` (whose loop has no
+trace window, as in the JAX trainer) raise ValueError; train.py drops
+them silently.  ``--device`` defaults to ``cuda`` and fails without
+a card; ``--device cpu`` runs the kernels' plain versions.  ``--band
+BOTH`` runs NIR, then RED.
 """
 
 from __future__ import annotations
@@ -63,20 +80,39 @@ def parse_args(argv=None):
                         "backward), off (plain)")
     p.add_argument("--plain", action="store_true",
                    help="alias of --fused-stack off")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block's forward in the backward "
+                        "(with --plain; activation-memory saver)")
+    p.add_argument("--device-data", action="store_true",
+                   help="keep the dataset in device memory and gather the "
+                        "batches there (ModelTrainer.fit_device)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a trace of steps 10-19 into this directory")
     opt = p.parse_args(argv)
+    if opt.device_data and opt.profile_dir:
+        raise ValueError("--device-data has no trace window: "
+                         "--profile-dir traces the streamed loop")
     if opt.modelType != "patchNet":
+        fusion = opt.modelType == "fusionNet"
         given = [f for f, on in (("--fused-stack", opt.fused_stack),
                                  ("--plain", opt.plain),
-                                 ("--bf16", opt.bf16 and
-                                  opt.modelType == "fusionNet")) if on]
+                                 ("--remat", opt.remat),
+                                 ("--bf16", opt.bf16 and fusion),
+                                 ("--device-data", opt.device_data and
+                                  fusion),
+                                 ("--profile-dir", opt.profile_dir and
+                                  fusion)) if on]
         if given:
             raise ValueError(f"{' and '.join(given)}: --modelType "
-                             f"{opt.modelType} has no such option (it has no "
-                             "kernel tier)")
+                             f"{opt.modelType} has no such option")
     elif opt.plain:
         opt.fused_stack = "off"
     elif opt.fused_stack is None:
         opt.fused_stack = "t"
+    if opt.remat and opt.modelType == "patchNet" and opt.fused_stack != "off":
+        raise ValueError(f"--remat: the {opt.fused_stack!r} stack saves only "
+                         "narrow residuals and would ignore it; it acts in "
+                         "the off tier (--plain)")
     return opt
 
 
@@ -109,7 +145,7 @@ def patch_net(cfg, band: str, opt) -> dict:
     logger.info("[ INFO ] Building model...")
     model = build_model(cfg, band,
                         dtype=torch.bfloat16 if opt.bf16 else torch.float32,
-                        fused_stack=opt.fused_stack,
+                        fused_stack=opt.fused_stack, remat=opt.remat,
                         model_type="iwdsr" if opt.modelType == "iwdsr"
                         else "wdsr",
                         generator=torch.Generator().manual_seed(0))
@@ -125,8 +161,14 @@ def patch_net(cfg, band: str, opt) -> dict:
         eval_step=opt.eval_step, loss_weighted_fn=losses.weighted(cfg.loss),
         device=opt.device)
     trainer.init_state()
-    result = trainer.fit(x_train, y_train, cfg.batch_size, cfg.epochs,
-                         val_data=val, save_best_only=opt.save_best_only)
+    if opt.device_data:
+        result = trainer.fit_device(x_train, y_train, cfg.batch_size,
+                                    cfg.epochs, val_data=val,
+                                    save_best_only=opt.save_best_only)
+    else:
+        result = trainer.fit(x_train, y_train, cfg.batch_size, cfg.epochs,
+                             val_data=val, save_best_only=opt.save_best_only,
+                             profile_dir=opt.profile_dir)
     trainer.logger_.close()
     logger.info("[ SUCCESS ] %s", result)
     logger.info("[ SUCCESS ] Checkpoints in %s", cfg.ckpt_dir(band))

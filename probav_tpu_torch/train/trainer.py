@@ -1,5 +1,6 @@
 """Training runtime: train/eval steps, checkpoint and resume, the eval loop
-and logging (port of ``probav_tpu/train/trainer.py``, streamed ``fit``).
+and logging (port of ``probav_tpu/train/trainer.py``: the streamed ``fit``
+and the device-resident ``fit_device``).
 
 Behaviour kept from the JAX trainer (and its reference):
 - sample-accurate resume: ``epochs`` is the total target; a restored run
@@ -13,17 +14,31 @@ Behaviour kept from the JAX trainer (and its reference):
   always-final validation and save;
 - a ragged last validation batch is padded to the full batch with weight-0
   rows when the model runs the "t" kernel stack (the JAX trainer pads for
-  its "t" tier), so both the metric and the loss stay exact.
+  its "t" tier), so both the metric and the loss stay exact;
+- ``fit(profile_dir=...)`` traces global steps 10 to 19
+  (``PROFILE_WINDOW``, the JAX trainer's default ``profile_window``, which
+  the port does not take as an argument) into that directory
+  (``utils/profiling.trace``: a Chrome trace of the device's activity,
+  where the JAX trainer writes an xplane).
 
 The step is eager PyTorch: forward, loss, ``torch.autograd.grad``, the
 optimizer update (in place), then the metric under ``torch.no_grad``.
-Checkpoints are ``torch.save`` files of (params, optimizer state, step,
-best_psnr).  Not ported yet: ``fit_device`` (dataset resident on the
-device), meshes and tensor parallelism.
+``fit`` feeds it batches gathered on the host and copied to the device by
+a prefetch thread.  ``fit_device`` keeps the dataset on the device and
+gathers each batch there (``index_select``); the host draws the epoch
+permutations (the same stream as ``fit``'s batcher for one seed), copies
+each epoch's indices once, and reads back one (mean loss, mean cPSNR) pair
+per chunk of ``min(eval_step, steps per epoch)`` steps.  The JAX trainer
+runs a chunk as one ``lax.scan``; the port runs the same eager step in a
+Python loop (``_run_chunk``) that reads nothing back.  Checkpoints are
+``torch.save`` files of (params, optimizer state, step, best_psnr), the
+same for both loops, so either resumes the other's.  Not ported yet:
+meshes and tensor parallelism.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import os
@@ -37,8 +52,12 @@ import torch
 from probav_tpu_torch.data.loader import Batcher, prefetch_to_device
 from probav_tpu_torch.train.metrics import Mean, ScalarLogger
 from probav_tpu_torch.train.optim import Optimizer, state_to
+from probav_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger("probav_tpu_torch.train")
+
+# The global steps [start, stop) that ``fit(profile_dir=...)`` traces.
+PROFILE_WINDOW = (10, 20)
 
 MAX_TO_KEEP = 5
 _CKPT = re.compile(r"^step_(\d+)\.pt$")
@@ -193,7 +212,12 @@ class ModelTrainer:
     def fit(self, x: np.ndarray, y: Sequence[np.ndarray], batch_size: int,
             epochs: int, val_data: Sequence[np.ndarray], val_steps: int = 64,
             save_best_only: bool = True, init_epoch: int = 0,
-            seed: int = 17) -> dict:
+            seed: int = 17, profile_dir: Optional[str] = None) -> dict:
+        """Train ``epochs`` epochs (the total, counting restored steps) on
+        batches gathered on the host.  With ``profile_dir``, the global
+        steps of ``PROFILE_WINDOW`` run under ``utils.profiling.trace``
+        into that directory; the device is synchronized before the trace
+        stops, also where the run ends inside the window."""
         hr, mask = y
         if self.opt_state is None:
             self.init_state()
@@ -218,41 +242,54 @@ class ModelTrainer:
         stream = prefetch_to_device(
             train_batcher.repeat(epochs - done_epochs, skip=step),
             self.device)
-        for lr_b, hr_b, mask_b in stream:
-            if total_steps - step == 0:
-                epoch += 1
-                step = self.step % total_steps
-                logger.info("[ *** NEW EPOCH *** ] Epoch number %d", epoch)
-                train_loss.reset()
-                train_psnr.reset()
-            step += 1
-            global_step += 1
-            loss, metric = self.train_step(lr_b, hr_b, mask_b)
-            train_loss.update(loss)
-            train_psnr.update(metric)
-            seen += len(lr_b)
+        with contextlib.ExitStack() as profiling:
+            for lr_b, hr_b, mask_b in stream:
+                if total_steps - step == 0:
+                    epoch += 1
+                    step = self.step % total_steps
+                    logger.info("[ *** NEW EPOCH *** ] Epoch number %d",
+                                epoch)
+                    train_loss.reset()
+                    train_psnr.reset()
+                step += 1
+                global_step += 1
+                if profile_dir is not None:
+                    if global_step == PROFILE_WINDOW[0]:
+                        profiling.enter_context(trace(profile_dir,
+                                                      self.device))
+                        # Runs first on close: the trace ends with the
+                        # device's queue, also where the run ends early.
+                        profiling.callback(self._sync)
+                    elif global_step == PROFILE_WINDOW[1]:
+                        profiling.close()
+                loss, metric = self.train_step(lr_b, hr_b, mask_b)
+                train_loss.update(loss)
+                train_psnr.update(metric)
+                seen += len(lr_b)
 
-            if global_step % self.log_every == 0 or step == total_steps:
-                tl, tp = train_loss.result(), train_psnr.result()
-                logger.info(
-                    "[ EPOCH %d/%d ] - [ STEP %d/%d ] Loss: %.6f, cPSNR: %.3f",
-                    epoch, epochs, step, total_steps, tl, tp)
-                self.logger_.scalar("Train PSNR", tp, global_step)
-                self.logger_.scalar("Train loss", tl, global_step)
+                if global_step % self.log_every == 0 or step == total_steps:
+                    tl, tp = train_loss.result(), train_psnr.result()
+                    logger.info(
+                        "[ EPOCH %d/%d ] - [ STEP %d/%d ] Loss: %.6f, "
+                        "cPSNR: %.3f", epoch, epochs, step, total_steps, tl,
+                        tp)
+                    self.logger_.scalar("Train PSNR", tp, global_step)
+                    self.logger_.scalar("Train loss", tl, global_step)
 
-            if step != 0 and step % self.eval_every == 0:
-                val_loss, val_psnr = self.evaluate(val_batcher, val_steps)
-                last.update(val_psnr=val_psnr, val_loss=val_loss)
-                self.logger_.scalar("Test loss", val_loss, global_step)
-                self.logger_.scalar("Test PSNR", val_psnr, global_step)
-                logger.info("[ *** VAL *** ] loss: %.6f, PSNR: %.3f",
-                            val_loss, val_psnr)
-                self.logger_.flush()
-                if save_best_only and val_psnr <= self.best_psnr:
-                    continue
-                self.best_psnr = max(self.best_psnr, val_psnr)
-                logger.info("[ SAVE ] Saving checkpoint...")
-                self.save()
+                if step != 0 and step % self.eval_every == 0:
+                    val_loss, val_psnr = self.evaluate(val_batcher,
+                                                       val_steps)
+                    last.update(val_psnr=val_psnr, val_loss=val_loss)
+                    self.logger_.scalar("Test loss", val_loss, global_step)
+                    self.logger_.scalar("Test PSNR", val_psnr, global_step)
+                    logger.info("[ *** VAL *** ] loss: %.6f, PSNR: %.3f",
+                                val_loss, val_psnr)
+                    self.logger_.flush()
+                    if save_best_only and val_psnr <= self.best_psnr:
+                        continue
+                    self.best_psnr = max(self.best_psnr, val_psnr)
+                    logger.info("[ SAVE ] Saving checkpoint...")
+                    self.save()
 
         # Final validation and checkpoint, so that a short run still leaves
         # a restorable artifact (as the JAX trainer does).
@@ -271,6 +308,122 @@ class ModelTrainer:
             "epochs": epoch,
             "train_loss": train_loss.result(),
             "train_psnr": train_psnr.result(),
+            "patches_per_sec": seen / elapsed if elapsed > 0 else 0.0,
+            **last,
+        }
+
+    # ------------------------------------------------------------------ #
+    # device-resident loop                                                #
+    # ------------------------------------------------------------------ #
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def resident(self, arrays: Sequence[np.ndarray]) -> tuple:
+        """The arrays as float32 tensors on the device: one host-to-device
+        copy each (on the CPU, the arrays' own memory where they are
+        float32 already)."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                     .to(self.device) for a in arrays)
+
+    def _run_chunk(self, data: Sequence[torch.Tensor], idx: torch.Tensor
+                   ) -> tuple:
+        """One train step for each row of ``idx`` ([K, batch] int64 on the
+        device), its batch gathered from ``data`` (``resident``'s (x, hr,
+        mask)) on the device.  Returns the steps' mean loss and mean cPSNR
+        as device scalars; reads nothing back, so the host can run ahead
+        of the device for the whole chunk."""
+        losses, metrics = [], []
+        for rows in idx:
+            loss, metric = self.train_step(
+                *(a.index_select(0, rows) for a in data))
+            losses.append(loss)
+            metrics.append(metric)
+        return torch.stack(losses).mean(), torch.stack(metrics).mean()
+
+    def fit_device(self, x: np.ndarray, y: Sequence[np.ndarray],
+                   batch_size: int, epochs: int,
+                   val_data: Sequence[np.ndarray], val_steps: int = 64,
+                   save_best_only: bool = True, seed: int = 17) -> dict:
+        """Train with the dataset resident on the device (the JAX
+        trainer's ``fit_device``).
+
+        ``rng = np.random.default_rng(seed)`` draws one permutation an
+        epoch, cut to ``[steps per epoch, batch_size]``: the batches of
+        ``fit``'s ``Batcher(seed=seed)``, in the same order.  Each epoch's
+        indices go to the device once; the steps run in chunks of
+        ``min(eval_step, steps per epoch)`` (``_run_chunk``), each followed
+        by one readback of its mean loss and cPSNR, which are logged at the
+        chunk's last global step.  Validation (and the save-best-gated
+        checkpoint) follows a chunk that crosses a multiple of
+        ``eval_step``; a final validation and save end the run.  Resume
+        replays the permutation draws of completed epochs and skips the
+        steps done in the current one (the JAX trainer skips whole chunks,
+        which is the same wherever a checkpoint lies on a chunk boundary,
+        as both loops' checkpoints do at equal ``eval_step``)."""
+        hr, mask = y
+        if self.opt_state is None:
+            self.init_state()
+        data = self.resident((x, hr, mask))
+        n = len(x)
+        steps_per_epoch = max(1, n // batch_size)
+        chunk = min(self.eval_every, steps_per_epoch)
+        rng = np.random.default_rng(seed)
+        val_batcher = Batcher(tuple(val_data), batch_size, seed=seed + 1,
+                              drop_remainder=False)
+
+        global_step = self.step
+        done_epochs = global_step // steps_per_epoch
+        for _ in range(done_epochs):
+            rng.permutation(n)
+        resume_step = global_step - done_epochs * steps_per_epoch
+        last = {"val_psnr": float("nan"), "val_loss": float("nan")}
+        t_start = time.time()
+        seen = 0
+        logger.info("[ INFO ] Begin training (dataset on %s)...",
+                    self.device)
+        for epoch in range(done_epochs, epochs):
+            perm = rng.permutation(n)[:steps_per_epoch * batch_size]
+            perm = torch.from_numpy(
+                perm.reshape(steps_per_epoch, batch_size)).to(self.device)
+            first = resume_step if epoch == done_epochs else 0
+            for start in range(0, steps_per_epoch, chunk):
+                idx = perm[max(start, first):start + chunk]
+                if len(idx) == 0:
+                    continue
+                mean_loss, mean_psnr = self._run_chunk(data, idx)
+                k = len(idx)
+                global_step += k
+                seen += k * batch_size
+                tl, tp = float(mean_loss), float(mean_psnr)
+                self.logger_.scalar("Train loss", tl, global_step)
+                self.logger_.scalar("Train PSNR", tp, global_step)
+                logger.info("[ EPOCH %d/%d ] step %d loss %.6f cPSNR %.3f",
+                            epoch, epochs, global_step, tl, tp)
+                if global_step % self.eval_every < k:
+                    val_loss, val_psnr = self.evaluate(val_batcher,
+                                                       val_steps)
+                    last.update(val_psnr=val_psnr, val_loss=val_loss)
+                    self.logger_.scalar("Test loss", val_loss, global_step)
+                    self.logger_.scalar("Test PSNR", val_psnr, global_step)
+                    logger.info("[ *** VAL *** ] loss: %.6f, PSNR: %.3f",
+                                val_loss, val_psnr)
+                    if not save_best_only or val_psnr > self.best_psnr:
+                        self.best_psnr = max(self.best_psnr, val_psnr)
+                        self.save()
+        elapsed = time.time() - t_start
+        val_loss, val_psnr = self.evaluate(val_batcher, val_steps)
+        last.update(val_psnr=val_psnr, val_loss=val_loss)
+        self.logger_.scalar("Test loss", val_loss, global_step)
+        self.logger_.scalar("Test PSNR", val_psnr, global_step)
+        if not save_best_only or val_psnr > self.best_psnr:
+            self.best_psnr = max(self.best_psnr, val_psnr)
+            self.save()
+        self.logger_.flush()
+        return {
+            "steps": global_step,
+            "epochs": epochs,
             "patches_per_sec": seen / elapsed if elapsed > 0 else 0.0,
             **last,
         }
