@@ -40,6 +40,12 @@ Phases, each printing its result:
    the three bf16 products of each product with a float32 operand) and the
    shift tables integer planes (probav_tpu_torch/tools/dyadic.py), on
    which both versions take the same relu, sign and rounding decisions;
+   blk_bwd's last launch, reduce_partials_kernel, is held to
+   ``torch.sum(part.view(G, len), 0)`` over the same partial slots at both
+   dtypes, and both are timed as device time in one profiler trace of
+   blk_bwd then torch.sum on the partials it just wrote and reduced, and
+   torch.sum also after an L2 scrub (the kernel has no entry of its own,
+   so CUDA events cannot isolate it);
 4. widths: the four block-stack kernels beyond the flagship's channels,
    at the widths of the 48-, 72- and 128-filter models (48/384/38,
    72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
@@ -101,6 +107,24 @@ Phases, each printing its result:
    the window busy share of both loops at bf16 "t" (steps 10-19 traced
    with no sync between steps, tools/profile_train.loop_busy; its
    ``--loops`` mode also times the loops);
+9b. mesh (--mesh-data, probav_tpu_torch.parallel): the train CLI's rank
+   (``cli.rank_main``, which ``cli.main`` launches) with --mesh-data 1 on
+   one NCCL rank, float32 "t" at batch 128 on the train phase's tree,
+   against the same CLI in this process from the same init, both with
+   cuDNN's deterministic algorithms: every logged value equal to the bit,
+   the same checkpoints, 12 launches of each stack kernel a step; one
+   fit_device chunk on that rank under
+   ``torch.cuda.set_sync_debug_mode("error")``; the serve CLI with
+   --mesh-data 1, its PNGs equal byte for byte to one process; then two
+   gloo ranks on the one card (``parallel.launch(..., backend="gloo")``;
+   NCCL takes one rank a card): one float32 "t" step of the flagship, 64
+   of the 128 patches a rank, against the same step in this process (loss
+   and cPSNR to 1e-5 relative, every gradient leaf within
+   STACK_TOL["float32"], both ranks' parameters equal to the bit after the
+   update), a fit_device chunk, ``Resolver.resolve_all`` with kernels on
+   the 16 served scenes and with TTA on 2 against one process (equal or
+   within one count, the differing pixels counted), each rank's launch
+   counts, and the synced step time of two ranks beside one process's;
 10. train, the other losses and models: the train CLI on the flagship cfg
    (float32, "t" stack, batch 128) with loss=sobel_l1_mix and with
    loss=l1msssim (12 launches of each stack kernel per step, a falling
@@ -504,6 +528,104 @@ def check_rel(name, got, ref, rtol, atol_frac):
     return float(diff.max())
 
 
+# reduce_partials_kernel (blk_bwd's last launch) against torch.sum over the
+# same partials: float32 sums of 2 x SMs slots in another order.
+REDUCE_TOL = 1e-5
+
+
+def kernel_ms(torch, call, reps=10):
+    """{kernel name: device ms per call of ``call``} from a profiler trace
+    of ``reps`` calls back to back, after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            times[e.key] = times.get(e.key, 0.0) + us / 1e3 / reps
+    return times
+
+
+L2_SCRUB_BYTES = 256 << 20   # > the H100's 50 MB L2
+
+
+def reduce_vs_sum(torch, ts, args, dn, card):
+    """blk_bwd's C entry with partial slots of our own, then
+    ``torch.sum(part.view(G, len), 0)``, the one PyTorch call computing
+    reduce_partials_kernel's function, held to the kernel's output.  Both
+    are timed in one profiler trace of the entry then torch.sum: the
+    kernel reads the partials that the entry's earlier launches just
+    wrote, as on the main path, and torch.sum reads them right after it,
+    no colder.  torch.sum is timed again after an L2 scrub (a 256 MiB
+    read and write) between the entry and the sum: its time on partials
+    that are in DRAM only."""
+    from probav_tpu_torch.ops import _build
+    from probav_tpu_torch.tools.time_conv import blk_bwd_part_costs
+
+    gy, x, d, w1, b1, w2, wc = args
+    b, h, w, t, c = x.shape
+    c_mid, c_dec = w2.shape
+    groups = ts.partial_slots(x.device, c, c_dec)
+    slot = 27 * c_dec * c + c * c_mid + c_mid * c_dec + c_mid + c_dec + c
+    part = torch.empty((groups, slot), dtype=torch.float32, device=x.device)
+    out = torch.empty(slot, dtype=torch.float32, device=x.device)
+    dd, dx = torch.empty(d.shape, dtype=x.dtype, device=x.device), \
+        torch.empty_like(x)
+    w1c, w2c = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+    b1c = b1.float().contiguous()
+    wflip = wc.to(x.dtype).flip(0, 1, 2).transpose(3, 4).contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def entry():
+        _build.check(_build.library().probav_blk_bwd(
+            ts._DTYPE_CODE[x.dtype], gy.data_ptr(), x.data_ptr(),
+            d.data_ptr(), wflip.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
+            w2c.data_ptr(), dd.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            out.data_ptr(), groups, b, h, w, t, c, c_mid, c_dec, stream),
+            "blk_bwd")
+
+    entry()
+    torch.cuda.synchronize()
+    lib = lambda: torch.sum(part.view(groups, slot), 0)
+    err, scale = check(f"torch.sum of blk_bwd's partials {dn}", out, lib(),
+                       REDUCE_TOL)
+    scrub = torch.zeros(L2_SCRUB_BYTES // 4, dtype=torch.float32,
+                        device=x.device)
+    scrub_l2 = lambda: scrub.add_(1.0)
+    # torch.sum's kernels by name; a name that blk_bwd or the scrub also
+    # launches (a memset) cannot be told apart in a trace and is left out.
+    sum_all = set(kernel_ms(torch, lib))
+    shared = sum_all & (set(kernel_ms(torch, entry)) |
+                        set(kernel_ms(torch, scrub_l2)))
+    sum_names = sum_all - shared
+    seq = kernel_ms(torch, lambda: (entry(), lib()))
+    cold = kernel_ms(torch, lambda: (entry(), scrub_l2(), lib()))
+    kdev = sum(ms for k, ms in seq.items() if "reduce_partials_kernel" in k)
+    lseq = sum(seq.get(k, 0.0) for k in sum_names)
+    lcold = sum(cold.get(k, 0.0) for k in sum_names)
+    if not (kdev and lseq and lcold):
+        raise AssertionError(f"reduce_partials {dn}: no device time in the "
+                             f"trace (kernel {kdev}, torch.sum {lseq}, "
+                             f"{lcold})")
+    del scrub
+    cost = blk_bwd_part_costs(b * h * w * t, c, c_mid, c_dec, dn,
+                              groups)["reduce"]
+    log(f"kernel reduce_partials {dn} [G={groups} x {slot}]: torch.sum "
+        f"against the kernel's output max|diff| {err:.3e} (max|ref| "
+        f"{scale:.3e}, tol {REDUCE_TOL:g}); device time (profiler, 10 "
+        f"rounds of blk_bwd then torch.sum): kernel {kdev:.4f} ms, "
+        f"torch.sum right after it {lseq:.4f} ms, torch.sum after an L2 "
+        f"scrub {lcold:.4f} ms (left out, shared: {sorted(shared)}); "
+        f"bound {cost['bound_ms']:.4f} ms by {cost['bound_by']} [{card}]")
+
+
 def phase_kernels(torch, ts, dev, card):
     """Parity and times of the six kernels; returns {(name, dtype): row}
     with the numbers of the JSON summary."""
@@ -598,6 +720,7 @@ def phase_kernels(torch, ts, dev, card):
         pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
                         lambda: ts.blk_bwd(*args), reps=10)
         row("blk_bwd", dn, errs[0], ms, pms, None)
+        reduce_vs_sum(torch, ts, args, dn, card)
         del got, args
 
         # wide_bwd: its five outputs on dyadic inputs, the tolerances of
@@ -1564,6 +1687,304 @@ def phase_train_device(torch, dev, card):
     log(f"train_device phase: {marks[-1][1] - marks[0][1]:.1f} s ({parts})")
 
 
+# The mesh phase: the two-rank fit_device chunk's steps, the timed steps
+# of the two-rank and the one-process step, and the resolver's inputs
+# (the serve phase's scenes; TTA on TTA_SCENES of them).
+MESH_CHUNK, MESH_TIMED = 2, 5
+
+
+def mesh_nccl_rank(mesh, argv, tmp):
+    """The one NCCL rank of the mesh phase: the train CLI's rank
+    (``cli.rank_main``, which ``cli.main`` launches for --mesh-data) with
+    ``argv``, then one fit_device chunk under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Returns the CLI's result,
+    the launch counts of both and the chunk's loss."""
+    import logging
+
+    import torch
+
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.tools.profile_train import (make_trainer,
+                                                      synthetic_batch)
+    from probav_tpu_torch.train import cli
+
+    torch.backends.cudnn.deterministic = True   # as the reference run
+    reset_launches()
+    res = cli.rank_main(mesh, cli.parse_args(argv), ["NIR"], logging.WARNING)
+    cli_counts = launches()
+    tr = make_trainer(Config.from_file(CFG), "float32", "t", mesh.device,
+                      os.path.join(tmp, "nccl_chunk"), mesh=mesh)
+    data = tr.resident(synthetic_batch(TRAIN_N, seed=1))
+    idx = torch.randperm(TRAIN_N, generator=torch.Generator()
+                         .manual_seed(3)).reshape(-1, 128).to(mesh.device)
+    float(tr._run_chunk(data, idx[:1])[0])   # warm: the communicator, cuDNN
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = tr._run_chunk(data, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    chunk_counts = launches()
+    tr.logger_.close()
+    return dict(res=res, cli=cli_counts, chunk=chunk_counts, steps=len(idx),
+                loss=float(loss))
+
+
+def step_ms(tr, batch, n):
+    """Median ms of n train steps on ``batch``, each synchronized, after
+    one warm-up (profile_train.warm_step_rates)."""
+    from probav_tpu_torch.tools.profile_train import warm_step_rates
+
+    return 1e3 * len(batch[0]) / statistics.median(
+        warm_step_rates(tr, batch, n))
+
+
+def mesh_gloo_rank(mesh, tmp):
+    """One of the two gloo ranks on the card: one f32 "t" train step of
+    the flagship on this rank's 64 of the 128 patches (the gradients of
+    the global loss, then the update), MESH_TIMED timed steps, one
+    fit_device chunk of MESH_CHUNK steps and Resolver.resolve_all on the
+    serve phase's scenes, each with its launch counts.  The parameters
+    after the first update go to tmp/mesh_rank<r>.pt."""
+    import torch
+
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.parallel.mesh import batch_share
+    from probav_tpu_torch.serve import model_layout
+    from probav_tpu_torch.tools.profile_serve import (make_resolver,
+                                                      synthetic_patches)
+    from probav_tpu_torch.tools.profile_train import (make_trainer,
+                                                      synthetic_batch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, out = mesh.device, {}
+    cfg = Config.from_file(CFG)
+    share = batch_share(mesh, cfg.batch_size)
+    tr = make_trainer(cfg, "float32", "t", dev,
+                      os.path.join(tmp, f"gloo{mesh.rank}"), mesh=mesh)
+    batch = tuple(torch.as_tensor(a[share], device=dev)
+                  for a in synthetic_batch(cfg.batch_size, seed=2))
+    reset_launches()
+    loss, _, grads = tr.loss_and_grads(*batch)
+    loss, metric = tr.train_step(*batch)
+    torch.cuda.synchronize()
+    out["step"] = dict(loss=float(loss), metric=float(metric),
+                       counts=launches(),
+                       grads={k: v.cpu() for k, v in grads.items()})
+    torch.save({k: v.detach().cpu() for k, v in tr.params.items()},
+               os.path.join(tmp, f"mesh_rank{mesh.rank}.pt"))
+    out["step_ms"] = step_ms(tr, batch, MESH_TIMED)
+
+    data = tr.resident(synthetic_batch(TRAIN_N, seed=1))
+    idx = torch.randperm(TRAIN_N, generator=torch.Generator().manual_seed(
+        3)).reshape(-1, cfg.batch_size)[:MESH_CHUNK, share].contiguous()
+    reset_launches()
+    loss, _ = tr._run_chunk(data, idx.to(dev))
+    out["chunk"] = dict(loss=float(loss), counts=launches())
+    tr.logger_.close()
+    del tr, data, grads
+    torch.cuda.empty_cache()
+
+    patches = model_layout(synthetic_patches(SERVE_SCENES))
+    r = make_resolver(CFG, "float32", True, dev, mesh=mesh)
+    reset_launches()
+    out["scenes"] = np.stack(r.resolve_all(patches))
+    out["tta"] = np.stack(r.resolve_all(patches[:TTA_SCENES], tta=True))
+    out["resolve_counts"] = launches()
+    torch.save({k: out[k] for k in ("step", "chunk", "resolve_counts")},
+               os.path.join(tmp, f"mesh_counts{mesh.rank}.pt"))
+    return out
+
+
+def resolver_launches(blocks, scenes, repeats, ranks):
+    """seg_fwd (and conv_fwd) launches of one rank's resolve_all: each
+    group's rows split over the ranks, in MODEL_CHUNK chunks."""
+    from probav_tpu_torch.infer.resolver import MODEL_CHUNK
+
+    group = -(-512 // (64 * repeats))
+    return sum(blocks * -(-min(group, scenes - s) * 64 * repeats // ranks //
+                          MODEL_CHUNK) for s in range(0, scenes, group))
+
+
+def phase_mesh(torch, dev, card):
+    """--mesh-data (probav_tpu_torch.parallel): the CLIs on one NCCL rank
+    against one process, and two gloo ranks on the card against one
+    process (module docstring, 9b)."""
+    from probav_tpu_torch import serve
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.convert import save_npz
+    from probav_tpu_torch.models.wdsr import build_model
+    from probav_tpu_torch.parallel.launch import launch
+    from probav_tpu_torch.serve import model_layout
+    from probav_tpu_torch.tools.profile_serve import (make_resolver,
+                                                      synthetic_patches)
+    from probav_tpu_torch.tools.profile_train import (make_trainer,
+                                                      synthetic_batch)
+    from probav_tpu_torch.train import cli
+
+    steps_per_epoch = TRAIN_N // 128
+    val_batches = -(-VAL_N // 128)
+    legs = [TRAIN_EPOCHS // 2]
+    blocks = 12
+    cfg = Config.from_file(CFG)
+    marks = [("start", time.perf_counter())]
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. One NCCL rank: the train CLI's logs equal to the bit to one
+        # process from the same init, both with cuDNN's deterministic
+        # algorithms (its weight gradients may otherwise sum in another
+        # order in each run); its launches; a sync-free fit_device chunk.
+        logs, ckpts = {}, {}
+        for n in (0, 1):
+            cfgp, ckpt_dir, log_dir = write_train_tree(tmp, f"mesh{n}",
+                                                       legs[0])
+            argv = ["--cfg", cfgp, "--band", "NIR", "--device", str(dev),
+                    "--eval-step", str(steps_per_epoch)]
+            if n:
+                got = launch(mesh_nccl_rank, 1, argv + ["--mesh-data", "1"],
+                             tmp, device="cuda", deadline=600)
+                res = got["res"]["NIR"]
+            else:
+                torch.backends.cudnn.deterministic = True
+                try:
+                    res = cli.main(argv)["NIR"]
+                finally:
+                    torch.backends.cudnn.deterministic = False
+            if res["steps"] != legs[0] * steps_per_epoch:
+                raise AssertionError(f"mesh CLI {n}: {res['steps']} steps")
+            with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+                logs[n] = [(r["tag"], r["step"], r["value"])
+                           for r in map(json.loads, f)]
+            ckpts[n] = sorted(os.listdir(ckpt_dir))
+        want = cli_launches("f32", legs, steps_per_epoch, val_batches)
+        if got["cli"] != want:
+            raise AssertionError(f"--mesh-data 1: launches {got['cli']}, "
+                                 f"expected {want}")
+        if logs[1] != logs[0] or ckpts[1] != ckpts[0]:
+            raise AssertionError(f"--mesh-data 1 vs one process: logs "
+                                 f"{logs[1]} vs {logs[0]}, checkpoints "
+                                 f"{ckpts[1]} vs {ckpts[0]}")
+        k = got["steps"]
+        if got["chunk"] != expect(seg_fwd=blocks * k, conv_fwd=blocks * k,
+                                  blk_bwd=blocks * k) or \
+                not np.isfinite(got["loss"]):
+            raise AssertionError(f"--mesh-data 1 chunk: launches "
+                                 f"{got['chunk']}, loss {got['loss']}")
+        train = [v for t, _, v in logs[1] if t == "Train loss"]
+        log(f"train --mesh-data 1 (NCCL, f32 t, {res['steps']} steps at "
+            f"batch 128): {len(logs[1])} logged values equal to the bit to "
+            f"one process (train loss {train[0]:.6f} -> {train[-1]:.6f}), "
+            f"checkpoints {ckpts[1]}, launches {got['cli']}; a fit_device "
+            f"chunk of {k} steps under set_sync_debug_mode('error'): no "
+            f"host sync, launches {got['chunk']} [{card}]")
+
+        marks.append(("NCCL train", time.perf_counter()))
+        model = build_model(CFG, "NIR", generator=torch.Generator()
+                            .manual_seed(0))
+        npz = os.path.join(tmp, "params.npz")
+        save_npz(npz, model.state_dict())
+        pngs = {}
+        for n in (0, 1):
+            args = write_tree(tmp, f"serve{n}", synthetic_patches(
+                SERVE_SCENES), npz) + ["--device", str(dev)]
+            res = serve.main(args + ["--mesh-data", str(n)])
+            pngs[n] = [open(p, "rb").read() for p in res["written"]]
+        if len(pngs[1]) != SERVE_SCENES or pngs[1] != pngs[0]:
+            raise AssertionError("serve --mesh-data 1: PNGs differ from one "
+                                 "process")
+        log(f"serve --mesh-data 1 (NCCL, f32 kernels): {SERVE_SCENES} PNGs "
+            f"equal, byte for byte, to one process [{card}]")
+
+        marks.append(("NCCL serve", time.perf_counter()))
+        # 2. Two gloo ranks on the card against one process.
+        two = launch(mesh_gloo_rank, 2, tmp, device="cuda", backend="gloo",
+                     deadline=600)
+        marks.append(("gloo ranks", time.perf_counter()))
+        tr = make_trainer(cfg, "float32", "t", dev,
+                          os.path.join(tmp, "one"))
+        batch = tuple(torch.as_tensor(a, device=dev)
+                      for a in synthetic_batch(cfg.batch_size, seed=2))
+        _, _, grads = tr.loss_and_grads(*batch)
+        loss, metric = tr.train_step(*batch)
+        one_ms = step_ms(tr, batch, MESH_TIMED)
+        tr.logger_.close()
+        del tr
+        step = two["step"]
+        if not abs(step["loss"] - float(loss)) <= 1e-5 * abs(float(loss)) \
+                or not abs(step["metric"] - float(metric)) <= \
+                1e-5 * abs(float(metric)):
+            raise AssertionError(f"two ranks: loss {step['loss']} vs "
+                                 f"{float(loss)}, cPSNR {step['metric']} vs "
+                                 f"{float(metric)}")
+        gerr = {k: rel_l2(step["grads"][k].to(dev), v)
+                for k, v in grads.items()}
+        gk = max(gerr, key=lambda k: gerr[k] if np.isfinite(gerr[k])
+                 else np.inf)
+        if not gerr[gk] <= STACK_TOL["float32"]:
+            raise AssertionError(f"two ranks: gradient {gk} "
+                                 f"||got-ref||/||ref|| {gerr[gk]:.3e}")
+        p0, p1 = (torch.load(os.path.join(tmp, f"mesh_rank{r}.pt"))
+                  for r in (0, 1))
+        if any(not torch.equal(p0[k], p1[k]) for k in p0):
+            raise AssertionError("two ranks: parameters differ after the "
+                                 "update")
+        counts = [torch.load(os.path.join(tmp, f"mesh_counts{r}.pt"),
+                             weights_only=False) for r in (0, 1)]
+        per = 2 * blocks                 # loss_and_grads, then train_step
+        want_step = expect(seg_fwd=per, conv_fwd=per, blk_bwd=per)
+        per = MESH_CHUNK * blocks
+        want_chunk = expect(seg_fwd=per, conv_fwd=per, blk_bwd=per)
+        per = resolver_launches(blocks, SERVE_SCENES, 1, 2) + \
+            resolver_launches(blocks, TTA_SCENES, 20, 2)
+        want_resolve = expect(seg_fwd=per, conv_fwd=per)
+        for r, c in enumerate(counts):
+            if c["step"]["counts"] != want_step or \
+                    c["chunk"]["counts"] != want_chunk or \
+                    c["resolve_counts"] != want_resolve or \
+                    not np.isfinite(c["chunk"]["loss"]):
+                raise AssertionError(f"two ranks, rank {r}: launches step "
+                                     f"{c['step']['counts']}, chunk "
+                                     f"{c['chunk']['counts']}, resolve "
+                                     f"{c['resolve_counts']}")
+        log(f"two gloo ranks on the card, f32 t step of the flagship (64 of "
+            f"128 patches a rank): loss {step['loss']:.6f} vs "
+            f"{float(loss):.6f}, cPSNR {step['metric']:.4f} vs "
+            f"{float(metric):.4f} (rel 1e-5); gradients of {len(gerr)} "
+            f"leaves, worst ||got-ref||/||ref|| {gk} {gerr[gk]:.3e} (tol "
+            f"{STACK_TOL['float32']:g}); parameters of both ranks equal to "
+            f"the bit after the update; launches a rank: step "
+            f"{counts[1]['step']['counts']}, fit_device chunk of "
+            f"{MESH_CHUNK} steps {counts[1]['chunk']['counts']}, resolve "
+            f"{counts[1]['resolve_counts']} [{card}]")
+        log(f"two gloo ranks on one card (a record, not a claim: both share "
+            f"the card, and gloo reduces through the host): median synced "
+            f"step of {MESH_TIMED} {two['step_ms']:.1f} ms for 128 patches "
+            f"against {one_ms:.1f} ms in one process [{card}]")
+
+        patches = model_layout(synthetic_patches(SERVE_SCENES))
+        r = make_resolver(CFG, "float32", True, dev)
+        for name, got, want in (
+                ("resolve_all", two["scenes"], np.stack(r.resolve_all(
+                    patches))),
+                ("resolve_all tta", two["tta"], np.stack(r.resolve_all(
+                    patches[:TTA_SCENES], tta=True)))):
+            diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+            if got.shape != want.shape or diff.max() > 1:
+                raise AssertionError(f"two ranks {name}: max "
+                                     f"{diff.max()} counts")
+            log(f"two gloo ranks, f32 kernels, {name} of {len(got)} scenes "
+                f"against one process: {int((diff > 0).sum())} of "
+                f"{diff.size} pixels differ, max {int(diff.max())} count "
+                f"[{card}]")
+        del r
+        torch.cuda.empty_cache()
+    marks.append(("one process", time.perf_counter()))
+    parts = ", ".join(f"{name} {t - marks[i][1]:.1f}"
+                      for i, (name, t) in enumerate(marks[1:]))
+    log(f"mesh phase: {marks[-1][1] - marks[0][1]:.1f} s ({parts})")
+
+
 # The one-step float32 train checks: (name, stack tier, fused_block,
 # use_kernel, the variant it is held to, its launches per step).
 STEP_KERNELS = dict(seg_fwd=12, conv_fwd=12, blk_bwd=12)
@@ -2224,6 +2645,7 @@ def main():
     phase_warm(torch, dev, card)
     train_launches = phase_train(torch, dev, card)
     phase_train_device(torch, dev, card)
+    phase_mesh(torch, dev, card)
     loss_launches = phase_train_step(torch, dev, card)
     phase_train_warm(torch, dev, card)
     phase_train_more(torch, dev, card)

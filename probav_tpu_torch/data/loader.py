@@ -20,15 +20,23 @@ import torch
 
 
 class Batcher:
-    """Iterate tuples of equally-indexed numpy arrays in shuffled batches."""
+    """Iterate tuples of equally-indexed numpy arrays in shuffled batches.
+
+    ``rows`` (with ``drop_remainder``) keeps those rows of each batch of
+    ``batch_size`` and gathers no other: a data-parallel rank's share,
+    drawn from the same permutation as every other rank's."""
 
     def __init__(self, arrays: Sequence[np.ndarray], batch_size: int,
                  shuffle: bool = True, seed: int = 17,
-                 drop_remainder: bool = True):
+                 drop_remainder: bool = True, rows: slice = slice(None)):
         n = len(arrays[0])
         if any(len(a) != n for a in arrays):
             raise ValueError("array length mismatch")
+        if rows != slice(None) and not drop_remainder:
+            raise ValueError("rows of a batch need drop_remainder: the last "
+                             "batch would be short")
         self.arrays = arrays
+        self.rows = rows
         self.n = n
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -52,7 +60,7 @@ class Batcher:
         end = (self.n - self.n % self.batch_size
                if self.drop_remainder else self.n)
         for start in range(skip * self.batch_size, end, self.batch_size):
-            take = idx[start:start + self.batch_size]
+            take = idx[start:start + self.batch_size][self.rows]
             yield tuple(a[take] for a in self.arrays)
 
     def skip_epochs(self, epochs: int) -> None:

@@ -13,6 +13,13 @@ its ``lax.map`` chunking inside one jitted call exist for the TPU kernels'
 batch-minor layout and VMEM.  The CUDA kernels take any batch, and PyTorch
 runs eagerly, so grouping only amortizes per-call overhead and chunking
 only bounds memory.
+
+With a ``mesh`` (``probav_tpu_torch.parallel``; one rank a device), as the
+JAX resolver shards each group's patch rows over 'data', every rank
+predicts its ``batch_share`` of each group's model inputs (TTA repeats
+included), the rounded predictions are gathered on every rank
+(``gather_rows``), and the paste and the TTA mean run as on one device;
+the scene's patch count must divide by the data size, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 
 from probav_tpu_torch.config import BAND_OFFSETS
 from probav_tpu_torch.ops.patches import reconstruct_from_patches
+from probav_tpu_torch.parallel.mesh import (batch_share, check_divisible,
+                                            gather_rows)
 from probav_tpu_torch.utils.png import write_png
 
 # Patches per model call: bounds the live activations (the plain stack's
@@ -54,14 +63,17 @@ class Resolver:
     """Scene super-resolution with a grouped, chunked forward.
 
     ``state`` (a state_dict, or None to keep the model's weights) is loaded
-    into ``model``, which is moved to ``device`` and put in eval mode.
+    into ``model``, which is moved to ``device`` (``mesh.device`` under a
+    ``mesh``) and put in eval mode.
     """
 
     def __init__(self, model: torch.nn.Module,
                  state: Optional[Mapping[str, torch.Tensor]] = None,
                  scene_size: int = 384, device="cuda",
-                 patches_per_call: int = 512):
-        self.device = torch.device(device)
+                 patches_per_call: int = 512, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            torch.device(device)
         if state is not None:
             model.load_state_dict(state)
         self.model = model.to(self.device).eval()
@@ -73,10 +85,18 @@ class Resolver:
                                  dtype=torch.float32, device=self.device)
 
     def _predict(self, x: torch.Tensor) -> torch.Tensor:
-        """[N, h, w, T, C] -> rounded, clipped [N, p, p, C], chunked."""
+        """[N, h, w, T, C] -> rounded, clipped [N, p, p, C], chunked; under
+        a mesh this rank predicts its share of the rows, then the rows of
+        every rank are gathered."""
+        n = len(x)
+        if self.mesh is not None:
+            x = x[batch_share(self.mesh, n)]
         preds = [self.model(x[i:i + MODEL_CHUNK], self.norm)
                  for i in range(0, len(x), MODEL_CHUNK)]
-        return torch.round(torch.clamp(torch.cat(preds), 0.0, CLIP_MAX))
+        pred = torch.round(torch.clamp(torch.cat(preds), 0.0, CLIP_MAX))
+        if self.mesh is not None:
+            pred = gather_rows(pred, n, self.mesh)
+        return pred
 
     def _paste(self, pred: torch.Tensor, group: int) -> torch.Tensor:
         """[G*P, p, p, C] -> [G, S, S, C], row-major tile paste."""
@@ -109,6 +129,9 @@ class Resolver:
         """[S, P, h, w, T, C] -> list of S [scene, scene, C] arrays."""
         n = len(all_patches)
         num_patches = len(all_patches[0])
+        if self.mesh is not None:
+            check_divisible("patches per scene", num_patches,
+                            self.mesh.world)
         repeats = tta_repeats if tta else 1
         group = max(1, -(-self.patches_per_call // (num_patches * repeats)))
         perm = None

@@ -30,6 +30,16 @@ then the mean over the batch; cPSNR takes the max over shifts and returns
 the per-sample vector.
 
 Batches are channels-last ``[B, H, W, C]`` as in the JAX package.
+
+Under a data mesh (``mesh=``, ``probav_tpu_torch.parallel``) each rank
+holds an equal share of the batch.  ``l1``, ``l2`` and ``l1_edge`` stay
+the share's mean: with equal shares the mean of the ranks' means is the
+global mean, and the trainer averages them.  ``rev_msssim`` is coupled
+across the batch (its min over shifts follows a sum over the batch), so
+its per-shift sums and ``sum(w)`` are summed over the data group before
+the min, and every rank holds the global loss; ``all_sum``'s backward
+scales by N, which the trainer's gradient mean divides out.  The
+``weighted`` losses sum their numerators and weights over the group.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import torch
 
 from probav_tpu_torch.ops import shift_table
 from probav_tpu_torch.ops.sobel import sobel_edges
+from probav_tpu_torch.parallel.mesh import all_sum
 
 
 def jnp_linspace(start: float, stop: float, num: int) -> np.ndarray:
@@ -68,12 +79,14 @@ class ShiftCompensatedLosses:
 
     ``target_shape`` is the HR patch shape, ``crop_border`` the per-side
     shift allowance, ``bit_depth`` sets the dynamic range of cPSNR;
-    ``use_kernel`` takes the per-shift tables from the CUDA kernels.
+    ``use_kernel`` takes the per-shift tables from the CUDA kernels;
+    ``mesh`` (a ``parallel.Mesh``) makes the batch-coupled and weighted
+    losses global over its data group (module docstring).
     """
 
     def __init__(self, target_shape: Tuple[int, int, int] = (96, 96, 1),
                  crop_border: int = 3, bit_depth: int = 16,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, mesh=None):
         self.th, self.tw, self.tc = target_shape
         self.border = crop_border
         self.max_shift = 2 * crop_border
@@ -81,6 +94,7 @@ class ShiftCompensatedLosses:
         self.ch = self.th - self.max_shift
         self.cw = self.tw - self.max_shift
         self.use_kernel = use_kernel
+        self.mesh = mesh
         self.pi = 0.7                        # SobelL1Mix blend
         # Multi-scale SSIM constants.
         self.sigma = (0.5, 1.0, 2.0, 4.0, 8.0)
@@ -205,7 +219,6 @@ class ShiftCompensatedLosses:
         b, c = hr.shape[1], hr.shape[4]
         if w is None:
             w = torch.ones(b, dtype=torch.float32, device=hr.device)
-        denom = w.sum() * c
         wb = w[:, None, None, None]                              # [B,1,1,1]
         weights = self._windows(mask)                            # [S,5,B,..]
         hr, sr = hr[:, None], sr[:, None]                        # [S,1,B,..]
@@ -224,11 +237,17 @@ class ShiftCompensatedLosses:
 
         pcs = torch.prod((con ** self.beta) * (struct ** self.gamma), dim=1,
                          keepdim=True)                           # [S,1,B,..]
-        per = (lum ** self.alpha) * pcs * wb
-        loss = 1.0 - per.sum(dim=(1, 2, 3, 4, 5)) / denom
+        per = ((lum ** self.alpha) * pcs * wb).sum(dim=(1, 2, 3, 4, 5))
         # Mixed with a window-weighted normalised L1.
-        l1w = ((hr - sr).abs() * weights * wb).sum(dim=(1, 2, 3, 4, 5)) \
-            / denom / self.num_bytes
+        l1w = ((hr - sr).abs() * weights * wb).sum(dim=(1, 2, 3, 4, 5))
+        w_sum = w.sum()
+        if self.mesh is not None:   # the global batch's sums, before the min
+            s = per.shape[0]
+            sums = all_sum(torch.cat([per, l1w, w_sum.view(1)]), self.mesh)
+            per, l1w, w_sum = sums[:s], sums[s:2 * s], sums[2 * s]
+        denom = w_sum * c
+        loss = 1.0 - per / denom
+        l1w = l1w / denom / self.num_bytes
         return self.eta * loss + (1.0 - self.eta) * l1w
 
     def by_name(self, name: str):
@@ -254,9 +273,16 @@ class ShiftCompensatedLosses:
     def weighted(self, name: str):
         """fn(hr, mask, pred, w[B]) -> scalar, equal to ``by_name(name)`` on
         the rows with w == 1 (padded eval rows carry w == 0): a weighted
-        mean of ``per_sample``, or ``rev_msssim_weighted``."""
+        mean of ``per_sample``, or ``rev_msssim_weighted``.  Under a mesh,
+        of the rows of every rank."""
         if name == "l1msssim":
             return self.rev_msssim_weighted
         ps = self.per_sample(name)
-        return lambda hr, mask, pred, w: (ps(hr, mask, pred) * w).sum() \
-            / w.sum()
+
+        def weighted(hr, mask, pred, w):
+            num, den = (ps(hr, mask, pred) * w).sum(), w.sum()
+            if self.mesh is not None:
+                num, den = all_sum(torch.stack([num, den]), self.mesh)
+            return num / den
+
+        return weighted

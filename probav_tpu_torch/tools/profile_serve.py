@@ -45,8 +45,9 @@ def synthetic_patches(scenes: int, seed: int = 0) -> np.ndarray:
         .astype(np.float32)
 
 
-def make_resolver(cfg: str, dtype: str, fused: bool, device):
-    """A Resolver over the cfg's model from torch.Generator seed 0."""
+def make_resolver(cfg: str, dtype: str, fused: bool, device, mesh=None):
+    """A Resolver over the cfg's model from torch.Generator seed 0, on
+    ``mesh``'s data axis where given."""
     import torch
 
     from probav_tpu_torch.infer.resolver import Resolver
@@ -56,7 +57,8 @@ def make_resolver(cfg: str, dtype: str, fused: bool, device):
                         fused_stack=fused,
                         generator=torch.Generator().manual_seed(0))
     scene = model.patch_size_lr * model.scale * 8        # 8x8 patch grid
-    return Resolver(model, None, scene_size=scene, device=device)
+    return Resolver(model, None, scene_size=scene, device=device,
+                    mesh=mesh)
 
 
 def warm_rates(resolver, patches: np.ndarray, repeats: int) -> list:

@@ -101,14 +101,15 @@ def synthetic_batch(n: int, seed: int = 0, hr_clear: float = 0.9):
 def make_trainer(cfg, dtype: str, tier, device, workdir: str,
                  band: str = "NIR", use_kernel: bool = False,
                  fused_block: bool = False, model_type: str = "wdsr",
-                 loss: str | None = None, remat: bool = False):
+                 loss: str | None = None, remat: bool = False,
+                 mesh=None):
     """A ModelTrainer over the cfg's model (``model_type`` "wdsr" or
     "iwdsr") from torch.Generator seed 0 with stack tier ``tier``
     (``fused_block`` and ``remat`` in the "off" tier; "wdsr" only), with
     the cfg's
     optimizer and loss (or ``loss``, a cfg loss key; ``use_kernel``: its
     tables on the shift-table kernels); checkpoints and logs in
-    workdir."""
+    workdir; data-parallel on ``mesh`` where given."""
     import torch
 
     from probav_tpu_torch.models.wdsr import build_model
@@ -123,13 +124,13 @@ def make_trainer(cfg, dtype: str, tier, device, workdir: str,
     target = cfg.hr_patch_size
     loss = loss or cfg.loss
     losses = ShiftCompensatedLosses(target_shape=(target, target, 1),
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel, mesh=mesh)
     trainer = ModelTrainer(
         model, losses.by_name(loss), losses.cpsnr,
         build_optimizer(cfg.optimizer, cfg.learning_rate),
         ckpt_dir=os.path.join(workdir, "ckpt"),
         log_dir=os.path.join(workdir, "logs"),
-        loss_weighted_fn=losses.weighted(loss), device=device)
+        loss_weighted_fn=losses.weighted(loss), device=device, mesh=mesh)
     trainer.init_state()
     return trainer
 

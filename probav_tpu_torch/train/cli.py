@@ -4,7 +4,7 @@
         [--modelType {patchNet,fusionNet,iwdsr}] [--bf16] [--staged-decay] \\
         [--eval-step N] [--save-best-only] [--device cuda] \\
         [--fused-stack {off,flat,t}] [--plain] [--remat] [--device-data] \\
-        [--profile-dir DIR]
+        [--profile-dir DIR] [--mesh-data N] [--mesh-model 1]
 
 ``patchNet`` (the default) and ``iwdsr`` load the stage-5 arrays from the
 cfg's ``augmentedPatchesDir`` (pickled masked arrays:
@@ -46,6 +46,19 @@ trace window, as in the JAX trainer) raise ValueError; train.py drops
 them silently.  ``--device`` defaults to ``cuda`` and fails without
 a card; ``--device cpu`` runs the kernels' plain versions.  ``--band
 BOTH`` runs NIR, then RED.
+
+``--mesh-data N`` (N >= 1; 0, the default, runs one process, as train.py)
+trains ``patchNet`` or ``iwdsr`` data-parallel on N ranks started by
+``probav_tpu_torch.parallel.launch``: NCCL with rank r on ``cuda:r`` (N
+at most the card count), or gloo with one thread a rank under ``--device
+cpu``.  Each rank runs the step (and its kernels) on its share of every
+batch of the cfg's batch size, which must divide by N; the gradients are
+averaged over the ranks, rank 0 writes the checkpoints and logs, and
+``main`` returns rank 0's results (``train/trainer.py``).  With
+``--device-data`` each rank holds the whole dataset on its card.
+``--mesh-model`` above 1 (tensor parallelism, not ported) and
+``fusionNet`` with ``--mesh-data`` (train.py drops the mesh there) raise
+ValueError.
 """
 
 from __future__ import annotations
@@ -88,7 +101,20 @@ def parse_args(argv=None):
                         "batches there (ModelTrainer.fit_device)")
     p.add_argument("--profile-dir", default=None,
                    help="write a trace of steps 10-19 into this directory")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="data-parallel ranks, one a device (0: one process)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel mesh size (only 1 is ported)")
     opt = p.parse_args(argv)
+    if opt.mesh_model > 1:
+        from probav_tpu_torch.parallel.mesh import TENSOR_PARALLEL_REFUSAL
+        raise ValueError(TENSOR_PARALLEL_REFUSAL)
+    if opt.mesh_data < 0:
+        raise ValueError(f"--mesh-data {opt.mesh_data}: want 0 (one "
+                         "process) or a rank count")
+    if opt.mesh_data and opt.modelType == "fusionNet":
+        raise ValueError("--mesh-data: --modelType fusionNet trains in one "
+                         "process")
     if opt.device_data and opt.profile_dir:
         raise ValueError("--device-data has no trace window: "
                          "--profile-dir traces the streamed loop")
@@ -130,9 +156,9 @@ def load_stage5(cfg, band: str):
             [f32(x_val), f32(y_val), mask(y_val)])
 
 
-def patch_net(cfg, band: str, opt) -> dict:
+def patch_net(cfg, band: str, opt, mesh=None) -> dict:
     """WDSRConv3D (patchNet) or IWDSRConv3D (iwdsr) on the stage-5
-    patches."""
+    patches; data-parallel on ``mesh`` (this rank's) where given."""
     import torch
 
     from probav_tpu_torch.models.wdsr import build_model
@@ -154,12 +180,13 @@ def patch_net(cfg, band: str, opt) -> dict:
                          steps_per_epoch=steps_per_epoch,
                          use_staged_decay=opt.staged_decay)
     target = cfg.hr_patch_size
-    losses = ShiftCompensatedLosses(target_shape=(target, target, 1))
+    losses = ShiftCompensatedLosses(target_shape=(target, target, 1),
+                                    mesh=mesh)
     trainer = ModelTrainer(
         model, losses.by_name(cfg.loss), losses.cpsnr, tx,
         ckpt_dir=cfg.ckpt_dir(band), log_dir=cfg.log_dir(band),
         eval_step=opt.eval_step, loss_weighted_fn=losses.weighted(cfg.loss),
-        device=opt.device)
+        device=opt.device, mesh=mesh)
     trainer.init_state()
     if opt.device_data:
         result = trainer.fit_device(x_train, y_train, cfg.batch_size,
@@ -215,21 +242,39 @@ def fusion_net(cfg, band: str, opt) -> dict:
     return result
 
 
+def rank_main(mesh, opt, bands, log_level) -> dict:
+    """One rank of ``--mesh-data``: {band: patch_net's result}
+    (``cli_rank`` sets up its logging and precision)."""
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.parallel.launch import cli_rank
+
+    cli_rank(mesh, opt, log_level)
+    cfg = Config.from_file(opt.cfg)
+    return {band: patch_net(cfg, band, opt, mesh) for band in bands}
+
+
 def main(argv=None) -> dict:
-    """Run the CLI; returns {band: fit result}."""
+    """Run the CLI; returns {band: fit result} (rank 0's with
+    --mesh-data)."""
     opt = parse_args(argv)
     import torch
 
     from probav_tpu_torch.config import Config
+    from probav_tpu_torch.parallel.launch import launch, set_tf32
+    from probav_tpu_torch.parallel.mesh import check_divisible
 
-    if not opt.bf16:   # float32 products in float32: no one-pass TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    set_tf32(opt)
     if torch.device(opt.device).type == "cuda" and \
             not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
     cfg = Config.from_file(opt.cfg)
     bands = ["NIR", "RED"] if opt.band.upper() == "BOTH" else [opt.band]
+    if opt.mesh_data:
+        check_divisible("the cfg's batch size", cfg.batch_size,
+                        opt.mesh_data)
+        return launch(rank_main, opt.mesh_data, opt, bands,
+                      logging.getLogger().getEffectiveLevel(),
+                      device=opt.device)
     run = fusion_net if opt.modelType == "fusionNet" else patch_net
     return {band: run(cfg, band, opt) for band in bands}

@@ -13,6 +13,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from typing import Optional
 
 import torch
 
@@ -58,11 +59,15 @@ class Mean:
 
 
 class ScalarLogger:
-    """JSONL scalar logger, plus TensorBoard where it is installed."""
+    """JSONL scalar logger, plus TensorBoard where it is installed.  With
+    ``log_dir`` None it writes nothing (the ranks of a mesh but rank 0)."""
 
-    def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
+    def __init__(self, log_dir: Optional[str]):
         self.log_dir = log_dir
+        self._jsonl = self._tb = None
+        if log_dir is None:
+            return
+        os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         try:
             from torch.utils.tensorboard import SummaryWriter
@@ -71,6 +76,8 @@ class ScalarLogger:
             self._tb = None
 
     def scalar(self, tag: str, value: float, step: int) -> None:
+        if self._jsonl is None:
+            return
         value = float(value)
         self._jsonl.write(json.dumps(
             {"tag": tag, "value": value, "step": int(step),
@@ -79,12 +86,14 @@ class ScalarLogger:
             self._tb.add_scalar(tag.replace(" ", "_"), value, step)
 
     def flush(self) -> None:
-        self._jsonl.flush()
+        if self._jsonl is not None:
+            self._jsonl.flush()
         if self._tb is not None:
             self._tb.flush()
 
     def close(self) -> None:
         self.flush()
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

@@ -13,8 +13,9 @@ Behaviour kept from the JAX trainer (and its reference):
 - save-best-only gating on validation cPSNR, keep-5 checkpoints, and an
   always-final validation and save;
 - a ragged last validation batch is padded to the full batch with weight-0
-  rows when the model runs the "t" kernel stack (the JAX trainer pads for
-  its "t" tier), so both the metric and the loss stay exact;
+  rows when the model runs the "t" kernel stack or under a mesh (the JAX
+  trainer pads for its "t" tier and its mesh), so both the metric and the
+  loss stay exact;
 - ``fit(profile_dir=...)`` traces global steps 10 to 19
   (``PROFILE_WINDOW``, the JAX trainer's default ``profile_window``, which
   the port does not take as an argument) into that directory
@@ -32,8 +33,31 @@ per chunk of ``min(eval_step, steps per epoch)`` steps.  The JAX trainer
 runs a chunk as one ``lax.scan``; the port runs the same eager step in a
 Python loop (``_run_chunk``) that reads nothing back.  Checkpoints are
 ``torch.save`` files of (params, optimizer state, step, best_psnr), the
-same for both loops, so either resumes the other's.  Not ported yet:
-meshes and tensor parallelism.
+same for both loops, so either resumes the other's.
+
+Under a data mesh (``mesh=``, ``probav_tpu_torch.parallel``; one process a
+device, started by ``parallel.launch``) every rank runs this trainer on its
+equal share of each global batch, and the step is the one-device step on
+the global batch:
+- ``fit``: every rank's ``Batcher`` draws the same permutation and
+  gathers only its ``batch_share`` of each batch on the host;
+  ``fit_device``: every rank holds the whole dataset on its device (the
+  JAX trainer shards it over 'data') and gathers its share of each step's
+  indices;
+- the gradients, the loss and the cPSNR of a step are averaged over the
+  data group in one all-reduce of one flat buffer before the update, so
+  the update, the logged values and the parameters are equal on every
+  rank.  ``torch.autograd.grad`` fires no ``DistributedDataParallel``
+  hook, so the trainer reduces itself; on NCCL the all-reduce reads
+  nothing back to the host;
+- validation pads every ragged batch, each rank scores its share, and the
+  weighted sums are summed over the group (the losses do so themselves
+  when built with the mesh, ``ShiftCompensatedLosses(mesh=...)``);
+- the parameters, the optimizer state, the step and the best cPSNR are
+  broadcast from rank 0 after ``init_state``; rank 0 alone writes
+  checkpoints (a barrier follows each save), scalar logs and the profile
+  trace; every rank restores the newest checkpoint.
+Tensor parallelism (a 'model' axis) is not ported.
 """
 
 from __future__ import annotations
@@ -48,8 +72,11 @@ from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from probav_tpu_torch.data.loader import Batcher, prefetch_to_device
+from probav_tpu_torch.parallel.mesh import (all_mean, barrier, batch_share,
+                                            broadcast_)
 from probav_tpu_torch.train.metrics import Mean, ScalarLogger
 from probav_tpu_torch.train.optim import Optimizer, state_to
 from probav_tpu_torch.utils.profiling import trace
@@ -94,15 +121,19 @@ class ModelTrainer:
     data, ``[0, 1]`` for a model without them.
 
     ``loss_fn`` and ``metric_fn`` take (hr, mask, pred); ``loss_weighted_fn``
-    (hr, mask, pred, w[B]) makes padded validation batches exact.
+    (hr, mask, pred, w[B]) makes padded validation batches exact.  With a
+    ``mesh`` (``parallel.Mesh``) the trainer runs on ``mesh.device`` and
+    ``device`` is ignored.
     """
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
                  metric_fn: Callable, optimizer: Optimizer, ckpt_dir: str,
                  log_dir: str, eval_step: int = 1000, log_every: int = 20,
                  loss_weighted_fn: Optional[Callable] = None,
-                 device="cuda"):
-        self.device = torch.device(device)
+                 device="cuda", mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            torch.device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
         self.loss_w_fn = loss_weighted_fn
@@ -112,7 +143,7 @@ class ModelTrainer:
         self.log_every = log_every
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        self.logger_ = ScalarLogger(log_dir)
+        self.logger_ = ScalarLogger(log_dir if self.is_chief else None)
         self.best_psnr = 1.0   # reference init
         self.params = dict(self.model.named_parameters())
         self.opt_state: Optional[dict] = None
@@ -122,6 +153,12 @@ class ModelTrainer:
                                   getattr(model, "std", 1.0)],
                                  dtype=torch.float32, device=self.device)
 
+    @property
+    def is_chief(self) -> bool:
+        """Whether this process writes checkpoints and logs: rank 0 of a
+        mesh, or the only process."""
+        return self.mesh is None or self.mesh.is_chief
+
     # ------------------------------------------------------------------ #
     # state init / checkpointing                                          #
     # ------------------------------------------------------------------ #
@@ -130,12 +167,29 @@ class ModelTrainer:
                    ) -> None:
         """Start from the model's own (seeded) weights or ``params`` (a
         state_dict, e.g. ``convert.load_npz``), with a fresh optimizer
-        state; then resume from the latest checkpoint if there is one."""
+        state; then resume from the latest checkpoint if there is one.
+        Under a mesh, rank 0's state is then broadcast to every rank."""
         if params is not None:
             self.model.load_state_dict(params)
         self.opt_state = state_to(self.tx.init(self.params), self.device)
         self.step = 0
         self.restore()
+        if self.mesh is not None:
+            self._broadcast_state()
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters, optimizer state, step and best cPSNR on
+        every rank, whatever their seeds or checkpoints."""
+        moments = [v for key in ("mu", "nu")   # adam, nadam; sgd has none
+                   for v in self.opt_state.get(key, {}).values()]
+        broadcast_(list(self.params.values()) + moments, self.mesh)
+        meta = torch.tensor([self.step, int(self.opt_state["count"]),
+                             self.best_psnr], dtype=torch.float64,
+                            device=self.device)
+        broadcast_([meta], self.mesh)
+        step, count, best = meta.tolist()
+        self.step, self.best_psnr = int(step), best
+        self.opt_state["count"] = torch.tensor(int(count), dtype=torch.int32)
 
     def checkpoints(self) -> list:
         """(step, path) of the checkpoints in ckpt_dir, oldest first."""
@@ -157,7 +211,16 @@ class ModelTrainer:
         return True
 
     def save(self) -> str:
-        """Write the checkpoint of this step; keep the last MAX_TO_KEEP."""
+        """Write the checkpoint of this step; keep the last MAX_TO_KEEP.
+        Under a mesh only rank 0 writes, and every rank waits for it."""
+        path = os.path.join(self.ckpt_dir, f"step_{self.step:08d}.pt")
+        if self.is_chief:
+            self._write(path)
+        if self.mesh is not None:
+            barrier(self.mesh)
+        return path
+
+    def _write(self, path: str) -> None:
         payload = {
             "params": {k: v.detach().cpu()
                        for k, v in self.model.state_dict().items()},
@@ -165,45 +228,72 @@ class ModelTrainer:
             "step": self.step,
             "best_psnr": float(self.best_psnr),
         }
-        path = os.path.join(self.ckpt_dir, f"step_{self.step:08d}.pt")
         tmp = path + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
         for _, old in self.checkpoints()[:-MAX_TO_KEEP]:
             os.unlink(old)
-        return path
 
     # ------------------------------------------------------------------ #
     # steps                                                               #
     # ------------------------------------------------------------------ #
 
-    def loss_and_grads(self, lr, hr, mask):
-        """(loss, pred, {name: gradient}) at the current parameters."""
+    def _local_grads(self, lr, hr, mask):
+        """(loss, pred, {name: gradient}) of this process's batch."""
         pred = self.model(lr, self.norm)
         loss = self.loss_fn(hr, mask, pred)
         grads = torch.autograd.grad(loss, list(self.params.values()))
         return loss, pred, dict(zip(self.params, grads))
 
+    def _data_mean(self, scalars: list, grads: dict) -> tuple:
+        """The scalars and gradients averaged over the mesh's data group,
+        in one all-reduce."""
+        out = all_mean([v.detach().reshape(1) for v in scalars] +
+                       list(grads.values()), self.mesh)
+        k = len(scalars)
+        return [v[0] for v in out[:k]], dict(zip(grads, out[k:]))
+
+    def loss_and_grads(self, lr, hr, mask):
+        """(loss, pred, {name: gradient}) at the current parameters.  Under
+        a mesh the loss and the gradients are the global batch's (averaged
+        over the data group) and pred is this rank's share's."""
+        loss, pred, grads = self._local_grads(lr, hr, mask)
+        if self.mesh is not None:
+            (loss,), grads = self._data_mean([loss], grads)
+        return loss, pred, grads
+
     def train_step(self, lr, hr, mask):
-        """One update; returns (loss, metric) as device scalars."""
-        loss, pred, grads = self.loss_and_grads(lr, hr, mask)
-        self.tx.step(self.params, grads, self.opt_state)
+        """One update; returns (loss, metric) as device scalars, the global
+        batch's under a mesh."""
+        loss, pred, grads = self._local_grads(lr, hr, mask)
         with torch.no_grad():
             metric = self.metric_fn(hr, mask, pred.detach()).mean()
+        if self.mesh is not None:
+            (loss, metric), grads = self._data_mean([loss, metric], grads)
+        self.tx.step(self.params, grads, self.opt_state)
         self.step += 1
         return loss.detach(), metric
 
     @torch.no_grad()
     def eval_step(self, lr, hr, mask, w):
         """(loss, metric) with per-sample weights w [B]; rows with w == 0
-        (padding) do not count."""
+        (padding) do not count.  Under a mesh, of the rows of every rank:
+        ``loss_weighted_fn`` sums over the data group itself; the metric's
+        sums, or a plain ``loss_fn``'s value, are reduced here."""
         pred = self.model(lr, self.norm)
-        metric = (self.metric_fn(hr, mask, pred) * w).sum() / w.sum()
+        num, den = (self.metric_fn(hr, mask, pred) * w).sum(), w.sum()
         if self.loss_w_fn is not None:
             loss = self.loss_w_fn(hr, mask, pred, w)
         else:
             loss = self.loss_fn(hr, mask, pred)
-        return loss, metric
+        if self.mesh is not None:
+            mean_loss = [] if self.loss_w_fn else [loss / self.mesh.world]
+            sums = torch.stack([num, den] + mean_loss)
+            dist.all_reduce(sums)
+            num, den = sums[0], sums[1]
+            if mean_loss:
+                loss = sums[2]
+        return loss, num / den
 
     # ------------------------------------------------------------------ #
     # fit loop                                                            #
@@ -217,11 +307,15 @@ class ModelTrainer:
         batches gathered on the host.  With ``profile_dir``, the global
         steps of ``PROFILE_WINDOW`` run under ``utils.profiling.trace``
         into that directory; the device is synchronized before the trace
-        stops, also where the run ends inside the window."""
+        stops, also where the run ends inside the window.  Under a mesh
+        ``batch_size`` is the global batch (it must divide by the data
+        size) and only rank 0 traces."""
         hr, mask = y
+        share = self._share(batch_size)
         if self.opt_state is None:
             self.init_state()
-        train_batcher = Batcher((x, hr, mask), batch_size, seed=seed)
+        train_batcher = Batcher((x, hr, mask), batch_size, seed=seed,
+                                rows=share)
         # Validation keeps partial batches, as the reference does.
         val_batcher = Batcher(tuple(val_data), batch_size, seed=seed + 1,
                               drop_remainder=False)
@@ -239,9 +333,11 @@ class ModelTrainer:
         seen = 0
 
         logger.info("[ INFO ] Begin training...")
-        stream = prefetch_to_device(
-            train_batcher.repeat(epochs - done_epochs, skip=step),
-            self.device)
+        batches = train_batcher.repeat(epochs - done_epochs, skip=step)
+        stream = prefetch_to_device(batches, self.device)
+        world = 1 if self.mesh is None else self.mesh.world
+        if not self.is_chief:
+            profile_dir = None
         with contextlib.ExitStack() as profiling:
             for lr_b, hr_b, mask_b in stream:
                 if total_steps - step == 0:
@@ -265,7 +361,7 @@ class ModelTrainer:
                 loss, metric = self.train_step(lr_b, hr_b, mask_b)
                 train_loss.update(loss)
                 train_psnr.update(metric)
-                seen += len(lr_b)
+                seen += len(lr_b) * world
 
                 if global_step % self.log_every == 0 or step == total_steps:
                     tl, tp = train_loss.result(), train_psnr.result()
@@ -316,6 +412,12 @@ class ModelTrainer:
     # device-resident loop                                                #
     # ------------------------------------------------------------------ #
 
+    def _share(self, n: int) -> slice:
+        """This rank's rows of a global batch of n: all of them without a
+        mesh; ValueError where n does not divide by the data size."""
+        return slice(None) if self.mesh is None else \
+            batch_share(self.mesh, n)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -361,8 +463,13 @@ class ModelTrainer:
         replays the permutation draws of completed epochs and skips the
         steps done in the current one (the JAX trainer skips whole chunks,
         which is the same wherever a checkpoint lies on a chunk boundary,
-        as both loops' checkpoints do at equal ``eval_step``)."""
+        as both loops' checkpoints do at equal ``eval_step``).
+
+        Under a mesh every rank holds the whole dataset on its device (the
+        JAX trainer shards it over 'data') and gathers its
+        ``batch_share`` of each step's indices."""
         hr, mask = y
+        share = self._share(batch_size)
         if self.opt_state is None:
             self.init_state()
         data = self.resident((x, hr, mask))
@@ -385,8 +492,9 @@ class ModelTrainer:
                     self.device)
         for epoch in range(done_epochs, epochs):
             perm = rng.permutation(n)[:steps_per_epoch * batch_size]
-            perm = torch.from_numpy(
-                perm.reshape(steps_per_epoch, batch_size)).to(self.device)
+            perm = perm.reshape(steps_per_epoch, batch_size)[:, share]
+            perm = torch.from_numpy(np.ascontiguousarray(perm)).to(
+                self.device)
             first = resume_step if epoch == done_epochs else 0
             for start in range(0, steps_per_epoch, chunk):
                 idx = perm[max(start, first):start + chunk]
@@ -429,12 +537,16 @@ class ModelTrainer:
         }
 
     def evaluate(self, val_batcher: Batcher, val_steps: int) -> tuple:
-        """(loss, cPSNR) over ``val_steps`` batches of the validation set."""
+        """(loss, cPSNR) over ``val_steps`` batches of the validation set.
+        Under a mesh every batch is padded to the full size and each rank
+        scores its share of it."""
         test_loss, test_psnr = Mean("testLoss"), Mean("testPSNR")
         full = val_batcher.batch_size
         rng = np.random.default_rng((val_batcher.seed, self.step))
         src = itertools.islice(val_batcher.epoch(rng=rng), val_steps)
-        pad_ragged = getattr(self.model, "fused_stack", "off") == "t"
+        pad_ragged = self.mesh is not None or \
+            getattr(self.model, "fused_stack", "off") == "t"
+        share = self._share(full)
         counts: list = []
 
         def padded(stream):
@@ -448,7 +560,7 @@ class ModelTrainer:
                     w = np.resize(w, full)
                     w[true_n:] = 0.0
                 counts.append(true_n)
-                yield lr_b, hr_b, mask_b, w
+                yield lr_b[share], hr_b[share], mask_b[share], w[share]
 
         for i, (lr_b, hr_b, mask_b, w) in enumerate(
                 prefetch_to_device(padded(src), self.device)):
