@@ -40,12 +40,13 @@ Phases, each printing its result:
    the three bf16 products of each product with a float32 operand) and the
    shift tables integer planes (probav_tpu_torch/tools/dyadic.py), on
    which both versions take the same relu, sign and rounding decisions;
-   blk_bwd's last launch, reduce_partials_kernel, is held to
-   ``torch.sum(part.view(G, len), 0)`` over the same partial slots at both
-   dtypes, and both are timed as device time in one profiler trace of
-   blk_bwd then torch.sum on the partials it just wrote and reduced, and
-   torch.sum also after an L2 scrub (the kernel has no entry of its own,
-   so CUDA events cannot isolate it);
+   the last launch of blk_bwd and wide_bwd, reduce_partials_kernel, is
+   held to ``torch.sum(part[:G, :len], 0)`` over the same partial slots at
+   both dtypes (its own C entry also at 7 slots of 31 floats, and on the
+   entries' slots equal to their reduce bit for bit), and both are timed
+   as device time in profiler traces: warm, the entry then torch.sum on
+   the partials it just wrote and reduced; cold, an L2 scrub then the
+   kernel's own entry, and the scrub then torch.sum (reduce_vs_sum);
 4. widths: the four block-stack kernels beyond the flagship's channels,
    at the widths of the 48-, 72- and 128-filter models (48/384/38,
    72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
@@ -533,97 +534,149 @@ def check_rel(name, got, ref, rtol, atol_frac):
 REDUCE_TOL = 1e-5
 
 
-def kernel_ms(torch, call, reps=10):
-    """{kernel name: device ms per call of ``call``} from a profiler trace
-    of ``reps`` calls back to back, after one warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    times = {}
-    for e in prof.key_averages():
-        us = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            times[e.key] = times.get(e.key, 0.0) + us / 1e3 / reps
-    return times
-
-
 L2_SCRUB_BYTES = 256 << 20   # > the H100's 50 MB L2
 
 
-def reduce_vs_sum(torch, ts, args, dn, card):
-    """blk_bwd's C entry with partial slots of our own, then
-    ``torch.sum(part.view(G, len), 0)``, the one PyTorch call computing
-    reduce_partials_kernel's function, held to the kernel's output.  Both
-    are timed in one profiler trace of the entry then torch.sum: the
-    kernel reads the partials that the entry's earlier launches just
-    wrote, as on the main path, and torch.sum reads them right after it,
-    no colder.  torch.sum is timed again after an L2 scrub (a 256 MiB
-    read and write) between the entry and the sum: its time on partials
-    that are in DRAM only."""
+def reduce_vs_sum(torch, ts, bwd_args, wide_args, dn, card):
+    """reduce_partials_kernel, the last launch of blk_bwd's and wide_bwd's
+    C entries, against ``torch.sum(part[:G, :len], 0)``, the one PyTorch
+    call computing its function.  First the kernel's own C entry
+    (``tstack.reduce_partials``) on random normal partials at an odd shape
+    (7 slots of 31 floats).  Then each C entry is called with partial
+    slots of our own (``tstack.slot_stride`` apart, NaN before the first
+    call, so a slot the reduce must not read would show): torch.sum over
+    the slots it wrote (all G for blk_bwd; wide_bwd's tensor-core kernels
+    write one wave, one block an SM) held to the entry's output, and the
+    kernel's own entry on the same slots equal to it bit for bit.  Device
+    times from profiler traces: warm, 10 rounds of the entry then torch.sum
+    (the kernel reads the partials that the entry's earlier launches just
+    wrote, as on the main path, and torch.sum reads them right after it);
+    cold, 10 rounds of an L2 scrub (a 256 MiB read and write) then the
+    kernel's own entry, and of the scrub then torch.sum (partials in DRAM
+    only).  Each time is logged beside the reduce's DRAM bound, 4 (G + 1)
+    len bytes at 3.35 TB/s; a time slower than torch.sum's in the same
+    regime is logged as missed, not failed."""
     from probav_tpu_torch.ops import _build
+    from probav_tpu_torch.tools.reduce_variants import kernel_ms
     from probav_tpu_torch.tools.time_conv import blk_bwd_part_costs
 
-    gy, x, d, w1, b1, w2, wc = args
+    dev = bwd_args[1].device
+    r = np.random.default_rng(23)
+    odd = torch.full((7, ts.slot_stride(31)), float("nan"), device=dev)
+    odd[:, :31] = torch.from_numpy(r.normal(size=(7, 31)).astype(
+        np.float32)).to(dev)
+    before = ts.LAUNCHES["reduce_partials"]
+    got = ts.reduce_partials(odd, 31)
+    torch.cuda.synchronize()
+    if ts.LAUNCHES["reduce_partials"] != before + 1:
+        raise AssertionError("reduce_partials: no launch counted")
+    err, scale = check(f"reduce_partials [G=7 x 31] {dn}", got,
+                       torch.sum(odd[:, :31], 0), REDUCE_TOL)
+    log(f"kernel reduce_partials [G=7 x 31, stride {odd.shape[1]}]: its C "
+        f"entry against torch.sum max|diff| {err:.3e} (max|ref| "
+        f"{scale:.3e}, tol {REDUCE_TOL:g}); plan (tiles, ranks, warps, "
+        f"clusters held) {ts.reduce_plan(7, 31)}")
+
+    lib = _build.library()
+    code = ts._DTYPE_CODE[bwd_args[1].dtype]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gy, x, d, w1, b1, w2, wc = bwd_args
     b, h, w, t, c = x.shape
     c_mid, c_dec = w2.shape
-    groups = ts.partial_slots(x.device, c, c_dec)
-    slot = 27 * c_dec * c + c * c_mid + c_mid * c_dec + c_mid + c_dec + c
-    part = torch.empty((groups, slot), dtype=torch.float32, device=x.device)
-    out = torch.empty(slot, dtype=torch.float32, device=x.device)
-    dd, dx = torch.empty(d.shape, dtype=x.dtype, device=x.device), \
-        torch.empty_like(x)
     w1c, w2c = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
     b1c = b1.float().contiguous()
     wflip = wc.to(x.dtype).flip(0, 1, 2).transpose(3, 4).contiguous()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dd, dx = torch.empty(d.shape, dtype=x.dtype, device=dev), \
+        torch.empty_like(x)
+    groups = ts.partial_slots(dev, c, c_dec)
+    slot = 27 * c_dec * c + c * c_mid + c_mid * c_dec + c_mid + c_dec + c
+    part = torch.full((groups, ts.slot_stride(slot)), float("nan"),
+                      device=dev)
+    out = torch.empty(slot, dtype=torch.float32, device=dev)
 
-    def entry():
-        _build.check(_build.library().probav_blk_bwd(
-            ts._DTYPE_CODE[x.dtype], gy.data_ptr(), x.data_ptr(),
-            d.data_ptr(), wflip.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
+    def blk_entry():
+        _build.check(lib.probav_blk_bwd(
+            code, gy.data_ptr(), x.data_ptr(), d.data_ptr(),
+            wflip.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
             w2c.data_ptr(), dd.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            out.data_ptr(), groups, b, h, w, t, c, c_mid, c_dec, stream),
-            "blk_bwd")
+            out.data_ptr(), groups, part.shape[1], b, h, w, t, c, c_mid,
+            c_dec, stream), "blk_bwd")
 
-    entry()
-    torch.cuda.synchronize()
-    lib = lambda: torch.sum(part.view(groups, slot), 0)
-    err, scale = check(f"torch.sum of blk_bwd's partials {dn}", out, lib(),
-                       REDUCE_TOL)
+    xw, w1w, b1w, w2w, dyw = wide_args
+    n, cw = xw.shape
+    wmid, wdec = w2w.shape
+    w1wc, w2wc = w1w.to(xw.dtype).contiguous(), w2w.to(xw.dtype).contiguous()
+    b1wc = b1w.float().contiguous()
+    dxw = torch.empty_like(xw)
+    wgroups = ts.partial_slots(dev, cw, wdec)
+    wslot = cw * wmid + wmid * wdec + wmid + wdec
+    wpart = torch.full((wgroups, ts.slot_stride(wslot)), float("nan"),
+                       device=dev)
+    wout = torch.empty(wslot, dtype=torch.float32, device=dev)
+
+    def wide_entry():
+        _build.check(lib.probav_wide_bwd(
+            code, xw.data_ptr(), w1wc.data_ptr(), b1wc.data_ptr(),
+            w2wc.data_ptr(), dyw.data_ptr(), dxw.data_ptr(),
+            wpart.data_ptr(), wout.data_ptr(), wgroups, wpart.shape[1], n,
+            cw, wmid, wdec, stream), "wide_bwd")
+
     scrub = torch.zeros(L2_SCRUB_BYTES // 4, dtype=torch.float32,
-                        device=x.device)
+                        device=dev)
     scrub_l2 = lambda: scrub.add_(1.0)
-    # torch.sum's kernels by name; a name that blk_bwd or the scrub also
-    # launches (a memset) cannot be told apart in a trace and is left out.
-    sum_all = set(kernel_ms(torch, lib))
-    shared = sum_all & (set(kernel_ms(torch, entry)) |
-                        set(kernel_ms(torch, scrub_l2)))
-    sum_names = sum_all - shared
-    seq = kernel_ms(torch, lambda: (entry(), lib()))
-    cold = kernel_ms(torch, lambda: (entry(), scrub_l2(), lib()))
-    kdev = sum(ms for k, ms in seq.items() if "reduce_partials_kernel" in k)
-    lseq = sum(seq.get(k, 0.0) for k in sum_names)
-    lcold = sum(cold.get(k, 0.0) for k in sum_names)
-    if not (kdev and lseq and lcold):
-        raise AssertionError(f"reduce_partials {dn}: no device time in the "
-                             f"trace (kernel {kdev}, torch.sum {lseq}, "
-                             f"{lcold})")
+    bcost = blk_bwd_part_costs(b * h * w * t, c, c_mid, c_dec, dn,
+                               groups)["reduce"]
+    # wide_bwd's tensor-core kernels hold one block an SM: one wave of
+    # min(G, SMs) blocks writes that many slots.
+    used = min(wgroups, sms)
+    cases = (("blk_bwd", blk_entry, part, out, groups, slot,
+              bcost["bound_ms"]),
+             ("wide_bwd", wide_entry, wpart, wout, used, wslot,
+              4 * (used + 1) * wslot / PEAK_BYTES * 1e3))
+    for label, entry, buf, res, g, length, bound_ms in cases:
+        entry()
+        torch.cuda.synchronize()
+        plain = lambda: torch.sum(buf[:g, :length], 0)
+        own = lambda: ts.reduce_partials(buf[:g], length)
+        err, scale = check(f"torch.sum of {label}'s partials {dn}", res,
+                           plain(), REDUCE_TOL)
+        if not torch.equal(own(), res):
+            raise AssertionError(f"reduce_partials of {label}'s partials "
+                                 f"{dn}: its C entry differs from the "
+                                 "entry's own reduce")
+        # torch.sum's kernels by name; a name that the entry or the scrub
+        # also launches (a memset) cannot be told apart in a trace and is
+        # left out.
+        sum_all = set(kernel_ms(torch, plain))
+        shared = sum_all & (set(kernel_ms(torch, entry)) |
+                            set(kernel_ms(torch, scrub_l2)))
+        sum_names = sum_all - shared
+        warm = kernel_ms(torch, lambda: (entry(), plain()))
+        cold_k = kernel_ms(torch, lambda: (scrub_l2(), own()))
+        cold_s = kernel_ms(torch, lambda: (scrub_l2(), plain()))
+        ours = lambda tr: sum(ms for k, ms in tr.items()
+                              if "reduce_partials_kernel" in k)
+        kw, kc = ours(warm), ours(cold_k)
+        sw = sum(warm.get(k, 0.0) for k in sum_names)
+        sc = sum(cold_s.get(k, 0.0) for k in sum_names)
+        if not (kw and kc and sw and sc):
+            raise AssertionError(f"reduce_partials {label} {dn}: no device "
+                                 f"time in the trace (kernel {kw}, {kc}, "
+                                 f"torch.sum {sw}, {sc})")
+        verdict = lambda k, s_: "held" if k <= s_ else "missed"
+        log(f"kernel reduce_partials {dn} [{label}: G={g} x {length}, "
+            f"stride {buf.shape[1]}; plan (tiles, ranks, warps, clusters "
+            f"held) {ts.reduce_plan(g, length)}]: torch.sum against the "
+            f"kernel's output max|diff| {err:.3e} (max|ref| {scale:.3e}, "
+            f"tol {REDUCE_TOL:g}); its own C entry equal to the bit; device "
+            f"time (profiler, 10 rounds): warm, the kernel in the entry "
+            f"{kw:.4f} ms, torch.sum right after it {sw:.4f} ms (no slower: "
+            f"{verdict(kw, sw)}); after an L2 scrub, the kernel {kc:.4f} ms "
+            f"({kc / bound_ms:.2f}x bound), torch.sum {sc:.4f} ms (no "
+            f"slower: {verdict(kc, sc)}); bound {bound_ms:.4f} ms by bytes "
+            f"(left out, shared: {sorted(shared)}) [{card}]")
     del scrub
-    cost = blk_bwd_part_costs(b * h * w * t, c, c_mid, c_dec, dn,
-                              groups)["reduce"]
-    log(f"kernel reduce_partials {dn} [G={groups} x {slot}]: torch.sum "
-        f"against the kernel's output max|diff| {err:.3e} (max|ref| "
-        f"{scale:.3e}, tol {REDUCE_TOL:g}); device time (profiler, 10 "
-        f"rounds of blk_bwd then torch.sum): kernel {kdev:.4f} ms, "
-        f"torch.sum right after it {lseq:.4f} ms, torch.sum after an L2 "
-        f"scrub {lcold:.4f} ms (left out, shared: {sorted(shared)}); "
-        f"bound {cost['bound_ms']:.4f} ms by {cost['bound_by']} [{card}]")
 
 
 def phase_kernels(torch, ts, dev, card):
@@ -720,8 +773,8 @@ def phase_kernels(torch, ts, dev, card):
         pms, ms = timed(torch, lambda: ts.blk_bwd_plain(*args),
                         lambda: ts.blk_bwd(*args), reps=10)
         row("blk_bwd", dn, errs[0], ms, pms, None)
-        reduce_vs_sum(torch, ts, args, dn, card)
-        del got, args
+        del got
+        bwd_args = args
 
         # wide_bwd: its five outputs on dyadic inputs, the tolerances of
         # blk_bwd (see BWD_TOL).
@@ -745,7 +798,8 @@ def phase_kernels(torch, ts, dev, card):
         pms, ms = timed(torch, lambda: wb.wide_bwd_plain(*args),
                         lambda: wb.wide_bwd(*args), reps=10)
         row("wide_bwd", dn, errs[0], ms, pms, None)
-        del got, args
+        reduce_vs_sum(torch, ts, bwd_args, args, dn, card)
+        del got, args, bwd_args
 
         # The 64-filter model's widths (c_dec 51 > C_out 32 buckets).
         x, (w1, b1, w2, b2, wc, bc) = stack_inputs(

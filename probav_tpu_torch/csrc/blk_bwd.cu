@@ -27,7 +27,10 @@
 //   2. wgrad: dWc, a sum over positions of d (shifted by the tap) times gy.
 //   3. seg_bwd: everything else: z recomputed, dz, dx, dW1, dW2 and the
 //      bias grads.  The wide z / dz [N, c_mid] never reach device memory.
-//   4. reduce: the weight-gradient partials.
+//   4. reduce: out[i] = sum over g of part[g][i], the weight-gradient
+//      partials of kernels 2 and 3 summed across their blocks (the JAX
+//      package sums its per-tile partials in XLA after its kernel,
+//      pallas_tstack.py:445-449); reduce_partials_kernel, below.
 //
 // Kernels 2 and 3 come in several versions, chosen from the dtype and the
 // widths before any launch.  At c_in, c_dec <= 32 and c_mid <= 256 (the
@@ -50,8 +53,11 @@
 // blocks; each block owns one float32 slot of the partial buffer and sums
 // into it over all its tiles, in registers written once at the end (the
 // wgrad kernels, seg_bwd_bf16, seg_bwd_tf32) or in the slot itself
-// (seg_bwd), with no atomics.  Kernel 4 sums the G slots in a fixed order, so a run is
-// deterministic, as the per-tile partials of pallas_tstack.py:445-449 are.
+// (seg_bwd), with no atomics.  Slots lie `stride` floats apart, a
+// multiple of 32 at least the slot's length (128-byte aligned rows, so the
+// reduce reads them as float4).  Kernel 4 sums the G slots in a fixed
+// order with no atomics, so a run is deterministic, as the per-tile
+// partials of pallas_tstack.py:445-449 are.
 //
 // What bounds it on an H100: per row 2 * 27 * c_dec * c_out FLOP each for
 // dd and dWc, and 2 * c_mid * (3 c_in + 2 c_dec) for the z recompute, W2 dd,
@@ -96,9 +102,11 @@
 #include "common.cuh"
 
 #include <algorithm>
+#include <cooperative_groups.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
 using probav::copy_rows;
 using probav::FragA;
 using probav::FragB;
@@ -1726,24 +1734,22 @@ cudaError_t launch_wide_bwd_tf32(const void* x, const void* w1,
                                  const float* b1, const void* w2,
                                  const void* dy, void* dx, float* part,
                                  long slot_len, int G, int n, int c_in,
-                                 int c_mid, int c_dec, cudaStream_t s) {
+                                 int c_mid, int c_dec, int* used,
+                                 cudaStream_t s) {
   const size_t smem = seg_bwd_tf32_smem(true);
   auto kern = wide_bwd_tf32_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // One wave: as many blocks as are resident at once (one an SM), each
-  // taking every G1-th tile; the slots of the blocks not launched zeroed.
+  // taking every G1-th tile; *used = G1, the slots written (the reduce
+  // sums those alone; the rest are neither written nor read).
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                       SBT_WARPS * 32, smem);
   if (err != cudaSuccess) return err;
   const int G1 = std::min(G, std::max(1, per_sm * probav::sm_count()));
-  if (G1 < G) {
-    err = cudaMemsetAsync(part + (long)G1 * slot_len, 0,
-                          sizeof(float) * (size_t)(G - G1) * slot_len, s);
-    if (err != cudaSuccess) return err;
-  }
+  *used = G1;
   kern<<<G1, SBT_WARPS * 32, smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w1), b1,
       static_cast<const float*>(w2), static_cast<const float*>(dy),
@@ -2500,13 +2506,15 @@ cudaError_t launch_wide_bwd_bf16(const void* x, const void* w1,
                                  const float* b1, const void* w2,
                                  const void* dy, void* dx, float* part,
                                  long slot_len, int G, int n, int c_in,
-                                 int c_mid, int c_dec, cudaStream_t s) {
+                                 int c_mid, int c_dec, int* used,
+                                 cudaStream_t s) {
   const size_t smem = wide_bwd_bf16_smem();
   auto kern = wide_bwd_bf16_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   // One wave: as many blocks as are resident at once (one an SM), each
-  // taking every G1-th tile; the slots of the blocks not launched zeroed.
+  // taking every G1-th tile; *used = G1, the slots written (the reduce
+  // sums those alone; the rest are neither written nor read).
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -2516,11 +2524,7 @@ cudaError_t launch_wide_bwd_bf16(const void* x, const void* w1,
         &per_sm, kern, WBB_WARPS * 32, smem);
   if (err != cudaSuccess) return err;
   const int G1 = std::min(G, std::max(1, sms * per_sm));
-  if (G1 < G) {
-    err = cudaMemsetAsync(part + (long)G1 * slot_len, 0,
-                          sizeof(float) * (size_t)(G - G1) * slot_len, s);
-    if (err != cudaSuccess) return err;
-  }
+  *used = G1;
   using B16 = __nv_bfloat16;
   kern<<<G1, WBB_WARPS * 32, smem, s>>>(
       static_cast<const B16*>(x), static_cast<const B16*>(w1), b1,
@@ -2544,23 +2548,189 @@ WideBwdRoute wide_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return dtype == 1 ? WIDE_BWD_BF16_MMA : WIDE_BWD_TF32_MMA;
 }
 
-// out[i] = sum over g of part[g][i], g in order.
-__global__ void reduce_partials_kernel(const float* __restrict__ part,
-                                       float* __restrict__ out, int G,
-                                       long len) {
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < len;
-       i += (long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int g = 0; g < G; ++g) s += part[(long)g * len + i];
-    out[i] = s;
-  }
+// ------------------------------------------------------------------------ //
+// reduce: out[i] = sum over g < G of part[g * stride + i], i < len:         //
+// reduce_partials_kernel.                                                  //
+// ------------------------------------------------------------------------ //
+//
+// The last launch of probav_blk_bwd and probav_wide_bwd: the G float32
+// partial slots that kernels 2 and 3 (or wide_bwd's kernel) wrote, summed
+// into one.  The JAX package sums its per-tile partials in XLA after its
+// kernel (pallas_tstack.py:445-449, pallas_wide_block.py alike), so
+// torch.sum(part[:, :len], 0) computes this function too.
+//
+// Bound on an H100: a pure stream, 4 (G + 1) len bytes at 3.35 TB/s and one
+// add a float read: 0.0116 ms for blk_bwd at the flagship (264 slots of
+// 36,505), 0.0024 ms for wide_bwd (132 slots of 14,873; 0.0047 ms if it
+// read the 264 of its scratch).  The design keeps the card's memory busy:
+// - slots start on 128-byte boundaries (the wrappers' stride, a multiple
+//   of 32 floats), so a thread owns one float4 column and every load is 16
+//   bytes, a warp's 512 contiguous bytes of a slot, read as a stream
+//   (ld.global.cs, evict first: at blk_bwd's flagship slots 0.0092 ms from
+//   L2 and 0.0183 from DRAM, against 0.0116 and 0.0207 by ld.global.nc;
+//   tools/reduce_variants.py, NVIDIA H100 80GB HBM3, 700.00 W);
+// - a column tile (128 floats, one warp's float4 row) has its G slots cut
+//   into fixed contiguous segments, one per (cluster rank, warp); a warp
+//   walks its segment in slot order with RED_AHEAD independent loads
+//   issued before their adds, so each SM has tens of KB of loads in
+//   flight (bandwidth x latency / 132 SMs is ~30 KB);
+// - reduce_plan picks the warps a block (up to 8) and the blocks a
+//   thread-block cluster (up to 8, portable) from G and the tile count, so
+//   that tiles x clusters fill the 132 SMs with ~RED_FILL warps each (a
+//   tile at least RED_MIN_WARPS segments), and no warp has fewer than
+//   RED_MIN_SEG slots where G allows;
+// - a block's warps meet in shared memory in warp order, the cluster's
+//   blocks through distributed shared memory (map_shared_rank) in rank
+//   order, and rank 0 stores the tile: one pass, no atomics.
+// The order of summation is fixed by (G, len) and the SM count alone:
+// slots in order within a segment, segments in order (warps, then ranks).
+// So two runs give the same bits, as the JAX package's fixed-order sum
+// does.  Columns from len up to the stride are never stored; a float4
+// that straddles len sums pad floats in lanes that are not stored.  No TMA:
+// with no reuse a stream gains nothing from staging through shared memory,
+// and 16-byte register loads already issue one instruction per 512 bytes a
+// warp.
+constexpr int RED_TILE = 128;       // floats a column tile: 32 lanes x float4
+constexpr int RED_AHEAD = 8;        // loads a thread issues before its adds
+constexpr int RED_MAX_WARPS = 8;    // warps a block
+constexpr int RED_MAX_RANKS = 8;    // blocks a cluster (portable)
+constexpr int RED_FILL = 32;        // warps an SM the plan aims at
+constexpr int RED_MIN_WARPS = 4;    // fewest segments a tile, where G allows
+constexpr int RED_MIN_SEG = 4;      // fewest slots a warp, where G allows
+
+struct ReducePlan {
+  int tiles, ranks, warps;   // grid = tiles x ranks blocks of warps x 32
+};
+
+// The plan for G slots of len floats on a card of `sms` SMs: segments a
+// tile = enough warps to fill the card (at least RED_MIN_WARPS: a wave of
+// one-warp blocks holds too few loads in flight), at most G / RED_MIN_SEG
+// (at least 1) and 64; as few cluster ranks as hold them at 8 warps a
+// block, and as many warps a block as fit that count (ranks x warps <=
+// segments).
+ReducePlan reduce_plan(int G, long len, int sms) {
+  const long tiles = (len + RED_TILE - 1) / RED_TILE;
+  const long fill = ((long)sms * RED_FILL + tiles - 1) / tiles;
+  long segs = std::min(std::max(fill, (long)RED_MIN_WARPS),
+                       (long)std::max(1, G / RED_MIN_SEG));
+  segs = std::min(segs, (long)RED_MAX_WARPS * RED_MAX_RANKS);
+  const int ranks = (int)((segs + RED_MAX_WARPS - 1) / RED_MAX_WARPS);
+  return {(int)tiles, ranks, (int)(segs / ranks)};
 }
 
+__device__ __forceinline__ float4 load_part(const float4* p) {
+  return __ldcs(p);
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4& v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+// blockIdx.x = tile * ranks + rank, a cluster of `ranks` blocks a tile.
+__global__ void __launch_bounds__(RED_MAX_WARPS * 32)
+reduce_partials_kernel(const float* __restrict__ part,
+                       float* __restrict__ out, int G, long len,
+                       long stride, int ranks) {
+  __shared__ float4 wsum[RED_MAX_WARPS][32];
+  __shared__ float4 bsum[32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int segs = ranks * warps, seg = rank * warps + warp;
+  const int g0 = (int)((long)seg * G / segs);
+  const int g1 = (int)((long)(seg + 1) * G / segs);
+  const long col = (long)(blockIdx.x / ranks) * 32 + lane;   // float4s
+  const bool live = col < (len + 3) / 4;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) {
+    const long step = stride / 4;
+    const float4* p =
+        reinterpret_cast<const float4*>(part + (long)g0 * stride) + col;
+    int g = g0;
+    for (; g + RED_AHEAD <= g1; g += RED_AHEAD, p += RED_AHEAD * step) {
+      float4 v[RED_AHEAD];
+#pragma unroll
+      for (int k = 0; k < RED_AHEAD; ++k) v[k] = load_part(p + k * step);
+#pragma unroll
+      for (int k = 0; k < RED_AHEAD; ++k) add4(s, v[k]);
+    }
+    float4 v[RED_AHEAD];   // the rest, fewer than RED_AHEAD, issued together
+#pragma unroll
+    for (int k = 0; k < RED_AHEAD; ++k)
+      if (g + k < g1) v[k] = load_part(p + k * step);
+#pragma unroll
+    for (int k = 0; k < RED_AHEAD; ++k)
+      if (g + k < g1) add4(s, v[k]);
+  }
+  wsum[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0) {
+    float4 t = wsum[0][lane];
+    for (int w = 1; w < warps; ++w) add4(t, wsum[w][lane]);
+    bsum[lane] = t;
+  }
+  cluster.sync();
+  if (rank == 0 && warp == 0 && live) {
+    float4 t = *cluster.map_shared_rank(&bsum[lane], 0);
+    for (int r = 1; r < ranks; ++r)
+      add4(t, *cluster.map_shared_rank(&bsum[lane], r));
+    float* o = out + col * 4;
+    if (col * 4 + 4 <= len) {
+      *reinterpret_cast<float4*>(o) = t;
+    } else {
+      const int n = (int)(len - col * 4);
+      o[0] = t.x;
+      if (n > 1) o[1] = t.y;
+      if (n > 2) o[2] = t.z;
+    }
+  }
+  cluster.sync();   // no block leaves while rank 0 reads its bsum
+}
+
+// Whether the reduce takes slots of len floats `stride` floats apart: a
+// stride that is a multiple of 4 and at least len, part and out 16-byte
+// aligned (float4 loads and stores).
+bool reduce_takes(const void* part, const void* out, long len,
+                  long stride) {
+  return len >= 1 && stride >= len && stride % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(part) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
+// The launch of plan q: tiles x ranks blocks in clusters of ranks.
+struct ReduceLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ReduceLaunch(const ReducePlan& q, cudaStream_t s) {
+    cfg.gridDim = dim3((unsigned)q.tiles * q.ranks);
+    cfg.blockDim = dim3(q.warps * 32);
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = q.ranks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// cudaErrorInvalidValue, before any launch, where reduce_takes refuses.
 cudaError_t reduce_partials(const float* part, float* out, int G, long len,
-                            cudaStream_t s) {
-  const long blocks = (len + 255) / 256;
-  reduce_partials_kernel<<<(int)(blocks < 1024 ? blocks : 1024), 256, 0, s>>>(
-      part, out, G, len);
+                            long stride, cudaStream_t s) {
+  if (G < 1 || !reduce_takes(part, out, len, stride))
+    return cudaErrorInvalidValue;
+  const ReducePlan q = reduce_plan(G, len, probav::sm_count());
+  ReduceLaunch l(q, s);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &l.cfg, reduce_partials_kernel, part, out, G, len, stride, q.ranks);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // returned, not left pending
+    return err;
+  }
   return cudaGetLastError();
 }
 
@@ -2568,8 +2738,8 @@ template <typename T>
 cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
                     const void* wflip, const void* w1, const float* b1,
                     const void* w2, void* dd, void* dx, float* part,
-                    float* out, int G, int B, int H, int W, int Tn, int c_in,
-                    int c_mid, int c_dec, cudaStream_t s) {
+                    float* out, int G, long stride, int B, int H, int W,
+                    int Tn, int c_in, int c_mid, int c_dec, cudaStream_t s) {
   const Slot sl(c_in, c_mid, c_dec);
   const int n = B * H * W * Tn;
   cudaError_t err = probav::conv_dispatch(dtype, false, gy, nullptr, wflip,
@@ -2578,58 +2748,59 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
   if (err != cudaSuccess) return err;
   switch (wgrad_route(dtype, c_dec, c_in, W, Tn)) {
     case WGRAD_BF16_RING:
-      err = launch_wgrad_ring(d, gy, part, sl.len, G, B, H, W, Tn, c_dec,
+      err = launch_wgrad_ring(d, gy, part, stride, G, B, H, W, Tn, c_dec,
                               c_in, s);
       break;
     case WGRAD_TF32_RING:
-      err = launch_wgrad_tf32(d, gy, part, sl.len, G, B, H, W, Tn, c_dec,
+      err = launch_wgrad_tf32(d, gy, part, stride, G, B, H, W, Tn, c_dec,
                               c_in, s);
       break;
     default:
-      err = dispatch_wgrad<T>(d, gy, part, sl.len, G, B, H, W, Tn, c_dec,
+      err = dispatch_wgrad<T>(d, gy, part, stride, G, B, H, W, Tn, c_dec,
                               c_in, s);
   }
   if (err != cudaSuccess) return err;
   switch (seg_bwd_route(dtype, c_in, c_mid, c_dec)) {
     case SEG_BWD_BF16_MMA:
-      err = launch_seg_bwd_bf16(x, dd, gy, w1, b1, w2, dx, part, sl.len, G,
+      err = launch_seg_bwd_bf16(x, dd, gy, w1, b1, w2, dx, part, stride, G,
                                 n, c_in, c_mid, c_dec, s);
       break;
     case SEG_BWD_TF32_MMA:
-      err = launch_seg_bwd_tf32(x, dd, gy, w1, b1, w2, dx, part, sl.len, G,
+      err = launch_seg_bwd_tf32(x, dd, gy, w1, b1, w2, dx, part, stride, G,
                                 n, c_in, c_mid, c_dec, s);
       break;
     default:
-      err = dispatch_seg_bwd<T>(x, dd, gy, w1, b1, w2, dx, part, sl.len, G,
+      err = dispatch_seg_bwd<T>(x, dd, gy, w1, b1, w2, dx, part, stride, G,
                                 n, c_in, c_mid, c_dec, s);
   }
   if (err != cudaSuccess) return err;
-  return reduce_partials(part, out, G, sl.len, s);
+  return reduce_partials(part, out, G, sl.len, stride, s);
 }
 
 template <typename T>
 cudaError_t wide_bwd(const void* x, const void* w1, const float* b1,
                      const void* w2, const void* dy, void* dx, float* part,
-                     float* out, int G, int n, int c_in, int c_mid,
-                     int c_dec, cudaStream_t s) {
+                     float* out, int G, long stride, int n, int c_in,
+                     int c_mid, int c_dec, cudaStream_t s) {
   const Slot sl(c_in, c_mid, c_dec, false);
   constexpr int dtype = std::is_same<T, __nv_bfloat16>::value ? 1 : 0;
   cudaError_t err;
+  int used = G;   // the slots written, the first `used` of the G
   switch (wide_bwd_route(dtype, c_in, c_mid, c_dec)) {
     case WIDE_BWD_BF16_MMA:
-      err = launch_wide_bwd_bf16(x, w1, b1, w2, dy, dx, part, sl.len, G, n,
-                                 c_in, c_mid, c_dec, s);
+      err = launch_wide_bwd_bf16(x, w1, b1, w2, dy, dx, part, stride, G, n,
+                                 c_in, c_mid, c_dec, &used, s);
       break;
     case WIDE_BWD_TF32_MMA:
-      err = launch_wide_bwd_tf32(x, w1, b1, w2, dy, dx, part, sl.len, G, n,
-                                 c_in, c_mid, c_dec, s);
+      err = launch_wide_bwd_tf32(x, w1, b1, w2, dy, dx, part, stride, G, n,
+                                 c_in, c_mid, c_dec, &used, s);
       break;
     default:
       err = dispatch_seg_bwd<T, true>(x, dy, nullptr, w1, b1, w2, dx, part,
-                                      sl.len, G, n, c_in, c_mid, c_dec, s);
+                                      stride, G, n, c_in, c_mid, c_dec, s);
   }
   if (err != cudaSuccess) return err;
-  return reduce_partials(part, out, G, sl.len, s);
+  return reduce_partials(part, out, used, sl.len, stride, s);
 }
 
 }  // namespace
@@ -2641,18 +2812,20 @@ extern "C" {
 // c_dec] and output dx [B,H,W,T,c_in] in that dtype; wflip [3,3,3,c_in,
 // c_dec] in that dtype is wc [3,3,3,c_dec,c_in] flipped in its three tap
 // axes with its channel axes swapped; b1 float32.  part: float32 scratch
-// of G slots; out: float32 [slot_len] in the Slot layout above.  c_in and
-// c_dec any count from 1 to MAX_CH = 128; T within the dd conv's envelope
-// (tstack.cu, conv_ring_kernel), else cudaErrorInvalidValue before any
-// launch.
+// of G slots `stride` floats apart (a multiple of 4, at least slot_len),
+// 16-byte aligned; out: float32 [slot_len] in the Slot layout above,
+// 16-byte aligned.  c_in and c_dec any count from 1 to MAX_CH = 128; T
+// within the dd conv's envelope (tstack.cu, conv_ring_kernel), else
+// cudaErrorInvalidValue before any launch.
 int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
                    const void* wflip, const void* w1, const void* b1,
                    const void* w2, void* dd, void* dx, void* part, void* out,
-                   int G, int B, int H, int W, int Tn, int c_in, int c_mid,
-                   int c_dec, void* stream) {
+                   int G, int stride, int B, int H, int W, int Tn, int c_in,
+                   int c_mid, int c_dec, void* stream) {
   if (B < 1 || H < 1 || W < 1 || Tn < 1 || G < 1 || c_in < 1 ||
       c_in > probav::MAX_CH || c_dec < 1 || c_dec > probav::MAX_CH ||
-      c_mid < 1)
+      c_mid < 1 ||
+      !reduce_takes(part, out, Slot(c_in, c_mid, c_dec).len, stride))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b1f = static_cast<const float*>(b1);
@@ -2660,11 +2833,12 @@ int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
   float* of = static_cast<float*>(out);
   if (dtype == 0)
     return (int)blk_bwd<float>(0, gy, x, d, wflip, w1, b1f, w2, dd, dx, pf,
-                               of, G, B, H, W, Tn, c_in, c_mid, c_dec, s);
+                               of, G, stride, B, H, W, Tn, c_in, c_mid,
+                               c_dec, s);
   if (dtype == 1)
     return (int)blk_bwd<__nv_bfloat16>(1, gy, x, d, wflip, w1, b1f, w2, dd,
-                                       dx, pf, of, G, B, H, W, Tn, c_in,
-                                       c_mid, c_dec, s);
+                                       dx, pf, of, G, stride, B, H, W, Tn,
+                                       c_in, c_mid, c_dec, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2684,26 +2858,31 @@ int probav_wgrad_route(int dtype, int c_in, int c_dec, int W, int Tn) {
 
 // dtype: 0 = float32, 1 = bfloat16.  x [n, c_in], w1 [c_in, c_mid], w2
 // [c_mid, c_dec], dy [n, c_dec] and the output dx [n, c_in] in that dtype;
-// b1 float32.  part: float32 scratch of G slots; out: float32 dW1 [c_in]
-// [c_mid] | dW2 [c_mid][c_dec] | db1 [c_mid] | db2 [c_dec].  c_in and
-// c_dec any count from 1 to MAX_CH = 128.
+// b1 float32.  part: float32 scratch of G slots `stride` floats apart (a
+// multiple of 4, at least slot_len), 16-byte aligned, of which the kernel
+// may write and the reduce read fewer (one wave of the tensor-core
+// kernels' blocks); out: float32 dW1 [c_in][c_mid] | dW2 [c_mid][c_dec] |
+// db1 [c_mid] | db2 [c_dec], 16-byte aligned.  c_in and c_dec any count
+// from 1 to MAX_CH = 128.
 int probav_wide_bwd(int dtype, const void* x, const void* w1, const void* b1,
                     const void* w2, const void* dy, void* dx, void* part,
-                    void* out, int G, int n, int c_in, int c_mid, int c_dec,
-                    void* stream) {
+                    void* out, int G, int stride, int n, int c_in, int c_mid,
+                    int c_dec, void* stream) {
   if (n < 1 || G < 1 || c_in < 1 || c_in > probav::MAX_CH || c_dec < 1 ||
-      c_dec > probav::MAX_CH || c_mid < 1)
+      c_dec > probav::MAX_CH || c_mid < 1 ||
+      !reduce_takes(part, out, Slot(c_in, c_mid, c_dec, false).len,
+                    stride))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b1f = static_cast<const float*>(b1);
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(out);
   if (dtype == 0)
-    return (int)wide_bwd<float>(x, w1, b1f, w2, dy, dx, pf, of, G, n, c_in,
-                                c_mid, c_dec, s);
+    return (int)wide_bwd<float>(x, w1, b1f, w2, dy, dx, pf, of, G, stride, n,
+                                c_in, c_mid, c_dec, s);
   if (dtype == 1)
-    return (int)wide_bwd<__nv_bfloat16>(x, w1, b1f, w2, dy, dx, pf, of, G, n,
-                                        c_in, c_mid, c_dec, s);
+    return (int)wide_bwd<__nv_bfloat16>(x, w1, b1f, w2, dy, dx, pf, of, G,
+                                        stride, n, c_in, c_mid, c_dec, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2713,6 +2892,40 @@ int probav_wide_bwd(int dtype, const void* x, const void* w1, const void* b1,
 // mma).
 int probav_wide_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return (int)wide_bwd_route(dtype, c_in, c_mid, c_dec);
+}
+
+// out[i] = sum over g < G of part[g * stride + i] for i < len, the last
+// launch of probav_blk_bwd and probav_wide_bwd on its own (for tests and
+// timing; the entries launch it themselves).  part float32, 16-byte
+// aligned, stride a multiple of 4 and at least len; out float32 [len],
+// 16-byte aligned; else cudaErrorInvalidValue before any launch.
+int probav_reduce_partials(const void* part, void* out, int G, int len,
+                           int stride, void* stream) {
+  return (int)reduce_partials(static_cast<const float*>(part),
+                              static_cast<float*>(out), G, len, stride,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The reduce's launch for G slots of len floats on this card: out[0..2] =
+// column tiles, blocks a cluster (ranks), warps a block; out[3] = the
+// clusters of that shape the card holds at once
+// (cudaOccupancyMaxActiveClusters).
+int probav_reduce_partials_plan(int G, int len, int* out) {
+  if (G < 1 || len < 1) return (int)cudaErrorInvalidValue;
+  const ReducePlan q = reduce_plan(G, len, probav::sm_count());
+  ReduceLaunch l(q, nullptr);
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &clusters, reduce_partials_kernel, &l.cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  out[0] = q.tiles;
+  out[1] = q.ranks;
+  out[2] = q.warps;
+  out[3] = clusters;
+  return 0;
 }
 
 }  // extern "C"

@@ -34,19 +34,23 @@ SIGNATURES = {
     # dtype, d, x, wc, bc, out, B, H, W, T, c_dec, c_out, stream
     "probav_conv_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # dtype, gy, x, d, wflip, w1, b1, w2, dd, dx, part, out,
-    # G, B, H, W, T, c_in, c_mid, c_dec, stream
-    "probav_blk_bwd": [_I] + [_P] * 11 + [_I] * 8 + [_P],
+    # G, stride, B, H, W, T, c_in, c_mid, c_dec, stream
+    "probav_blk_bwd": [_I] + [_P] * 11 + [_I] * 9 + [_P],
     # dtype, c_in, c_mid, c_dec
     "probav_seg_fwd_route": [_I] * 4,
     # dtype, c_in, c_mid, c_dec
     "probav_seg_bwd_route": [_I] * 4,
     # dtype, c_in, c_dec, W, T
     "probav_wgrad_route": [_I] * 5,
-    # dtype, x, w1, b1, w2, dy, dx, part, out, G, n, c_in, c_mid, c_dec,
-    # stream
-    "probav_wide_bwd": [_I] + [_P] * 8 + [_I] * 5 + [_P],
+    # dtype, x, w1, b1, w2, dy, dx, part, out, G, stride, n, c_in, c_mid,
+    # c_dec, stream
+    "probav_wide_bwd": [_I] + [_P] * 8 + [_I] * 6 + [_P],
     # dtype, c_in, c_mid, c_dec
     "probav_wide_bwd_route": [_I] * 4,
+    # part, out, G, len, stride, stream
+    "probav_reduce_partials": [_P, _P, _I, _I, _I, _P],
+    # G, len, out int[4]
+    "probav_reduce_partials_plan": [_I, _I, ctypes.POINTER(_I)],
     # hr, m, p, out, B, H, W, border, squared, stream
     "probav_shift_table_fwd": [_P] * 4 + [_I] * 5 + [_P],
     # hr, m, p, g, dp, B, H, W, border, squared, stream

@@ -11,7 +11,10 @@ kernels (``csrc/tstack.cu``), its backward one entry point
   (replaces ``pallas_tstack.conv_fwd``);
 - ``blk_bwd``: the whole block's backward, recomputing the wide
   activation: dx and every weight gradient (replaces
-  ``pallas_tstack.blk_bwd``).
+  ``pallas_tstack.blk_bwd``).  Its weight gradients are summed from
+  per-block partial slots ``slot_stride`` floats apart by its last launch,
+  ``reduce_partials_kernel`` (wide_bwd's too), which ``reduce_partials``
+  also launches on its own, for the tests and timing.
 
 With grad enabled, ``stack_apply_5d`` runs the blocks under one
 ``torch.autograd.Function`` (the counterpart of ``fused_stack_t``'s
@@ -57,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 # Kernel launches since the counts were last reset (plain runs not counted).
-LAUNCHES = {"seg_fwd": 0, "conv_fwd": 0, "blk_bwd": 0}
+LAUNCHES = {"seg_fwd": 0, "conv_fwd": 0, "blk_bwd": 0, "reduce_partials": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -229,6 +232,59 @@ def partial_slots(device, c: int, c_dec: int) -> int:
     return sms if max(c, c_dec) > 64 else 2 * sms
 
 
+def slot_stride(length: int) -> int:
+    """Floats from one partial slot of ``length`` floats to the next:
+    ``length`` rounded up to 32, so that every slot starts on 128 bytes
+    and ``reduce_partials_kernel`` reads it in 16-byte loads."""
+    return -(-length // 32) * 32
+
+
+def reduce_partials_plain(part, length: int):
+    """The function of blk_bwd's and wide_bwd's last launch: part float32
+    [G, stride] -> the sum over G of its first ``length`` columns."""
+    return part[:, :length].sum(0)
+
+
+def reduce_partials(part, length: int):
+    """``reduce_partials_plain`` on the kernel for a CUDA tensor (csrc/
+    blk_bwd.cu's ``probav_reduce_partials``, the reduce that
+    ``probav_blk_bwd`` and ``probav_wide_bwd`` launch themselves): part
+    float32 [G, stride], contiguous and 16-byte aligned, stride a multiple
+    of 4 and at least ``length`` (``slot_stride``)."""
+    if part.device.type == "cpu":
+        return reduce_partials_plain(part, length)
+    from probav_tpu_torch.ops import _build
+    _check_input("reduce_partials part", part, torch.float32)
+    if part.dim() != 2 or not 1 <= length <= part.shape[1] or \
+            part.shape[1] % 4 or part.data_ptr() % 16:
+        raise ValueError(f"reduce_partials: part {tuple(part.shape)} at "
+                         f"{part.data_ptr() % 16} bytes past 16 and length "
+                         f"{length}: need [G, stride], stride % 4 == 0, "
+                         "1 <= length <= stride, 16-byte aligned")
+    groups, stride = part.shape
+    out = torch.empty(length, dtype=torch.float32, device=part.device)
+    err = _build.library().probav_reduce_partials(
+        part.data_ptr(), out.data_ptr(), groups, length, stride,
+        _stream(part))
+    _build.check(err, "reduce_partials")
+    LAUNCHES["reduce_partials"] += 1
+    return out
+
+
+def reduce_plan(groups: int, length: int) -> tuple:
+    """(column tiles, blocks a cluster, warps a block, clusters the card
+    holds at once) of ``reduce_partials_kernel`` for ``groups`` slots of
+    ``length`` floats on the current card, as its C entry plans it.
+    Builds the kernels."""
+    import ctypes
+
+    from probav_tpu_torch.ops import _build
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().probav_reduce_partials_plan(
+        groups, length, out), "reduce_partials plan")
+    return tuple(out)
+
+
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -354,14 +410,15 @@ def blk_bwd(gy, x, d, w1, b1, w2, wc):
     slot = 27 * c_dec * c + c * c_mid + c_mid * c_dec + c_mid + c_dec + c
     dd = torch.empty(d.shape, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
-    part = torch.empty((groups, slot), dtype=torch.float32, device=x.device)
+    part = torch.empty((groups, slot_stride(slot)), dtype=torch.float32,
+                       device=x.device)
     out = torch.empty(slot, dtype=torch.float32, device=x.device)
     lib = _build.library()
     err = lib.probav_blk_bwd(
         _DTYPE_CODE[x.dtype], gy.data_ptr(), x.data_ptr(), d.data_ptr(),
         wflip.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         dd.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
-        groups, b, h, w, t, c, c_mid, c_dec, _stream(x))
+        groups, part.shape[1], b, h, w, t, c, c_mid, c_dec, _stream(x))
     _build.check(err, "blk_bwd")
     LAUNCHES["blk_bwd"] += 1
     dwc, dw1, dw2, db1, db2, dbc = torch.split(

@@ -30,7 +30,7 @@ import torch
 
 from probav_tpu_torch.ops.tstack import (_DTYPE_CODE, _check_input,
                                          _check_widths, _stream,
-                                         partial_slots)
+                                         partial_slots, slot_stride)
 
 # Kernel launches since the counts were last reset (plain runs not counted).
 LAUNCHES = {"wide_bwd": 0}
@@ -101,13 +101,15 @@ def wide_bwd(x, w1, b1, w2, dy):
     dx = torch.empty_like(x)
     groups = partial_slots(x.device, c_in, c_dec)
     slot = c_in * c_mid + c_mid * c_dec + c_mid + c_dec
-    part = torch.empty((groups, slot), dtype=torch.float32, device=x.device)
+    part = torch.empty((groups, slot_stride(slot)), dtype=torch.float32,
+                       device=x.device)
     out = torch.empty(slot, dtype=torch.float32, device=x.device)
     lib = _build.library()
     err = lib.probav_wide_bwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-        out.data_ptr(), groups, n, c_in, c_mid, c_dec, _stream(x))
+        out.data_ptr(), groups, part.shape[1], n, c_in, c_mid, c_dec,
+        _stream(x))
     _build.check(err, "wide_bwd")
     LAUNCHES["wide_bwd"] += 1
     dw1, dw2, db1, db2 = torch.split(

@@ -23,7 +23,8 @@ float32 for ``wide_tf32``) on the dyadic grids of ``tools/dyadic.py``
 each: its registers and spilled bytes, the ms per launch of 20 launches
 back to back (CUDA events) in ``--rounds`` rounds taken in turn across
 the variants, and the largest error over max|ref| of its dx and of its
-summed slots (dW1, db1, dW2, db2, and dbc for seg_bwd) against
+summed slots (those written: all G for seg_bwd, the wide launchers' one
+wave, which they report; dW1, db1, dW2, db2, and dbc for seg_bwd) against
 ``tstack.seg_bwd_plain`` or ``wide_block.wide_bwd_plain``.  Variants that
 drop work give wrong results by design.  Prints one JSON line, also
 appended to ``DIR/seg_bwd_variants.jsonl`` with ``--out``.  Needs a CUDA
@@ -287,22 +288,22 @@ SECTIONS = {
                  kernel="wide_bwd_bf16_kernel",
                  launcher="launch_wide_bwd_bf16",
                  args="x, w1, b1, w2, dy, dx, part, slot_len, G, n, c_in, "
-                      "c_mid, c_dec, s",
+                      "c_mid, c_dec, used, s",
                  params="const void* x, const void* w1, const float* b1, "
                         "const void* w2, const void* dy, void* dx, "
                         "float* part, long slot_len, int G, int n, "
-                        "int c_in, int c_mid, int c_dec",
+                        "int c_in, int c_mid, int c_dec, int* used",
                  variants=WIDE_VARIANTS),
     "wide_tf32": dict(start="constexpr int SBT_ROWS",
                       end="// wgrad, float32 on the tensor cores",
                       kernel="wide_bwd_tf32_kernel",
                       launcher="launch_wide_bwd_tf32",
                       args="x, w1, b1, w2, dy, dx, part, slot_len, G, n, "
-                           "c_in, c_mid, c_dec, s",
+                           "c_in, c_mid, c_dec, used, s",
                       params="const void* x, const void* w1, const float* "
                              "b1, const void* w2, const void* dy, void* dx, "
                              "float* part, long slot_len, int G, int n, "
-                             "int c_in, int c_mid, int c_dec",
+                             "int c_in, int c_mid, int c_dec, int* used",
                       variants=WIDE_TF32_VARIANTS),
 }
 
@@ -406,10 +407,12 @@ def main(argv=None):
         timeout=60).stdout.strip().splitlines()[0]
     P, I = ctypes.c_void_p, ctypes.c_int
     wide = opt.section != "seg_bwd"
-    npt = sec["params"].count("*")   # pointer arguments before slot_len
+    # pointer arguments before slot_len; the wide launchers' G1 after c_dec
+    npt = sec["params"].split("long slot_len")[0].count("*")
+    used = ctypes.c_int(0)
     lib, regs, spills = compile_variants(
         source(names, opt.section), sec["kernel"], names,
-        [I] + [P] * npt + [ctypes.c_long] + [I] * 5 + [P])
+        [I] + [P] * npt + [ctypes.c_long] + [I] * 5 + [P] * wide + [P])
     dev = torch.device("cuda")
     r = np.random.default_rng(12)
     dtype = torch.float32 if opt.section == "wide_tf32" else torch.bfloat16
@@ -437,7 +440,7 @@ def main(argv=None):
 
     def call(i):
         err = lib.launch(i, *ptrs, slot_len, groups, N, C, C_MID, C_DEC,
-                         stream)
+                         *[ctypes.byref(used)] * wide, stream)
         if err:
             raise RuntimeError(f"variant {names[i]}: CUDA error {err}")
 
@@ -452,7 +455,8 @@ def main(argv=None):
         part.fill_(float("nan"))
         call(i)
         torch.cuda.synchronize()
-        s = part.double().sum(0)
+        # the slots written: all G, or the wide launchers' one wave
+        s = part[:used.value if wide else groups].double().sum(0)
         got = (dx, s[o1:o2].reshape(C, C_MID), s[ob1:ob2],
                s[o2:ob1].reshape(C_MID, C_DEC), s[ob2:obc], s[obc:])
         if wide:   # wide_bwd_plain's order: dx, dW1, db1, dW2, db2

@@ -22,6 +22,7 @@ from probav_tpu_torch.ops.shift_loss import ShiftCompensatedLosses
 from probav_tpu_torch.tools.dyadic import (blk_bwd_inputs, shift_table_inputs,
                                            wide_bwd_inputs)
 from probav_tpu_torch.tools.time_conv import dwc_float64, seg_fwd_f64
+from reduce_plan import plan as reduce_plan
 from shift_plan import launch_plan
 
 torch.set_num_threads(1)
@@ -223,9 +224,13 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
     assert lib.probav_seg_fwd(0, p, p, p, p, p, p, n, 136, CMID, 108, s) != 0
     assert lib.probav_conv_fwd(0, p, p, p, p, p, 1, 2, 3, 5, 108, 136,
                                s) != 0
-    assert lib.probav_blk_bwd(0, *[p] * 11, 1, 1, 2, 3, 5, 136, CMID, 108,
-                              s) != 0
-    assert lib.probav_wide_bwd(0, *[p] * 8, 1, n, 136, CMID, 108, s) != 0
+    stride = ts.slot_stride(27 * 108 * 136 + 136 * CMID + CMID * 108 + CMID
+                            + 108 + 136)
+    assert lib.probav_blk_bwd(0, *[p] * 11, 1, stride, 1, 2, 3, 5, 136, CMID,
+                              108, s) != 0
+    stride = ts.slot_stride(136 * CMID + CMID * 108 + CMID + 108)
+    assert lib.probav_wide_bwd(0, *[p] * 8, 1, stride, n, 136, CMID, 108,
+                               s) != 0
     torch.cuda.synchronize()
     # Beyond the T envelope of the widest bucket (one column at T = 21 over
     # shared memory in float32 at 128 -> 128 channels) the launch is
@@ -1017,3 +1022,98 @@ def test_flat_stack_autograd_on_card_matches_plain_autograd(cuda):
     want = torch.autograd.grad(ref, leaves, gy)
     for a, b in zip(got, want):
         assert rel_l2(a, b) < 1e-4
+
+
+# reduce_partials (the last launch of blk_bwd and wide_bwd) against
+# torch.sum: float32 sums of up to 264 slots in another order, 1e-5 of
+# max|ref| (chip_smoke's REDUCE_TOL).
+REDUCE_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1, 31, 14_873, 36_505, 147_635])
+@pytest.mark.parametrize("groups", [1, 7, 132, 264])
+def test_reduce_partials_matches_torch_sum_on_card(cuda, groups, length):
+    """Random normal partials in [G, slot_stride(len)] with NaN pad
+    columns (never stored): the kernel against torch.sum of the real
+    columns, one launch counted."""
+    r = np.random.default_rng(groups * 7 + length)
+    part = torch.full((groups, ts.slot_stride(length)), float("nan"),
+                      device=cuda)
+    part[:, :length] = torch.from_numpy(
+        r.normal(size=(groups, length)).astype(np.float32)).to(cuda)
+    before = ts.LAUNCHES["reduce_partials"]
+    got = ts.reduce_partials(part, length)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["reduce_partials"] == before + 1
+    want = torch.sum(part[:, :length], 0)
+    assert got.shape == (length,) and bool(torch.isfinite(got).all())
+    assert max_rel(got, want) <= REDUCE_TOL, max_rel(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,length", [
+    (264, 36_505), (132, 14_873), (132, 589_286), (264, 147_635), (7, 31),
+    (1, 1)])
+def test_reduce_partials_plan_matches_the_mirror_on_card(cuda, groups,
+                                                         length):
+    """The C entry's plan is tests/reduce_plan.py's at this card's SM
+    count, and the card holds at least one of its clusters."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tiles, ranks, warps, clusters = ts.reduce_plan(groups, length)
+    assert (tiles, ranks, warps) == reduce_plan(groups, length, sms)
+    assert clusters >= 1
+
+
+@pytest.mark.cuda
+def test_reduce_partials_refuses_bad_slots_on_card(cuda):
+    """A stride that is no multiple of 4, a length beyond the stride and a
+    part that is not 16-byte aligned: the wrapper raises before any launch
+    and the C entry refuses (it never launches)."""
+    from probav_tpu_torch.ops import _build
+    part = torch.zeros((3, 64), device=cuda)
+    before = ts.LAUNCHES["reduce_partials"]
+    for bad, length in ((part[:, :62].contiguous(), 40), (part, 65),
+                        (part.view(-1)[1:129].view(2, 64), 40)):
+        with pytest.raises(ValueError, match="reduce_partials"):
+            ts.reduce_partials(bad, length)
+    assert ts.LAUNCHES["reduce_partials"] == before
+    lib, out = _build.library(), torch.empty(64, device=cuda)
+    s = ts._stream(part)
+    p, o = part.data_ptr(), out.data_ptr()
+    assert lib.probav_reduce_partials(p, o, 3, 40, 62, s) != 0
+    assert lib.probav_reduce_partials(p, o, 3, 65, 64, s) != 0
+    assert lib.probav_reduce_partials(p + 4, o, 2, 40, 64, s) != 0
+    assert lib.probav_reduce_partials(p, o + 4, 3, 40, 64, s) != 0
+    assert lib.probav_reduce_partials(p, o, 0, 40, 64, s) != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,c,cmid,cdec", [
+    ((128, 22, 22, 9), 32, 256, 25), ((2, 22, 22, 9), 64, 512, 51),
+    ((3, 7, 6, 5), 128, 1024, 102)],
+    ids=["flagship_b128", "wide_b2", "c128"])
+def test_blk_bwd_and_wide_bwd_are_bitwise_deterministic_on_card(
+        cuda, dtype, shape, c, cmid, cdec):
+    """Two calls of each give the same bits in every output, on random
+    normal inputs (on dyadic ones any order of summation is exact): the
+    partial slots are written by fixed blocks and summed in a fixed order,
+    with no atomics.  At 128 channels G is one slot an SM."""
+    r = np.random.default_rng(c)
+    mk = lambda *sz: torch.from_numpy(
+        r.normal(size=sz).astype(np.float32)).to(cuda, dtype)
+    w1, b1, w2, _, wc, _ = params(c, cmid, cdec, seed=c, device=cuda)
+    gy, x, d = mk(*shape, c), mk(*shape, c), mk(*shape, cdec)
+    first = ts.blk_bwd(gy, x, d, w1, b1, w2, wc)
+    second = ts.blk_bwd(gy, x, d, w1, b1, w2, wc)
+    for name, a, b in zip(BWD_NAMES, first, second):
+        assert torch.equal(a, b), name
+    rows = x.reshape(-1, c)
+    dy = mk(rows.shape[0], cdec)
+    first = wb.wide_bwd(rows, w1, b1, w2, dy)
+    second = wb.wide_bwd(rows, w1, b1, w2, dy)
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i

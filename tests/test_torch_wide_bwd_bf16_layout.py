@@ -30,8 +30,8 @@ layouts in common.cuh):
   those of row group w); lanes and warps are reduced in a fixed order;
   the launch is one wave, min(G, resident) blocks (one an SM), each
   taking every blocks-th tile and writing its slot (dW1 | dW2 | db1 |
-  db2); the slots of the blocks not launched are zeroed, and the G slots
-  are summed in order.
+  db2); the slots of the blocks not launched are neither written nor
+  read, and the launched blocks' slots are summed in order.
 
 The twin below models shared memory as the kernel's bytes (0xff, a NaN in
 either type, where nothing was written), performs every ldmatrix by the
@@ -242,9 +242,8 @@ def twin(x, w1, b1, w2, dy, groups, pieces=3, zero_pad=True, perm_w1=True,
     slot_len = c_in * c_mid + c_mid * c_dec + c_mid + c_dec
     slots = np.full((groups, slot_len), np.nan, np.float32)
     # One wave: min(G, resident) blocks, block b taking tiles b, b +
-    # blocks, ...; the slots of the blocks not launched zeroed (a memset).
+    # blocks, ...; the slots of the blocks not launched left unwritten.
     blocks = min(groups, resident)
-    slots[blocks:] = 0
     dz_words = np.full((n, c_mid), np.nan, np.float32)
     J0 = 16 * MT * W_                                   # [W, 1]
     pr0, dr0 = 16 * W_, RPW * W_
@@ -435,7 +434,7 @@ def twin(x, w1, b1, w2, dy, groups, pieces=3, zero_pad=True, perm_w1=True,
         slot[ob2:] = s2[:c_dec]
 
     total = np.zeros(slot_len, np.float32)
-    for gi in range(groups):
+    for gi in range(blocks):              # the reduce: the launched slots
         total += slots[gi]
     o2, ob1 = c_in * c_mid, c_in * c_mid + c_mid * c_dec
     return (dx, total[:o2].reshape(c_in, c_mid), total[ob1:ob1 + c_mid],
@@ -468,10 +467,10 @@ IDS = ["flagship_widths_2tiles_ragged", "flagship_105rows_g264",
 def test_twin_matches_wide_bwd_plain(n, c, cmid, cdec, groups, resident):
     """The flagship's widths over two tiles (a ragged second) in one block
     (both x and dy buffers), 105 rows in 264 slots (132 blocks launched;
-    every slot but the first zero), 7/100/12 over two tiles in two blocks
-    (x by plain copies, four warps' channels past c_mid), c_dec = 32
-    (64-byte dy rows), one row, and 300 rows in 4 slots with 2 blocks
-    resident (block 0 takes tiles 0 and 2, slots 2 and 3 zeroed)."""
+    slots 1-131 zero, 132-263 never written), 7/100/12 over two tiles in
+    two blocks (x by plain copies, four warps' channels past c_mid), c_dec
+    = 32 (64-byte dy rows), one row, and 300 rows in 4 slots with 2 blocks
+    resident (block 0 takes tiles 0 and 2, slots 2 and 3 never written)."""
     args, feed = case(n, c, cmid, cdec, seed=n + cmid)
     dx, dw1, db1, dw2, db2, dzw, slots = twin(*feed, groups,
                                               resident=resident)
@@ -486,9 +485,11 @@ def test_twin_matches_wide_bwd_plain(n, c, cmid, cdec, groups, resident):
         assert got.shape == tuple(ref.shape), name
         assert max_rel(got, ref.numpy()) < SUM_TOL, (name,
                                                      max_rel(got, ref))
-    if groups > 1:   # blocks past the tiles hold zeros
-        tiles = -(-n // ROWS)
-        assert (slots[tiles:] == 0).all()
+    # Launched blocks past the tiles hold zeros; the slots of blocks not
+    # launched are never written (NaN), and the reduce reads them not.
+    blocks, tiles = min(groups, resident), -(-n // ROWS)
+    assert (slots[min(tiles, blocks):blocks] == 0).all()
+    assert np.isnan(slots[blocks:]).all()
 
 
 @pytest.mark.parametrize("n,c,cmid,cdec,groups", [SHAPES[0], SHAPES[2]],

@@ -29,8 +29,8 @@ db2, with dz and h = relu(z) in float32) as 3xTF32 on mma.sync m16n8k8
   gy, unlike blk_bwd's dx = W1 dz + gy);
 - one wave: min(G, resident) blocks, block b taking tiles b, b + blocks,
   ...; each writes its slot in wide_bwd's layout (dW1 [c][j], dW2 [j][c],
-  db1, db2: no dWc, no dbc), the other G - blocks slots are zeroed, and
-  the reduce sums the G slots in order.
+  db1, db2: no dWc, no dbc), the other G - blocks slots are neither
+  written nor read, and the reduce sums the blocks' slots in order.
 
 The twin repeats that map register by register: fragments are gathered by
 lane from the staged tiles, each mma rebuilds its A, B and C matrices
@@ -133,8 +133,7 @@ def twin(x, w1, b1, w2, dy, groups, resident=H100_SMS, permute=True,
     tiles = -(-n // ROWS)
     slot_len = c_in * c_mid + c_mid * c_dec + c_mid + c_dec
     slots = np.full((groups, slot_len), np.nan, f32)
-    blocks = min(groups, resident)
-    slots[blocks:] = 0                     # the launcher's memset
+    blocks = min(groups, resident)        # slots past blocks stay unwritten
     dx = np.full((n, c_in), np.nan, f32)
     ra = 16 * W_ + G_                      # phase A rows (and + 8)
     mh, nd = (W_ // 2) * 16, (W_ % 2) * 16   # a warp's dW2 tile
@@ -253,7 +252,7 @@ def twin(x, w1, b1, w2, dy, groups, resident=H100_SMS, permute=True,
             ok = (W_ < 2) & (Q_ == 0) & (c < c_dec)
             slot[(ob2 + c)[ok]] = v[ok]
     total = np.zeros(slot_len, f32)
-    for gi in range(groups):                    # reduce_partials, in order
+    for gi in range(blocks):                    # reduce_partials, in order
         total += slots[gi]
     o2, ob1 = c_in * c_mid, c_in * c_mid + c_mid * c_dec
     return (dx, total[:o2].reshape(c_in, c_mid), total[ob1:ob1 + c_mid],
@@ -297,15 +296,17 @@ def test_twin_matches_wide_bwd_plain(n, c, cmid, cdec, groups, resident):
     132 blocks launched; 7/100/12 (two of the four chunks, 129 rows: one
     row in the second tile) in one block; one row; 129 rows in 4 slots;
     300 rows in 4 slots with 2 blocks resident (block 0 takes tiles 0 and
-    2).  Every slot entry is written; the slots of blocks past the tiles
-    and of blocks not launched hold zeros."""
+    2).  Every entry of a launched block's slot is written, zeros in the
+    slots of blocks past the tiles; the slots of blocks not launched are
+    never written (NaN), and the reduce never reads them."""
     args, feed = case(n, c, cmid, cdec, seed=n + cmid)
     got = twin(*feed, groups, resident=resident)
     assert check(got[:5], wb.wide_bwd_plain(*args)) == []
-    slots = got[5]
-    assert not np.isnan(slots).any()
+    slots, blocks = got[5], min(groups, resident)
+    assert not np.isnan(slots[:blocks]).any()
     tiles = -(-n // ROWS)
-    assert (slots[min(tiles, groups):] == 0).all()
+    assert (slots[min(tiles, blocks):blocks] == 0).all()
+    assert np.isnan(slots[blocks:]).all()
 
 
 def test_all_zero_references_are_matched_exactly():
