@@ -126,6 +126,22 @@ Phases, each printing its result:
    the 16 served scenes and with TTA on 2 against one process (equal or
    within one count, the differing pixels counted), each rank's launch
    counts, and the synced step time of two ranks beside one process's;
+9c. mesh_model (--mesh-model, tensor parallelism of each block's expand /
+   decay pair): wide_bwd at the widths a rank of a model group of 2 and
+   4 runs it (32/128/25 and 32/64/25 over the flagship's 557,568 rows)
+   against its plain version at both dtypes, with its tensor-core route,
+   back-to-back times and bound; two gloo ranks of a (data 1, model 2)
+   mesh sharing the card, the flagship at full width and batch 128, each
+   rank holding 128 of C_mid 256: 3 float32 "flat" steps and one bf16
+   "flat" step against one process's (losses, gradients at the start,
+   the parameters' movement, within MODEL_MOVE_TOL and the tolerances
+   beside it), 12 wide_bwd launches a step a rank, each rank's
+   parameters its part of the gathered ones (the replicated ones equal
+   to the bit), the synced step times and the all-reduce bytes a step
+   by group; then the train CLI's ranks (``cli.rank_main`` with
+   --mesh-data 1 --mesh-model 2, one epoch) and a resume of their last
+   checkpoint in one process, each rank's parameters its part of that
+   checkpoint to the bit;
 10. train, the other losses and models: the train CLI on the flagship cfg
    (float32, "t" stack, batch 128) with loss=sobel_l1_mix and with
    loss=l1msssim (12 launches of each stack kernel per step, a falling
@@ -2039,6 +2055,343 @@ def phase_mesh(torch, dev, card):
     log(f"mesh phase: {marks[-1][1] - marks[0][1]:.1f} s ({parts})")
 
 
+# The model-axis phase (--mesh-model, tensor parallelism of the expand /
+# decay pair): wide_bwd at the widths a rank of a model group of
+# 2 and 4 runs it (C_mid / M channels over the flagship's N rows), and a
+# (data 1, model 2) mesh of two gloo ranks sharing the card, its f32 flat
+# steps and one bf16 flat step against one process's.  Tolerances of the
+# ranks against one process (float32, TF32 off): the first step's loss to
+# 1e-5 relative (the same parameters; only the decay's sums split in two),
+# every later loss to 1e-4, the gathered gradients at the start leaf by
+# leaf norm-wise to STACK_TOL["float32"] (relu flips, as the flat stack
+# against plain), and the movement of all parameters over the steps,
+# ||p_two - p_one|| / ||p_one - p_init|| over their concatenation, to
+# MODEL_MOVE_TOL: nadam moves an element by ~lr whatever its gradient's
+# size, so an element whose gradient lies within the two runs' gap of 0
+# may move the other way.  With gradients e apart norm-wise (5.2e-5 at
+# most, measured on an H100), about e of the elements lie that close, so
+# the movement parts by about 2 sqrt(e) ~ 1.4e-2 at most (5.9e-3
+# measured); a wrong part or a sum left out parts it by about 1.
+# bf16: its loss to 1e-2 relative (MODEL_TOL),
+# its gradients to STACK_BF16_INDEPENDENT_TOL and its movement to
+# MODEL_MOVE_BF16_TOL, bounds against wiring faults (a wrong part or a
+# sum left out parts the runs by about their movement or more): the ranks
+# round two partial decay products to bf16 where one process rounds one,
+# which flips relu decisions and the sign of nadam's step on small
+# gradient elements, as an independent bf16 forward does.
+TP_MODELS = (2, 4)
+MODEL_F32_STEPS = 3
+MODEL_MOVE_TOL, MODEL_MOVE_BF16_TOL = 2e-2, 0.5
+
+
+def count_all_reduce_bytes(mesh):
+    """Wrap torch.distributed.all_reduce in this process so that it adds
+    each call's bytes to the returned {"model", "data", "world"} counts,
+    by the group it runs on."""
+    import torch.distributed as dist
+
+    counts = {"model": 0, "data": 0, "world": 0}
+    inner = dist.all_reduce
+    names = {id(mesh.model_group): "model", id(mesh.data_group): "data"}
+
+    def counted(t, *args, group=None, **kw):
+        counts[names.get(id(group), "world") if group is not None
+               else "world"] += t.numel() * t.element_size()
+        return inner(t, *args, group=group, **kw)
+
+    dist.all_reduce = counted
+    return counts
+
+
+def mesh_model_rank(mesh, tmp):
+    """One rank of the (data 1, model 2) mesh on the card: the flagship's
+    f32 flat trainer (each block's expand / decay on this rank's 128 of
+    C_mid 256), the gradients at the start, MODEL_F32_STEPS synced train
+    steps on the 128 patches (launch counts, step times, all-reduce bytes
+    of the last), then the bf16 flat trainer's gradients and one step.
+    Returns the losses, the gathered gradients and parameters; this rank's own parameters go to
+    tmp/tp_<dtype>_rank<r>.pt."""
+    import torch
+
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.tools.profile_train import (make_trainer,
+                                                      synthetic_batch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.from_file(CFG)
+    batch = tuple(torch.as_tensor(a, device=mesh.device)
+                  for a in synthetic_batch(cfg.batch_size, seed=2))
+    sent = count_all_reduce_bytes(mesh)
+    out = {}
+    for dn, steps in (("float32", MODEL_F32_STEPS), ("bfloat16", 1)):
+        tr = make_trainer(cfg, dn, "flat", mesh.device,
+                          os.path.join(tmp, f"tp_{dn}_{mesh.rank}"),
+                          mesh=mesh)
+        if not tr.sharded:
+            raise AssertionError("model axis: the trainer is not sharded")
+        got = dict(init=tr._whole({k: p.detach().cpu().clone()
+                                   for k, p in tr.params.items()}))
+        _, _, grads = tr.loss_and_grads(*batch)
+        got["grads"] = {k: v.cpu() for k, v in tr._whole(grads).items()}
+        del grads
+        reset_launches()
+        losses, secs = [], []
+        for _ in range(steps):
+            for k in sent:
+                sent[k] = 0
+            t0 = time.perf_counter()
+            loss, _ = tr.train_step(*batch)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        got.update(losses=losses, secs=secs, counts=launches(),
+                   sent=dict(sent),
+                   params=tr._whole({k: p.detach().cpu()
+                                     for k, p in tr.params.items()}))
+        torch.save({k: p.detach().cpu() for k, p in tr.params.items()},
+                   os.path.join(tmp, f"tp_{dn}_rank{mesh.rank}.pt"))
+        out[dn] = got
+        tr.logger_.close()
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_model_cli_rank(mesh, argv, tmp):
+    """One rank of the train CLI at --mesh-data 1 --mesh-model 2
+    (``cli.rank_main``); this rank's parameters at its last checkpoint go
+    to tmp/tp_cli_rank<r>.pt.  Returns the CLI's result and the launch
+    counts."""
+    import logging
+
+    import torch
+
+    from probav_tpu_torch.train import cli
+    from probav_tpu_torch.train.trainer import ModelTrainer
+
+    save, saved = ModelTrainer.save, {}
+
+    def recorded(tr):
+        saved["params"] = {k: p.detach().cpu().clone()
+                           for k, p in tr.params.items()}
+        return save(tr)
+
+    ModelTrainer.save = recorded
+    reset_launches()
+    res = cli.rank_main(mesh, cli.parse_args(argv), ["NIR"], logging.WARNING)
+    counts = launches()
+    torch.save(saved["params"], os.path.join(tmp,
+                                             f"tp_cli_rank{mesh.rank}.pt"))
+    return dict(res=res["NIR"], counts=counts)
+
+
+def movement_err(got, want, init):
+    """||got - want|| / ||want - init|| over all parameters: how far the
+    two runs' parameters part, against how far one run moved them."""
+    parted = sum(float((got[k].double() - w.double()).norm()) ** 2
+                 for k, w in want.items())
+    moved = sum(float((w.double() - init[k].double()).norm()) ** 2
+                for k, w in want.items())
+    return (parted / max(moved, 1e-60)) ** 0.5
+
+
+def phase_mesh_model(torch, dev, card):
+    """--mesh-model: wide_bwd at a model rank's widths, then two gloo ranks
+    of a (data 1, model 2) mesh on the card against one process, and the
+    train CLI's ranks with a resume in one process (module docstring,
+    9c)."""
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.ops import wide_block as wb
+    from probav_tpu_torch.parallel.launch import launch
+    from probav_tpu_torch.parallel.mesh import Mesh, shard_state
+    from probav_tpu_torch.tools.dyadic import wide_bwd_inputs
+    from probav_tpu_torch.tools.profile_train import (make_trainer,
+                                                      synthetic_batch)
+    from probav_tpu_torch.train import cli
+    from probav_tpu_torch.train.trainer import list_checkpoints
+
+    marks = [("start", time.perf_counter())]
+    n = N_PATCH * HW * HW * T
+    # 1. wide_bwd on each rank's C_mid / M channels, against plain.
+    for m in TP_MODELS:
+        cmid = CMID // m
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            route = wb.wide_bwd_route(dtype, C, cmid, CDEC)
+            if route != wb.WIDE_BWD_ROUTES[1 if dn == "bfloat16" else 2]:
+                raise AssertionError(f"wide_bwd {dn} {C}/{cmid}/{CDEC} "
+                                     f"route {route}: not the tensor cores")
+            args = wide_bwd_inputs(n, C, cmid, CDEC, seed=7 + m, device=dev,
+                                   dtype=dtype)
+            tol_of = lambda k: BWD_TOL[dn] if k == "dx" else BWD_GRAD_TOL
+            errs = check_outputs(f"wide_bwd tp{m} {dn}", WIDE_NAMES,
+                                 wb.wide_bwd(*args), wb.wide_bwd_plain(*args),
+                                 tol_of)
+            ms, pms = back_to_back(torch, lambda: wb.wide_bwd(*args),
+                                   lambda: wb.wide_bwd_plain(*args), n=10)
+            flops, nbytes, peak, how = kernel_costs("wide_bwd", n, C, cmid,
+                                                    CDEC, dn)
+            bms, by = bound(flops, nbytes, peak)
+            log(f"kernel wide_bwd {dn} at a model rank's widths, M = {m} "
+                f"[N={n}, {C}/{cmid}/{CDEC}]: route {route}; max|diff| " +
+                ", ".join(f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, errs)) +
+                f"; back to back, per call: kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms, bound {bms:.4f} ms by {by}{how} "
+                f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB) [{card}]")
+            del args
+    torch.cuda.empty_cache()
+    marks.append(("wide_bwd", time.perf_counter()))
+
+    cfg = Config.from_file(CFG)
+    blocks = cfg.num_res_blocks
+    with tempfile.TemporaryDirectory() as tmp:
+        # 2. Two gloo ranks of (data 1, model 2) against one process.
+        two = launch(mesh_model_rank, 2, tmp, device="cuda", backend="gloo",
+                     num_model=2, deadline=900)
+        marks.append(("gloo ranks", time.perf_counter()))
+        batch = tuple(torch.as_tensor(a, device=dev)
+                      for a in synthetic_batch(cfg.batch_size, seed=2))
+        for dn, steps in (("float32", MODEL_F32_STEPS), ("bfloat16", 1)):
+            got = two[dn]
+            tr = make_trainer(cfg, dn, "flat", dev,
+                              os.path.join(tmp, f"one_{dn}"))
+            init = {k: p.detach().cpu().clone()
+                    for k, p in tr.params.items()}
+            _, _, grads = tr.loss_and_grads(*batch)
+            losses, secs = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                loss, _ = tr.train_step(*batch)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            params = {k: p.detach().cpu() for k, p in tr.params.items()}
+            bad = [k for k, v in init.items()
+                   if not torch.equal(got["init"][k], v)]
+            if bad:
+                raise AssertionError(f"model axis {dn}: the ranks' gathered "
+                                     f"initial {bad} differ from one "
+                                     "process's (the same seed)")
+            if got["counts"] != expect(wide_bwd=blocks * steps):
+                raise AssertionError(f"model axis {dn}: launches a rank "
+                                     f"{got['counts']}, expected "
+                                     f"{blocks * steps} wide_bwd")
+            # Each rank's parameters are its part of the gathered ones, so
+            # the replicated ones are equal to the bit on both ranks.
+            for r in (0, 1):
+                part = torch.load(os.path.join(tmp, f"tp_{dn}_rank{r}.pt"))
+                mine = shard_state(got["params"], Mesh(
+                    world=2, rank=r, device=dev, model_size=2))
+                bad = [k for k in part if not torch.equal(mine[k], part[k])]
+                if bad or mine.keys() != part.keys():
+                    raise AssertionError(f"model axis {dn}: rank {r}'s "
+                                         f"{bad} are not its part of the "
+                                         "gathered parameters")
+            rtol = [1e-5] + [1e-4] * (steps - 1) if dn == "float32" else \
+                [MODEL_TOL[dn]]
+            for i, (a, b) in enumerate(zip(got["losses"], losses)):
+                if not abs(a - b) <= rtol[i] * abs(b):
+                    raise AssertionError(f"model axis {dn} step {i}: loss "
+                                         f"{a} vs one process {b}")
+            move = movement_err(got["params"], params, init)
+            move_tol, grad_tol = (
+                (MODEL_MOVE_TOL, STACK_TOL[dn]) if dn == "float32" else
+                (MODEL_MOVE_BF16_TOL, STACK_BF16_INDEPENDENT_TOL))
+            gerr = {k: rel_l2(got["grads"][k].to(dev), v)
+                    for k, v in grads.items()}
+            gk = max(gerr, key=lambda k: gerr[k] if np.isfinite(gerr[k])
+                     else np.inf)
+            log(f"model axis {dn}: gradients at the start against one "
+                f"process, ||got-ref||/||ref|| by leaf: " + ", ".join(
+                    f"{k} {e:.2e}" for k, e in gerr.items()) + f"; all "
+                f"parameters part by {move:.3e} of their movement [{card}]")
+            if not gerr[gk] <= grad_tol:
+                raise AssertionError(f"model axis {dn}: gradient {gk} "
+                                     f"||got-ref||/||ref|| {gerr[gk]:.3e}")
+            if not move <= move_tol:
+                raise AssertionError(f"model axis {dn}: parameters part by "
+                                     f"{move:.3e} of their movement")
+            gtxt = (f"; gradients of {len(gerr)} leaves, worst "
+                    f"||got-ref||/||ref|| {gk} {gerr[gk]:.3e} (tol "
+                    f"{grad_tol:g})")
+            sent = got["sent"]
+            log(f"model axis, two gloo ranks on the card (data 1, model 2), "
+                f"{dn} flat, {steps} step(s) of the flagship at batch 128 "
+                f"(each rank 128 of C_mid 256): losses "
+                f"{', '.join(f'{v:.6f}' for v in got['losses'])} vs one "
+                f"process {', '.join(f'{v:.6f}' for v in losses)}{gtxt}; "
+                f"parameters part by {move:.3e} of their movement (tol "
+                f"{move_tol:g}); replicated parameters equal to "
+                f"the bit on both ranks; launches a rank {got['counts']} "
+                f"[{card}]")
+            ms = lambda t: ", ".join(f"{1e3 * v:.1f}" for v in t)
+            log(f"model axis {dn} (a record, not a claim: both ranks share "
+                f"the card, and gloo reduces through the host): synced step "
+                f"of two ranks {ms(got['secs'])} ms against one process "
+                f"{ms(secs)} ms; all-reduce "
+                f"bytes a step, each rank's buffers: model group "
+                f"{sent['model']} ({sent['model'] / 1e9:.3f} GB), data "
+                f"group {sent['data']}, whole mesh {sent['world']} [{card}]")
+            tr.logger_.close()
+            del tr, grads
+            torch.cuda.empty_cache()
+        marks.append(("one process", time.perf_counter()))
+
+        # 3. The train CLI's ranks, then a resume of their last checkpoint
+        # in one process.
+        steps_per_epoch = TRAIN_N // cfg.batch_size
+        cfgp, ckpt_dir, log_dir = write_train_tree(tmp, "tp_cli", 1)
+        argv = ["--cfg", cfgp, "--band", "NIR", "--device", str(dev),
+                "--eval-step", str(steps_per_epoch)]
+        got = launch(mesh_model_cli_rank, 2,
+                     argv + ["--mesh-data", "1", "--mesh-model", "2"], tmp,
+                     device="cuda", backend="gloo", num_model=2,
+                     deadline=900)
+        if got["res"]["steps"] != steps_per_epoch or \
+                got["counts"] != expect(wide_bwd=blocks * steps_per_epoch):
+            raise AssertionError(f"train --mesh-model 2: steps "
+                                 f"{got['res']['steps']}, launches a rank "
+                                 f"{got['counts']}")
+        step, path = list_checkpoints(ckpt_dir)[-1]
+        whole = torch.load(path)["params"]
+        for r in (0, 1):
+            part = torch.load(os.path.join(tmp, f"tp_cli_rank{r}.pt"))
+            mine = shard_state(whole, Mesh(world=2, rank=r, device=dev,
+                                           model_size=2))
+            if mine.keys() != part.keys() or \
+                    any(not torch.equal(mine[k], part[k]) for k in part):
+                raise AssertionError(f"train --mesh-model 2: rank {r}'s "
+                                     "parameters are not its part of the "
+                                     "checkpoint")
+        first = train_losses(log_dir)
+        cfgp, _, _ = write_train_tree(tmp, "tp_cli", 2)
+        reset_launches()
+        res = cli.main(argv[:1] + [cfgp] + argv[2:] +
+                       ["--fused-stack", "flat"])["NIR"]
+        if res["steps"] != 2 * steps_per_epoch or \
+                launches() != expect(wide_bwd=blocks * steps_per_epoch):
+            raise AssertionError(f"train --mesh-model 2, resumed in one "
+                                 f"process: {res['steps']} steps, launches "
+                                 f"{launches()}")
+        losses = train_losses(log_dir)
+        if not all(np.isfinite(losses)) or not losses[-1] < first[0]:
+            raise AssertionError(f"train --mesh-model 2 then one process: "
+                                 f"losses {losses}")
+        log(f"train --mesh-data 1 --mesh-model 2 (two gloo ranks on the "
+            f"card, f32 flat, {steps_per_epoch} steps at batch 128): "
+            f"launches a rank {got['counts']}; checkpoint "
+            f"{os.path.basename(path)} holds the whole state, each rank's "
+            f"parameters its part to the bit; resumed in one process (flat) "
+            f"at step {step} for {steps_per_epoch} more steps: train loss "
+            f"{first[0]:.3f} -> {losses[-1]:.3f}, val cPSNR "
+            f"{res['val_psnr']:.3f} [{card}]")
+    marks.append(("CLI", time.perf_counter()))
+    parts = ", ".join(f"{name} {t - marks[i][1]:.1f}"
+                      for i, (name, t) in enumerate(marks[1:]))
+    log(f"mesh_model phase: {marks[-1][1] - marks[0][1]:.1f} s ({parts})")
+
+
 # The one-step float32 train checks: (name, stack tier, fused_block,
 # use_kernel, the variant it is held to, its launches per step).
 STEP_KERNELS = dict(seg_fwd=12, conv_fwd=12, blk_bwd=12)
@@ -2700,6 +3053,7 @@ def main():
     train_launches = phase_train(torch, dev, card)
     phase_train_device(torch, dev, card)
     phase_mesh(torch, dev, card)
+    phase_mesh_model(torch, dev, card)
     loss_launches = phase_train_step(torch, dev, card)
     phase_train_warm(torch, dev, card)
     phase_train_more(torch, dev, card)

@@ -15,12 +15,18 @@ IWDSR's ``"expConv_0_in/gamma"`` (each conv's norm a sibling named
 An optax adam/nadam state (its ``count``, ``mu`` and ``nu`` trees) maps to
 the port's optimizer state and back the same way, so a JAX checkpoint can
 go on training in the port.
+
+On a mesh's model axis a rank takes its part of the converted (whole)
+state with ``parallel.mesh.shard_state``.  ``model_axes`` reads a JAX
+sharding tree (``param_shardings``, ``state_shardings``) as the
+dimension of each port entry that the 'model' axis splits, the port's
+own rule being ``parallel.mesh.shard_dim``.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -128,3 +134,31 @@ def opt_state_to_optax(state: Mapping, like=None):
         return node
 
     return fill(like)
+
+
+def model_axes(shardings) -> dict:
+    """The JAX sharding tree of a parameter tree (``param_shardings``) or
+    of an optax adam/nadam state (the ``opt_state`` part of
+    ``state_shardings``) as the port's {key: the dimension that the
+    'model' axis splits, or None}: parameter keys as ``to_state_dict``
+    names them, and for a state ``count``, ``mu`` and ``nu`` as the port's
+    optimizer state nests them.  Leaves are read by their ``.spec`` (a
+    PartitionSpec), so no JAX import is needed."""
+    def axis(sharding) -> Optional[int]:
+        spec = tuple(sharding.spec)
+        return spec.index("model") if "model" in spec else None
+
+    def flat(tree: Mapping, prefix: str = "") -> dict:
+        out = {}
+        for k, v in tree.items():
+            key = f"{prefix}.{k}" if prefix else str(k)
+            out.update(flat(v, key) if isinstance(v, Mapping)
+                       else {key: axis(v)})
+        return out
+
+    if isinstance(shardings, Mapping) and \
+            not {"count", "mu", "nu"} <= set(shardings):
+        return flat(shardings)
+    adam = _adam_part(shardings)
+    return {"count": axis(adam["count"]), "mu": flat(adam["mu"]),
+            "nu": flat(adam["nu"])}

@@ -131,7 +131,7 @@ class Resolver:
         num_patches = len(all_patches[0])
         if self.mesh is not None:
             check_divisible("patches per scene", num_patches,
-                            self.mesh.world)
+                            self.mesh.data_size)
         repeats = tta_repeats if tta else 1
         group = max(1, -(-self.patches_per_call // (num_patches * repeats)))
         perm = None

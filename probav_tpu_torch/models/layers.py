@@ -16,6 +16,12 @@ A kernel is transposed to PyTorch's ``[O, I, kh, kw, (kt)]`` only where
 the conv runs, with the JAX spatial axes (H, W, T) as PyTorch's (D, H, W).
 Activations: ``relu``, ``mish`` (x * tanh(softplus(x))) and ``leakyrelu``
 (slope 0.3).
+
+A ``WNConv`` may hold one part of its channels on a mesh's model axis
+(``split``, set by ``WDSRBlock.shard_``): ``"out"``, a part of its output
+channels, whose weight norm is its own, or ``"in"``, a part of its input
+channels, whose product and weight norm are partial sums that the model
+group adds (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from probav_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -69,6 +77,13 @@ class WNConv(nn.Module):
 
     The effective kernel is ``g * v / ||v||`` with the norm over every axis
     but the output one, computed in float32 and cast to the compute dtype.
+
+    ``split`` (None, ``"out"`` or ``"in"``) and ``mesh``: the channels
+    this layer holds a part of on ``mesh``'s model group.  ``"out"``: the
+    input is replicated and its gradient is the group's sum
+    (``copy_to_model``).  ``"in"``: the conv's output is the group's sum
+    of the ranks' partial products (``reduce_from_model``, in float32),
+    and the bias is added once, after the sum.
     """
 
     def __init__(self, in_features: int, features: int,
@@ -90,6 +105,7 @@ class WNConv(nn.Module):
         self.kernel_v = nn.Parameter(torch.empty(shape, **kw))
         self.wn_g = nn.Parameter(torch.empty(features, **kw))
         self.bias = nn.Parameter(torch.empty(features, **kw))
+        self.split, self.mesh = None, None
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -112,9 +128,19 @@ class WNConv(nn.Module):
                                     dim=tuple(range(v.dim() - 1))))
 
     def effective_kernel(self):
-        """(kernel [*k, I, O], bias [O]) in float32, weight norm applied."""
+        """(kernel [*k, I, O], bias [O]) in float32, weight norm applied.
+        With ``split == "in"`` the norm is over the whole group's input
+        channels: the ranks' sums of squares are added
+        (``reduce_from_model``), and the scale g / norm, replicated but
+        applied to this rank's part alone, passes ``copy_to_model``, so
+        that the gradients of g and of the norm are the group's sums."""
         v = self.kernel_v.float()
-        return v * (self.wn_g.float() / self._norm(v)), self.bias.float()
+        g = self.wn_g.float()
+        if self.split != "in":
+            return v * (g / self._norm(v)), self.bias.float()
+        squares = torch.sum(torch.square(v), dim=tuple(range(v.dim() - 1)))
+        norm = torch.sqrt(reduce_from_model(squares, self.mesh))
+        return v * copy_to_model(g / norm, self.mesh), self.bias.float()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         nd = len(self.kernel_size)
@@ -123,9 +149,13 @@ class WNConv(nn.Module):
         pad = [k // 2 for k in self.kernel_size] \
             if self.padding == "SAME" else 0
         conv = F.conv3d if nd == 3 else F.conv2d
+        if self.split == "out":
+            x = copy_to_model(x, self.mesh)
         y = conv(x.to(self.dtype).movedim(-1, 1), w, padding=pad)
-        y = y.movedim(1, -1) + bias.to(self.dtype)
-        return _ACTS[self.activation](y)
+        y = y.movedim(1, -1)
+        if self.split == "in":
+            y = reduce_from_model(y, self.mesh)
+        return _ACTS[self.activation](y + bias.to(self.dtype))
 
 
 class Conv(nn.Module):

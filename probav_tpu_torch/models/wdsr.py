@@ -46,6 +46,16 @@ does: their stacks save only narrow residuals already.
 ``IWDSRConv3D`` and ``FuseNetConv2D`` have no kernel tier: the JAX package
 runs them as plain XLA, and the port as plain PyTorch (cuDNN's convs,
 ``F.instance_norm``) on any device.
+
+``WDSRConv3D.shard_(mesh)`` puts the model on a mesh's model axis (tensor
+parallelism, ``parallel/mesh.py``): each block keeps its rank's part of
+the expand's output channels and of the decay's input channels, cut from
+the full parameters, so a seed gives the one-process model.  A block then
+adds the group's partial decay products, and its decay bias once after
+them, in every tier that takes the axis: ``"off"`` (with ``fused_block``
+and ``remat`` too) and ``"flat"``.  The ``"t"`` tier refuses it, as the
+JAX trainer does.  ``IWDSRConv3D`` (its ``expConv_<i>`` / ``decConv_<i>``
+fall outside JAX's name rule) and ``FuseNetConv2D`` stay replicated.
 """
 
 from __future__ import annotations
@@ -63,6 +73,8 @@ from probav_tpu_torch.ops.block_stack import fused_block_stack
 from probav_tpu_torch.ops.patches import depth_to_space
 from probav_tpu_torch.ops.tstack import stack_apply_5d, t_tier_refusal
 from probav_tpu_torch.ops.wide_block import fused_expand_decay
+from probav_tpu_torch.parallel.mesh import (MODEL_AXIS_T_REFUSAL, shard_dim,
+                                            shard_state)
 
 STACK_TIERS = ("off", "flat", "t")
 
@@ -108,7 +120,9 @@ def reduction_schedule(num_img: int, kernel_t: int) -> Sequence[dict]:
 class WDSRBlock(nn.Module):
     """WDSR-B residual block: 1x1x1 expand (relu) -> 1x1x1 decay -> k^3
     conv -> add the input.  ``fused`` runs expand -> relu -> decay as
-    ``fused_expand_decay`` (backward on the ``wide_bwd`` kernel)."""
+    ``fused_expand_decay`` (backward on the ``wide_bwd`` kernel).  After
+    ``shard_(mesh)`` the expand and decay hold this rank's channels of the
+    mesh's model axis."""
 
     def __init__(self, num_filters: int, exp_rate: int, decay_rate: float,
                  kernel_size: Tuple[int, int, int],
@@ -124,6 +138,19 @@ class WDSRBlock(nn.Module):
         self.decay = WNConv(c_mid, c_dec, (1, 1, 1), "SAME", None, **kw)
         self.conv = WNConv(c_dec, f, kernel_size, "SAME", None, **kw)
         self.dtype = dtype
+        self.mesh = None
+
+    @torch.no_grad()
+    def shard_(self, mesh) -> None:
+        """Keep this rank's part of the expand's output channels and of the
+        decay's input channels (``parallel.mesh.shard_dim``) of the full
+        parameters; ValueError where C_mid does not divide by the model
+        size."""
+        for name, p in self.named_parameters():
+            if shard_dim(name, p.dim()) is not None:
+                p.data = shard_state({name: p.data}, mesh)[name]
+        self.expand.split, self.decay.split = "out", "in"
+        self.expand.mesh = self.decay.mesh = self.mesh = mesh
 
     def effective_params(self):
         """(w1 [C, C_mid], b1, w2 [C_mid, C_dec], b2, wc [3,3,3,C_dec,C],
@@ -142,7 +169,7 @@ class WDSRBlock(nn.Module):
             w1, b1, w2, b2 = self.effective_params()[:4]
             c = x_in.shape[-1]
             y = fused_expand_decay(x_in.reshape(-1, c).to(self.dtype), w1, b1,
-                                   w2, b2)
+                                   w2, b2, mesh=self.mesh)
             x = y.reshape(x_in.shape[:-1] + (w2.shape[1],))
         else:
             x = self.decay(self.expand(x_in))
@@ -153,7 +180,8 @@ class WDSRConv3D(nn.Module):
     """Flagship WDSR-B 3D fusion net.  Call with [B, H, W, T, C] and an
     optional ``norm = [mean, std]`` tensor (the band statistics as data).
     ``fused_stack``: the stack tier (module docstring); ``fused_block``
-    and ``remat`` apply in the "off" tier only."""
+    and ``remat`` apply in the "off" tier only; ``shard_`` puts the
+    blocks on a mesh's model axis."""
 
     def __init__(self, scale: int = 3, num_filters: int = 32,
                  kernel_size: Tuple[int, int, int] = (3, 3, 3),
@@ -170,6 +198,7 @@ class WDSRConv3D(nn.Module):
         self.mean, self.std = mean, std
         self.dtype, self.fused_stack = dtype, stack_tier(fused_stack)
         self.remat = remat
+        self.mesh = None
         f, k = num_filters, tuple(kernel_size)
         why = t_tier_refusal(f, int(f * decay_rate))
         if self.fused_stack == "t" and why:
@@ -192,6 +221,18 @@ class WDSRConv3D(nn.Module):
                     WNConv(in_channels if i == 0 else scale ** 2, scale ** 2,
                            k[:2], "VALID", "relu" if i == 0 else None, **kw))
 
+    def shard_(self, mesh) -> None:
+        """Split every block's expand / decay pair over ``mesh``'s model
+        group (``WDSRBlock.shard_``).  The "t" tier raises the JAX
+        trainer's ValueError; so does a model sharded already."""
+        if self.fused_stack == "t":
+            raise ValueError(MODEL_AXIS_T_REFUSAL)
+        if self.mesh is not None:
+            raise ValueError("WDSRConv3D.shard_: sharded already")
+        for name in self.block_names:
+            getattr(self, name).shard_(mesh)
+        self.mesh = mesh
+
     def forward(self, x: torch.Tensor, norm=None) -> torch.Tensor:
         if x.dim() != 5 or x.shape[3] != self.num_img_lr:
             raise ValueError(
@@ -212,7 +253,8 @@ class WDSRConv3D(nn.Module):
         if self.fused_stack == "t":
             x = stack_apply_5d(x, [b.effective_params() for b in blocks])
         elif self.fused_stack == "flat":
-            x = fused_block_stack(x, [b.effective_params() for b in blocks])
+            x = fused_block_stack(x, [b.effective_params() for b in blocks],
+                                  mesh=self.mesh)
         elif self.remat and torch.is_grad_enabled():
             for b in blocks:
                 x = checkpoint(b, x, use_reentrant=False)

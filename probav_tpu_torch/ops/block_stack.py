@@ -16,6 +16,13 @@ Port of ``probav_tpu/ops/pallas_block_stack.py``:
 Weight norm stays outside: callers pass effective kernels
 (``WDSRBlock.effective_params``), so the v / g gradients chain through
 autograd.  Activations are the model's ``[B, H, W, T, C]``.
+
+On a mesh's model axis (``mesh``, the blocks' expand / decay split over
+its model group) each block's forward adds the group's partial decay
+products (``parallel.mesh.model_sum``, in float32) and then the decay
+bias; its backward runs ``wide_bwd`` on this rank's channels and adds the
+group's partial ``dx`` before it joins the cotangent.  ``wide_bwd``'s
+``db2``, the sum of the replicated cotangent, is whole on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from probav_tpu_torch.ops.wide_block import wide_bwd
+from probav_tpu_torch.parallel.mesh import model_sum
 
 
 def _conv_args(wc):
@@ -47,12 +55,15 @@ def _conv_vjp(g, d, wc):
     return dd, dwc.permute(2, 3, 4, 1, 0), g.sum(dim=tuple(range(g.dim() - 1)))
 
 
-def block_fwd(x, w1, b1, w2, b2, wc, bc):
+def block_fwd(x, w1, b1, w2, b2, wc, bc, mesh=None):
     """One block: (x + conv3d(d) + bc, d) with d = decay(relu(expand(x))),
-    the decay output d being the conv's input, saved for the backward."""
+    the decay output d being the conv's input, saved for the backward.
+    With ``mesh`` the decay's product is the model group's sum."""
     c = x.shape[-1]
-    d = torch.relu(x.reshape(-1, c) @ w1 + b1) @ w2 + b2
-    d = d.reshape(x.shape[:-1] + (w2.shape[1],))
+    d = torch.relu(x.reshape(-1, c) @ w1 + b1) @ w2
+    if mesh is not None:
+        d = model_sum(d, mesh)
+    d = (d + b2).reshape(x.shape[:-1] + (w2.shape[1],))
     return x + _conv3d(d, wc, bc), d
 
 
@@ -60,14 +71,14 @@ class FusedBlockStack(torch.autograd.Function):
     """All blocks as one node (``pallas_block_stack.fused_block_stack``)."""
 
     @staticmethod
-    def forward(ctx, x, *flat):
+    def forward(ctx, x, mesh, *flat):
         h, xs, ds = x.contiguous(), [], []
         for i in range(0, len(flat), 6):
             xs.append(h)
-            h, d = block_fwd(h, *flat[i:i + 6])
+            h, d = block_fwd(h, *flat[i:i + 6], mesh=mesh)
             ds.append(d)
         ctx.save_for_backward(*xs, *ds, *flat)
-        ctx.nblk = len(xs)
+        ctx.nblk, ctx.mesh = len(xs), mesh
         return h
 
     @staticmethod
@@ -83,26 +94,30 @@ class FusedBlockStack(torch.autograd.Function):
             dx, dw1, db1, dw2, db2 = wide_bwd(
                 x_i.reshape(-1, x_i.shape[-1]), w1, b1, w2,
                 dd.reshape(-1, dd.shape[-1]).contiguous())
+            if ctx.mesh is not None:
+                dx = model_sum(dx, ctx.mesh)
             g = g + dx.reshape(x_i.shape)
             # The casts of pallas_block_stack._stack_bwd.
             grads[6 * i:6 * i + 6] = (
                 dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
                 db2.to(b2.dtype), dwc.to(wc.dtype), dbc.to(bc.dtype))
-        return (g, *grads)
+        return (g, None, *grads)
 
 
-def fused_block_stack(x, blocks):
+def fused_block_stack(x, blocks, mesh=None):
     """Apply the blocks to x [B, H, W, T, C].
 
     blocks: per-block effective params (w1 [C, C_mid], b1, w2 [C_mid,
-    C_dec], b2, wc [kh, kw, kt, C_dec, C], bc) in the compute dtype.  With
-    grad enabled and any input requiring it the stack is one autograd node;
-    otherwise (``torch.inference_mode``) the plain forward saves nothing.
+    C_dec], b2, wc [kh, kw, kt, C_dec, C], bc) in the compute dtype; with
+    ``mesh``, w1, b1 and w2 of this rank's C_mid channels of the model
+    axis.  With grad enabled and any input requiring it the stack is one
+    autograd node; otherwise (``torch.inference_mode``) the plain forward
+    saves nothing.
     """
     flat = [t for blk in blocks for t in blk]
     if torch.is_grad_enabled() and (
             x.requires_grad or any(t.requires_grad for t in flat)):
-        return FusedBlockStack.apply(x, *flat)
+        return FusedBlockStack.apply(x, mesh, *flat)
     for blk in blocks:
-        x, _ = block_fwd(x, *blk)
+        x, _ = block_fwd(x, *blk, mesh=mesh)
     return x

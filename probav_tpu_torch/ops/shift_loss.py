@@ -31,8 +31,9 @@ the per-sample vector.
 
 Batches are channels-last ``[B, H, W, C]`` as in the JAX package.
 
-Under a data mesh (``mesh=``, ``probav_tpu_torch.parallel``) each rank
-holds an equal share of the batch.  ``l1``, ``l2`` and ``l1_edge`` stay
+Under a mesh (``mesh=``, ``probav_tpu_torch.parallel``) each rank holds
+an equal share of the batch (the ranks of a model group the same share;
+every sum below runs over the data group).  ``l1``, ``l2`` and ``l1_edge`` stay
 the share's mean: with equal shares the mean of the ranks' means is the
 global mean, and the trainer averages them.  ``rev_msssim`` is coupled
 across the batch (its min over shifts follows a sum over the batch), so

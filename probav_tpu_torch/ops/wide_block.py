@@ -22,6 +22,11 @@ widths on the CUDA cores.
 
 Dispatch as in ``ops/tstack.py``: CPU tensors run ``wide_bwd_plain``; CUDA
 tensors launch the kernel, count it in ``LAUNCHES``, or raise.
+
+``fused_expand_decay(..., mesh=)`` runs on this rank's C_mid channels of a
+mesh's model axis: the model group's partial products are added (in
+float32), then b2; in the backward ``wide_bwd`` runs on the rank's
+channels and the group's partial dx are added.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from probav_tpu_torch.ops.tstack import (_DTYPE_CODE, _check_input,
                                          _check_widths, _stream,
                                          partial_slots, slot_stride)
+from probav_tpu_torch.parallel.mesh import model_sum
 
 # Kernel launches since the counts were last reset (plain runs not counted).
 LAUNCHES = {"wide_bwd": 0}
@@ -120,23 +126,32 @@ def wide_bwd(x, w1, b1, w2, dy):
 class FusedExpandDecay(torch.autograd.Function):
     """relu(x @ w1 + b1) @ w2 + b2 with ``wide_bwd`` as its backward
     (``pallas_wide_block.fused_expand_decay``).  The forward is plain
-    PyTorch in the working dtype and saves only x and the weights."""
+    PyTorch in the working dtype and saves only x and the weights.  With
+    a mesh the product and dx are the model group's sums."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
+    def forward(ctx, x, w1, b1, w2, b2, mesh):
         ctx.save_for_backward(x, w1, b1, w2)
-        return torch.relu(x @ w1 + b1) @ w2 + b2
+        ctx.mesh = mesh
+        y = torch.relu(x @ w1 + b1) @ w2
+        if mesh is not None:
+            y = model_sum(y, mesh)
+        return y + b2
 
     @staticmethod
     def backward(ctx, dy):
         x, w1, b1, w2 = ctx.saved_tensors
         dx, dw1, db1, dw2, db2 = wide_bwd(x.contiguous(), w1, b1, w2,
                                           dy.to(x.dtype).contiguous())
+        if ctx.mesh is not None:
+            dx = model_sum(dx, ctx.mesh)
         # The casts of pallas_wide_block._vjp_bwd.
         return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
-                db2.to(dy.dtype))
+                db2.to(dy.dtype), None)
 
 
-def fused_expand_decay(x, w1, b1, w2, b2):
-    """x [N, C_in], w1 [C_in, C_mid], w2 [C_mid, C_out] -> [N, C_out]."""
-    return FusedExpandDecay.apply(x, w1, b1, w2, b2)
+def fused_expand_decay(x, w1, b1, w2, b2, mesh=None):
+    """x [N, C_in], w1 [C_in, C_mid], w2 [C_mid, C_out] -> [N, C_out];
+    with ``mesh``, w1, b1 and w2 of this rank's C_mid channels of its
+    model axis."""
+    return FusedExpandDecay.apply(x, w1, b1, w2, b2, mesh)

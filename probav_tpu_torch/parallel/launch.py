@@ -2,16 +2,17 @@
 0's result.
 
     launch(fn, n, *args, device="cuda")   # fn(mesh, *args) on each rank
+    launch(fn, d * m, *args, num_model=m)  # on a (d, m) mesh
 
 Each rank is a process started with ``spawn``.  The ranks meet through a
 ``FileStore`` in a temporary directory (no TCP port to choose or to
-collide), join a process group and call ``fn(make_mesh(n, device=...),
-*args)``.  The backend is NCCL on CUDA, where rank r computes on
-``cuda:r`` and N may not exceed the card count, and gloo on the CPU, where
-each rank takes one thread.  ``backend="gloo"`` with ``device="cuda"``
-puts every rank on the card of its rank modulo the card count (on one
-card, all of them): gloo reduces and broadcasts CUDA tensors through the
-host, so it serves checks, not speed.
+collide), join a process group and call ``fn(make_mesh(n // num_model,
+num_model, device=...), *args)``.  The backend is NCCL on CUDA, where
+rank r computes on ``cuda:r`` and N may not exceed the card count, and
+gloo on the CPU, where each rank takes one thread.  ``backend="gloo"``
+with ``device="cuda"`` puts every rank on the card of its rank modulo the
+card count (on one card, all of them): gloo reduces and broadcasts CUDA
+tensors through the host, so it serves checks, not speed.
 
 A rank that raises writes its exception and traceback; the parent stops
 the other ranks (they may wait in a collective) and raises that exception
@@ -60,7 +61,7 @@ def cli_rank(mesh, opt, log_level) -> None:
     set_tf32(opt)
 
 
-def _rank_main(call: bytes, rank: int, n: int, device: str,
+def _rank_main(call: bytes, rank: int, n: int, num_model: int, device: str,
                backend: str, store_path: str, out_dir: str) -> None:
     import torch.distributed as dist
 
@@ -79,7 +80,8 @@ def _rank_main(call: bytes, rank: int, n: int, device: str,
         dist.init_process_group(
             backend, store=store, rank=rank, world_size=n,
             timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
-        result = fn(make_mesh(n, device=dev), *args)
+        result = fn(make_mesh(n // num_model, num_model, device=dev),
+                    *args)
         dist.destroy_process_group()
         payload = ("ok", result if rank == 0 else None)
     except BaseException as exc:      # reported to the parent, then re-raised
@@ -125,8 +127,10 @@ def _failure(out_dir: str, procs: list) -> BaseException:
 
 
 def launch(fn: Callable, n: int, *args, device: str = "cuda",
-           backend: Optional[str] = None, deadline: Optional[float] = None):
-    """Run ``fn(mesh, *args)`` on ``n`` ranks; return rank 0's result.
+           backend: Optional[str] = None, deadline: Optional[float] = None,
+           num_model: int = 1):
+    """Run ``fn(mesh, *args)`` on ``n`` ranks, a mesh of ``n //
+    num_model`` by ``num_model``; return rank 0's result.
 
     ``fn`` and ``args`` are pickled (``fn`` by its import path) with the
     plain pickler: the process starter's would move the storage of every
@@ -134,14 +138,16 @@ def launch(fn: Callable, n: int, *args, device: str = "cuda",
     ``backend`` defaults to "nccl" on CUDA and "gloo" on the CPU.
     """
     device = torch.device(device).type
-    if n < 1:
-        raise ValueError(f"launch: {n} ranks")
+    if n < 1 or num_model < 1 or n % num_model:
+        raise ValueError(f"launch: {n} ranks on a model axis of "
+                         f"{num_model}")
     backend = backend or ("nccl" if device == "cuda" else "gloo")
     if device == "cuda":
         count = torch.cuda.device_count()
         if backend == "nccl" and n > count:
-            raise ValueError(f"mesh {n}x1 needs {n} devices, have {count} "
-                             "(NCCL takes one rank a card)")
+            raise ValueError(f"mesh {n // num_model}x{num_model} needs {n} "
+                             f"devices, have {count} (NCCL takes one rank "
+                             "a card)")
         if count == 0:
             raise RuntimeError("launch on cuda: no CUDA device is available")
     call = pickle.dumps((fn, args))
@@ -152,7 +158,7 @@ def launch(fn: Callable, n: int, *args, device: str = "cuda",
         store = os.path.join(tmp, "store")
         for rank in range(n):
             p = ctx.Process(target=_rank_main, args=(
-                call, rank, n, device, backend, store, tmp),
+                call, rank, n, num_model, device, backend, store, tmp),
                 name=f"probav-rank{rank}")
             p.start()
             procs.append(p)

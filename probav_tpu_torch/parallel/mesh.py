@@ -1,61 +1,88 @@
-"""The data axis of a device mesh over ``torch.distributed`` ranks (port of
-``probav_tpu/parallel/mesh.py``).
+"""A ``(data, model)`` device mesh over ``torch.distributed`` ranks (port
+of ``probav_tpu/parallel/mesh.py``).
 
-The JAX package lays a ``(data, model)`` mesh over the chips of one
-process and lets the SPMD partitioner insert the collectives.  The port
-runs one process (rank) a device, each running the hand-written kernels on
-its share of the batch, and writes the collectives itself:
+The JAX package lays the mesh over the chips of one process and lets the
+SPMD partitioner insert the collectives.  The port runs one process (rank)
+a device, each running the hand-written kernels on its part of the work,
+and writes the collectives itself.  A mesh of D x M ranks is laid out
+row-major, as the JAX grid is: rank ``d * M + m`` sits at data index d and
+model index m.  The ranks of one model index form a data group, the ranks
+of one data index a model group.
 
-- a global batch of B rows is split into N equal shares of B / N rows
-  (``batch_share``);
+The data axis:
+- a global batch of B rows is split into D equal shares of B / D rows
+  (``batch_share``); the ranks of a model group hold the same rows;
 - gradients are averaged over the data group as one flat buffer
-  (``all_mean``), so every rank applies the same update and the parameters
-  stay equal on every rank;
+  (``all_mean``), so every rank applies the same update and the
+  parameters stay equal along the axis;
 - a loss coupled across the batch (the reversed MS-SSIM of ``l1msssim``)
-  sums its per-shift terms over the group before its min (``all_sum``);
+  sums its per-shift terms over the data group before its min
+  (``all_sum``);
 - predictions are gathered by a sum of zeroed buffers into which each rank
   writes its rows (``gather_rows``): gloo reduces and broadcasts CUDA
   tensors but gathers none, NCCL takes CUDA tensors only.
 
-Only the ``data`` axis is ported.  The ``model`` axis (tensor parallelism
-of the wide expand/decay convs) is the next slice in ROADMAP.md, so
-``make_mesh`` refuses ``num_model > 1``.  ``parallel/launch.py`` starts
-the ranks.
+The model axis (tensor parallelism of the WDSR-B blocks, JAX's
+``_spec_for_param``): each block's 1x1x1 expand conv is split on its
+output channels (``kernel_v``, ``wn_g``, ``bias``) and its 1x1x1 decay
+conv's ``kernel_v`` on its input channels, so each rank of a model group
+computes a partial sum of the decay's product, which the group adds
+(``reduce_from_model``); the expand's input gradient is likewise the
+group's sum (``copy_to_model``).  Everything else is replicated.
+``shard_dim`` states the rule on the port's state-dict names,
+``shard_state`` and ``gather_state`` cut a full (one-process) state into
+this rank's part and put the parts back together.
+
+``parallel/launch.py`` starts the ranks.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-TENSOR_PARALLEL_REFUSAL = (
-    "tensor parallelism (a mesh 'model' axis > 1, --mesh-model > 1) is not "
-    "ported: the port runs the data axis only; the model axis is the next "
-    "bring-up slice in ROADMAP.md (queue 1, item 4a)")
+# The JAX trainer's refusal of the "t" tier on a model axis
+# (probav_tpu/train/trainer.py), word for word.
+MODEL_AXIS_T_REFUSAL = (
+    "fused_stack='t' runs the WDSR-B stack under shard_map with REPLICATED "
+    "block weights; sharding those weights over the 'model' axis (tensor "
+    "parallelism) does not compose with it. Use --mesh-model 1, or pass "
+    "tensor_parallel=False, or drop --fused-stack t.")
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """This rank's place on a (data, model = 1) mesh: the data axis is the
-    whole default process group, so the collectives below run on it, and
-    ``device`` is the device this rank computes on.
-    """
+    """This rank's place on a (data, model) mesh of ``world`` ranks, and
+    ``device``, the device it computes on.  ``data_group`` and
+    ``model_group`` are its two process groups where the model axis is
+    above 1; with one model rank the data group is the whole default
+    group (None) and there is no model group."""
     world: int
     rank: int
     device: torch.device
+    model_size: int = 1
+    data_group: Any = None
+    model_group: Any = None
+
+    @property
+    def data_size(self) -> int:
+        return self.world // self.model_size
 
     @property
     def data_index(self) -> int:
-        """The rank's index on the data axis (the JAX mesh's name for
-        ``rank`` while the model axis is 1)."""
-        return self.rank
+        return self.rank // self.model_size
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_size
 
     @property
     def shape(self) -> dict:
-        return {"data": self.world, "model": 1}
+        return {"data": self.data_size, "model": self.model_size}
 
     @property
     def is_chief(self) -> bool:
@@ -66,15 +93,17 @@ class Mesh:
 def make_mesh(num_data: Optional[int] = None, num_model: int = 1,
               device=None) -> Mesh:
     """The mesh of this rank over the initialized default process group:
-    ``num_data`` (default: the world size) ranks on the data axis.
-    ``device`` defaults to the current CUDA device where the group's
-    backend is NCCL, else the CPU."""
-    if num_model > 1:
-        raise ValueError(TENSOR_PARALLEL_REFUSAL)
+    ``num_data`` (default: the world size over ``num_model``) by
+    ``num_model`` ranks, row-major.  ``device`` defaults to the current
+    CUDA device where the group's backend is NCCL, else the CPU.  Every
+    rank must call it (it creates the groups of every rank, in one
+    order, as ``dist.new_group`` requires)."""
+    if num_model < 1:
+        raise ValueError(f"mesh model axis {num_model}: want >= 1")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(probav_tpu_torch.parallel.launch starts one)")
-    world = dist.get_world_size()
+    world, rank = dist.get_world_size(), dist.get_rank()
     if num_data is None:
         num_data = max(1, world // num_model)
     need = num_data * num_model
@@ -84,7 +113,20 @@ def make_mesh(num_data: Optional[int] = None, num_model: int = 1,
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
-    return Mesh(world=world, rank=dist.get_rank(), device=torch.device(device))
+    data_group = model_group = None
+    if num_model > 1:
+        for m in range(num_model):
+            g = dist.new_group([d * num_model + m for d in range(num_data)])
+            if m == rank % num_model:
+                data_group = g
+        for d in range(num_data):
+            g = dist.new_group(list(range(d * num_model,
+                                          (d + 1) * num_model)))
+            if d == rank // num_model:
+                model_group = g
+    return Mesh(world=world, rank=rank, device=torch.device(device),
+                model_size=num_model, data_group=data_group,
+                model_group=model_group)
 
 
 def check_divisible(what: str, n: int, num_data: int) -> None:
@@ -96,19 +138,27 @@ def check_divisible(what: str, n: int, num_data: int) -> None:
 
 
 def batch_share(mesh: Mesh, n: int) -> slice:
-    """The rows of a global batch of ``n`` that this rank owns."""
-    check_divisible("batch size", n, mesh.world)
-    k = n // mesh.world
-    return slice(k * mesh.rank, k * (mesh.rank + 1))
+    """The rows of a global batch of ``n`` that this rank owns (every rank
+    of a model group owns the same)."""
+    check_divisible("batch size", n, mesh.data_size)
+    k = n // mesh.data_size
+    return slice(k * mesh.data_index, k * (mesh.data_index + 1))
 
 
-def all_mean(tensors: Sequence[torch.Tensor], mesh: Mesh) -> list:
-    """The tensors (of one floating dtype) averaged over the data group, in
-    one all-reduce of one flat buffer; returns views of it, shaped as the
-    inputs."""
+def all_mean(tensors: Sequence[torch.Tensor], mesh: Mesh,
+             over: str = "data") -> list:
+    """The tensors (of one floating dtype) averaged over the data group
+    (``over="data"``) or over every rank of the mesh (``"world"``: for
+    values that every rank of a model group holds alike, whose mean over
+    the world is their mean over the data group), in one all-reduce of
+    one flat buffer; returns views of it, shaped as the inputs."""
+    if over not in ("data", "world"):
+        raise ValueError(f"all_mean over {over!r}: 'data' or 'world'")
+    group, size = ((mesh.data_group, mesh.data_size) if over == "data"
+                   else (None, mesh.world))
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    flat.div_(mesh.world)
+    dist.all_reduce(flat, group=group)
+    flat.div_(size)
     return [v.view_as(t) for v, t in
             zip(flat.split([t.numel() for t in tensors]), tensors)]
 
@@ -118,20 +168,20 @@ class _AllSum(torch.autograd.Function):
 
     Every rank computes the same function of the sums, so the cotangent is
     the same on every rank, and the sum's derivative with respect to this
-    rank's terms is 1.  The trainer averages the ranks' gradients
-    (``all_mean``), so each rank returns N times its share's gradient:
-    their mean is the gradient of the global loss."""
+    rank's terms is 1.  The trainer averages the ranks' gradients over the
+    data group (``all_mean``), so each rank returns D times its share's
+    gradient: their mean is the gradient of the global loss."""
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.world = mesh.world
+        ctx.size = mesh.data_size
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=mesh.data_group)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return g * ctx.world, None
+        return g * ctx.size, None
 
 
 def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -142,17 +192,18 @@ def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def gather_rows(local: torch.Tensor, n: int, mesh: Mesh) -> torch.Tensor:
     """The [n, ...] tensor whose ``batch_share`` rows on each rank are that
     rank's ``local``: every rank writes its rows into a zeroed buffer and
-    the buffers are summed (x + 0 is x, so the rows are exact)."""
+    the buffers are summed over the data group (x + 0 is x, so the rows
+    are exact)."""
     out = torch.zeros((n,) + tuple(local.shape[1:]), dtype=local.dtype,
                       device=local.device)
     out[batch_share(mesh, n)] = local
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=mesh.data_group)
     return out
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
-    """Overwrite the tensors (of one dtype) with rank 0's, in one broadcast
-    of one flat buffer."""
+    """Overwrite the tensors (of one dtype) with rank 0's on every rank of
+    the mesh, in one broadcast of one flat buffer."""
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
     dist.broadcast(flat, 0)
     with torch.no_grad():
@@ -161,8 +212,134 @@ def broadcast_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
 
 
 def barrier(mesh: Mesh) -> None:
-    """Wait for every rank of the data group."""
+    """Wait for every rank of the mesh."""
     if dist.get_backend() == "nccl":
         dist.barrier(device_ids=[mesh.device.index])
     else:
         dist.barrier()
+
+
+# ------------------------------------------------------------------------ #
+# the model axis                                                           #
+# ------------------------------------------------------------------------ #
+
+def model_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` summed over this rank's model group, as a new tensor of x's
+    dtype.  The sum runs in float32 (a bf16 or half ``x`` is widened,
+    summed, then rounded once), so M partial sums in a low precision
+    meet as one-process products do, in float32 accumulators."""
+    y = x.to(torch.float32, copy=True)
+    dist.all_reduce(y, group=mesh.model_group)
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: the identity.  Backward: the cotangent summed over the
+    model group (``model_sum``).
+
+    It marks a replicated tensor that each rank of a model group feeds
+    into its own part of a sum over the group's channel shards (the
+    expand's input; the decay's weight-norm scale): each rank's cotangent
+    is then the derivative of its part alone, and the whole gradient is
+    the sum of the parts."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_sum(g, ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: the partial sums of the model group's ranks added
+    (``model_sum``: in float32, cast back to the input's dtype after).
+    Backward: the identity.
+
+    What follows the sum is replicated, so its cotangent is the same on
+    every rank of the group, and the sum's derivative with respect to
+    each rank's part is 1."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return model_sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def shard_dim(key: str, ndim: int) -> Optional[int]:
+    """The dimension of the state-dict entry ``key`` (of ``ndim``
+    dimensions) that the model axis splits, or None (replicated): JAX's
+    ``_spec_for_param`` on the port's names.  ``resBlock_<i>.expand.*``:
+    ``kernel_v`` [1, 1, 1, C, C_mid] on its last dimension, ``wn_g`` and
+    ``bias`` [C_mid] on their one; ``resBlock_<i>.decay.kernel_v`` [1, 1,
+    1, C_mid, C_dec] on its input channels.  The rule reads substrings of
+    the name, as JAX's does of the path, so IWDSR's ``expConv_<i>`` and
+    ``decConv_<i>`` stay replicated; an optimizer moment keyed by its
+    parameter's name follows the parameter."""
+    if "expand" in key and ndim >= 1:
+        return ndim - 1
+    if "decay" in key and ndim >= 2:
+        return ndim - 2
+    return None
+
+
+def shard_state(state: Mapping, mesh: Mesh) -> dict:
+    """This rank's part of a full (one-process) state: a state_dict, or an
+    optimizer state whose ``mu`` / ``nu`` are keyed like the parameters
+    (``count`` and every replicated entry kept as they are); ValueError
+    where a split dimension does not divide by the model size."""
+    out = {}
+    for key, v in state.items():
+        if isinstance(v, Mapping):
+            out[key] = shard_state(v, mesh)
+            continue
+        dim = shard_dim(key, v.dim())
+        if dim is None:
+            out[key] = v
+            continue
+        if v.shape[dim] % mesh.model_size:
+            raise ValueError(f"{key}: {v.shape[dim]} channels do not divide "
+                             f"by the mesh's model size {mesh.model_size}")
+        k = v.shape[dim] // mesh.model_size
+        out[key] = v.narrow(dim, k * mesh.model_index, k).clone()
+    return out
+
+
+def gather_state(state: Mapping, mesh: Mesh) -> dict:
+    """The full state from the parts of this rank's model group (every
+    rank of the group must call it), on the parts' device: each rank
+    writes its part into a zeroed full tensor on the mesh's device (NCCL
+    takes no CPU tensor) and the group sums their float32 bits as int32,
+    which is exact for every value, -0.0 and NaN included."""
+    out = {}
+    for key, v in state.items():
+        if isinstance(v, Mapping):
+            out[key] = gather_state(v, mesh)
+            continue
+        dim = shard_dim(key, v.dim())
+        if dim is None:
+            out[key] = v
+            continue
+        if v.dtype != torch.float32:
+            raise ValueError(f"gather_state {key}: {v.dtype}, want float32")
+        shape = list(v.shape)
+        shape[dim] *= mesh.model_size
+        full = torch.zeros(shape, dtype=torch.float32, device=mesh.device)
+        k = v.shape[dim]
+        full.narrow(dim, k * mesh.model_index, k).copy_(v)
+        dist.all_reduce(full.view(torch.int32), group=mesh.model_group)
+        out[key] = full.to(v.device)
+    return out

@@ -4,7 +4,7 @@
         [--modelType {patchNet,fusionNet,iwdsr}] [--bf16] [--staged-decay] \\
         [--eval-step N] [--save-best-only] [--device cuda] \\
         [--fused-stack {off,flat,t}] [--plain] [--remat] [--device-data] \\
-        [--profile-dir DIR] [--mesh-data N] [--mesh-model 1]
+        [--profile-dir DIR] [--mesh-data N] [--mesh-model M]
 
 ``patchNet`` (the default) and ``iwdsr`` load the stage-5 arrays from the
 cfg's ``augmentedPatchesDir`` (pickled masked arrays:
@@ -56,9 +56,17 @@ batch of the cfg's batch size, which must divide by N; the gradients are
 averaged over the ranks, rank 0 writes the checkpoints and logs, and
 ``main`` returns rank 0's results (``train/trainer.py``).  With
 ``--device-data`` each rank holds the whole dataset on its card.
-``--mesh-model`` above 1 (tensor parallelism, not ported) and
-``fusionNet`` with ``--mesh-data`` (train.py drops the mesh there) raise
-ValueError.
+``--mesh-model M`` (M >= 1, with ``--mesh-data N``) lays N x M ranks out
+as a (data, model) mesh: the M ranks of a model group take the same
+share of each batch, and ``patchNet``'s blocks split their expand /
+decay pair over them (tensor parallelism, ``parallel/mesh.py``), each
+rank running the ``flat`` tier's ``wide_bwd`` on its C_mid / M channels;
+C_mid must divide by M.  The tier then defaults to ``flat``; ``off``
+(``--plain``) takes the axis too, and an explicit ``--fused-stack t``
+raises the JAX trainer's ValueError.  ``iwdsr`` has no expand / decay
+pair and runs replicated on the model axis.  ``--mesh-model`` without
+``--mesh-data`` (train.py drops it there) and ``fusionNet`` with
+``--mesh-data`` (train.py drops the mesh there) raise ValueError.
 """
 
 from __future__ import annotations
@@ -103,15 +111,20 @@ def parse_args(argv=None):
                    help="write a trace of steps 10-19 into this directory")
     p.add_argument("--mesh-data", type=int, default=0,
                    help="data-parallel ranks, one a device (0: one process)")
-    p.add_argument("--mesh-model", type=int, default=1,
-                   help="tensor-parallel mesh size (only 1 is ported)")
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="tensor-parallel ranks of each model group (with "
+                        "--mesh-data; default 1)")
     opt = p.parse_args(argv)
-    if opt.mesh_model > 1:
-        from probav_tpu_torch.parallel.mesh import TENSOR_PARALLEL_REFUSAL
-        raise ValueError(TENSOR_PARALLEL_REFUSAL)
     if opt.mesh_data < 0:
         raise ValueError(f"--mesh-data {opt.mesh_data}: want 0 (one "
                          "process) or a rank count")
+    if opt.mesh_model is not None:
+        if opt.mesh_model < 1:
+            raise ValueError(f"--mesh-model {opt.mesh_model}: want >= 1")
+        if not opt.mesh_data:
+            raise ValueError("--mesh-model needs --mesh-data N (N >= 1): "
+                             "the mesh is N x M ranks")
+    opt.mesh_model = opt.mesh_model or 1
     if opt.mesh_data and opt.modelType == "fusionNet":
         raise ValueError("--mesh-data: --modelType fusionNet trains in one "
                          "process")
@@ -134,7 +147,10 @@ def parse_args(argv=None):
     elif opt.plain:
         opt.fused_stack = "off"
     elif opt.fused_stack is None:
-        opt.fused_stack = "t"
+        opt.fused_stack = "flat" if opt.mesh_model > 1 else "t"
+    elif opt.fused_stack == "t" and opt.mesh_model > 1:
+        from probav_tpu_torch.parallel.mesh import MODEL_AXIS_T_REFUSAL
+        raise ValueError(MODEL_AXIS_T_REFUSAL)
     if opt.remat and opt.modelType == "patchNet" and opt.fused_stack != "off":
         raise ValueError(f"--remat: the {opt.fused_stack!r} stack saves only "
                          "narrow residuals and would ignore it; it acts in "
@@ -158,7 +174,7 @@ def load_stage5(cfg, band: str):
 
 def patch_net(cfg, band: str, opt, mesh=None) -> dict:
     """WDSRConv3D (patchNet) or IWDSRConv3D (iwdsr) on the stage-5
-    patches; data-parallel on ``mesh`` (this rank's) where given."""
+    patches; on ``mesh`` (this rank's) where given."""
     import torch
 
     from probav_tpu_torch.models.wdsr import build_model
@@ -243,8 +259,9 @@ def fusion_net(cfg, band: str, opt) -> dict:
 
 
 def rank_main(mesh, opt, bands, log_level) -> dict:
-    """One rank of ``--mesh-data``: {band: patch_net's result}
-    (``cli_rank`` sets up its logging and precision)."""
+    """One rank of ``--mesh-data`` (and ``--mesh-model``): {band:
+    patch_net's result} (``cli_rank`` sets up its logging and
+    precision)."""
     from probav_tpu_torch.config import Config
     from probav_tpu_torch.parallel.launch import cli_rank
 
@@ -273,8 +290,8 @@ def main(argv=None) -> dict:
     if opt.mesh_data:
         check_divisible("the cfg's batch size", cfg.batch_size,
                         opt.mesh_data)
-        return launch(rank_main, opt.mesh_data, opt, bands,
+        return launch(rank_main, opt.mesh_data * opt.mesh_model, opt, bands,
                       logging.getLogger().getEffectiveLevel(),
-                      device=opt.device)
+                      device=opt.device, num_model=opt.mesh_model)
     run = fusion_net if opt.modelType == "fusionNet" else patch_net
     return {band: run(cfg, band, opt) for band in bands}

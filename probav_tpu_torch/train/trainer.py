@@ -57,7 +57,27 @@ the global batch:
   broadcast from rank 0 after ``init_state``; rank 0 alone writes
   checkpoints (a barrier follows each save), scalar logs and the profile
   trace; every rank restores the newest checkpoint.
-Tensor parallelism (a 'model' axis) is not ported.
+
+On a mesh with a model axis (M > 1, ``tensor_parallel``, the JAX
+trainer's argument) the trainer puts the model on it
+(``WDSRConv3D.shard_``: each block's expand / decay pair split over the M
+ranks of a model group, which see the same rows); ``IWDSRConv3D`` and
+``FuseNetConv2D`` have no such pair and stay replicated.  Then:
+- the state is drawn or broadcast whole and each rank keeps its part
+  (``parallel.mesh.shard_state``); a checkpoint holds the whole state,
+  gathered from the model group's parts before rank 0 writes it
+  (``gather_state``), so it resumes under any mesh and in one process;
+- a split parameter's gradient is averaged over the data group; every
+  replicated one, with the loss and the cPSNR, over every rank of the
+  mesh: the ranks of a model group hold them alike, so this is their mean
+  over the data group, and it keeps the replicated parameters equal to
+  the bit on every rank even where the card's convolution gradients are
+  not deterministic;
+- validation sums the metric's terms over every rank (the model
+  ranks' alike, so the ratio is the data group's and equal on every
+  rank, as the save-best decision after it must be).
+The "t" tier refuses a model axis (the JAX trainer's ValueError);
+``tensor_parallel=False`` replicates every parameter, so it runs.
 """
 
 from __future__ import annotations
@@ -76,7 +96,8 @@ import torch.distributed as dist
 
 from probav_tpu_torch.data.loader import Batcher, prefetch_to_device
 from probav_tpu_torch.parallel.mesh import (all_mean, barrier, batch_share,
-                                            broadcast_)
+                                            broadcast_, gather_state,
+                                            shard_dim, shard_state)
 from probav_tpu_torch.train.metrics import Mean, ScalarLogger
 from probav_tpu_torch.train.optim import Optimizer, state_to
 from probav_tpu_torch.utils.profiling import trace
@@ -123,17 +144,23 @@ class ModelTrainer:
     ``loss_fn`` and ``metric_fn`` take (hr, mask, pred); ``loss_weighted_fn``
     (hr, mask, pred, w[B]) makes padded validation batches exact.  With a
     ``mesh`` (``parallel.Mesh``) the trainer runs on ``mesh.device`` and
-    ``device`` is ignored.
+    ``device`` is ignored; ``tensor_parallel`` (with a model axis above 1)
+    splits the model's expand / decay pairs over it (module docstring).
     """
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
                  metric_fn: Callable, optimizer: Optimizer, ckpt_dir: str,
                  log_dir: str, eval_step: int = 1000, log_every: int = 20,
                  loss_weighted_fn: Optional[Callable] = None,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None, tensor_parallel: bool = True):
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else \
             torch.device(device)
+        # Whether this rank holds a part of some parameters.
+        self.sharded = (mesh is not None and tensor_parallel
+                        and mesh.model_size > 1 and hasattr(model, "shard_"))
+        if self.sharded:
+            model.shard_(mesh)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
         self.loss_w_fn = loss_weighted_fn
@@ -166,23 +193,44 @@ class ModelTrainer:
     def init_state(self, params: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> None:
         """Start from the model's own (seeded) weights or ``params`` (a
-        state_dict, e.g. ``convert.load_npz``), with a fresh optimizer
-        state; then resume from the latest checkpoint if there is one.
-        Under a mesh, rank 0's state is then broadcast to every rank."""
+        state_dict, e.g. ``convert.load_npz``; the whole one on a model
+        axis), with a fresh optimizer state; then resume from the latest
+        checkpoint if there is one.  Under a mesh, rank 0's state is then
+        broadcast to every rank."""
         if params is not None:
-            self.model.load_state_dict(params)
+            self.model.load_state_dict(self._part(params))
         self.opt_state = state_to(self.tx.init(self.params), self.device)
         self.step = 0
         self.restore()
         if self.mesh is not None:
             self._broadcast_state()
 
+    def _part(self, state: Mapping) -> Mapping:
+        """This rank's part of a whole state (itself unless sharded)."""
+        return shard_state(state, self.mesh) if self.sharded else state
+
+    def _whole(self, state: Mapping) -> Mapping:
+        """The whole state from the model group's parts (every rank of the
+        group must call it; ``state`` itself unless sharded)."""
+        return gather_state(state, self.mesh) if self.sharded else state
+
     def _broadcast_state(self) -> None:
         """Rank 0's parameters, optimizer state, step and best cPSNR on
-        every rank, whatever their seeds or checkpoints."""
-        moments = [v for key in ("mu", "nu")   # adam, nadam; sgd has none
-                   for v in self.opt_state.get(key, {}).values()]
-        broadcast_(list(self.params.values()) + moments, self.mesh)
+        every rank, whatever their seeds or checkpoints: on a model axis
+        the whole state is gathered, broadcast, and cut again."""
+        # The parameters and moments (adam, nadam; sgd has none).
+        mine = {"params": {k: p.detach() for k, p in self.params.items()},
+                **{key: self.opt_state[key] for key in ("mu", "nu")
+                   if key in self.opt_state}}
+        whole = self._whole(mine)
+        broadcast_([t for part in whole.values() for t in part.values()],
+                   self.mesh)
+        if self.sharded:
+            new = self._part(whole)
+            with torch.no_grad():
+                for key, part in mine.items():
+                    for k, t in part.items():
+                        t.copy_(new[key][k])
         meta = torch.tensor([self.step, int(self.opt_state["count"]),
                              self.best_psnr], dtype=torch.float64,
                             device=self.device)
@@ -202,8 +250,8 @@ class ModelTrainer:
             return False
         step, path = ckpts[-1]
         ck = torch.load(path, map_location="cpu", weights_only=True)
-        self.model.load_state_dict(ck["params"])
-        self.opt_state = state_to(ck["opt_state"], self.device)
+        self.model.load_state_dict(self._part(ck["params"]))
+        self.opt_state = state_to(self._part(ck["opt_state"]), self.device)
         self.step = int(ck["step"])
         self.best_psnr = float(ck["best_psnr"])
         logger.info("[ INFO ] Model restored from checkpoint at step %d.",
@@ -212,19 +260,21 @@ class ModelTrainer:
 
     def save(self) -> str:
         """Write the checkpoint of this step; keep the last MAX_TO_KEEP.
-        Under a mesh only rank 0 writes, and every rank waits for it."""
+        Under a mesh only rank 0 writes, and every rank waits for it; on a
+        model axis the whole state is gathered first (by every rank)."""
         path = os.path.join(self.ckpt_dir, f"step_{self.step:08d}.pt")
+        params = self._whole(self.model.state_dict())
+        opt_state = self._whole(self.opt_state)
         if self.is_chief:
-            self._write(path)
+            self._write(path, params, opt_state)
         if self.mesh is not None:
             barrier(self.mesh)
         return path
 
-    def _write(self, path: str) -> None:
+    def _write(self, path: str, params: Mapping, opt_state: dict) -> None:
         payload = {
-            "params": {k: v.detach().cpu()
-                       for k, v in self.model.state_dict().items()},
-            "opt_state": state_to(self.opt_state, "cpu"),
+            "params": {k: v.detach().cpu() for k, v in params.items()},
+            "opt_state": state_to(opt_state, "cpu"),
             "step": self.step,
             "best_psnr": float(self.best_psnr),
         }
@@ -246,12 +296,22 @@ class ModelTrainer:
         return loss, pred, dict(zip(self.params, grads))
 
     def _data_mean(self, scalars: list, grads: dict) -> tuple:
-        """The scalars and gradients averaged over the mesh's data group,
-        in one all-reduce."""
-        out = all_mean([v.detach().reshape(1) for v in scalars] +
-                       list(grads.values()), self.mesh)
-        k = len(scalars)
-        return [v[0] for v in out[:k]], dict(zip(grads, out[k:]))
+        """The scalars and gradients averaged over the mesh's data group:
+        in one all-reduce without a model axis; on one, the split
+        gradients over the data group and the rest over every rank
+        (module docstring)."""
+        split = [k for k, g in grads.items()
+                 if self.sharded and shard_dim(k, g.dim()) is not None]
+        rest = [k for k in grads if k not in split]
+        scalars = [v.detach().reshape(1) for v in scalars]
+        out = all_mean(scalars + [grads[k] for k in rest], self.mesh,
+                       over="world" if self.mesh.model_size > 1 else "data")
+        means = dict(zip(rest, out[len(scalars):]))
+        if split:
+            means.update(zip(split, all_mean([grads[k] for k in split],
+                                             self.mesh)))
+        return [v[0] for v in out[:len(scalars)]], \
+            {k: means[k] for k in grads}
 
     def loss_and_grads(self, lr, hr, mask):
         """(loss, pred, {name: gradient}) at the current parameters.  Under
@@ -279,7 +339,11 @@ class ModelTrainer:
         """(loss, metric) with per-sample weights w [B]; rows with w == 0
         (padding) do not count.  Under a mesh, of the rows of every rank:
         ``loss_weighted_fn`` sums over the data group itself; the metric's
-        sums, or a plain ``loss_fn``'s value, are reduced here."""
+        sums, or a plain ``loss_fn``'s value, are reduced here, over every
+        rank: a model group's ranks score the same rows, so the sums grow
+        M-fold alike and their ratio is the data group's, the same on
+        every rank (the save-best decision that follows must be: ``save``
+        is collective)."""
         pred = self.model(lr, self.norm)
         num, den = (self.metric_fn(hr, mask, pred) * w).sum(), w.sum()
         if self.loss_w_fn is not None:
@@ -335,7 +399,7 @@ class ModelTrainer:
         logger.info("[ INFO ] Begin training...")
         batches = train_batcher.repeat(epochs - done_epochs, skip=step)
         stream = prefetch_to_device(batches, self.device)
-        world = 1 if self.mesh is None else self.mesh.world
+        world = 1 if self.mesh is None else self.mesh.data_size
         if not self.is_chief:
             profile_dir = None
         with contextlib.ExitStack() as profiling:

@@ -644,12 +644,15 @@ def wide_bwd_tolerance(dtype, i):
     (300, C, CMID, CDEC), (1000, 32, 100, 40), (2 * 4356, 32, 256, 25),
     (2 * 4356, 64, 512, 51), (128 * 4356, 32, 256, 25),
     (300, 48, 384, 38), (1000, 72, 576, 57), (2 * 4356, 128, 1024, 102),
-    (1, 32, 256, 25), (127, 32, 256, 25), (129, 32, 256, 25)],
+    (1, 32, 256, 25), (127, 32, 256, 25), (129, 32, 256, 25),
+    (128 * 4356, 32, 128, 25), (128 * 4356, 32, 64, 25)],
     ids=["small", "cmid100", "flagship_b2", "wide_b2", "flagship_b128",
-         "c48", "c72", "c128_b2", "n1", "n127", "n129"])
+         "c48", "c72", "c128_b2", "n1", "n127", "n129", "tp2_b128",
+         "tp4_b128"])
 def test_wide_bwd_matches_plain_on_card(cuda, dtype, n, c, cmid, cdec):
     """The tolerances of ``wide_bwd_tolerance``; 1, 127 and 129 rows cut
-    the tensor-core kernels' 128-row tiles short."""
+    the tensor-core kernels' 128-row tiles short; tp2 and tp4 are the
+    flagship's rows at a rank's C_mid on a model axis of 2 and 4."""
     args = wide_bwd_inputs(n, c, cmid, cdec, seed=6, device=cuda,
                            dtype=dtype)
     before = wb.LAUNCHES["wide_bwd"]
@@ -671,7 +674,8 @@ def test_wide_bwd_routes_on_card(cuda):
     beyond, the CUDA cores (seg_bwd_kernel with WIDE)."""
     for widths in ((32, 256, 25), (7, 256, 25), (32, 256, 32), (1, 1, 1),
                    (32, 257, 25), (33, 256, 25), (32, 256, 33),
-                   (48, 384, 38), (64, 512, 51), (128, 1024, 102)):
+                   (48, 384, 38), (64, 512, 51), (128, 1024, 102),
+                   (32, 128, 25), (32, 64, 25)):
         tc = widths[0] <= 32 and widths[1] <= 256 and widths[2] <= 32
         assert wb.wide_bwd_route(torch.bfloat16, *widths) == \
             wb.WIDE_BWD_ROUTES[1 if tc else 0], widths
@@ -689,9 +693,11 @@ def test_wide_bwd_routes_on_card(cuda):
     (2000, 1, 1, 1, 10, "wide_bwd_bf16_kernel"),
     (1000, 32, 256, 32, 10, "wide_bwd_bf16_kernel"),
     (1000, 32, 257, 25, 10, "seg_bwd_kernel"),
-    (300, 48, 384, 38, 10, "seg_bwd_kernel")],
+    (300, 48, 384, 38, 10, "seg_bwd_kernel"),
+    (128 * 4356, 32, 128, 25, 10, "wide_bwd_bf16_kernel"),
+    (128 * 4356, 32, 64, 25, 10, "wide_bwd_bf16_kernel")],
     ids=["flagship_b128", "c7", "c8_cmid64", "c8_cmid16", "c1", "c1_dz0",
-         "cdec32", "cmid257", "c48"])
+         "cdec32", "cmid257", "c48", "tp2_b128", "tp4_b128"])
 def test_bf16_wide_bwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
                                                   seed, route):
     """bf16 within the tensor cores' widths takes wide_bwd_bf16_kernel: the
@@ -731,9 +737,11 @@ def test_bf16_wide_bwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
     (1000, 32, 256, 32, 10, "wide_bwd_tf32_kernel"),
     (129, 32, 256, 25, 10, "wide_bwd_tf32_kernel"),
     (1000, 32, 257, 25, 10, "seg_bwd_kernel"),
-    (300, 48, 384, 38, 10, "seg_bwd_kernel")],
+    (300, 48, 384, 38, 10, "seg_bwd_kernel"),
+    (128 * 4356, 32, 128, 25, 10, "wide_bwd_tf32_kernel"),
+    (128 * 4356, 32, 64, 25, 10, "wide_bwd_tf32_kernel")],
     ids=["flagship_b128", "c7", "c8_cmid64", "c1", "c1_dz0", "cdec32",
-         "n129", "cmid257", "c48"])
+         "n129", "cmid257", "c48", "tp2_b128", "tp4_b128"])
 def test_f32_wide_bwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
                                                  seed, route):
     """float32 within the tensor cores' widths takes wide_bwd_tf32_kernel:

@@ -477,27 +477,40 @@ def one_process_group(tmp_path):
 
 
 def test_make_mesh_refuses_a_model_axis_and_a_wrong_world(one_process_group):
-    with pytest.raises(ValueError, match="tensor parallelism.*not ported"
-                       ".*next bring-up slice in ROADMAP.md"):
+    """A mesh must cover the world: a model axis of 2 and a data axis of 2
+    on a world of 1 are refused; (data 1, model 1) is the whole world,
+    with no model group."""
+    with pytest.raises(ValueError, match=r"mesh 1x2 needs 2 devices, "
+                       "have 1"):
         make_mesh(num_data=1, num_model=2)
     with pytest.raises(ValueError, match=r"mesh 2x1 needs 2 devices, "
                        "have 1"):
         make_mesh(num_data=2)
-    mesh = make_mesh()
-    assert mesh.shape == {"data": 1, "model": 1}
-    assert (mesh.world, mesh.rank, mesh.data_index) == (1, 0, 0)
-    assert mesh.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="mesh model axis 0"):
+        make_mesh(num_data=1, num_model=0)
+    for mesh in (make_mesh(), make_mesh(num_data=1, num_model=1)):
+        assert mesh.shape == {"data": 1, "model": 1}
+        assert (mesh.world, mesh.rank, mesh.data_index, mesh.model_index,
+                mesh.data_size, mesh.model_size) == (1, 0, 0, 0, 1, 1)
+        assert mesh.data_group is None and mesh.model_group is None
+        assert mesh.device == torch.device("cpu")
 
 
 def test_cli_refusals():
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        cli.parse_args(["--mesh-data", "2", "--mesh-model", "2"])
-    with pytest.raises(ValueError, match="tensor parallelism"):
+    """fusionNet trains in one process; the t tier does not compose with
+    a model axis (the JAX trainer's ValueError), which flat, the default
+    there, and off do; a model axis needs a data axis."""
+    with pytest.raises(ValueError, match="tensor parallel"):
+        cli.parse_args(["--mesh-data", "2", "--mesh-model", "2",
+                        "--fused-stack", "t"])
+    with pytest.raises(ValueError, match="--mesh-model needs --mesh-data"):
         cli.parse_args(["--mesh-model", "2"])
     with pytest.raises(ValueError, match="fusionNet trains in one process"):
         cli.parse_args(["--modelType", "fusionNet", "--mesh-data", "2"])
     opt = cli.parse_args(["--modelType", "iwdsr", "--mesh-data", "2"])
     assert opt.mesh_data == 2 and opt.mesh_model == 1
+    opt = cli.parse_args(["--mesh-data", "2", "--mesh-model", "2"])
+    assert (opt.mesh_model, opt.fused_stack) == (2, "flat")
 
 
 def test_indivisible_batches_are_refused(tmp_path, no_tensorboard):

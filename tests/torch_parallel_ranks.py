@@ -82,9 +82,9 @@ def fit_trainer(mesh, params, workdir, writes):
     tr.eval_every = 2
     write = tr._write
 
-    def counted(path):
+    def counted(path, *state):
         writes.append(os.path.basename(path))
-        write(path)
+        write(path, *state)
 
     tr._write = counted
     return tr
