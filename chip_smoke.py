@@ -165,7 +165,17 @@ Phases, each printing its result:
    stages 1-2 with the host backend (trimmed arrays equal to the card's);
    registration of the stage-1 scenes on the card (cold and warm) against
    the host, 'freq' and 'time': every shift equal and the planted one,
-   'freq''s registered arrays equal; stages 1-2 with 'time' on the card.
+   'freq''s registered arrays equal; stages 1-2 with 'time' on the card;
+12. rehearsal: ``python3 -m probav_tpu_torch.tools.full_rehearsal`` at
+   1% of the ESA scene counts (RED 6 train and 2 test scenes, NIR 7 and
+   2, of 9-19 frames of 128^2), the flagship net, one epoch: the port's
+   four CLIs as subprocesses (preprocess NIR and RED with registration on
+   the card; train --band BOTH at bf16 with --device-data and the "t"
+   kernels; serve TEST and TRAIN for each band at bf16 with the kernels;
+   evaluate on the TRAIN outputs): every stage's exit 0 and a peak RSS, a
+   device-memory peak above 0 in the train and serve stages, a finite
+   score; the report
+   and the phase's seconds are logged.
 
 Before each path runs, every kernel's launch count is set to 0; the counts
 read after it are checked, and those of the path that runs a kernel are
@@ -3015,6 +3025,56 @@ def phase_preprocess(torch, dev, card):
             f"{st['register_s']:.3f} s of {sec[2]:.3f}) [{card}]")
 
 
+# The rehearsal phase: 1% of the ESA scene counts, one epoch.
+REHEARSAL_SCALE, REHEARSAL_EPOCHS = 0.01, 1
+REHEARSAL_COUNTS = {"RED_train": 6, "NIR_train": 7, "RED_test": 2,
+                    "NIR_test": 2}
+
+
+def phase_rehearsal(card):
+    """The port's four CLIs as subprocesses through the rehearsal tool on
+    the card at REHEARSAL_SCALE (the flagship net, the "t" kernels in
+    training and serving): every stage's exit 0 and a peak RSS, a
+    device-memory peak above 0 in the train and serve stages, a finite
+    score."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run(
+            [sys.executable, "-m", "probav_tpu_torch.tools.full_rehearsal",
+             "--workdir", tmp, "--scale", str(REHEARSAL_SCALE),
+             "--epochs", str(REHEARSAL_EPOCHS), "--fused", "t"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"rehearsal exited {r.returncode}:\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        with open(os.path.join(tmp, "rehearsal_report.json")) as f:
+            rep = json.load(f)
+    bands = ("NIR", "RED")
+    stages = [f"preprocess_{b}" for b in bands] + \
+        [f"train_BOTH_{REHEARSAL_EPOCHS}ep"] + \
+        [f"serve_{t}_{b}" for t in ("TEST", "TRAIN") for b in bands] + \
+        ["evaluate"]
+    steps = rep["steps"]
+    bad = [s for s in stages if steps.get(s, {}).get("exit") != 0 or
+           not steps[s]["peak_rss_gb"] > 0]
+    flat = [s for s in stages if s.startswith(("train", "serve")) and
+            not steps[s]["device_peak_gb"] > 0]
+    if bad or flat or rep["counts"] != REHEARSAL_COUNTS or \
+            not np.isfinite(rep["score"]["normalized_score"]):
+        raise AssertionError(f"rehearsal: stages not at exit 0 or with no "
+                             f"RSS {bad}, no device memory {flat}: "
+                             f"{json.dumps(rep)}")
+    log(f"rehearsal report: {json.dumps(rep)}")
+    log(f"rehearsal at --scale {REHEARSAL_SCALE} ({rep['counts']}), the "
+        f"four CLIs as {len(stages)} subprocesses on the card, every stage "
+        f"exit 0: "
+        + ", ".join(f"{s} {steps[s]['wall_s']:.1f} s / RSS "
+                    f"{steps[s]['peak_rss_gb']:.2f} GB / device "
+                    f"{steps[s]['device_peak_gb']:.2f} GB" for s in stages)
+        + f"; normalized score {rep['score']['normalized_score']:.4f}; "
+        f"the phase {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main():
     import torch
 
@@ -3058,6 +3118,7 @@ def main():
     phase_train_warm(torch, dev, card)
     phase_train_more(torch, dev, card)
     phase_preprocess(torch, dev, card)
+    phase_rehearsal(card)
 
     # (name, source, the TPU kernel it replaces, the path whose counts
     # are its launches: each path's counts were reset just before it ran).
