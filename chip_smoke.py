@@ -26,8 +26,8 @@ Phases, each printing its result:
    seg_fwd_kernel at 64/512/51 and the width phase's widths; at bf16
    seg_fwd_bf16_kernel, which the flagship must take, and
    seg_fwd_mma_kernel, which 64/512/51 and the width phase's widths must
-   take; bounds counted on the units of that route); blk_bwd and wide_bwd
-   are fed dyadic inputs (blk_bwd's log names the seg_bwd and the wgrad
+   take; the bound is the same whatever the route, the CUDA cores'
+   figure logged beside it); blk_bwd and wide_bwd are fed dyadic inputs (blk_bwd's log names the seg_bwd and the wgrad
    kernel its C entry routes each width to: the tensor-core seg_bwd at the
    flagship, seg_bwd_bf16_kernel at bf16 and the 3xTF32
    seg_bwd_tf32_kernel at float32, the CUDA-core one at 64/512/51; the
@@ -46,7 +46,9 @@ Phases, each printing its result:
    entries' slots equal to their reduce bit for bit), and both are timed
    as device time in profiler traces: warm, the entry then torch.sum on
    the partials it just wrote and reduced; cold, an L2 scrub then the
-   kernel's own entry, and the scrub then torch.sum (reduce_vs_sum);
+   kernel's own entry, and the scrub then torch.sum (reduce_vs_sum; a
+   trace that holds no device time for the kernels it names is taken
+   again, up to 3 times: tstack_roofline.kernel_ms);
 4. widths: the four block-stack kernels beyond the flagship's channels,
    at the widths of the 48-, 72- and 128-filter models (48/384/38,
    72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
@@ -142,6 +144,19 @@ Phases, each printing its result:
    --mesh-data 1 --mesh-model 2, one epoch) and a resume of their last
    checkpoint in one process, each rank's parameters its part of that
    checkpoint to the bit;
+9d. roofline (after the warm train throughput): one warm train step each
+   of float32 "t" (l1), bf16 "t" with the kernel loss and bf16 "flat",
+   traced with CPU and CUDA activity and input shapes
+   (probav_tpu_torch.tools.tstack_roofline.step_roofline): every hand
+   kernel found by name with its launches a step (12 of seg_fwd, conv_fwd
+   and blk_bwd and of each of blk_bwd's four parts; 2 and 1 of the shift
+   tables; 12 of wide_bwd and its reduce in the flat step), each one's
+   in-step ms a launch beside its bound and the share (above 1.05 fails:
+   a wrong count), the top library groups by op and input shapes and the
+   largest with a dgrad kernel; then the 12-block kernel stack at the
+   0.9411 model's 64/512/51 (tools/geom_sweep.run_width) at float32 and
+   bf16 on 128 patches, its gradients held to the plain chain as in the
+   stack gradient phase (6), its time, bound and routes logged;
 10. train, the other losses and models: the train CLI on the flagship cfg
    (float32, "t" stack, batch 128) with loss=sobel_l1_mix and with
    loss=l1msssim (12 launches of each stack kernel per step, a falling
@@ -180,8 +195,11 @@ Phases, each printing its result:
 Before each path runs, every kernel's launch count is set to 0; the counts
 read after it are checked, and those of the path that runs a kernel are
 its ``launches`` in the kernels' JSON summary, the line before the last.
-The last line is {"ok": true, "device": {...}}.  Any failure raises, and the script exits
-non-zero without that line.  Without CUDA it exits 1 at once.
+Each phase's seconds are logged, and their sum after the build.  Bounds
+are tstack_roofline's costs (route-free; the CUDA cores' figure beside).
+The last line is {"ok": true, "device": {...}}.  Any failure raises, and
+the script exits non-zero without that line.  Without CUDA it exits 1 at
+once.
 """
 
 import json
@@ -193,6 +211,17 @@ import tempfile
 import time
 
 import numpy as np
+
+from probav_tpu_torch.tools.dyadic import SHIFT_TOL
+from probav_tpu_torch.tools.geom_sweep import rel_l2, stack_inputs
+from probav_tpu_torch.tools.tstack_roofline import (back_to_back,
+                                                    blk_bwd_part_costs,
+                                                    card_line, kernel_costs,
+                                                    kernel_ms, load_trace,
+                                                    reduce_costs,
+                                                    shift_costs,
+                                                    t_kernel_of, timed,
+                                                    wide_bwd_slot)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "cfg", "p16t9c85r12.cfg")
@@ -210,7 +239,7 @@ N_PATCH, HW, T = 128, 22, 9
 C, CMID, CDEC = 32, 256, 25
 PARAMS = 535_267
 SERVE_SCENES, TTA_SCENES = 16, 2
-WARM_REPEATS = 5
+WARM_REPEATS = 3
 # The scoring step: a synthetic stage-2 truth, the f32 serve output plus
 # Gaussian noise of SCORE_NOISE counts, SCORE_HIDDEN of its pixels masked
 # with their data kept; the card's scores against the same scorer on CPU
@@ -261,11 +290,8 @@ WIDE_NAMES = ("dx", "dw1", "db1", "dw2", "db2")
 STACK_TOL = {"float32": 5e-3, "bfloat16": 3e-2}
 STACK_BF16_INDEPENDENT_TOL = 0.25
 STACK_BF16_WITNESS = (1.5, 1e-4)
-# The shift tables on integer planes (same residuals in both versions):
-# the table to 3e-5 and d/dpred to 1e-4 elementwise relative, plus 1e-6
-# of max|ref| absolute for d/dpred (tests/test_pallas.py holds the TPU
-# kernels to these); B = 128 patches of 48x48, border 3.
-SHIFT_TOL = {"shift_table_fwd": (3e-5, 0.0), "shift_table_bwd": (1e-4, 1e-6)}
+# The shift tables on integer planes, held to dyadic.SHIFT_TOL; B = 128
+# patches of 48x48, border 3.
 SHIFT_B, SHIFT_HW, SHIFT_BORDER = 128, 48, 3
 # ... and the scoring step's 16 scenes of 384x384, checked and timed beside
 # them (the JSON row is the train step's shape).
@@ -273,12 +299,7 @@ SHIFT_SHAPES = ((SHIFT_B, SHIFT_HW), (16, 384))
 # The train phase: 768 training patches (6 steps of 128 per epoch), 160
 # validation patches (a full batch and a ragged one of 32).
 TRAIN_N, VAL_N, TRAIN_EPOCHS = 768, 160, 4
-WARM_TRAIN_STEPS = 5
-# H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-PEAK_BYTES = 3.35e12
-# The TF32 tensor-core peak, for the float32 conv_fwd's 3xTF32 route.
-PEAK_TF32 = 494.7e12
+WARM_TRAIN_STEPS = 3
 # conv_fwd parity beyond the flagship volume: (label, [B, H, W, T], c_dec,
 # C), the shapes the column runs of its ring opened.
 CONV_ENVELOPE = (("W=48", (16, 22, 48, 9), CDEC, C),
@@ -316,70 +337,6 @@ def expect(**counts):
     return {k: counts.get(k, 0) for k in launches()}
 
 
-def card_line():
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
-    return r.stdout.strip().splitlines()[0]
-
-
-def timed(torch, *fns, reps=20):
-    """Median CUDA-event ms of each of fns, after one warm-up call each;
-    the functions run in turns, in reversed order every other round."""
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    times = [[] for _ in fns]
-    for i in range(reps):
-        order = list(enumerate(fns))
-        for j, fn in (order if i % 2 == 0 else order[::-1]):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times[j].append(s.elapsed_time(e))
-    return [statistics.median(t) for t in times]
-
-
-def back_to_back(torch, *fns, n=20):
-    """CUDA-event ms per call of each of fns over n calls queued back to
-    back: the device time, without the host's launch latency that a
-    single timed call includes."""
-    out = []
-    for fn in fns:
-        fn()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(n):
-            fn()
-        e.record()
-        e.synchronize()
-        out.append(s.elapsed_time(e) / n)
-    return out
-
-
-def stack_inputs(torch, dev, dtype, n, c, cmid, cdec, seed):
-    g = torch.Generator(device=dev).manual_seed(seed)
-
-    def rn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale)
-
-    x = rn(n, HW, HW, T, c).to(dtype)
-    w1 = rn(c, cmid, scale=c ** -0.5).to(dtype)
-    b1 = rn(cmid, scale=0.1).to(dtype)
-    w2 = rn(cmid, cdec, scale=cmid ** -0.5).to(dtype)
-    b2 = rn(cdec, scale=0.1).to(dtype)
-    wc = rn(3, 3, 3, cdec, c, scale=(27 * cdec) ** -0.5).to(dtype)
-    bc = rn(c, scale=0.1).to(dtype)
-    return x, (w1, b1, w2, b2, wc, bc)
-
-
 def check(name, got, ref, tol):
     err = float((got.float() - ref.float()).abs().max())
     scale = float(ref.float().abs().max())
@@ -389,17 +346,14 @@ def check(name, got, ref, tol):
     return err, scale
 
 
-def rel_l2(got, ref):
-    ref = ref.double()
-    return float((got.double() - ref).norm() / ref.norm())
-
-
-def bound(flops, nbytes, peak):
-    """(ms, "bytes" | "operations"): the least time the card could take,
-    the operations at ``peak`` FLOP/s."""
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound_text(cost):
+    """A cost of tstack_roofline as a log: the bound, what bounds it, how
+    it counts, and the CUDA cores' figure where it has one."""
+    cores = (f"; on the CUDA cores {cost['cuda_core_ms']:.4f} ms"
+             if "cuda_core_ms" in cost else "")
+    return (f"{cost['bound_ms']:.4f} ms by {cost['bound_by']} ({cost['how']}"
+            f"{cores}; {cost['flops'] / 1e9:.3f} GFLOP, "
+            f"{cost['bytes'] / 1e6:.1f} MB)")
 
 
 def seg_fwd_route(dn, c, cmid, cdec):
@@ -431,103 +385,6 @@ def wide_cuda_core_route(dtype, c, cmid, cdec):
     if route != wb.WIDE_BWD_ROUTES[0]:
         raise AssertionError(f"wide_bwd {dtype} {c}/{cmid}/{cdec} route "
                              f"{route}, expected {wb.WIDE_BWD_ROUTES[0]}")
-
-
-def kernel_costs(name, n, c, cmid, cdec, dn):
-    """(FLOP, bytes, peak FLOP/s, route) of one launch: each input read
-    once, each output written once (biases and weight grads in float32);
-    the operations at the peak of the units the kernel runs them on, which
-    ``route`` names where that is not the dtype's."""
-    itemsize, peak = (4 if dn == "float32" else 2), PEAK_FLOPS[dn]
-    if name == "wide_bwd":
-        grads = c * cmid + cmid * cdec + cmid + cdec
-        nbytes = itemsize * (n * (2 * c + cdec) + c * cmid + cmid * cdec) + \
-            4 * (cmid + grads)
-        # z = x W1 and W2 dy multiply bf16 by bf16; dx = dz W1^T, dW1 = x^T
-        # dz and dW2 = relu(z)^T dy have one float32 operand (dz, relu(z)).
-        both, one = 2 * n * cmid * (c + cdec), 2 * n * cmid * (2 * c + cdec)
-        if dn == "float32":
-            import torch
-
-            from probav_tpu_torch.ops import wide_block as wb
-            cores = bound(both + one, nbytes, peak)[0]
-            if wb.wide_bwd_route(torch.float32, c, cmid, cdec) == \
-                    wb.WIDE_BWD_ROUTES[2]:
-                # 3xTF32 on the tensor cores (wide_bwd_tf32_kernel); the
-                # CUDA cores' bound logged beside it.
-                return (3 * (both + one), nbytes, PEAK_TF32,
-                        f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} "
-                        f"TFLOP/s; on the CUDA cores {cores:.4f} ms)")
-            # On the CUDA cores; the 3xTF32 bound logged beside it.
-            tf32 = bound(3 * (both + one), nbytes, PEAK_TF32)[0]
-            return (both + one, nbytes, peak,
-                    f" on the CUDA cores (as 3xTF32 {tf32:.4f} ms)")
-        # bf16 units: the float32 operand split into three bf16 pieces, so
-        # three bf16 products each (wide_bwd_bf16_kernel); one bf16 product
-        # each logged beside it.
-        return (both + 3 * one, nbytes, peak,
-                f" as bf16 products, dx/dW1/dW2 three each (float32 dz and "
-                f"relu(z) split three ways; one each "
-                f"{bound(both + one, nbytes, peak)[0]:.4f} ms)")
-    if name == "seg_fwd":
-        flops = 2 * n * (c * cmid + cmid * cdec)
-        nbytes = itemsize * (n * (c + cdec) + c * cmid + cmid * cdec) + \
-            4 * (cmid + cdec)
-        if dn != "float32":
-            return flops, nbytes, peak, ""
-        if not seg_fwd_route("float32", c, cmid, cdec).startswith(
-                "seg_fwd_tf32_kernel"):
-            return flops, nbytes, peak, " on the CUDA cores"
-        # 3xTF32 on the tensor cores (seg_fwd_tf32_kernel); the bound of
-        # the CUDA cores' float32 logged beside it.
-        return (3 * flops, nbytes, PEAK_TF32,
-                f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} TFLOP/s; on "
-                f"the CUDA cores {bound(flops, nbytes, peak)[0]:.4f} ms)")
-    if name == "conv_fwd":
-        flops = 2 * n * 27 * cdec * c
-        nbytes = itemsize * (n * (cdec + 2 * c) + 27 * cdec * c) + 4 * c
-        if dn != "float32":
-            return flops, nbytes, peak, ""
-        # 3xTF32 on the tensor cores: three TF32 products for each float32
-        # one; the bound of the CUDA cores' float32 logged beside it.
-        return (3 * flops, nbytes, PEAK_TF32,
-                f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} TFLOP/s; on "
-                f"the CUDA cores {bound(flops, nbytes, peak)[0]:.4f} ms)")
-    grads = 27 * cdec * c + c * cmid + cmid * cdec + cmid + cdec + c
-    flops = 2 * n * (2 * 27 * cdec * c + cmid * (3 * c + 2 * cdec))
-    nbytes = itemsize * (n * (3 * c + cdec) + c * cmid + cmid * cdec +
-                         27 * cdec * c) + 4 * (cmid + grads)
-    if dn != "float32":
-        return flops, nbytes, peak, ""
-    # float32 products at their least time on the card, as 3xTF32 (the dd
-    # conv and, at C, C_dec <= 32, C_mid <= 256, seg_bwd and wgrad run so);
-    # the CUDA cores' bound logged beside it.
-    return (3 * flops, nbytes, PEAK_TF32,
-            f" as 3xTF32 (3 x FLOP at {PEAK_TF32 / 1e12:g} TFLOP/s; on "
-            f"the CUDA cores {bound(flops, nbytes, peak)[0]:.4f} ms)")
-
-
-def shift_costs(name, b, hw, border):
-    """(FLOP, bytes, peak FLOP/s, route) of one shift-table launch, float32
-    on the CUDA cores, at the least work the function needs.  Per pixel
-    and shift the forward takes sum(p m) (2: a multiply-add), r = hr -
-    (p + bias) m (3), and |r| or r^2 with its sum (2): 7 FLOP.  The
-    backward takes sum(p m) (2); r, phi and sum(phi m) (6); then r, phi,
-    (corr - phi) m and the shift's term into d/dpred (8): 16 FLOP.  The
-    windows' sums of m and hr are box sums, not correlations: two
-    summed-area tables a sample (4 FLOP per pixel of the plane), read at
-    6 FLOP a shift, with the bias (2) and the table's division (1) or the
-    backward's constants (2) a shift.  Bytes: the three planes and the
-    [B, S] table (forward) or the three planes, g and d/dpred
-    (backward)."""
-    s = (2 * border + 1) ** 2
-    work = b * s * (hw - 2 * border) ** 2
-    peak = PEAK_FLOPS["float32"]
-    if name == "shift_table_fwd":
-        boxes = b * (4 * hw * hw + 9 * s)
-        return 7 * work + boxes, 4 * (3 * b * hw * hw + b * s), peak, ""
-    boxes = b * (4 * hw * hw + 10 * s)
-    return 16 * work + boxes, 4 * (4 * b * hw * hw + b * s), peak, ""
 
 
 def check_outputs(label, names, got, want, tol_of):
@@ -583,8 +440,6 @@ def reduce_vs_sum(torch, ts, bwd_args, wide_args, dn, card):
     len bytes at 3.35 TB/s; a time slower than torch.sum's in the same
     regime is logged as missed, not failed."""
     from probav_tpu_torch.ops import _build
-    from probav_tpu_torch.tools.reduce_variants import kernel_ms
-    from probav_tpu_torch.tools.time_conv import blk_bwd_part_costs
 
     dev = bwd_args[1].device
     r = np.random.default_rng(23)
@@ -659,7 +514,7 @@ def reduce_vs_sum(torch, ts, bwd_args, wide_args, dn, card):
     cases = (("blk_bwd", blk_entry, part, out, groups, slot,
               bcost["bound_ms"]),
              ("wide_bwd", wide_entry, wpart, wout, used, wslot,
-              4 * (used + 1) * wslot / PEAK_BYTES * 1e3))
+              reduce_costs(used, wide_bwd_slot(cw, wmid, wdec))["bound_ms"]))
     for label, entry, buf, res, g, length, bound_ms in cases:
         entry()
         torch.cuda.synchronize()
@@ -673,16 +528,22 @@ def reduce_vs_sum(torch, ts, bwd_args, wide_args, dn, card):
                                  "entry's own reduce")
         # torch.sum's kernels by name; a name that the entry or the scrub
         # also launches (a memset) cannot be told apart in a trace and is
-        # left out.
-        sum_all = set(kernel_ms(torch, plain))
-        shared = sum_all & (set(kernel_ms(torch, entry)) |
-                            set(kernel_ms(torch, scrub_l2)))
-        sum_names = sum_all - shared
-        warm = kernel_ms(torch, lambda: (entry(), plain()))
-        cold_k = kernel_ms(torch, lambda: (scrub_l2(), own()))
-        cold_s = kernel_ms(torch, lambda: (scrub_l2(), plain()))
-        ours = lambda tr: sum(ms for k, ms in tr.items()
-                              if "reduce_partials_kernel" in k)
+        # left out.  Each capture names the kernels it must hold (kernel_ms
+        # captures again where one has no device time).
+        red = "reduce_partials_kernel"
+        sum_all = set(kernel_ms(torch, plain, need=("",)))
+        shared = sum_all & (set(kernel_ms(torch, entry, need=(red,))) |
+                            set(kernel_ms(torch, scrub_l2, need=("",))))
+        sum_names = tuple(sorted(sum_all - shared))
+        if not sum_names:
+            raise AssertionError(f"reduce_partials {label} {dn}: torch.sum "
+                                 f"launched no kernel of its own ({sum_all})")
+        warm = kernel_ms(torch, lambda: (entry(), plain()),
+                         need=(red,) + sum_names)
+        cold_k = kernel_ms(torch, lambda: (scrub_l2(), own()), need=(red,))
+        cold_s = kernel_ms(torch, lambda: (scrub_l2(), plain()),
+                           need=sum_names)
+        ours = lambda tr: sum(ms for k, ms in tr.items() if red in k)
         kw, kc = ours(warm), ours(cold_k)
         sw = sum(warm.get(k, 0.0) for k in sum_names)
         sc = sum(cold_s.get(k, 0.0) for k in sum_names)
@@ -719,17 +580,15 @@ def phase_kernels(torch, ts, dev, card):
     n = N_PATCH * HW * HW * T
     rows = {}
 
-    def row(name, dn, err, ms, pms, lms, costs=None, shape=None):
-        flops, nbytes, peak, route = (
-            costs or kernel_costs(name, n, C, CMID, CDEC, dn))
-        bms, by = bound(flops, nbytes, peak)
+    def row(name, dn, err, ms, pms, lms, cost=None, shape=None):
+        cost = cost or kernel_costs(name, n, C, CMID, CDEC, dn)
         rows[(name, dn)] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                library_ms=lms, bound_ms=bms, bound_by=by)
+                                library_ms=lms, bound_ms=cost["bound_ms"],
+                                bound_by=cost["bound_by"])
         lib = "none" if lms is None else f"{lms:.4f} ms"
         log(f"kernel {name} {dn} [{shape or f'N={n}, {C}/{CMID}/{CDEC}'}]: "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library call {lib}, "
-            f"bound {bms:.4f} ms by {by}{route} ({flops / 1e9:.3f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB) [{card}]")
+            f"bound {bound_text(cost)} [{card}]")
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
@@ -904,13 +763,13 @@ def phase_kernels(torch, ts, dev, card):
             call = lambda: kern(*ins, SHIFT_BORDER, False)
             pms, ms = timed(torch, lambda: plain(*ins, SHIFT_BORDER, False),
                             call)
-            costs = shift_costs(name, b, hw, SHIFT_BORDER)
+            cost = shift_costs(name, b, hw, SHIFT_BORDER)
             row(name, "float32" if hw == SHIFT_HW else f"float32 {hw}^2",
-                max(errs.values()), ms, pms, None, costs=costs, shape=shape)
+                max(errs.values()), ms, pms, None, cost=cost, shape=shape)
             kb, = back_to_back(torch, call)
             log(f"kernel {name} [{shape}]: back to back, per call: kernel "
                 f"{kb:.4f} ms, single call {ms:.4f} ms, bound "
-                f"{bound(*costs[:3])[0]:.4f} ms [{card}]")
+                f"{cost['bound_ms']:.4f} ms [{card}]")
         del hr, m, p, g
         torch.cuda.empty_cache()
     return rows
@@ -932,12 +791,11 @@ def phase_widths(torch, ts, dev, card):
     vol = (WIDTH_PATCHES, HW, HW, T)
 
     def report(name, dn, widths, err, ms, pms, lms=None):
-        flops, nbytes, peak, route = kernel_costs(name, n, *widths, dn)
-        bms, by = bound(flops, nbytes, peak)
         lib = "none" if lms is None else f"{lms:.4f} ms"
         log(f"width {name} {dn} [N={n}, {'/'.join(map(str, widths))}]: "
             f"max|diff| {err:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"library call {lib}, bound {bms:.4f} ms by {by}{route} [{card}]")
+            f"library call {lib}, bound "
+            f"{bound_text(kernel_costs(name, n, *widths, dn))} [{card}]")
 
     for widths in WIDTHS:
         c, cmid, cdec = widths
@@ -1112,10 +970,14 @@ def chain_blk_bwd_plain(ts, gy, xs, ds, blocks, dtype):
     return [g] + out
 
 
-def phase_stack_grad(torch, ts, dev, card):
-    """Autograd through the 12-block kernel stack against the plain stack,
-    at the flagship width on 128 patches (see STACK_TOL)."""
-    names = ["x"] + [f"{i}.{k}" for i in range(12)
+def hold_stack_grad(torch, ts, label, got, plain, case, card):
+    """Hold the kernel stack's gradients ``got`` of the stack ``case`` (x,
+    blocks, gy) to autograd through the plain stack (``plain``) and, at
+    bf16, to blk_bwd_plain chained over the kernel forward with the
+    float32 chain as the witness (see STACK_TOL); logs the result."""
+    x, blocks, gy = case
+    dn = str(x.dtype).split(".")[1]
+    names = ["x"] + [f"{i}.{k}" for i in range(len(blocks))
                      for k in ("w1", "b1", "w2", "b2", "wc", "bc")]
 
     def worst(got, want):
@@ -1124,75 +986,72 @@ def phase_stack_grad(torch, ts, dev, card):
                 else np.inf)
         return k, errs[k]
 
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[1]
-        blocks = []
-        for i in range(12):
-            _, blk = stack_inputs(torch, dev, dtype, 1, C, CMID, CDEC,
-                                  seed=10 + i)
-            blocks.append(tuple(t.requires_grad_() for t in blk))
-        x, _ = stack_inputs(torch, dev, dtype, N_PATCH, C, CMID, CDEC,
-                            seed=9)
-        x.requires_grad_()
-        leaves = [x] + [t for blk in blocks for t in blk]
-        gy = torch.randn(x.shape, device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(8)
-                         ).to(dtype)
-        reset_launches()
-        got = torch.autograd.grad(ts.stack_apply_5d(x, blocks), leaves, gy)
-        torch.cuda.synchronize()
-        counts = launches()
-        if counts != expect(seg_fwd=12, conv_fwd=12, blk_bwd=12):
-            raise AssertionError(f"stack gradient {dn}: launches {counts}")
+    indep = worst(got, plain)
+    msg = (f"{label} {dn}: {len(blocks)} blocks, {x.shape[0]} patches, "
+           f"{len(names)} leaves; worst ||got-ref||/||ref|| against "
+           f"autograd through the plain stack {indep[0]} {indep[1]:.3e}")
+    if x.dtype == torch.float32:
+        key, err, tol = *indep, STACK_TOL[dn]
+    else:
+        if not indep[1] <= STACK_BF16_INDEPENDENT_TOL:
+            raise AssertionError(msg)
+        # blk_bwd_plain over the kernel forward's x_i and d_i, in the
+        # working dtype and, as the witness, in float32.
+        with torch.no_grad():
+            bl = [[t.detach() for t in blk] for blk in blocks]
+            _, xs, ds = ts.stack_forward(x.detach(), bl, keep=True)
+            want = chain_blk_bwd_plain(ts, gy, xs, ds, bl, x.dtype)
+            exact = chain_blk_bwd_plain(ts, gy, xs, ds, bl, torch.float32)
+            del xs, ds
+        key, err = worst(got, want)
+        ratio, floor = STACK_BF16_WITNESS
+        e_k = {k: rel_l2(a, b) for k, a, b in zip(names, got, exact)}
+        e_p = {k: rel_l2(a, b) for k, a, b in zip(names, want, exact)}
+        off = [k for k in names if not e_k[k] <= ratio * e_p[k] + floor]
+        wk = max(e_k, key=e_k.get)
+        msg += (f" (tol {STACK_BF16_INDEPENDENT_TOL:g}); against "
+                f"blk_bwd_plain on the same forward {key} {err:.3e}; "
+                f"witness, against the float32 chain: kernel worst {wk} "
+                f"{e_k[wk]:.3e} (plain bf16 there {e_p[wk]:.3e}), "
+                f"largest ratio kernel/plain "
+                f"{max(e_k[k] / max(e_p[k], 1e-30) for k in names):.3f}")
+        if off:
+            raise AssertionError(
+                f"{msg}: kernel beyond {ratio:g} x plain + {floor:g} "
+                "at " + ", ".join(f"{k} {e_k[k]:.3e} vs {e_p[k]:.3e}"
+                                  for k in off[:6]))
+        tol = STACK_TOL[dn]
+    if not np.isfinite(err) or err > tol:
+        raise AssertionError(f"{msg}: {key} {err:.3e} > {tol:g}")
+    log(f"{msg} (tol {tol:g}) [{card}]")
 
-        # Autograd through the plain twins, with their own forward.
-        ref = x
-        for w1, b1, w2, b2, wc, bc in blocks:
-            d = ts.seg_fwd_plain(ref.reshape(-1, C), w1, b1, w2, b2)
-            ref = ts.conv_fwd_plain(d.reshape(ref.shape[:-1] + (CDEC,)), ref,
-                                    wc, bc)
-        indep = worst(got, torch.autograd.grad(ref, leaves, gy))
-        del ref, d
-        msg = (f"stack gradient {dn}: 12 blocks, {N_PATCH} patches, "
-               f"{len(names)} leaves; worst ||got-ref||/||ref|| against "
-               f"autograd through the plain stack {indep[0]} {indep[1]:.3e}")
-        if dtype == torch.float32:
-            key, err, tol = *indep, STACK_TOL[dn]
-        else:
-            if not indep[1] <= STACK_BF16_INDEPENDENT_TOL:
-                raise AssertionError(msg)
-            # blk_bwd_plain over the kernel forward's x_i and d_i, in the
-            # working dtype and, as the witness, in float32.
-            with torch.no_grad():
-                flat = [t.detach() for t in leaves[1:]]
-                bl = [flat[i:i + 6] for i in range(0, len(flat), 6)]
-                _, xs, ds = ts.stack_forward(x.detach(), bl, keep=True)
-                want = chain_blk_bwd_plain(ts, gy, xs, ds, bl, dtype)
-                exact = chain_blk_bwd_plain(ts, gy, xs, ds, bl, torch.float32)
-                del xs, ds
-            key, err = worst(got, want)
-            ratio, floor = STACK_BF16_WITNESS
-            e_k = {k: rel_l2(a, b) for k, a, b in zip(names, got, exact)}
-            e_p = {k: rel_l2(a, b) for k, a, b in zip(names, want, exact)}
-            off = [k for k in names if not e_k[k] <= ratio * e_p[k] + floor]
-            wk = max(e_k, key=e_k.get)
-            msg += (f" (tol {STACK_BF16_INDEPENDENT_TOL:g}); against "
-                    f"blk_bwd_plain on the same forward {key} {err:.3e}; "
-                    f"witness, against the float32 chain: kernel worst {wk} "
-                    f"{e_k[wk]:.3e} (plain bf16 there {e_p[wk]:.3e}), "
-                    f"largest ratio kernel/plain "
-                    f"{max(e_k[k] / max(e_p[k], 1e-30) for k in names):.3f}")
-            if off:
-                raise AssertionError(
-                    f"{msg}: kernel beyond {ratio:g} x plain + {floor:g} "
-                    "at " + ", ".join(f"{k} {e_k[k]:.3e} vs {e_p[k]:.3e}"
-                                      for k in off[:6]))
-            tol = STACK_TOL[dn]
-        if not np.isfinite(err) or err > tol:
-            raise AssertionError(f"{msg}: {key} {err:.3e} > {tol:g}")
-        log(f"{msg} (tol {tol:g}) [{card}]")
-        del got, blocks, x, gy
-        torch.cuda.empty_cache()
+
+def hold_stack_kernels(torch, ts, dev, card, label, dtype, c, cmid, cdec):
+    """Autograd through the 12-block kernel stack at c/cmid/cdec on
+    N_PATCH patches: 12 launches of each stack kernel, and the gradients
+    held to the plain stack by hold_stack_grad."""
+    from probav_tpu_torch.tools import geom_sweep as gs
+
+    dn = str(dtype).split(".")[1]
+    case = gs.stack_case(torch, dev, dtype, c, cmid, cdec, N_PATCH)
+    reset_launches()
+    got = gs.kernel_grads(torch, *case)
+    torch.cuda.synchronize()
+    counts = launches()
+    if counts != expect(seg_fwd=12, conv_fwd=12, blk_bwd=12):
+        raise AssertionError(f"{label} {dn}: launches {counts}")
+    hold_stack_grad(torch, ts, label, got, gs.plain_grads(torch, *case),
+                    case, card)
+    del got, case
+    torch.cuda.empty_cache()
+
+
+def phase_stack_grad(torch, ts, dev, card):
+    """Autograd through the 12-block kernel stack against the plain stack,
+    at the flagship width on 128 patches (see STACK_TOL)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        hold_stack_kernels(torch, ts, dev, card, "stack gradient", dtype, C,
+                           CMID, CDEC)
 
 
 def phase_model(torch, dev, card):
@@ -1735,16 +1594,16 @@ def phase_train_device(torch, dev, card):
             "train --profile-dir", ["--device", str(dev), "--bf16"],
             [TRAIN_EPOCHS], steps_per_epoch, tmp, "profiled",
             extra=["--profile-dir", trace_dir])
-        names = profile_train.kernel_names(profile_train.trace_events(
+        names = profile_train.kernel_names(load_trace(
             os.path.join(trace_dir, TRACE_FILE)))
-        seen = {profile_train.t_kernel_of(n) for n in names} - {None}
+        seen = {t_kernel_of(n) for n in names} - {None}
         if os.listdir(trace_dir) != [TRACE_FILE] or \
                 seen != {"seg_fwd", "conv_fwd", "blk_bwd"}:
             raise AssertionError(f"--profile-dir: {os.listdir(trace_dir)}, "
                                  f"t kernels {seen} of {sorted(names)}")
         log(f"train --profile-dir (bf16 t, {res['steps']} steps): "
             f"{TRACE_FILE} of steps 10-19 names "
-            f"{sorted(n for n in names if profile_train.t_kernel_of(n))} "
+            f"{sorted(n for n in names if t_kernel_of(n))} "
             f"[{card}]")
 
         marks.append(("--profile-dir", time.perf_counter()))
@@ -1770,7 +1629,7 @@ def phase_train_device(torch, dev, card):
 # The mesh phase: the two-rank fit_device chunk's steps, the timed steps
 # of the two-rank and the one-process step, and the resolver's inputs
 # (the serve phase's scenes; TTA on TTA_SCENES of them).
-MESH_CHUNK, MESH_TIMED = 2, 5
+MESH_CHUNK, MESH_TIMED = 2, 3
 
 
 def mesh_nccl_rank(mesh, argv, tmp):
@@ -2240,15 +2099,13 @@ def phase_mesh_model(torch, dev, card):
                                  tol_of)
             ms, pms = back_to_back(torch, lambda: wb.wide_bwd(*args),
                                    lambda: wb.wide_bwd_plain(*args), n=10)
-            flops, nbytes, peak, how = kernel_costs("wide_bwd", n, C, cmid,
-                                                    CDEC, dn)
-            bms, by = bound(flops, nbytes, peak)
             log(f"kernel wide_bwd {dn} at a model rank's widths, M = {m} "
                 f"[N={n}, {C}/{cmid}/{CDEC}]: route {route}; max|diff| " +
                 ", ".join(f"{k} {e:.3e}" for k, e in zip(WIDE_NAMES, errs)) +
                 f"; back to back, per call: kernel {ms:.4f} ms, plain "
-                f"{pms:.4f} ms, bound {bms:.4f} ms by {by}{how} "
-                f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB) [{card}]")
+                f"{pms:.4f} ms, bound "
+                f"{bound_text(kernel_costs('wide_bwd', n, C, cmid, CDEC, dn))}"
+                f" [{card}]")
             del args
     torch.cuda.empty_cache()
     marks.append(("wide_bwd", time.perf_counter()))
@@ -2522,6 +2379,72 @@ def phase_train_warm(torch, dev, card):
                 f"[{card}]")
 
 
+# The roofline phase: one warm train step of each of ROOFLINE_STEPS traced
+# (tstack_roofline.step_roofline), with the launches a step of each hand
+# kernel (and of each part of blk_bwd and wide_bwd) it must show; then the
+# kernel stack at the 0.9411 model's ROOFLINE_FILTERS, both dtypes, held
+# as phase_stack_grad holds the flagship's.
+ROOFLINE_STEPS = (
+    ("f32 t", "float32", "t", False, STEP_KERNELS),
+    ("bf16 t, kernel loss", "bfloat16", "t", True,
+     dict(STEP_KERNELS, shift_table_fwd=2, shift_table_bwd=1)),
+    ("bf16 flat", "bfloat16", "flat", False, dict(wide_bwd=12)))
+ROOFLINE_PARTS = {"blk_bwd": {"dd conv": 12, "wgrad": 12, "seg_bwd": 12,
+                              "reduce": 12},
+                  "wide_bwd": {"wide": 12, "reduce": 12}}
+ROOFLINE_TOP, ROOFLINE_FILTERS, ROOFLINE_REPS = 5, 64, 3
+
+
+def phase_roofline(torch, ts, dev, card):
+    """The hand kernels in real steps against their bounds, and the stack
+    at ROOFLINE_FILTERS (see ROOFLINE_STEPS)."""
+    from probav_tpu_torch.config import Config
+    from probav_tpu_torch.tools import geom_sweep as gs
+    from probav_tpu_torch.tools.tstack_roofline import (KERNELS,
+                                                        report_lines,
+                                                        step_roofline)
+
+    cfg = Config.from_file(CFG)
+    seen = set()
+    for label, dn, tier, use_kernel, want in ROOFLINE_STEPS:
+        rep = step_roofline(cfg, dn, tier, dev, use_kernel=use_kernel,
+                            top=ROOFLINE_TOP, need=tuple(want), log=log)
+        got = {k: r["launches_per_step"] for k, r in rep["kernels"].items()}
+        parts = {k: {p: q["launches_per_step"]
+                     for p, q in rep["kernels"][k]["parts"].items()}
+                 for k in ROOFLINE_PARTS if k in got}
+        if got != want or any(parts[k] != ROOFLINE_PARTS[k] for k in parts):
+            raise AssertionError(f"roofline {label}: launches a step {got}, "
+                                 f"parts {parts}; expected {want}")
+        seen |= set(got)
+        for ln in report_lines(rep):
+            log(f"roofline {label}: {ln}")
+        dgrad = [g for g in rep["library"]
+                 if any("dgrad" in k.lower() for _, k in g["kernels"])]
+        log(f"roofline {label}: the largest library group with a dgrad "
+            "kernel: " + (f"{dgrad[0]['op']} {dgrad[0]['shapes']}, "
+                          f"{dgrad[0]['ms_per_step']:.3f} ms a step"
+                          if dgrad else f"none in the top {ROOFLINE_TOP}") +
+            f" [{card}]")
+    if seen != set(KERNELS):
+        raise AssertionError(f"roofline: kernels found {sorted(seen)}, "
+                             f"expected {KERNELS}")
+
+    c, cmid, cdec = gs.widths(ROOFLINE_FILTERS)
+    for dtype in (torch.float32, torch.bfloat16):
+        hold_stack_kernels(torch, ts, dev, card,
+                           f"stack gradient at {c}/{cmid}/{cdec}", dtype, c,
+                           cmid, cdec)
+        row = gs.run_width(torch, dev, dtype, ROOFLINE_FILTERS, N_PATCH,
+                           reps=ROOFLINE_REPS)
+        log(f"{gs.row_line(row)}; bounds a launch "
+            + ", ".join(f"{k} {v:.4f} ms"
+                        for k, v in row["bounds_per_launch"].items())
+            + f" [{card}]")
+        del row
+        torch.cuda.empty_cache()
+
+
 # The phase of the other cfg losses and model types: the flagship cfg with
 # each loss through the train CLI (MORE_EPOCHS epochs of TRAIN_N patches);
 # the loss and d loss / d pred on the card against the CPU on one batch of
@@ -2535,7 +2458,7 @@ def phase_train_warm(torch, dev, card):
 MORE_LOSSES = ("sobel_l1_mix", "l1msssim")
 MORE_TOL = {"sobel_l1_mix": 1e-5, "l1msssim": 1e-4}
 MORE_GRAD_TOL = 1e-4
-MORE_EPOCHS, MORE_STEPS, MORE_BATCH = 2, 5, 128
+MORE_EPOCHS, MORE_STEPS, MORE_BATCH = 2, 3, 128
 IWDSR_CPU_N, IWDSR_TOL = 8, 1e-4
 FUSE_SCENES, FUSE_BATCH, FUSE_CPU_N, FUSE_TOL = 12, 8, 2, 1e-4
 FUSE_STEP_N = 128
@@ -3104,21 +3027,33 @@ def main():
         f"{' '.join(_build.NVCC_FLAGS)}, one process per source: "
         f"{'; '.join(per_source)})")
 
-    rows = phase_kernels(torch, ts, dev, card)
-    phase_widths(torch, ts, dev, card)
-    phase_model(torch, dev, card)
-    phase_stack_grad(torch, ts, dev, card)
-    serve_launches = phase_serve(torch, dev, card)
-    phase_warm(torch, dev, card)
-    train_launches = phase_train(torch, dev, card)
-    phase_train_device(torch, dev, card)
-    phase_mesh(torch, dev, card)
-    phase_mesh_model(torch, dev, card)
-    loss_launches = phase_train_step(torch, dev, card)
-    phase_train_warm(torch, dev, card)
-    phase_train_more(torch, dev, card)
-    phase_preprocess(torch, dev, card)
-    phase_rehearsal(card)
+    secs = []
+
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs.append((fn.__name__[len("phase_"):], time.perf_counter() - t0))
+        log(f"phase {secs[-1][0]}: {secs[-1][1]:.1f} s")
+        return out
+
+    rows = phase(phase_kernels, torch, ts, dev, card)
+    phase(phase_widths, torch, ts, dev, card)
+    phase(phase_model, torch, dev, card)
+    phase(phase_stack_grad, torch, ts, dev, card)
+    serve_launches = phase(phase_serve, torch, dev, card)
+    phase(phase_warm, torch, dev, card)
+    train_launches = phase(phase_train, torch, dev, card)
+    phase(phase_train_device, torch, dev, card)
+    phase(phase_mesh, torch, dev, card)
+    phase(phase_mesh_model, torch, dev, card)
+    loss_launches = phase(phase_train_step, torch, dev, card)
+    phase(phase_train_warm, torch, dev, card)
+    phase(phase_roofline, torch, ts, dev, card)
+    phase(phase_train_more, torch, dev, card)
+    phase(phase_preprocess, torch, dev, card)
+    phase(phase_rehearsal, card)
+    log(f"phases after the build: {sum(t for _, t in secs):.1f} s (" +
+        ", ".join(f"{n} {t:.1f}" for n, t in secs) + ")")
 
     # (name, source, the TPU kernel it replaces, the path whose counts
     # are its launches: each path's counts were reset just before it ran).

@@ -87,6 +87,13 @@ def seg_fwd_inputs(n, c, cmid, cdec, seed=0, device="cpu",
             t(grid(r, (cdec,), 16, 6)))
 
 
+# The shift tables against their plain twins on these integer planes
+# (same residuals in both versions): (rtol, atol as a fraction of max|ref|)
+# elementwise, the table to 3e-5, d/dpred to 1e-4 plus 1e-6 of max|ref|
+# (tests/test_pallas.py holds the TPU kernels to these).
+SHIFT_TOL = {"shift_table_fwd": (3e-5, 0.0), "shift_table_bwd": (1e-4, 1e-6)}
+
+
 def shift_table_inputs(b, size=48, border=3, clear=0.8, seed=0,
                        device="cpu"):
     """(hr, m, p [b, size, size], g [b, (2 border + 1)**2]) float32: hr and

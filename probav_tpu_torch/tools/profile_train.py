@@ -22,8 +22,8 @@ median patches/s is the warm throughput.  One more step runs under
 ``torch.profiler``: the device time of each kernel and memcpy and their
 sum (device busy); the idle share is 1 - busy / the median step time; and
 in the "t" variants blk_bwd's four sub-kernels (dd conv, wgrad, seg_bwd,
-reduce; see ``time_conv.BLK_BWD_PARTS``) per step, with the kernels that
-ran, and the shift-table kernels' device time per step.  A
+reduce) per step, with the kernels that ran, and the shift-table kernels'
+device time per step, as ``tstack_roofline.read_trace`` files them.  A
 JSON summary goes to ``<out>/profile_train.json``.  ``--variants`` runs
 only the named ones (a comma list of ``VARIANTS``' names, or a
 semicolon list, which can name "bf16 kernels, kernel loss").  ``--losses``
@@ -63,6 +63,9 @@ import time
 
 import numpy as np
 
+from probav_tpu_torch.tools.tstack_roofline import (DEVICE_CATS, load_trace,
+                                                    read_trace)
+
 # (name, dtype, stack tier, loss tables on the kernels)
 VARIANTS = (("bf16 kernels", "bfloat16", "t", False),
             ("bf16 plain", "bfloat16", "off", False),
@@ -72,11 +75,9 @@ VARIANTS = (("bf16 kernels", "bfloat16", "t", False),
             ("f32 flat", "float32", "flat", False),
             ("bf16 kernels, kernel loss", "bfloat16", "t", True))
 
-# --loops: the loops and the order of their rated runs; the Chrome trace
-# categories of the device's own activity.
+# --loops: the loops and the order of their rated runs.
 LOOPS = ("fit", "fit_device")
 LOOP_ORDER = ("fit", "fit_device", "fit_device", "fit")
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def synthetic_batch(n: int, seed: int = 0, hr_clear: float = 0.9):
@@ -152,8 +153,8 @@ def warm_step_rates(trainer, batch, steps: int) -> list:
 
 
 def device_breakdown(trainer, batch):
-    """(wall ms, device-busy ms, [(ms, kernel name, count)] by time) of
-    one train step under torch.profiler, after a profiled warm-up step."""
+    """(wall ms, ``step_breakdown``) of one train step under
+    torch.profiler, after a profiled warm-up step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,16 +167,25 @@ def device_breakdown(trainer, batch):
         trainer.train_step(*batch)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        return wall, step_breakdown(load_trace(path))
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
 
-    rows = sorted(((dev_us(e) / 1e3, e.key, e.count)
-                   for e in prof.key_averages()
-                   if dev_us(e) > 0 and "CUDA" in str(e.device_type)),
-                  reverse=True)
-    return wall, sum(r[0] for r in rows), rows
+def step_breakdown(events: list):
+    """(device-busy ms, [(ms, kernel name, count)] by time, the hand
+    kernels of ``tstack_roofline.read_trace``) of the Chrome trace events
+    of one step."""
+    rows = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
+            ms, n = rows.get(e["name"], (0.0, 0))
+            rows[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    trace = read_trace(events, 1)
+    return (trace["busy_ms"],
+            sorted(((ms, k, n) for k, (ms, n) in rows.items()),
+                   reverse=True), trace["hand"])
 
 
 def synthetic_set(n: int, seed: int = 1) -> tuple:
@@ -185,11 +195,6 @@ def synthetic_set(n: int, seed: int = 1) -> tuple:
     reps = -(-n // len(base[0]))
     return tuple(np.ascontiguousarray(np.concatenate([a] * reps)[:n])
                  for a in base)
-
-
-def trace_events(path: str) -> list:
-    with open(path) as f:
-        return json.load(f)["traceEvents"]
 
 
 def window_busy(events: list) -> dict:
@@ -207,19 +212,6 @@ def window_busy(events: list) -> dict:
     window = max(t for _, t in spans) - min(s for s, _ in spans)
     return {"busy_ms": busy / 1e3, "window_ms": window / 1e3,
             "busy_share": busy / window, "device_events": len(dev)}
-
-
-def t_kernel_of(name: str):
-    """The "t" stack kernel a profiled kernel name belongs to, or None."""
-    from probav_tpu_torch.tools.time_conv import blk_bwd_part
-
-    if "seg_fwd" in name:
-        return "seg_fwd"
-    if "conv_ring_kernel" in name and ", true>" in name:
-        return "conv_fwd"
-    if blk_bwd_part(name):
-        return "blk_bwd"
-    return None
 
 
 def kernel_names(events: list) -> set:
@@ -273,7 +265,7 @@ def loop_busy(cfg, dtype, dev, loop, data, val, workdir) -> dict:
         with trace(trace_dir, tr.device):
             float(tr._run_chunk(res, idx[start - 1:])[0])
     tr.logger_.close()
-    events = trace_events(os.path.join(trace_dir, TRACE_FILE))
+    events = load_trace(os.path.join(trace_dir, TRACE_FILE))
     return dict(window_busy(events), steps=stop - start)
 
 
@@ -390,7 +382,6 @@ def main(argv=None) -> dict:
     import torch
 
     from probav_tpu_torch.config import Config
-    from probav_tpu_torch.tools.time_conv import blk_bwd_part
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA device")
@@ -417,19 +408,16 @@ def main(argv=None) -> dict:
             tr = make_trainer(cfg, dtype, tier, "cuda", tmp,
                               use_kernel=use_kernel, loss=loss)
             rates = warm_step_rates(tr, batch, opt.steps)
-            wall, busy, rows = device_breakdown(tr, batch)
+            wall, (busy, rows, hand) = device_breakdown(tr, batch)
             tr.logger_.close()
         med = statistics.median(rates)
         idle = 1 - busy / (1e3 * n / med)
-        parts = {}
-        for t, k, c in rows:
-            part = blk_bwd_part(k) if tier == "t" else None
-            if part:
-                p = parts.setdefault(part, dict(ms=0.0, calls=0, kernels=[]))
-                p["ms"] += t
-                p["calls"] += c
-                p["kernels"].append(k[:90])
-        shift = [(t, c) for t, k, c in rows if "shift_table" in k]
+        parts = {part: dict(ms=p["ms"], calls=p["launches"],
+                            kernels=sorted(k[:90] for k in p["names"]))
+                 for part, p in hand.get("blk_bwd", {}).get("parts",
+                                                            {}).items()}
+        shift = [(h["ms"], h["launches"]) for k, h in hand.items()
+                 if k.startswith("shift_table")]
         summary[name] = dict(rates=rates, median=med, profiled_wall_ms=wall,
                              device_busy_ms=busy, idle=idle,
                              top=[(t, k[:90], c) for t, k, c in rows[:16]],

@@ -20,9 +20,9 @@ partial buffer with a constant, which leaves it in L2, then the reduce)
 and cold (a 256 MiB scrub of L2, then the reduce); the plan; the error
 against ``torch.sum(part[:, :len], 0)`` over max|ref|; whether two
 launches give the same bits.  ``torch.sum`` is timed alike, and the DRAM
-bound, 4 (G + 1) len bytes at 3.35 TB/s, given beside.  Prints one JSON
-line a shape, also appended to ``DIR/reduce_variants.jsonl`` with
-``--out``.  Needs a CUDA card.
+bound, 4 (G + 1) len bytes at 3.35 TB/s (``tstack_roofline.reduce_costs``),
+given beside.  Prints one JSON line a shape, also appended to
+``DIR/reduce_variants.jsonl`` with ``--out``.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ import ctypes
 import json
 import os
 import re
-import subprocess
 import sys
 
 _LOAD = ("__device__ __forceinline__ float4 load_part(const float4* p) {\n"
@@ -67,7 +66,6 @@ SHAPES = {
 }
 SECTION = ("constexpr int RED_TILE",
            "// cudaErrorInvalidValue, before any launch, where reduce_takes")
-PEAK_BYTES = 3.35e12
 
 
 def source(names) -> str:
@@ -124,25 +122,6 @@ def source(names) -> str:
     return "\n".join(parts)
 
 
-def kernel_ms(torch, call, reps=10) -> dict:
-    """{kernel name: device ms per round} of ``reps`` rounds of ``call``
-    under the profiler, after one round outside it."""
-    from torch.profiler import ProfilerActivity, profile
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
-    return out
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
@@ -159,13 +138,12 @@ def main(argv=None):
     import torch
 
     from probav_tpu_torch.ops import tstack as ts
+    from probav_tpu_torch.tools.tstack_roofline import (card_line, kernel_ms,
+                                                        reduce_costs)
     from probav_tpu_torch.tools.wgrad_variants import compile_variants
     if not torch.cuda.is_available():
         raise SystemExit("reduce_variants needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib, regs, spills = compile_variants(
         source(names), "reduce_partials_kernel", names,
@@ -192,8 +170,10 @@ def main(argv=None):
                                    f"error {err}")
 
         def times(call, name):
-            warm = kernel_ms(torch, lambda: (part.fill_(0.5), call()))
-            cold = kernel_ms(torch, lambda: (scrub.add_(1.0), call()))
+            warm = kernel_ms(torch, lambda: (part.fill_(0.5), call()),
+                             need=(name,))
+            cold = kernel_ms(torch, lambda: (scrub.add_(1.0), call()),
+                             need=(name,))
             return tuple(sum(ms for k, ms in t.items() if name in k)
                          for t in (warm, cold))
 
@@ -202,7 +182,7 @@ def main(argv=None):
         result = dict(card=card, shape=shape, groups=groups, len=n,
                       stride=stride, torch_sum_warm_ms=sw,
                       torch_sum_cold_ms=sc,
-                      bound_ms=4 * (groups + 1) * n / PEAK_BYTES * 1e3,
+                      bound_ms=reduce_costs(groups, n)["bound_ms"],
                       registers=regs, spill_bytes=spills, runs=[])
         runs = [(i, 0, 0) for i in range(len(names))]
         if not opt.no_sweep and "kernel" in names:

@@ -8,7 +8,7 @@ compare two trees of the port on one card.
 ``--tree`` is the root of the tree whose ``probav_tpu_torch`` is timed
 (default: the tree that holds this script), so a parent unpacked with
 ``git archive`` is timed by the same script; run it by path, not with
-``-m``.  At 128 patches of 22x22x9 (N = 557,568 rows), channels
+``-m``.  The costs are the tree's own ``tools/tstack_roofline.py``.  At 128 patches of 22x22x9 (N = 557,568 rows), channels
 32/256/25, float32 (TF32 off) and bf16, for each of ``--kernels``
 (default: conv_fwd alone): one parity check against its plain version
 (blk_bwd and wide_bwd on the dyadic inputs of ``tools/dyadic.py``), then
@@ -18,10 +18,10 @@ latency).  For seg_fwd also its route and, at float32, the error of its
 d against float64 on random-normal inputs (``rel_err_f64``).  For blk_bwd
 also the wgrad route, at float32 the error of its dWc against float64 on
 random-normal inputs (``dwc_rel_err_f64``), and its four sub-kernels
-(``BLK_BWD_PARTS``): the device time of each per call, by the kernel
-names of a ``torch.profiler``
-trace of 10 calls back to back, beside its bound (``blk_bwd_part_costs``),
-and in each round the one PyTorch call that computes the dd conv and the
+(``tstack_roofline.BLK_BWD_PARTS``): the device time of each per call,
+by the kernel names of a ``torch.profiler`` trace of 10 calls back to
+back, beside its bound (``tstack_roofline.blk_bwd_part_costs``), and in
+each round the one PyTorch call that computes the dd conv and the
 dWc of the same inputs (cuDNN's conv3d dgrad and weight gradient,
 ``library_calls``), 20 calls back to back.
 Run parent, change, change, parent in one call and compare the rounds'
@@ -35,7 +35,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 SHAPE, C_DEC, C_OUT, C_MID = (128, 22, 22, 9), 25, 32, 256
@@ -44,88 +43,22 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # weight gradients 1e-4 of max|ref|.
 BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 KERNELS = ("conv_fwd", "seg_fwd", "blk_bwd", "wide_bwd")
-# blk_bwd's sub-kernels: (part, ((kernel name, what its name must also
-# hold), ...)).  The dd conv is conv_ring_kernel without the residual (its
-# last template argument false; conv_fwd's is true); seg_bwd_kernel with
-# WIDE true and wide_bwd_tf32_kernel (seg_bwd_tf32_kernel's WIDE flavour,
-# a name of its own) are wide_bwd's, not blk_bwd's.
-BLK_BWD_PARTS = (("dd conv", (("conv_ring_kernel", ", false>"),)),
-                 ("wgrad", (("wgrad_kernel", ""), ("wgrad_ring_kernel", ""),
-                            ("wgrad_tf32_kernel", ""))),
-                 ("seg_bwd", (("seg_bwd_kernel", ", false>"),
-                              ("seg_bwd_bf16_kernel", ""),
-                              ("seg_bwd_tf32_kernel", ""))),
-                 ("reduce", (("reduce_partials_kernel", ""),)))
-# H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores,
-# TF32 and bf16 on the tensor cores; device memory.
-PEAK = {"float32": 67e12, "tf32": 494.7e12, "bfloat16": 989e12}
-PEAK_BYTES = 3.35e12
-
-
-def blk_bwd_part(kernel_name: str) -> str | None:
-    """The sub-kernel of blk_bwd a profiled kernel name belongs to (the
-    reduce is wide_bwd's too: read it where only blk_bwd runs)."""
-    for part, kernels in BLK_BWD_PARTS:
-        for name, tail in kernels:
-            if (f"{name}<" in kernel_name or f"{name}(" in kernel_name) \
-                    and tail in kernel_name:
-                return part
-    return None
-
-
-def blk_bwd_part_costs(n, c, cmid, cdec, dn, groups):
-    """{part: (FLOP, bytes, bound ms, bound by)} of one blk_bwd at n rows:
-    each input read once, each output written once.  The bound is the
-    least time on the card: bf16 at the bf16 tensor-core peak, float32 as
-    3xTF32 (three TF32 products for each, at the TF32 peak; the key
-    "cuda_core_ms" gives the CUDA cores' bound beside it).  The reduce
-    reads the groups' float32 slots and writes one."""
-    s = 4 if dn == "float32" else 2
-    slot = 27 * cdec * c + c * cmid + cmid * cdec + cmid + cdec + c
-    conv = 2 * n * 27 * cdec * c
-    parts = {
-        "dd conv": (conv, s * (n * (c + cdec) + 27 * cdec * c)),
-        "wgrad": (conv, s * n * (c + cdec) + 4 * 27 * cdec * c),
-        "seg_bwd": (2 * n * cmid * (3 * c + 2 * cdec),
-                    s * (n * (3 * c + cdec) + c * cmid + cmid * cdec) +
-                    4 * (cmid + c * cmid + cmid * cdec + cmid + cdec + c)),
-        "reduce": (groups * slot, 4 * (groups + 1) * slot)}
-    out = {}
-    for part, (flops, nbytes) in parts.items():
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        if part == "reduce":
-            t_ops = flops / PEAK["float32"] * 1e3
-        elif dn == "float32":
-            t_ops = 3 * flops / PEAK["tf32"] * 1e3
-        else:
-            t_ops = flops / PEAK["bfloat16"] * 1e3
-        row = dict(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
-        if dn == "float32" and part != "reduce":
-            row["cuda_core_ms"] = max(flops / PEAK["float32"] * 1e3,
-                                      t_bytes)
-        out[part] = row
-    return out
 
 
 def profile_parts(call, reps=10):
-    """{part: (ms per call, [kernel names])} of blk_bwd's sub-kernels, from
-    a torch.profiler trace of ``reps`` calls back to back."""
+    """{part: (ms per call, [kernel names])} of blk_bwd's sub-kernels
+    (``tstack_roofline.blk_bwd_part``), from a torch.profiler trace of
+    ``reps`` calls back to back."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
+    from probav_tpu_torch.tools.tstack_roofline import blk_bwd_part, kernel_ms
     parts = {}
-    for e in prof.key_averages():
-        us = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0))
-        part = blk_bwd_part(e.key)
-        if us > 0 and part:
-            ms, names = parts.get(part, (0.0, []))
-            parts[part] = (ms + us / 1e3 / reps, names + [e.key[:120]])
+    for key, ms in kernel_ms(torch, call, reps,
+                             need=("reduce_partials_kernel",)).items():
+        part = blk_bwd_part(key)
+        if part:
+            t, names = parts.get(part, (0.0, []))
+            parts[part] = (t + ms, names + [key[:120]])
     return parts
 
 
@@ -200,20 +133,6 @@ def seg_fwd_rel_err_f64(ts, dev, seed=12):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-def back_to_back(call, n=20):
-    """ms per call of n calls queued back to back (CUDA events)."""
-    import torch
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(n):
-        call()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / n
-
-
 def calls(ts, wb, name, dtype, dev, g):
     """(kernel call, its plain twin, dx tolerance, {part: library call})
     on one set of inputs."""
@@ -266,14 +185,14 @@ def main(argv=None):
 
     from probav_tpu_torch.ops import tstack as ts
     from probav_tpu_torch.ops import wide_block as wb
+    from probav_tpu_torch.tools.tstack_roofline import (back_to_back,
+                                                        blk_bwd_part_costs,
+                                                        card_line)
     if not torch.cuda.is_available():
         raise SystemExit("time_conv needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     result = dict(label=opt.label, tree=opt.tree, card=card,
@@ -313,9 +232,9 @@ def main(argv=None):
                     e.synchronize()
                     times.append(s.elapsed_time(e))
                 single.append(statistics.median(times))
-                b2b.append(back_to_back(call))
+                b2b.append(back_to_back(torch, call)[0])
                 for part, fn in lib.items():
-                    lib_b2b[part].append(back_to_back(fn))
+                    lib_b2b[part].append(back_to_back(torch, fn)[0])
             key = dn if name == "conv_fwd" else f"{name} {dn}"
             result[key] = dict(max_abs_err=max(errs), single_ms=single,
                                b2b_ms=b2b,

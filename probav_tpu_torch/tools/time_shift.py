@@ -19,7 +19,7 @@ host's launch latency, where the host enqueues faster than the card
 runs), the host's time a call with 20 calls enqueued and no sync
 (``host_ms``: ctypes, the output's allocation and the C entry's plan and
 launch), and the kernels' own device time from a torch.profiler trace of
-20 calls (``kernel_ms``); the bounds are ``chip_smoke.shift_costs``'s.  A
+20 calls (``kernel_ms``); the bounds are ``tstack_roofline.shift_costs``'s.  A
 tree whose launcher refuses a shape records ``"refused"``.  Run parent,
 change, change, parent in one call.  ``--variant`` times the source with
 the substitutions of ``VARIANTS`` (a phase or the staging taken out, p
@@ -106,9 +106,9 @@ def build(tree: str, out: str, label: str, variant: str = "kernel",
 
 def within(name, got, want):
     """chip_smoke's check on integer planes: |diff| <= rtol |ref| + atol
-    max|ref| elementwise (SHIFT_TOL)."""
-    import chip_smoke
-    rtol, atol = chip_smoke.SHIFT_TOL[name]
+    max|ref| elementwise (``dyadic.SHIFT_TOL``)."""
+    from probav_tpu_torch.tools.dyadic import SHIFT_TOL
+    rtol, atol = SHIFT_TOL[name]
     lim = rtol * want.abs() + atol * float(want.abs().max())
     return bool(((got - want).abs() <= lim).all())
 
@@ -118,16 +118,10 @@ def profiled_ms(torch, call, reps=REPS):
     torch.profiler trace of ``reps`` calls back to back: the kernel's own
     time, where a back-to-back run of a kernel shorter than the host's
     enqueue times the host."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    us = sum((getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages() if "shift_table" in e.key)
-    return us / 1e3 / reps
+    from probav_tpu_torch.tools.tstack_roofline import kernel_ms
+    return sum(ms for k, ms in kernel_ms(torch, call, reps,
+                                         need=("shift_table",)).items()
+               if "shift_table" in k)
 
 
 def host_ms(torch, call, reps=REPS):
@@ -159,9 +153,11 @@ def main(argv=None) -> int:
         return 1
     os.makedirs(args.out, exist_ok=True)
     sys.path.insert(0, ROOT)
-    import chip_smoke
     from probav_tpu_torch.ops import shift_table as st
     from probav_tpu_torch.tools.dyadic import shift_table_inputs
+    from probav_tpu_torch.tools.tstack_roofline import (back_to_back,
+                                                        card_line,
+                                                        shift_costs, timed)
 
     so, secs, ptxas = build(os.path.abspath(args.tree), args.out, args.label,
                             args.variant, args.sass)
@@ -170,7 +166,7 @@ def main(argv=None) -> int:
     stream = lambda: torch.cuda.current_stream().cuda_stream
     result = {"tree": os.path.abspath(args.tree), "label": args.label,
               "variant": args.variant,
-              "card": chip_smoke.card_line(),
+              "card": card_line(),
               "kind": torch.cuda.get_device_name(0), "build_s": secs,
               "ptxas": ptxas, "shapes": {}}
     for b, hw in SHAPES:
@@ -205,9 +201,8 @@ def main(argv=None) -> int:
         for name, call, plain, ins in (
                 ("shift_table_fwd", fwd, st.shift_table_fwd_plain, 3),
                 ("shift_table_bwd", bwd, st.shift_table_bwd_plain, 4)):
-            flops, nbytes, peak, _ = chip_smoke.shift_costs(name, b, hw,
-                                                            BORDER)
-            bms, by = chip_smoke.bound(flops, nbytes, peak)
+            cost = shift_costs(name, b, hw, BORDER)
+            bms, by = cost["bound_ms"], cost["bound_by"]
             for sq in (False, True):
                 key = f"{name} {'l2' if sq else 'l1'}"
                 err, got = call(sq)
@@ -232,9 +227,8 @@ def main(argv=None) -> int:
                        "bound_ms": bms, "bound_by": by, "single_ms": [],
                        "b2b_ms": [], "host_ms": []}
                 for _ in range(args.rounds):
-                    one, = chip_smoke.timed(torch, lambda: call(sq), reps=REPS)
-                    many, = chip_smoke.back_to_back(torch, lambda: call(sq),
-                                                    n=REPS)
+                    one, = timed(torch, lambda: call(sq), reps=REPS)
+                    many, = back_to_back(torch, lambda: call(sq), n=REPS)
                     row["single_ms"].append(one)
                     row["b2b_ms"].append(many)
                     row["host_ms"].append(host_ms(torch, lambda: call(sq)))

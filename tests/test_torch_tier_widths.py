@@ -23,12 +23,13 @@ KW = dict(scale=3, num_res_blocks=2, exp_rate=2, decay_rate=0.8,
           patch_size_lr=4, mean=100.0, std=50.0, num_img_lr=T)
 
 
-def jax_plain(filters, seed):
+def jax_plain(filters, seed, exp_rate=KW["exp_rate"]):
     """(input, params, JAX model with the plain stack): an f32 input of 2
     patches of 10x10xT and a flax init with non-zero biases."""
     x = np.random.default_rng(seed).uniform(0, 300, (2, 10, 10, T, 1)) \
         .astype(np.float32)
-    jm = JaxWDSR(num_filters=filters, fused_stack=False, **KW)
+    jm = JaxWDSR(num_filters=filters, fused_stack=False,
+                 **dict(KW, exp_rate=exp_rate))
     params = jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
     params = jax.tree.map(lambda a: a + 0.05 if a.ndim == 1 else a, params)
     return x, params, jm
@@ -84,15 +85,19 @@ def test_t_model_of_a_forward_width_runs_the_kernel_stack(monkeypatch,
     assert calls == [KW["num_res_blocks"]]
 
 
-@pytest.mark.parametrize("filters", [48, 72])
-def test_t_model_output_and_gradients_match_jax_plain_stack(filters):
-    """48 (not a divisor of 128) and 72 filters (beyond 64): the "t"
-    model's output and the gradients of one loss through its stack's
-    autograd node (blk_bwd's plain twin here) against the JAX model's plain
-    stack on the same converted parameters, f32: the output to 1e-4 *
-    max|ref| and every gradient leaf to 1e-3 of its max|ref|, as
-    tests/test_tstack.py holds the JAX tiers to each other."""
-    x, params, jm = jax_plain(filters, seed=filters)
+@pytest.mark.parametrize("filters, exp_rate", [
+    pytest.param(48, 2, id="48"), pytest.param(72, 2, id="72"),
+    pytest.param(64, 8, id="64")])
+def test_t_model_output_and_gradients_match_jax_plain_stack(filters,
+                                                             exp_rate):
+    """48 (not a divisor of 128) and 72 filters (beyond 64), and 64 at
+    exp_rate 8, the 0.9411 model's 64/512/51: the "t" model's output and
+    the gradients of one loss through its stack's autograd node (blk_bwd's
+    plain twin here) against the JAX model's plain stack on the same
+    converted parameters, f32: the output to 1e-4 * max|ref| and every
+    gradient leaf to 1e-3 of its max|ref|, as tests/test_tstack.py holds
+    the JAX tiers to each other."""
+    x, params, jm = jax_plain(filters, seed=filters, exp_rate=exp_rate)
 
     def loss(p):
         y = jm.apply({"params": p}, jnp.asarray(x))
@@ -101,7 +106,8 @@ def test_t_model_output_and_gradients_match_jax_plain_stack(filters):
     (_, ref), gref = jax.value_and_grad(loss, has_aux=True)(params)
     ref, gref = np.asarray(ref), to_state_dict(gref)
 
-    pm = WDSRConv3D(num_filters=filters, fused_stack="t", **KW)
+    pm = WDSRConv3D(num_filters=filters, fused_stack="t",
+                    **dict(KW, exp_rate=exp_rate))
     pm.load_state_dict(to_state_dict(params))
     names, leaves = zip(*pm.named_parameters())
     out = pm(torch.from_numpy(x))

@@ -367,9 +367,10 @@ def test_layout_fits_one_block_an_sm_and_phase_b_reads_are_conflict_free():
 
 
 def test_profiled_names_keep_the_wide_kernel_out_of_blk_bwd_parts():
-    """time_conv.blk_bwd_part files seg_bwd_tf32_kernel under blk_bwd's
-    seg_bwd and leaves wide_bwd_tf32_kernel out: it is wide_bwd's."""
-    from probav_tpu_torch.tools.time_conv import blk_bwd_part
+    """tstack_roofline.blk_bwd_part files seg_bwd_tf32_kernel under
+    blk_bwd's seg_bwd and leaves wide_bwd_tf32_kernel out: it is
+    wide_bwd's."""
+    from probav_tpu_torch.tools.tstack_roofline import blk_bwd_part
     args = "(float const*, float const*, float const*, float const*, long)"
     ns = "(anonymous namespace)::"
     assert blk_bwd_part(ns + "seg_bwd_tf32_kernel" + args) == "seg_bwd"
