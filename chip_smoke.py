@@ -82,7 +82,11 @@ Phases, each printing its result:
    unfiltered PNGs); and the kernel loss's cPSNR of the 16 served 384^2
    scenes: one shift_table_fwd launch, within 1e-5 of the unfold path;
 8. warm resolve: ``Resolver.resolve_all`` at bf16 and float32, kernels and
-   plain: the median and range of timed runs after a warm-up;
+   plain: the median and range of timed runs after a warm-up; and with
+   the kernels at both dtypes ``Resolver.resolve_scene_tta`` of one scene
+   of 8x8 patches, R = 20: equal to the bit to ``resolve_all([scene],
+   tta=True)[0]``, 12 x 10 launches each of seg_fwd and conv_fwd (1280
+   rows in chunks of 128), its warm ms a scene;
 9. train: ``probav_tpu_torch.train`` (through ``main(argv)``) on a
    synthetic stage-5 tree at batch 128, bf16 and float32, with the "t"
    kernel stack, with ``--fused-stack flat`` and with --plain: launch
@@ -168,6 +172,16 @@ Phases, each printing its result:
    fusionNet on 2 x 12 served 384^2 TRAIN scenes (RED first) at batch 8,
    one warm FuseNet v3 step at 128 scenes of 384^2 with its time and peak
    memory, and the v1 and v2 forwards against the CPU;
+10a. convergence: the bf16 convergence gate
+   (probav_tpu_torch.tools.bf16_convergence) in this process, the
+   flagship at 32 filters for 400 steps (402, whole epochs of 3) from one
+   seeded init, three arms: float32 "off", bf16 "t" and bf16 "off" (the
+   two "off" arms, which launch no hand kernel, train during the build,
+   phase 2, as ``convergence_plain``); the
+   bf16 arm within 0.1 dB of the float32 one in validation cPSNR
+   (``delta_db``) and of the bf16 "off" one (``kernel_delta_db``), and on
+   the "t" arm 12 launches of blk_bwd a step and of seg_fwd and conv_fwd
+   a step and a validation batch (none on the "off" arms);
 11. preprocess: a raw NIR tree written with the port's PNG writer (24
    train and 8 test scenes of 9-19 frames of 128^2, 384^2 HR, planted
    integer shifts within +-3 px); ``probav_tpu_torch.preprocess.main``
@@ -195,7 +209,7 @@ Phases, each printing its result:
 Before each path runs, every kernel's launch count is set to 0; the counts
 read after it are checked, and those of the path that runs a kernel are
 its ``launches`` in the kernels' JSON summary, the line before the last.
-Each phase's seconds are logged, and their sum after the build.  Bounds
+Each phase's seconds are logged, and their sum.  Bounds
 are tstack_roofline's costs (route-free; the CUDA cores' figure beside).
 The last line is {"ok": true, "device": {...}}.  Any failure raises, and
 the script exits non-zero without that line.  Without CUDA it exits 1 at
@@ -209,6 +223,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -239,6 +254,7 @@ N_PATCH, HW, T = 128, 22, 9
 C, CMID, CDEC = 32, 256, 25
 PARAMS = 535_267
 SERVE_SCENES, TTA_SCENES = 16, 2
+SCENE_TTA_REPEATS = 20
 WARM_REPEATS = 3
 # The scoring step: a synthetic stage-2 truth, the f32 serve output plus
 # Gaussian noise of SCORE_NOISE counts, SCORE_HIDDEN of its pixels masked
@@ -1320,12 +1336,51 @@ def phase_warm(torch, dev, card):
 
     patches = model_layout(synthetic_patches(SERVE_SCENES))
     for name, dtype, fused in VARIANTS:
-        rates = warm_rates(make_resolver(CFG, dtype, fused, dev), patches,
-                           WARM_REPEATS)
-        torch.cuda.empty_cache()
+        resolver = make_resolver(CFG, dtype, fused, dev)
+        rates = warm_rates(resolver, patches, WARM_REPEATS)
         log(f"warm resolve {name}: {SERVE_SCENES} scenes, median of "
             f"{WARM_REPEATS} {statistics.median(rates):.3f} scenes/s "
             f"(min {min(rates):.3f}, max {max(rates):.3f}) [{card}]")
+        if fused:
+            check_scene_tta(resolver, patches[0], name, card)
+        del resolver
+        torch.cuda.empty_cache()
+
+
+def check_scene_tta(resolver, scene, name, card):
+    """resolve_scene_tta of one scene ([64, h, w, T, C]) at R =
+    SCENE_TTA_REPEATS against resolve_all of that scene with TTA (the
+    same chunks through the same kernels: equal to the bit), its launches
+    (12 of seg_fwd and conv_fwd a chunk of MODEL_CHUNK rows) and its warm
+    time, the median of WARM_REPEATS after the reference call."""
+    from probav_tpu_torch.infer.resolver import MODEL_CHUNK
+
+    r = SCENE_TTA_REPEATS
+    want = resolver.resolve_all(scene[None], tta=True, tta_repeats=r)[0]
+    reset_launches()
+    got = resolver.resolve_scene_tta(scene, repeats=r)
+    counts = launches()
+    per = len(resolver.model.block_names) * \
+        -(-len(scene) * r // MODEL_CHUNK)
+    if counts != expect(seg_fwd=per, conv_fwd=per):
+        raise AssertionError(f"resolve_scene_tta {name}: launches "
+                             f"{counts}, expected {per} of seg_fwd and "
+                             f"conv_fwd")
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(
+            f"resolve_scene_tta {name}: not equal to resolve_all TTA "
+            f"({got.shape} vs {want.shape}, max |diff| "
+            f"{float(np.abs(got - want).max())})")
+    ms = []
+    for _ in range(WARM_REPEATS):
+        t0 = time.perf_counter()
+        resolver.resolve_scene_tta(scene, repeats=r)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"resolve_scene_tta {name}: one scene of {len(scene)} patches, R = "
+        f"{r}, equal to resolve_all TTA to the bit, {per} launches of "
+        f"seg_fwd and conv_fwd; warm {statistics.median(ms):.3f} ms a "
+        f"scene (median of {WARM_REPEATS}, min {min(ms):.3f}, max "
+        f"{max(ms):.3f}) [{card}]")
 
 
 def write_train_tree(root, name, epochs, **overrides):
@@ -2954,6 +3009,78 @@ REHEARSAL_COUNTS = {"RED_train": 6, "NIR_train": 7, "RED_test": 2,
                     "NIR_test": 2}
 
 
+# The convergence gate: (arm key, dtype, tier), the JAX tool's steps and
+# its threshold (bf16_convergence.GATE_DB).  The "off" arms launch no hand
+# kernel, so they train while nvcc builds the kernels (main).
+CONV_ARMS = (("f32", "f32", "off"), ("bf16", "bf16", "t"),
+             ("bf16_plain", "bf16", "off"))
+CONV_STEPS = 400
+
+
+def convergence_arms(torch, dev, tiers):
+    """The arms of CONV_ARMS on ``tiers`` (module docstring, 10a), each
+    from the one seeded init, with its step count and launches checked:
+    {key: (run_one's result, launches)}."""
+    from probav_tpu_torch.tools import bf16_convergence as bc
+
+    data = bc.make_dataset(np.random.default_rng(123))
+    init = bc.seeded_init()
+    n_val = len(data[0]) // 5
+    train_steps = (len(data[0]) - n_val) // 128
+    steps = -(-CONV_STEPS // train_steps) * train_steps
+    val_batches = -(-n_val // 128)
+    out = {}
+    for key, dtype_name, tier in CONV_ARMS:
+        if tier not in tiers:
+            continue
+        reset_launches()
+        res = bc.run_one(dtype_name, data, CONV_STEPS, fused_stack=tier,
+                         device=str(dev), init=init)
+        counts = launches()
+        torch.cuda.empty_cache()
+        if res["steps"] != steps:
+            raise AssertionError(f"convergence {key}: {res['steps']} "
+                                 f"steps, expected {steps}")
+        # fit_device's final validation and the tool's own.
+        fwd = 12 * (steps + 2 * val_batches)
+        want = expect(seg_fwd=fwd, conv_fwd=fwd, blk_bwd=12 * steps) \
+            if tier == "t" else expect()
+        if counts != want:
+            raise AssertionError(f"convergence {key}: launches {counts}, "
+                                 f"expected {want}")
+        out[key] = (res, counts)
+    return out
+
+
+def phase_convergence_plain(torch, dev, card):
+    """The gate's "off" arms (float32 and bf16), run during the build."""
+    return convergence_arms(torch, dev, ("off",))
+
+
+def phase_convergence(torch, dev, card, plain):
+    """The gate's bf16 "t" arm, then the gate over it and ``plain``
+    (phase_convergence_plain's arms)."""
+    from probav_tpu_torch.tools import bf16_convergence as bc
+
+    runs = dict(plain, **convergence_arms(torch, dev, ("t",)))
+    arms = {key: res for key, (res, _) in runs.items()}
+    res = bc.gate(arms["f32"], arms["bf16"], 32, arms["bf16_plain"])
+    log("convergence: " + "; ".join(
+        f"{key} ({dn} {tier}) val cPSNR {arms[key]['val_cpsnr']:.4f} dB, "
+        f"val loss {arms[key]['val_loss']:.4f}, {arms[key]['seconds']} s"
+        for key, dn, tier in CONV_ARMS)
+        + f"; delta_db {res['delta_db']}, kernel_delta_db "
+        f"{res['kernel_delta_db']} (gate {bc.GATE_DB}); launches on the "
+        f"bf16 t arm: " + ", ".join(f"{k} {v}" for k, v in
+                                   runs["bf16"][1].items() if v)
+        + f" [{card}]")
+    log("convergence JSON: " + json.dumps(dict(res, tf32=False, card=card)))
+    if not bc.passed(res):
+        raise AssertionError(f"convergence gate failed: delta_db "
+                             f"{res['delta_db']}, kernel_delta_db "
+                             f"{res['kernel_delta_db']} > {bc.GATE_DB}")
+
+
 def phase_rehearsal(card):
     """The port's four CLIs as subprocesses through the rehearsal tool on
     the card at REHEARSAL_SCALE (the flagship net, the "t" kernels in
@@ -3016,17 +3143,6 @@ def main():
     card = card_line()
     log(f"device: {kind} | nvidia-smi: {card}")
 
-    path, secs, report = _build.build(verbose=True)
-    ptxas = [ln.strip() for ln in report.splitlines()
-             if "Function properties" in ln or "registers" in ln
-             or "spill" in ln]
-    print("\n".join(ptxas), file=sys.stderr)
-    per_source = [ln[len("compiled "):] for ln in report.splitlines()
-                  if ln.startswith("compiled ")]
-    log(f"build: {os.path.relpath(path, ROOT)} in {secs:.1f} s (nvcc "
-        f"{' '.join(_build.NVCC_FLAGS)}, one process per source: "
-        f"{'; '.join(per_source)})")
-
     secs = []
 
     def phase(fn, *args):
@@ -3035,6 +3151,22 @@ def main():
         secs.append((fn.__name__[len("phase_"):], time.perf_counter() - t0))
         log(f"phase {secs[-1][0]}: {secs[-1][1]:.1f} s")
         return out
+
+    # nvcc builds the kernels in a thread while the convergence gate's
+    # "off" arms, which launch none, train on the card.
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(_build.build, verbose=True)
+        plain_arms = phase(phase_convergence_plain, torch, dev, card)
+        path, build_s, report = build.result()
+    ptxas = [ln.strip() for ln in report.splitlines()
+             if "Function properties" in ln or "registers" in ln
+             or "spill" in ln]
+    print("\n".join(ptxas), file=sys.stderr)
+    per_source = [ln[len("compiled "):] for ln in report.splitlines()
+                  if ln.startswith("compiled ")]
+    log(f"build: {os.path.relpath(path, ROOT)} in {build_s:.1f} s (nvcc "
+        f"{' '.join(_build.NVCC_FLAGS)}, one process per source: "
+        f"{'; '.join(per_source)})")
 
     rows = phase(phase_kernels, torch, ts, dev, card)
     phase(phase_widths, torch, ts, dev, card)
@@ -3050,9 +3182,10 @@ def main():
     phase(phase_train_warm, torch, dev, card)
     phase(phase_roofline, torch, ts, dev, card)
     phase(phase_train_more, torch, dev, card)
+    phase(phase_convergence, torch, dev, card, plain_arms)
     phase(phase_preprocess, torch, dev, card)
     phase(phase_rehearsal, card)
-    log(f"phases after the build: {sum(t for _, t in secs):.1f} s (" +
+    log(f"phases: {sum(t for _, t in secs):.1f} s (" +
         ", ".join(f"{n} {t:.1f}" for n, t in secs) + ")")
 
     # (name, source, the TPU kernel it replaces, the path whose counts

@@ -7,6 +7,9 @@ of ``MODEL_CHUNK`` patches, clips to 2**16, rounds, and pastes the tiles
 row-major into whole scenes on the device.  With TTA, every scene's
 patches are permuted in time by one shared ``[R, T]`` table on the device,
 each prediction is rounded before the mean over the R permutations.
+``resolve_scene`` and ``resolve_scene_tta`` are one scene of the same
+path (``_resolve_group``), so each equals ``resolve_all`` of that scene
+alone.
 
 Not ported: the JAX resolver's 128-lane grouping rule (``_auto_group``) and
 its ``lax.map`` chunking inside one jitted call exist for the TPU kernels'
@@ -103,13 +106,6 @@ class Resolver:
         return reconstruct_from_patches(
             pred.reshape((group, -1) + pred.shape[1:]), self.scene_size)
 
-    @torch.inference_mode()
-    def resolve_scene(self, patches: np.ndarray) -> np.ndarray:
-        """[P, h, w, T, C] patches -> [scene, scene, C] rounded floats."""
-        x = torch.as_tensor(np.asarray(patches, np.float32),
-                            device=self.device)
-        return self._paste(self._predict(x), 1)[0].cpu().numpy()
-
     @staticmethod
     def _tta_perms(t: int, repeats: int, seed: int) -> np.ndarray:
         """[R, T] int32 temporal permutations, one shared table per run.
@@ -122,6 +118,58 @@ class Resolver:
         return np.stack([rng.permutation(t)
                          for _ in range(repeats)]).astype(np.int32)
 
+    def _tta_table(self, t: int, repeats: int, seed: int) -> torch.Tensor:
+        """``_tta_perms`` flattened to [R*T] indices on the device."""
+        return torch.as_tensor(self._tta_perms(t, repeats, seed).reshape(-1),
+                               dtype=torch.long, device=self.device)
+
+    def _resolve_group(self, chunk: np.ndarray,
+                       perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[G, P, h, w, T, C] float32 scenes -> [G, S, S, C] on the device.
+
+        With ``perm`` (``_tta_table``'s R permutations) each scene's
+        patches are permuted in time R ways, the G*R*P rows go through
+        ``_predict`` (chunked, rounded, clipped; this rank's share under a
+        mesh), and the R predictions of each patch are averaged before
+        the paste.  Every resolve method goes through here."""
+        g, num_patches = chunk.shape[:2]
+        if self.mesh is not None:
+            check_divisible("patches per scene", num_patches,
+                            self.mesh.data_size)
+        x = torch.as_tensor(chunk.reshape((-1,) + chunk.shape[2:]),
+                            device=self.device)       # [G*P, h, w, T, C]
+        if perm is not None:
+            h, w, t, c = x.shape[1:]
+            repeats = len(perm) // t
+            x = x.index_select(3, perm)               # [G*P, h, w, R*T, C]
+            x = x.reshape(g, num_patches, h, w, repeats, t, c)
+            x = x.permute(0, 4, 1, 2, 3, 5, 6)        # [G, R, P, h, w, T, C]
+            x = x.reshape(g * repeats * num_patches, h, w, t, c)
+        pred = self._predict(x)
+        if perm is not None:
+            pred = pred.reshape((g, repeats, num_patches) +
+                                pred.shape[1:]).mean(dim=1)
+            pred = pred.reshape((g * num_patches,) + pred.shape[2:])
+        return self._paste(pred, g)
+
+    @torch.inference_mode()
+    def resolve_scene(self, patches: np.ndarray) -> np.ndarray:
+        """[P, h, w, T, C] patches -> [scene, scene, C] rounded floats."""
+        chunk = np.asarray(patches, np.float32)[None]
+        return self._resolve_group(chunk)[0].cpu().numpy()
+
+    @torch.inference_mode()
+    def resolve_scene_tta(self, patches: np.ndarray, repeats: int = 20,
+                          seed: int = 0) -> np.ndarray:
+        """Temporal-permutation TTA of one scene (test.py:137-146):
+        [P, h, w, T, C] -> [scene, scene, C], the permutation, forward,
+        clip and round, mean over the ``repeats`` permutations and paste
+        on the device; equal to ``resolve_all([patches], tta=True,
+        tta_repeats=repeats, tta_seed=seed)[0]``."""
+        chunk = np.asarray(patches, np.float32)[None]
+        perm = self._tta_table(chunk.shape[4], repeats, seed)
+        return self._resolve_group(chunk, perm)[0].cpu().numpy()
+
     @torch.inference_mode()
     def resolve_all(self, all_patches, tta: bool = False,
                     tta_repeats: int = 20,
@@ -129,35 +177,14 @@ class Resolver:
         """[S, P, h, w, T, C] -> list of S [scene, scene, C] arrays."""
         n = len(all_patches)
         num_patches = len(all_patches[0])
-        if self.mesh is not None:
-            check_divisible("patches per scene", num_patches,
-                            self.mesh.data_size)
         repeats = tta_repeats if tta else 1
         group = max(1, -(-self.patches_per_call // (num_patches * repeats)))
-        perm = None
-        if tta:
-            t = np.shape(all_patches[0])[3]
-            perm = torch.as_tensor(
-                self._tta_perms(t, repeats, tta_seed).reshape(-1),
-                dtype=torch.long, device=self.device)
+        perm = self._tta_table(np.shape(all_patches[0])[3], repeats,
+                               tta_seed) if tta else None
         out: List[np.ndarray] = []
         for i in range(0, n, group):
             chunk = np.asarray(all_patches[i:i + group], dtype=np.float32)
-            g = len(chunk)
-            x = torch.as_tensor(chunk.reshape((-1,) + chunk.shape[2:]),
-                                device=self.device)   # [G*P, h, w, T, C]
-            if tta:
-                h, w, t, c = x.shape[1:]
-                x = x.index_select(3, perm)           # [G*P, h, w, R*T, C]
-                x = x.reshape(g, num_patches, h, w, repeats, t, c)
-                x = x.permute(0, 4, 1, 2, 3, 5, 6)    # [G, R, P, h, w, T, C]
-                x = x.reshape(g * repeats * num_patches, h, w, t, c)
-            pred = self._predict(x)
-            if tta:
-                pred = pred.reshape((g, repeats, num_patches) +
-                                    pred.shape[1:]).mean(dim=1)
-                pred = pred.reshape((g * num_patches,) + pred.shape[2:])
-            out.extend(self._paste(pred, g).cpu().numpy())
+            out.extend(self._resolve_group(chunk, perm).cpu().numpy())
         return out
 
 

@@ -374,6 +374,24 @@ def test_two_rank_resolver_matches_jax_mesh_and_one_process(
     assert (diff > 0).mean() <= 1e-4, (diff > 0).sum()
 
 
+def test_two_rank_resolve_scene_tta_equals_one_process(two,
+                                                      resolver_inputs):
+    """resolve_scene_tta of one scene of 64 patches on two ranks, each
+    predicting 64 of its 128 rows (R = 2): equal to the bit to one
+    process's method and to the ranks' own resolve_all TTA of that
+    scene."""
+    res, _ = two
+    _, params, scenes = resolver_inputs
+    got = res["resolver"]["scene_tta"]
+    one = Resolver(WDSRConv3D(**ranks.RESOLVER_NET, fused_stack=True),
+                   convert.to_state_dict(params), scene_size=384,
+                   device="cpu")
+    assert got.shape == (384, 384, 1)
+    np.testing.assert_array_equal(
+        got, one.resolve_scene_tta(scenes[0], repeats=TTA_REPEATS))
+    np.testing.assert_array_equal(got, res["resolver"][True][0])
+
+
 # --------------------------------------------------------------------- #
 # the CLIs                                                               #
 # --------------------------------------------------------------------- #

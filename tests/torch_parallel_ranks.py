@@ -143,15 +143,18 @@ def two_ranks(mesh, spec):
 
 
 def resolve(mesh, params, scenes, tta_repeats):
-    """{tta: scenes} of Resolver.resolve_all with and without TTA."""
+    """{tta: scenes} of Resolver.resolve_all with and without TTA, and
+    under "scene_tta" resolve_scene_tta of the first scene."""
     from probav_tpu_torch.infer import Resolver
     from probav_tpu_torch.models import WDSRConv3D
 
     r = Resolver(WDSRConv3D(**RESOLVER_NET, fused_stack=True), params,
                  scene_size=384, device="cpu", mesh=mesh)
-    return {tta: np.stack(r.resolve_all(scenes, tta=tta,
-                                        tta_repeats=tta_repeats))
-            for tta in (False, True)}
+    out = {tta: np.stack(r.resolve_all(scenes, tta=tta,
+                                       tta_repeats=tta_repeats))
+           for tta in (False, True)}
+    out["scene_tta"] = r.resolve_scene_tta(scenes[0], repeats=tta_repeats)
+    return out
 
 
 def four_ranks(mesh, spec):
