@@ -42,9 +42,16 @@
 // m16n8k8); so does the wgrad where its rows fit shared memory
 // (wgrad_route: bf16 wgrad_ring_kernel, ldmatrix.trans on channels-last
 // halo rows staged by cp.async; float32 wgrad_tf32_kernel, 3xTF32 on halo
-// rows copied straight into a ring of four slots).  Both kernels at wider
-// widths (the 64-filter model's 64/512/51, up to 128/1024/102), and the
-// wgrad on larger rows, run on the CUDA cores (wgrad_kernel,
+// rows copied straight into a ring of four slots).  At bf16
+// both run on the tensor cores up to c_in, c_dec <= 64 as well (the
+// 64-filter model's 64/512/51, the 48-filter model's 48/384/38): seg_bwd,
+// to c_mid <= 512, as seg_bwd_split_kernel, c_mid cut into chunks of 256
+// over the grid, each block writing its chunk's float32 part of dx, then
+// dx_sum_kernel (the parts and gy summed, dx rounded once); the wgrad as
+// wgrad_tiles_kernel, 32 x 32 channel tiles over the grid, staged by
+// producer warps of their own.  float32
+// beyond 32/256/32, bf16 beyond 64 channels (up to 128/1024/102) and the
+// wgrad on larger rows run on the CUDA cores (wgrad_kernel,
 // seg_bwd_kernel: bf16 data widened to float32, whose products of bf16
 // values are exact), so every width from 1 to MAX_CH = 128 channels has a
 // kernel.
@@ -53,7 +60,10 @@
 // blocks; each block owns one float32 slot of the partial buffer and sums
 // into it over all its tiles, in registers written once at the end (the
 // wgrad kernels, seg_bwd_bf16, seg_bwd_tf32) or in the slot itself
-// (seg_bwd), with no atomics.  Slots lie `stride` floats apart, a
+// (seg_bwd), with no atomics.  The channel-tiled wgrad and the split
+// seg_bwd run a few blocks a slot (its tiles, its chunks of c_mid, then
+// dx_sum_kernel for dbc), each writing a disjoint part of it, so every
+// entry still has one writer.  Slots lie `stride` floats apart, a
 // multiple of 32 at least the slot's length (128-byte aligned rows, so the
 // reduce reads them as float4).  Kernel 4 sums the G slots in a fixed
 // order with no atomics, so a run is deterministic, as the per-tile
@@ -91,8 +101,10 @@
 // wide_bwd_bf16_kernel, the layout of seg_bwd_bf16_kernel with dz and
 // relu(z) split three ways into bf16 pieces where they meet a product, so
 // that nothing is rounded to bf16 but dx; float32 as wide_bwd_tf32_kernel,
-// the WIDE flavour of seg_bwd_tf32_kernel (3xTF32).  Beyond, seg_bwd_kernel
-// with WIDE set on the CUDA cores.  Bound on an H100 at the flagship N =
+// the WIDE flavour of seg_bwd_tf32_kernel (3xTF32).  Beyond, at both
+// dtypes (the 64-filter model's 64/512/51 included: seg_bwd_split_kernel's
+// chunks are blk_bwd's alone), seg_bwd_kernel with WIDE set on the CUDA
+// cores.  Bound on an H100 at the flagship N =
 // 557,568, 32/256/25: 2 N c_mid (3 c_in + 2 c_dec) = 41.7 GFLOP against
 // ~89 elements per row moved, so operations: float32 0.253 ms as 3xTF32
 // (0.62 ms at the CUDA-core peak); bf16 0.094 ms, counting z and W2 dy
@@ -554,6 +566,375 @@ cudaError_t launch_wgrad_ring(const void* d, const void* gy, float* part,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<G, WGR_WARPS * 32, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(d),
+      static_cast<const __nv_bfloat16*>(gy), part, slot_len, B, H, W, Tn,
+      c_dec, c_out, dbuf, gbuf);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------ //
+// wgrad, bf16 on the tensor cores, for c_dec or c_out beyond 32, up to 64   //
+// (the 64-filter model's 51 -> 64, the 48-filter model's 38 -> 48):        //
+// wgrad_tiles_kernel, wgrad_ring_kernel's products in 32 x 32 channel      //
+// tiles over the grid, its staging moved to producer warps of their own.  //
+// ------------------------------------------------------------------------ //
+//
+// - Tiles.  Block s * tiles + t takes channel tile t (32 c's from c0 by 32
+//   o's from o0; 2 x 2 at 64/51) of the items of slot s, the items cut
+//   into G runs as in wgrad_ring_kernel; a slot's tiles are adjacent, so
+//   they run together and read each row of d and gy from L2 once it is in.
+//   Each writes its tile of dWc in its slot: every entry one writer.
+// - Products taken the other way round: dWc^T[tap] += gy^T d_shifted, A =
+//   gy^T (16 o x 16 positions, one load for a warp's three taps), B = d
+//   shifted (16 positions x 8 c) by ldmatrix.trans on the halo rows, so a
+//   tile's c's pad to 8, not 16 (51 -> 56, 38 -> 40); the n-tiles and
+//   m-tiles past its channels are left out at compile time (wgrad_tile_mma,
+//   one instantiation a shape: a branch in the k-loop kept the compiler
+//   from interleaving loads and products, 0.81 ms against 0.60 at 64/51).
+// - Warp specialisation.  With the staging done by the same warps between
+//   two barriers an item, as in wgrad_ring_kernel, the four tiles' copies
+//   and repacks ran serial with the products: 0.56 ms at 64/51, against
+//   0.44 with producer warps (tools/time_conv.py).  Here 9 consumer warps
+//   (one per (dh, dw) tap pair, as there) only multiply, and 3 producer
+//   warps copy each item's raw rows of d an item ahead (16-byte cp.async
+//   from the chunk below each row) and repack the tile's 32 channels of a
+//   position by 32-bit words (five a step, realigned by a byte permute
+//   where they start on an odd element, masked where they reach c_dec)
+//   into the ring.  Named barriers hand the items over: FULL (ids 1, 2 by
+//   item parity), the producers' bar.arrive after staging, the consumers'
+//   bar.sync before their products; EMPTY (ids 3, 4), the consumers'
+//   bar.arrive after them, the producers' bar.sync of item j - 1 before
+//   they copy item j + 1's gy into its slot (and of the last two at the
+//   end, so that every phase completes); id 5 orders the producer warps'
+//   copies and reads of the raw buffers.  gy goes straight into its slot
+//   by 16-byte cp.async where c_out % 8 == 0 (the tile's four 8-channel
+//   pieces a position, zeros from c_out), else through a raw row and the
+//   repack.  Three producer warps: 12 warps are 3 a scheduler, the 168
+//   registers a thread of 9.
+// - Slots.  gy's slot by item parity; the rows of d in a ring of
+//   WTL_RING = 5 slots by the count of rows staged (not by row % 3): while
+//   an item is staged, the one before may still be read, and its rows are
+//   the last three staged; an item stages at most two (an image's rows 0
+//   and 1), so the rows it overwrites are five back, out of the last
+//   three.  The block's first item stages up to three rows, one at a time
+//   (nothing is in flight).  tbl[parity][dh] gives the consumers the ring
+//   slot of row h + dh - 1, -1 for a row outside the image (a zero row).
+//
+// Bound at N = 557,568, 51 -> 64: 98.3 GFLOP (0.0994 ms at the bf16 peak)
+// against 128.6 MB read (0.038 ms): operations.  Shared memory at 22 x 9,
+// 64/51: five d slots of 24 * 11 * 80 B, two gy slots of 208 * 80 B, two
+// raw rows of d (20,224 B each), one of gy (25,376 B), prow and tbl:
+// 205,568 B, one block of 12 warps an SM; where it does not fit (W = 48
+// at 64/51, T = 19) the CUDA cores (wgrad_route).
+
+constexpr int WTL_PRODUCERS = 3;   // warps that stage (3 a scheduler)
+constexpr int WTL_THREADS = (WGR_WARPS + WTL_PRODUCERS) * 32;
+constexpr int WTL_RING = 5;        // ring slots of d rows
+constexpr int WTL_RAW = 2;         // raw rows of d an item stages at most
+enum WtlBarrier { WTL_FULL = 1, WTL_EMPTY = 3, WTL_PRODUCE = 5 };
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Shared-memory bytes of wgrad_tiles_kernel; a raw row's elements in
+// *dbuf (d) and *gbuf (gy).
+size_t wgrad_tiles_smem(int W, int Tn, int c_dec, int c_out,
+                        int* dbuf = nullptr, int* gbuf = nullptr) {
+  const size_t e = sizeof(__nv_bfloat16), wt = (size_t)W * Tn;
+  const size_t npk = (wt + 15) / 16 * 16;
+  const size_t db = probav::run_buf_bytes(e * wt * c_dec);
+  const size_t gb = probav::run_buf_bytes(e * wt * c_out);
+  if (dbuf) *dbuf = (int)(db / e);
+  if (gbuf) *gbuf = (int)(gb / e);
+  return e * WGR_CSP *
+             (WTL_RING * (size_t)(W + 2) * (Tn + 2) + 2 * npk) +
+         WTL_RAW * db + gb + sizeof(int) * (npk + 8);
+}
+
+// One item's products of a consumer warp's three taps (dw, dt = 0..2) on a
+// tile of NCT 8-channel n-tiles and NMT 16-output m-tiles: dWc^T[tap] +=
+// gy^T d_shifted, A = gy^T from the gy slot at ag (+ 16 for the second
+// m-tile), B = d from the halo rows at bb + prow (+ 16 for the second pair
+// of n-tiles).  acc[t][m][nt]: outputs o 16 m.., channels c 8 nt..
+template <int NCT, int NMT>
+__device__ __forceinline__ void wgrad_tile_mma(
+    float (&acc)[3][2][4][4], const __nv_bfloat16* ag,
+    const __nv_bfloat16* bb, const int* prow, int pb, int nk) {
+  constexpr int CSP = WGR_CSP;
+#pragma unroll 2
+  for (int kk = 0; kk < nk; ++kk) {
+    uint32_t af[NMT][4];
+#pragma unroll
+    for (int m = 0; m < NMT; ++m)
+      probav::ldsm_x4_trans(af[m], ag + kk * 16 * CSP + 16 * m);
+    const __nv_bfloat16* bp = bb + prow[kk * 16 + pb] * CSP;
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+#pragma unroll
+      for (int np = 0; np < (NCT + 1) / 2; ++np) {
+        uint32_t bf[4];
+        probav::ldsm_x4_trans(bf, bp + t * CSP + 16 * np);
+#pragma unroll
+        for (int m = 0; m < NMT; ++m) {
+          probav::mma_bf16(acc[t][m][2 * np], af[m], bf[0], bf[1]);
+          if (2 * np + 1 < NCT)
+            probav::mma_bf16(acc[t][m][2 * np + 1], af[m], bf[2], bf[3]);
+        }
+      }
+  }
+}
+
+__global__ void __launch_bounds__(WTL_THREADS, 1)
+wgrad_tiles_kernel(const __nv_bfloat16* __restrict__ d,
+                   const __nv_bfloat16* __restrict__ gy,
+                   float* __restrict__ part, long slot_len, int B, int H,
+                   int W, int Tn, int c_dec, int c_out, int dbuf_elems,
+                   int gbuf_elems) {
+  using E = __nv_bfloat16;
+  constexpr int CSP = WGR_CSP, RING = WTL_RING, NT = WTL_THREADS;
+  constexpr int CT = WGR_WARPS * 32;   // consumer threads
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int T2 = Tn + 2, WT = W * Tn, npk = (WT + 15) / 16 * 16;
+  const int slot_elems = (W + 2) * T2 * CSP, gsl_elems = npk * CSP;
+  E* ring = reinterpret_cast<E*>(smem_raw);   // [RING][W+2][T+2][CSP]
+  E* gsl = ring + RING * slot_elems;          // [2][npk][CSP]
+  E* draw = gsl + 2 * gsl_elems;              // [WTL_RAW] raw rows of d
+  E* graw = draw + WTL_RAW * dbuf_elems;      // a raw row of gy
+  int* prow = reinterpret_cast<int*>(graw + gbuf_elems);   // [npk]
+  int* tbl = prow + npk;                      // [2][3] ring slots
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tc = (c_dec + 31) / 32, tiles = tc * ((c_out + 31) / 32);
+  const int tile = (int)(blockIdx.x % tiles);
+  const int c0 = 32 * (tile % tc), o0 = 32 * (tile / tc);
+  const int slot = (int)(blockIdx.x / tiles);
+  const int nslots = (int)(gridDim.x / tiles);
+
+  // Zeros on the halo borders and on gy past its W*T positions, never
+  // written again; the halo row of each position's centre tap (position
+  // 0's past the row, where gy is zero).
+  for (int e = tid; e < (RING * slot_elems + 2 * gsl_elems) / 8; e += NT)
+    reinterpret_cast<uint4*>(ring)[e] = make_uint4(0, 0, 0, 0);
+  for (int k = tid; k < npk; k += NT) {
+    const int p = k < WT ? k : 0;
+    prow[k] = (p / Tn + 1) * T2 + p % Tn + 1;
+  }
+  __syncthreads();
+
+  const long items = (long)B * H;
+  const long per = (items + nslots - 1) / nslots;
+  const long i0 = min(items, (long)slot * per);
+  const long i1 = min(items, i0 + per);
+  // The first row of d an item stages, or -1 (wgrad_ring_kernel's).
+  auto first_row = [&](long item) {
+    const int h = (int)(item % H);
+    const int lo = (item == i0 || h == 0) ? max(h - 1, 0) : h + 1;
+    return lo < H ? lo : -1;
+  };
+
+  if (warp >= WGR_WARPS) {
+    // Producers: stage item by item, one ahead of the consumers.
+    const int ptid = tid - CT, pn = NT - CT;
+    // src[0, n) into buf by 16-byte cp.async from the chunk below src;
+    // returns src[0]'s element offset in buf (probav::copy_async).
+    auto copy = [&](E* buf, const E* src, int n) {
+      const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+      const uintptr_t a = s & ~uintptr_t(15);
+      const int chunks = (int)((s + 2 * (uintptr_t)n + 15 - a) / 16);
+      for (int i = ptid; i < chunks; i += pn)
+        probav::cp_async16(reinterpret_cast<char*>(buf) + 16 * i,
+                           a + 16 * (uintptr_t)i);
+      return (int)((s - a) / 2);
+    };
+    // Channels ch0 .. ch0 + 32 of each position of a raw row (cn channels
+    // from element skew of base) into dst: position p to row prow[p] (a d
+    // slot) or p (a gy slot), 8 channels a step from five 32-bit words.
+    auto repack = [&](E* dst, const E* base, int skew, int cn, int ch0,
+                      bool halo) {
+      const uint32_t* bw = reinterpret_cast<const uint32_t*>(base);
+      for (int u = ptid; u < WT * 4; u += pn) {
+        const int p = u / 4, j = u % 4;
+        const int c = ch0 + 8 * j, left = cn - c;
+        const int e = left > 0 ? skew + p * cn + c : 0;
+        const uint32_t* w = bw + e / 2;
+        const uint32_t sel = e & 1 ? 0x5432u : 0x3210u;
+        uint32_t v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = __byte_perm(w[k], w[k + 1], sel);
+        if (left < 8) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            v[k] &= (2 * k < left ? 0xffffu : 0u) |
+                    (2 * k + 1 < left ? 0xffff0000u : 0u);
+        }
+        *reinterpret_cast<uint4*>(dst + (halo ? prow[p] : p) * CSP + 8 * j) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    };
+    auto d_row = [&](long b, int r) { return d + (b * H + r) * WT * c_dec; };
+    // gy of an item straight into a gy slot where its rows allow 16-byte
+    // copies of 8 channels (c_out % 8 == 0): the tile's four a position,
+    // zeros from c_out; else through the raw row and repack.
+    const bool gdirect = c_out % 8 == 0 &&
+                         reinterpret_cast<uintptr_t>(gy) % 16 == 0;
+    auto copy_gy = [&](E* dst, long item) {
+      const E* src = gy + item * WT * c_out + o0;
+      for (int u = ptid; u < WT * 4; u += pn) {
+        const int p = u / 4, j = u % 4;
+        const bool in = o0 + 8 * j < c_out;
+        probav::cp_async16_zfill(dst + p * CSP + 8 * j,
+                                 in ? src + p * c_out + 8 * j : gy, in);
+      }
+    };
+    // Ring slots of rows h - 1, h, h + 1, the rows staged, the raw rows'
+    // skews (scalars: an indexed array would live in local memory).
+    int rs0 = -1, rs1 = -1, rs2 = -1, staged = 0, dsk0 = 0, dsk1 = 0, gsk = 0;
+    auto put = [&](int k, int sl) {
+      rs0 = k == 0 ? sl : rs0;
+      rs1 = k == 1 ? sl : rs1;
+      rs2 = k == 2 ? sl : rs2;
+    };
+    for (long item = i0; item < i1; ++item) {
+      const long b = item / H;
+      const int h = (int)(item % H), par = (int)((item - i0) & 1);
+      const int lo = first_row(item), hi = min(h + 1, H - 1);
+      if (item == i0 || h == 0) {
+        rs0 = rs1 = rs2 = -1;
+      } else {
+        rs0 = rs1;
+        rs1 = rs2;
+        rs2 = -1;
+      }
+      if (item == i0) {   // rows one at a time through the first raw row
+        if (gdirect)
+          copy_gy(gsl + par * gsl_elems, item);
+        else
+          gsk = copy(graw, gy + item * WT * c_out, WT * c_out);
+        for (int r = lo; r <= hi; ++r) {
+          const int sk = copy(draw, d_row(b, r), WT * c_dec);
+          probav::cp_async_commit();
+          probav::cp_async_wait_all();
+          bar_sync(WTL_PRODUCE, pn);   // the row landed
+          const int s = staged++ % RING;
+          repack(ring + s * slot_elems, draw, sk, c_dec, c0, true);
+          put(r - h + 1, s);
+          bar_sync(WTL_PRODUCE, pn);   // the raw row read
+        }
+      } else {
+        probav::cp_async_wait_all();
+        bar_sync(WTL_PRODUCE, pn);     // the rows copied during the last
+        for (int r = lo; lo >= 0 && r <= hi; ++r) {
+          const int s = staged++ % RING;
+          repack(ring + s * slot_elems, draw + (r - lo) * dbuf_elems,
+                 r == lo ? dsk0 : dsk1, c_dec, c0, true);
+          put(r - h + 1, s);
+        }
+      }
+      if (!gdirect)
+        repack(gsl + par * gsl_elems, graw, gsk, c_out, o0, false);
+      if (ptid == 0) {
+        tbl[3 * par] = rs0;
+        tbl[3 * par + 1] = rs1;
+        tbl[3 * par + 2] = rs2;
+      }
+      bar_sync(WTL_PRODUCE, pn);   // raw rows read, slots written
+      bar_arrive(WTL_FULL + par, NT);
+      if (item + 1 < i1) {   // the next item's rows (at most two) and gy
+        const long nb = (item + 1) / H;
+        const int nh = (int)((item + 1) % H), nlo = first_row(item + 1);
+        const int npar = par ^ 1;
+        for (int r = nlo; nlo >= 0 && r <= min(nh + 1, H - 1); ++r) {
+          const int sk = copy(draw + (r - nlo) * dbuf_elems, d_row(nb, r),
+                              WT * c_dec);
+          if (r == nlo) dsk0 = sk; else dsk1 = sk;
+        }
+        // Item - 1 read: its gy slot, the ring slots that the next item
+        // restages and its tbl row are free.
+        if (item + 1 - i0 >= 2) bar_sync(WTL_EMPTY + npar, NT);
+        if (gdirect)
+          copy_gy(gsl + npar * gsl_elems, item + 1);
+        else
+          gsk = copy(graw, gy + (item + 1) * WT * c_out, WT * c_out);
+        probav::cp_async_commit();
+      }
+    }
+    for (long item = max(i0, i1 - 2); item < i1; ++item)
+      bar_sync(WTL_EMPTY + (int)((item - i0) & 1), NT);
+    return;
+  }
+
+  // Consumers: warp w of 9 owns the taps (dh, dw) = (w / 3, w % 3), dt =
+  // 0..2, of the tile's 32 o's by 32 c's, in registers across the items.
+  const int g = lane / 4, q = lane % 4;
+  const int dh = warp / 3, dw = warp % 3;
+  const int pb = 8 * ((lane / 8) % 2) + lane % 8;
+  const int boff = ((dw - 1) * T2 - 1) * CSP + 8 * (lane / 16);
+  const int aoff = (8 * (lane / 16) + lane % 8) * CSP + 8 * ((lane / 8) % 2);
+  const int nct = (min(32, c_dec - c0) + 7) / 8;
+  const int nmt = (min(32, c_out - o0) + 15) / 16;
+  const int nk = npk / 16;
+  float acc[3][2][4][4];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        acc[t][m][nt][0] = acc[t][m][nt][1] = acc[t][m][nt][2] =
+            acc[t][m][nt][3] = 0.f;
+  for (long item = i0; item < i1; ++item) {
+    const int par = (int)((item - i0) & 1);
+    bar_sync(WTL_FULL + par, NT);   // the item staged
+    const int s = tbl[3 * par + dh];
+    if (s >= 0) {   // else a zero row of d
+      const E* ag = gsl + par * gsl_elems + aoff;
+      const E* bb = ring + s * slot_elems + boff;
+      switch (2 * (nct - 1) + nmt - 1) {
+        case 0: wgrad_tile_mma<1, 1>(acc, ag, bb, prow, pb, nk); break;
+        case 1: wgrad_tile_mma<1, 2>(acc, ag, bb, prow, pb, nk); break;
+        case 2: wgrad_tile_mma<2, 1>(acc, ag, bb, prow, pb, nk); break;
+        case 3: wgrad_tile_mma<2, 2>(acc, ag, bb, prow, pb, nk); break;
+        case 4: wgrad_tile_mma<3, 1>(acc, ag, bb, prow, pb, nk); break;
+        case 5: wgrad_tile_mma<3, 2>(acc, ag, bb, prow, pb, nk); break;
+        case 6: wgrad_tile_mma<4, 1>(acc, ag, bb, prow, pb, nk); break;
+        default: wgrad_tile_mma<4, 2>(acc, ag, bb, prow, pb, nk);
+      }
+    }
+    bar_arrive(WTL_EMPTY + par, NT);   // its slots may be restaged
+  }
+
+  float* out = part + slot * slot_len;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = c0 + nt * 8 + 2 * q + (i & 1);
+          const int o = o0 + m * 16 + g + (i < 2 ? 0 : 8);
+          const int tap = dh * 9 + dw * 3 + t;
+          if (c < c_dec && o < c_out)
+            out[((long)tap * c_dec + c) * c_out + o] = acc[t][m][nt][i];
+        }
+}
+
+cudaError_t launch_wgrad_tiles(const void* d, const void* gy, float* part,
+                               long slot_len, int G, int B, int H, int W,
+                               int Tn, int c_dec, int c_out, cudaStream_t s) {
+  int dbuf = 0, gbuf = 0;
+  const size_t smem = wgrad_tiles_smem(W, Tn, c_dec, c_out, &dbuf, &gbuf);
+  auto kern = wgrad_tiles_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (c_dec + 31) / 32 * ((c_out + 31) / 32);
+  kern<<<G * tiles, WTL_THREADS, smem, s>>>(
       static_cast<const __nv_bfloat16*>(d),
       static_cast<const __nv_bfloat16*>(gy), part, slot_len, B, H, W, Tn,
       c_dec, c_out, dbuf, gbuf);
@@ -1345,6 +1726,539 @@ cudaError_t launch_seg_bwd_bf16(const void* x, const void* dd, const void* gy,
 }
 
 // ------------------------------------------------------------------------ //
+// seg_bwd, bf16 on the tensor cores beyond the flagship's widths, up to     //
+// c_in, c_dec <= 64 and c_mid <= 512 (the 0.9411 model's 64/512/51, the    //
+// 48-filter model's 48/384/38): seg_bwd_split_kernel, then dx_sum_kernel.  //
+// Together they compute what seg_bwd_bf16_kernel computes, into the same   //
+// slot layout, with the same rounding points.                             //
+// ------------------------------------------------------------------------ //
+//
+// - Why a split.  seg_bwd_bf16_kernel keeps each warp's dW1^T and dW2 sums
+//   (32 j x 32 c of each) and its W1^T and W2 A fragments in registers for
+//   the block's life, and all 256 middle channels j of a row in one block.
+//   At 64/512/51 that is four times the sums (~61k float32 a block against
+//   a 64k register file) and W1 alone takes [512][72] bf16 of shared
+//   memory.  dx = W1 dz + gy needs every j of a row, the weight sums every
+//   row of a j.  So C_mid is cut into chunks of SBS_JC = 256 j, one chunk a
+//   block: block b of G x chunks takes chunk b % chunks of the row tiles of
+//   slot b / chunks (a slot's chunks adjacent, so they run together and
+//   read x and dd from L2 but once from memory), sums its chunk's dW1, dW2
+//   and db1 over those rows in registers, and writes dx's part from its
+//   chunk, dz W1^T over 256 j, as float32 rows of dxp[chunk][n][ldp] (ldp:
+//   c_in rounded up to 8).  dx_sum_kernel then adds the chunks' parts in
+//   order and gy in float32, rounds to bf16 and sums gy into dbc: dx is
+//   rounded once, after every product, as in the plain version.
+// - Per block, the flagship kernel's products at twice its channels: warp
+//   w of 8 owns j = 32 w .. 32 w + 31 of the chunk; per 16 rows z^T = W1^T
+//   x^T + b1 and W2 dd^T come out of the mma as 16 j x 8 row C tiles over
+//   K = 64 channels (four k-steps), dz^T = relu'(z) (W2 dd) and h^T =
+//   relu(z) are rounded to bf16 in registers, and two C tiles adjacent in
+//   rows are the A fragment of dW1^T += dz^T x and dW2 += h^T dd (K = the
+//   16 rows, eight 8-channel n-tiles).  The sums, 2 x 2 x 8 tiles of 4
+//   float32 (128 a lane), stay in registers; the A fragments of W1^T and W2
+//   do not fit beside them and are loaded by ldmatrix per k-step from the
+//   chunk's [j][72] planes of W1 and W2 (stride 144 bytes: the 8 rows of an
+//   ldmatrix in distinct banks), and the B fragments of dW1^T and dW2 once
+//   per 16 rows for both m-tiles.
+// - Phase C, dx's part: dz^T goes to shared memory ([j][row], stride
+//   ROWS + 8 = 72: each dz^T word store and each ldmatrix conflict-free);
+//   after a barrier warp w computes rows 16 (w % 4) .. + 15 by channels
+//   32 (w / 4) .. + 31 over the chunk's 256 j (A = dz from dz^T and B = W1^T
+//   from the W1 plane, both by ldmatrix.trans) and stores them as float2.
+// - Staging: 64-row tiles of x, double-buffered by 16-byte cp.async into
+//   [row][72] (zeros past n and from c_in); warp w copies its 8 rows of
+//   the next tile's dd, one contiguous span of 8 c_dec elements, into its
+//   own raw buffer (16-byte cp.async from the chunk below its start) and
+//   repacks it into [row][72], zeros past c_dec and past n, guarded by
+//   __syncwarp alone.  Two barriers a tile: before the products (the tile
+//   staged, the last phase C done with dz^T) and before phase C.
+// - Sums: db1 sums dz^T's C fragments per lane, db2 dd's .trans B
+//   fragments (warp w those of row group w), reduced over lanes and warps
+//   in a fixed order; the chunk-0 block of a slot writes db2.  dW1 and dW2
+//   are staged in the W planes' space in the slot's order and stored in
+//   runs.  No atomics: every entry of a slot has one writer.
+// - Zeros past n: x rows are zero-filled and dd rows repacked as zeros, so
+//   rows past n add nothing (h there is relu(b1), against dd = 0); their dx
+//   parts are not stored.
+//
+// What bounds it on an H100 at the 64-filter model's train step (N =
+// 557,568, 64/512/51): 2 N c_mid (3 c_in + 2 c_dec) = 167.9 GFLOP (0.170
+// ms at the 989 TFLOP/s bf16 peak; the mma issue 182.7 GFLOP at c_dec
+// padded to 64) against 199.6 MB of x, dd, gy read and dx written (0.060
+// ms): operations.  The split adds dx's float32 parts, written and read
+// once each: 2 x 2 x N x 64 x 4 = 571 MB (0.170 ms at 3.35 TB/s), where
+// the flagship kernel keeps dz in its block.  One block of 8 warps an SM:
+// 157,952 bytes of shared memory (the W1 and W2 planes [256][72], dz^T
+// [256][72], two each of the x and dd tiles [64][72], the warps' raw dd
+// spans, the db2 sums).
+
+constexpr int SBS_WARPS = 8;     // each owns SBS_JC / SBS_WARPS = 32 j
+constexpr int SBS_ROWS = 64;     // rows per tile
+constexpr int SBS_JC = 256;      // middle channels a block: its chunk
+constexpr int SBS_CH = 64;       // c_in, c_dec it takes (zero-padded)
+constexpr int SBS_CS = SBS_CH + 8;     // bf16 row stride: x, dd, W1, W2
+constexpr int SBS_ZS = SBS_ROWS + 8;   // dz^T [j][row] row stride
+constexpr int SBS_DR = SBS_ROWS / SBS_WARPS;   // dd rows a warp copies
+constexpr int SBS_RAWW = (SBS_DR * SBS_CH * 2 + 43) / 16 * 8;   // elements
+
+int seg_bwd_split_chunks(int c_mid) { return (c_mid + SBS_JC - 1) / SBS_JC; }
+
+// Floats of a row of dx's float32 parts.
+int seg_bwd_split_ldp(int c_in) { return (c_in + 7) / 8 * 8; }
+
+size_t seg_bwd_split_smem() {
+  return sizeof(__nv_bfloat16) *
+             ((size_t)SBS_JC * (2 * SBS_CS + SBS_ZS) +
+              4 * SBS_ROWS * SBS_CS + SBS_WARPS * SBS_RAWW) +
+         sizeof(float) * SBS_WARPS * SBS_CH;
+}
+
+__global__ void __launch_bounds__(SBS_WARPS * 32, 1)
+seg_bwd_split_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ dd,
+                     const __nv_bfloat16* __restrict__ w1,
+                     const float* __restrict__ b1,
+                     const __nv_bfloat16* __restrict__ w2,
+                     float* __restrict__ dxp, int ldp,
+                     float* __restrict__ part, long slot_len, int chunks,
+                     int n, int c_in, int c_mid, int c_dec) {
+  using E = __nv_bfloat16;
+  using probav::ldsm_x4;
+  using probav::ldsm_x4_trans;
+  using probav::mma_bf16;
+  using probav::pack2;
+  using probav::pack_bf16;
+  using probav::relu_bf16x2;
+  constexpr int ROWS = SBS_ROWS, CS = SBS_CS, ZS = SBS_ZS, JC = SBS_JC;
+  constexpr int RG = ROWS / 16;                // 16-row groups a tile
+  static_assert(JC == 32 * SBS_WARPS, "32 j a warp");
+  static_assert(2 * RG == SBS_WARPS, "phase C: 4 row groups x 2 halves");
+  static_assert(JC * CS * 2 * 2 >= JC * SBS_CH * 4,
+                "dW1, dW2 staged in the W planes' space");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* w1s = reinterpret_cast<E*>(smem_raw);   // [JC][CS]  w1[c][j0 + j]
+  E* w2s = w1s + JC * CS;                    // [JC][CS]  w2[j0 + j][c]
+  E* zt = w2s + JC * CS;                     // [JC][ZS]  dz^T of a tile
+  E* xb = zt + JC * ZS;                      // [2][ROWS][CS]  x tiles
+  E* dbt = xb + 2 * ROWS * CS;               // [2][ROWS][CS]  dd tiles
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  E* raw = dbt + 2 * ROWS * CS + warp * SBS_RAWW;   // this warp's dd span
+  float* red = reinterpret_cast<float*>(dbt + 2 * ROWS * CS +
+                                        SBS_WARPS * SBS_RAWW);   // [W][64]
+  const E zero = __float2bfloat16_rn(0.f);
+  const int g = lane / 4, q = lane % 4;
+  const int chunk = (int)(blockIdx.x % chunks);
+  const int slot_i = (int)(blockIdx.x / chunks);
+  const int G = (int)(gridDim.x / chunks);   // slots: row-tile strides
+  const int j0 = chunk * JC;                 // the chunk's first j
+  const int J0 = 32 * warp;                  // this warp's j in the chunk
+  const int pr0 = 16 * (warp % RG);          // its phase-C rows
+  const int ct0 = 4 * (warp / RG);           // and 8-column tiles of dx
+  const int dr0 = SBS_DR * warp;             // its dd rows of a tile
+
+  // The chunk's W1 and W2 as [j][c], zero-padded to JC x 64 (padded z, dz,
+  // h are 0); the tiles zeroed once (the copies never write x's columns
+  // from c_in on).
+  for (int e = tid; e < JC * SBS_CH; e += blockDim.x) {
+    const int c = e / JC, j = e % JC;
+    w1s[j * CS + c] = (c < c_in && j0 + j < c_mid)
+                          ? w1[(long)c * c_mid + j0 + j] : zero;
+    const int j2 = e / SBS_CH, c2 = e % SBS_CH;
+    w2s[j2 * CS + c2] = (j0 + j2 < c_mid && c2 < c_dec)
+                            ? w2[(long)(j0 + j2) * c_dec + c2] : zero;
+  }
+  for (int e = tid; e < 4 * ROWS * CS / 8; e += blockDim.x)
+    reinterpret_cast<uint4*>(xb)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();   // the zeros land before any copy into the tiles
+  float bias[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int j = j0 + J0 + 16 * mt + g + 8 * hh;
+      bias[mt][hh] = j < c_mid ? b1[j] : 0.f;
+    }
+
+  float acc1[2][8][4], acc2[2][8][4];   // dW1^T (j, c), dW2 (j, c) tiles
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int ct = 0; ct < 8; ++ct)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc1[mt][ct][i] = acc2[mt][ct][i] = 0.f;
+  float db1a[2][2] = {}, db2a[8] = {};
+
+  const bool vec = c_in % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long tiles = ((long)n + ROWS - 1) / ROWS;
+  auto rows_of = [&](long t) {
+    return (int)min((long)ROWS, (long)n - t * ROWS);
+  };
+  // Rows [0, nr) of x from tile t into dst (zeros past nr), block-wide:
+  // 16-byte cp.async where `vec`, else plain copies.
+  auto stage_x = [&](E* dst, long t, int nr) {
+    const E* src = x + t * ROWS * c_in;
+    if (vec) {
+      const int c8 = c_in / 8;
+      for (int e = tid; e < ROWS * c8; e += blockDim.x) {
+        const int r = e / c8, c = 8 * (e % c8);
+        const bool in = r < nr;
+        probav::cp_async16_zfill(dst + r * CS + c,
+                                 in ? src + r * c_in + c : src, in);
+      }
+    } else {
+      for (int e = tid; e < ROWS * c_in; e += blockDim.x) {
+        const int r = e / c_in, c = e % c_in;
+        dst[r * CS + c] = r < nr ? src[r * c_in + c] : zero;
+      }
+    }
+  };
+  // This warp's SBS_DR rows of dd from tile t: the span of its real rows,
+  // by 16-byte cp.async from the chunk below its start; returns the
+  // element offset of the span in raw.
+  auto copy_dd = [&](long t) {
+    const int nrw = min(SBS_DR, rows_of(t) - dr0);
+    if (nrw <= 0) return 0;
+    const uintptr_t s = reinterpret_cast<uintptr_t>(
+        dd + (t * ROWS + dr0) * c_dec);
+    const uintptr_t a = s & ~uintptr_t(15);
+    const int chunks16 =
+        (int)((s + 2 * (uintptr_t)(nrw * c_dec) + 15 - a) / 16);
+    for (int i = lane; i < chunks16; i += 32)
+      probav::cp_async16(raw + 8 * i, a + 16 * (uintptr_t)i);
+    return (int)((s - a) / 2);
+  };
+  // ... and its repack into rows dr0 .. dr0 + SBS_DR - 1 of a dd tile: 8
+  // channels a step, zeros from c_dec and past the tile's nr rows.
+  auto repack = [&](E* dst, int skew, int nr) {
+    const E* src = raw + skew;
+    for (int u = lane; u < SBS_DR * 8; u += 32) {
+      const int p = u / 8, j = u % 8;
+      const E* s = src + p * c_dec + 8 * j;
+      const bool in = dr0 + p < nr;
+      uint32_t v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = 8 * j + 2 * k;
+        v[k] = pack2(in && c < c_dec ? s[2 * k] : zero,
+                     in && c + 1 < c_dec ? s[2 * k + 1] : zero);
+      }
+      *reinterpret_cast<uint4*>(dst + (dr0 + p) * CS + 8 * j) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  if (slot_i < tiles) {
+    stage_x(xb, slot_i, rows_of(slot_i));
+    const int skew = copy_dd(slot_i);
+    probav::cp_async_commit();
+    probav::cp_async_wait_all();
+    __syncwarp();
+    repack(dbt, skew, rows_of(slot_i));
+  }
+  // Phase C's lane addresses: A = dz (rows pr0.., 16 j a step) from dz^T,
+  // B = W1^T (16 j, this warp's c-tiles) from the W1 plane.
+  const int zoff = (8 * (lane / 16) + lane % 8) * ZS + pr0 +
+                   8 * ((lane / 8) % 2);
+  const E* wp = w1s + (8 * ((lane / 8) % 2) + lane % 8) * CS +
+                8 * (ct0 + lane / 16);
+  float* dxc_dst = dxp + (long)chunk * n * ldp;
+  int buf = 0;
+  for (long tile = slot_i; tile < tiles; tile += G, buf ^= 1) {
+    __syncthreads();   // x, dd of this tile staged; dz^T free
+    const long next = tile + G;
+    int skew = 0;
+    if (next < tiles) {
+      stage_x(xb + (buf ^ 1) * ROWS * CS, next, rows_of(next));
+      skew = copy_dd(next);
+    }
+    probav::cp_async_commit();   // group: the next tile's x, dd
+
+    const E* xt = xb + buf * ROWS * CS;
+    const E* dt = dbt + buf * ROWS * CS;
+#pragma unroll 1
+    for (int rg = 0; rg < RG; ++rg) {
+      const int r0 = 16 * rg;
+      // B of z^T and W2 dd^T (K = 64 c in two halves, N = 8 rows): plain
+      // ldmatrix of rows r0 + 8 nt.
+      uint32_t xf[2][2][4], df[2][2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int kp = 0; kp < 2; ++kp) {
+          const int pl = (r0 + 8 * nt + lane % 8) * CS + 32 * kp +
+                         8 * (lane / 8);
+          ldsm_x4(xf[nt][kp], xt + pl);
+          ldsm_x4(df[nt][kp], dt + pl);
+        }
+      uint32_t adz[2][4], ah[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float z[2][4], gg[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) z[nt][i] = gg[nt][i] = 0.f;
+        const E* arow = w1s + (J0 + 16 * mt + 8 * ((lane / 8) % 2) +
+                               lane % 8) * CS + 8 * (lane / 16);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t wa[4], wb[4];
+          ldsm_x4(wa, arow + 16 * ks);
+          ldsm_x4(wb, arow + JC * CS + 16 * ks);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            mma_bf16(z[nt], wa, xf[nt][ks / 2][2 * (ks % 2)],
+                     xf[nt][ks / 2][2 * (ks % 2) + 1]);
+            mma_bf16(gg[nt], wb, df[nt][ks / 2][2 * (ks % 2)],
+                     df[nt][ks / 2][2 * (ks % 2) + 1]);
+          }
+        }
+        // C tile (mt, nt): j = J0 + 16 mt + g + 8 hh at registers 2 hh and
+        // 2 hh + 1, rows r0 + 8 nt + 2q and + 1: dz = bf16(W2 dd) masked by
+        // z > 0, h = bf16(relu(z)), as bf16x2 words.
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float z0 = z[nt][2 * hh] + bias[mt][hh];
+            const float z1 = z[nt][2 * hh + 1] + bias[mt][hh];
+            const uint32_t dzp =
+                pack_bf16(gg[nt][2 * hh], gg[nt][2 * hh + 1]) &
+                ((z0 > 0.f ? 0xffffu : 0u) | (z1 > 0.f ? 0xffff0000u : 0u));
+            adz[mt][2 * nt + hh] = dzp;
+            ah[mt][2 * nt + hh] = relu_bf16x2(z0, z1);
+            db1a[mt][hh] += __uint_as_float(dzp << 16) +
+                            __uint_as_float(dzp & 0xffff0000u);
+            *reinterpret_cast<uint32_t*>(
+                zt + (J0 + 16 * mt + g + 8 * hh) * ZS + r0 + 8 * nt +
+                2 * q) = dzp;
+          }
+      }
+      // dW1^T += dz^T x and dW2 += h^T dd: B (K = 16 rows, N = 8 c) by
+      // ldmatrix.trans, c-tile pairs, each for both m-tiles.  db2: dd at
+      // rows r0 + 2q (+1, +8, +9), c = 8 ct + g; row group rg is summed by
+      // warp rg.
+      const float on = rg == warp ? 1.f : 0.f;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t xtr[4], dtr[4];
+        const int tr = (r0 + 8 * ((lane / 8) % 2) + lane % 8) * CS +
+                       16 * p + 8 * (lane / 16);
+        ldsm_x4_trans(xtr, xt + tr);
+        ldsm_x4_trans(dtr, dt + tr);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc1[mt][2 * p], adz[mt], xtr[0], xtr[1]);
+          mma_bf16(acc1[mt][2 * p + 1], adz[mt], xtr[2], xtr[3]);
+          mma_bf16(acc2[mt][2 * p], ah[mt], dtr[0], dtr[1]);
+          mma_bf16(acc2[mt][2 * p + 1], ah[mt], dtr[2], dtr[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&dtr[i]));
+          db2a[2 * p + i / 2] = fmaf(on, v.x + v.y, db2a[2 * p + i / 2]);
+        }
+      }
+    }
+    __syncthreads();   // dz^T of the tile complete
+
+    // Phase C: dx's part from this chunk for rows pr0 .. pr0 + 15 and this
+    // warp's four c-tiles, over the chunk's 256 j.
+    float dxc[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      dxc[t][0] = dxc[t][1] = dxc[t][2] = dxc[t][3] = 0.f;
+#pragma unroll 4
+    for (int ks = 0; ks < JC / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4_trans(a, zt + zoff + ks * 16 * ZS);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, wp + ks * 16 * CS + 16 * p);
+        mma_bf16(dxc[2 * p], a, b[0], b[1]);
+        mma_bf16(dxc[2 * p + 1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long row = tile * ROWS + pr0 + g + 8 * hh;
+      if (row >= n) continue;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int c = 8 * (ct0 + t) + 2 * q;
+        if (c < ldp)
+          *reinterpret_cast<float2*>(dxc_dst + row * ldp + c) =
+              make_float2(dxc[t][2 * hh], dxc[t][2 * hh + 1]);
+      }
+    }
+    if (next < tiles) {
+      probav::cp_async_wait_all();
+      __syncwarp();
+      repack(dbt + (buf ^ 1) * ROWS * CS, skew, rows_of(next));
+    }
+  }
+  probav::cp_async_wait_all();
+
+  // Write this block's part of its slot: dW1 [c][j0..], dW2 [j0..][c]
+  // (staged in the W planes' space in the slot's order, stored in runs),
+  // db1 [j0..], and from the chunk-0 block db2.
+  const Slot sl(c_in, c_mid, c_dec);
+  float* slot = part + slot_i * slot_len;
+  float* sbuf = reinterpret_cast<float*>(smem_raw);
+  const int jn = min(JC, c_mid - j0);   // the chunk's real j
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    __syncthreads();   // the W planes (then sbuf) read
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int ct = 0; ct < 8; ++ct)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = J0 + 16 * mt + g + 8 * (i / 2);
+          const int c = 8 * ct + 2 * q + (i & 1);
+          if (pass == 0 && j < jn && c < c_in)
+            sbuf[c * JC + j] = acc1[mt][ct][i];
+          if (pass == 1 && j < jn && c < c_dec)
+            sbuf[j * c_dec + c] = acc2[mt][ct][i];
+        }
+    __syncthreads();
+    if (pass == 0) {
+      for (int e = tid; e < c_in * JC; e += blockDim.x) {
+        const int c = e / JC, j = e % JC;
+        if (j < jn) slot[sl.w1 + (long)c * c_mid + j0 + j] = sbuf[e];
+      }
+    } else {
+      for (int e = tid; e < jn * c_dec; e += blockDim.x)
+        slot[sl.w2 + (long)j0 * c_dec + e] = sbuf[e];
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      // db1: lanes q hold rows 2q, 2q + 1 (mod 8) of j; summed in order.
+      float v = db1a[mt][hh];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const int j = J0 + 16 * mt + g + 8 * hh;
+      if (q == 0 && j < jn) slot[sl.b1 + j0 + j] = v;
+    }
+  if (chunk == 0) {
+#pragma unroll
+    for (int ct = 0; ct < 8; ++ct) {   // db2 of this warp's row groups
+      float v = db2a[ct];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (q == 0) red[warp * SBS_CH + 8 * ct + g] = v;
+    }
+    __syncthreads();
+    if (tid < c_dec) {
+      float sum = 0.f;
+      for (int w = 0; w < SBS_WARPS; ++w) sum += red[w * SBS_CH + tid];
+      slot[sl.b2 + tid] = sum;
+    }
+  }
+}
+
+// dx = bf16(sum over the chunks of dxp + gy) and dbc = sum of gy, after
+// seg_bwd_split_kernel: block b of G sums the rows [b per, (b + 1) per),
+// thread t the four channels 4 (t % 16) .. of rows t / 16 + 16 k, and
+// writes dbc into slot b; the chunks added in order, then gy, in float32.
+// VEC: c_in a multiple of 4 and gy, dx 8-byte aligned (four bf16 a load).
+// Memory-bound: chunks x N x ldp x 4 bytes of parts and N x c_in x 2 of gy
+// read, N x c_in x 2 of dx written; unrolled so that each thread keeps
+// several rows' loads in flight.
+constexpr int DXS_THREADS = 256;
+
+template <bool VEC>
+__global__ void __launch_bounds__(DXS_THREADS)
+dx_sum_kernel(const float* __restrict__ dxp, int chunks, int ldp,
+              const __nv_bfloat16* __restrict__ gy,
+              __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
+              long slot_len, long bc, int n, int c_in) {
+  __shared__ float red[DXS_THREADS / 16][64];
+  const int tid = threadIdx.x, c = 4 * (tid % 16), rl = tid / 16;
+  const long per = ((long)n + gridDim.x - 1) / gridDim.x;
+  const long r0 = min((long)n, (long)blockIdx.x * per);
+  const long r1 = min((long)n, r0 + per);
+  const long ps = (long)n * ldp;   // floats from one chunk's parts to the next
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (c < c_in) {
+#pragma unroll 4
+    for (long r = r0 + rl; r < r1; r += DXS_THREADS / 16) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < chunks; ++k) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(dxp + k * ps + r * ldp + c);
+        v[0] += p.x; v[1] += p.y; v[2] += p.z; v[3] += p.w;
+      }
+      const long e = r * c_in + c;
+      if constexpr (VEC) {
+        const uint2 gw = *reinterpret_cast<const uint2*>(gy + e);
+        const float2 g01 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&gw.x));
+        const float2 g23 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&gw.y));
+        acc[0] += g01.x; acc[1] += g01.y; acc[2] += g23.x; acc[3] += g23.y;
+        *reinterpret_cast<uint2*>(dx + e) =
+            make_uint2(probav::pack_bf16(v[0] + g01.x, v[1] + g01.y),
+                       probav::pack_bf16(v[2] + g23.x, v[3] + g23.y));
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (c + u < c_in) {
+            const float gv = __bfloat162float(gy[e + u]);
+            acc[u] += gv;
+            dx[e + u] = __float2bfloat16_rn(v[u] + gv);
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) red[rl][c + u] = acc[u];
+  __syncthreads();
+  if (tid < c_in) {
+    float sum = 0.f;
+    for (int l = 0; l < DXS_THREADS / 16; ++l) sum += red[l][tid];
+    part[blockIdx.x * slot_len + bc + tid] = sum;
+  }
+}
+
+cudaError_t launch_seg_bwd_split(const void* x, const void* dd,
+                                 const void* gy, const void* w1,
+                                 const float* b1, const void* w2, void* dx,
+                                 float* dxp, float* part, long slot_len,
+                                 int G, int n, int c_in, int c_mid,
+                                 int c_dec, cudaStream_t s) {
+  if (dxp == nullptr) return cudaErrorInvalidValue;
+  using B16 = __nv_bfloat16;
+  const int chunks = seg_bwd_split_chunks(c_mid);
+  const int ldp = seg_bwd_split_ldp(c_in);
+  const size_t smem = seg_bwd_split_smem();
+  auto kern = seg_bwd_split_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<G * chunks, SBS_WARPS * 32, smem, s>>>(
+      static_cast<const B16*>(x), static_cast<const B16*>(dd),
+      static_cast<const B16*>(w1), b1, static_cast<const B16*>(w2), dxp, ldp,
+      part, slot_len, chunks, n, c_in, c_mid, c_dec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const bool vec = c_in % 4 == 0 && reinterpret_cast<uintptr_t>(gy) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 8 == 0;
+  const long bc = Slot(c_in, c_mid, c_dec).bc;
+  auto sum = vec ? dx_sum_kernel<true> : dx_sum_kernel<false>;
+  sum<<<G, DXS_THREADS, 0, s>>>(dxp, chunks, ldp, static_cast<const B16*>(gy),
+                                static_cast<B16*>(dx), part, slot_len, bc, n,
+                                c_in);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------ //
 // seg_bwd, float32 on the tensor cores as 3xTF32 (mma.sync.m16n8k8, float32 //
 // sums; split_tf32 in common.cuh), for c_in, c_dec <= 32 and c_mid <= 256   //
 // (the flagship's 32/256/25).  It computes what seg_bwd_kernel<float, ...,  //
@@ -2004,33 +2918,52 @@ cudaError_t launch_wgrad_tf32(const void* d, const void* gy, float* part,
   return cudaGetLastError();
 }
 
-// Which wgrad blk_bwd runs, from the dtype and shapes alone: at c_dec,
-// c_out <= 32 the tensor cores where the kernel's layout fits shared
-// memory, bf16 on wgrad_ring_kernel and float32 on wgrad_tf32_kernel;
-// elsewhere wgrad_kernel on the CUDA cores.
+// Which wgrad blk_bwd runs, from the dtype and shapes alone, on the tensor
+// cores where the kernel's layout fits shared memory: bf16 at c_dec, c_out
+// <= 32 on wgrad_ring_kernel, up to 64 on wgrad_tiles_kernel (32 x 32
+// channel tiles over the grid), float32 at c_dec, c_out <= 32 on
+// wgrad_tf32_kernel; elsewhere wgrad_kernel on the CUDA cores.
 enum WgradRoute { WGRAD_CUDA_CORES = 0, WGRAD_BF16_RING = 1,
-                  WGRAD_TF32_RING = 2 };
+                  WGRAD_TF32_RING = 2, WGRAD_BF16_TILES = 3 };
 
 WgradRoute wgrad_route(int dtype, int c_dec, int c_out, int W, int Tn) {
-  if (c_dec > 32 || c_out > 32) return WGRAD_CUDA_CORES;
   const size_t optin = (size_t)probav::optin_smem();
-  if (dtype == 1)
-    return wgrad_ring_smem(W, Tn, c_dec, c_out) <= optin ? WGRAD_BF16_RING
-                                                         : WGRAD_CUDA_CORES;
+  if (dtype == 1) {
+    if (c_dec <= 32 && c_out <= 32)
+      return wgrad_ring_smem(W, Tn, c_dec, c_out) <= optin
+                 ? WGRAD_BF16_RING : WGRAD_CUDA_CORES;
+    return c_dec <= 64 && c_out <= 64 &&
+                   wgrad_tiles_smem(W, Tn, c_dec, c_out) <= optin
+               ? WGRAD_BF16_TILES : WGRAD_CUDA_CORES;
+  }
+  if (c_dec > 32 || c_out > 32) return WGRAD_CUDA_CORES;
   return wgrad_tf32_smem(W, Tn) <= optin ? WGRAD_TF32_RING
                                          : WGRAD_CUDA_CORES;
 }
 
 // Which seg_bwd blk_bwd runs, from the dtype and widths alone: the tensor
-// cores where their tiles cover the widths (c_in, c_dec <= 32, c_mid <=
-// 256), bf16 on seg_bwd_bf16_kernel and float32 on seg_bwd_tf32_kernel;
-// elsewhere seg_bwd_kernel on the CUDA cores.
+// cores where their tiles cover the widths: at c_in, c_dec <= 32 and c_mid
+// <= 256 bf16 on seg_bwd_bf16_kernel and float32 on seg_bwd_tf32_kernel;
+// beyond, bf16 up to c_in, c_dec <= 64 and c_mid <= 512 on
+// seg_bwd_split_kernel and dx_sum_kernel; elsewhere seg_bwd_kernel on the
+// CUDA cores.
 enum SegBwdRoute { SEG_BWD_CUDA_CORES = 0, SEG_BWD_BF16_MMA = 1,
-                   SEG_BWD_TF32_MMA = 2 };
+                   SEG_BWD_TF32_MMA = 2, SEG_BWD_BF16_SPLIT = 3 };
 
 SegBwdRoute seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
-  if (c_in > 32 || c_dec > 32 || c_mid > 256) return SEG_BWD_CUDA_CORES;
-  return dtype == 1 ? SEG_BWD_BF16_MMA : SEG_BWD_TF32_MMA;
+  if (c_in <= 32 && c_dec <= 32 && c_mid <= 256)
+    return dtype == 1 ? SEG_BWD_BF16_MMA : SEG_BWD_TF32_MMA;
+  if (dtype == 1 && c_in <= SBS_CH && c_dec <= SBS_CH && c_mid <= 2 * SBS_JC)
+    return SEG_BWD_BF16_SPLIT;
+  return SEG_BWD_CUDA_CORES;
+}
+
+// Floats of dx's float32 parts blk_bwd needs at n rows (the caller's
+// scratch dxp), 0 where its seg_bwd route keeps none.
+long seg_bwd_scratch(int dtype, int c_in, int c_mid, int c_dec, long n) {
+  if (seg_bwd_route(dtype, c_in, c_mid, c_dec) != SEG_BWD_BF16_SPLIT)
+    return 0;
+  return (long)seg_bwd_split_chunks(c_mid) * n * seg_bwd_split_ldp(c_in);
 }
 
 // ------------------------------------------------------------------------ //
@@ -2738,8 +3671,9 @@ template <typename T>
 cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
                     const void* wflip, const void* w1, const float* b1,
                     const void* w2, void* dd, void* dx, float* part,
-                    float* out, int G, long stride, int B, int H, int W,
-                    int Tn, int c_in, int c_mid, int c_dec, cudaStream_t s) {
+                    float* out, float* dxp, int G, long stride, int B, int H,
+                    int W, int Tn, int c_in, int c_mid, int c_dec,
+                    cudaStream_t s) {
   const Slot sl(c_in, c_mid, c_dec);
   const int n = B * H * W * Tn;
   cudaError_t err = probav::conv_dispatch(dtype, false, gy, nullptr, wflip,
@@ -2750,6 +3684,10 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
     case WGRAD_BF16_RING:
       err = launch_wgrad_ring(d, gy, part, stride, G, B, H, W, Tn, c_dec,
                               c_in, s);
+      break;
+    case WGRAD_BF16_TILES:
+      err = launch_wgrad_tiles(d, gy, part, stride, G, B, H, W, Tn, c_dec,
+                               c_in, s);
       break;
     case WGRAD_TF32_RING:
       err = launch_wgrad_tf32(d, gy, part, stride, G, B, H, W, Tn, c_dec,
@@ -2768,6 +3706,10 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
     case SEG_BWD_TF32_MMA:
       err = launch_seg_bwd_tf32(x, dd, gy, w1, b1, w2, dx, part, stride, G,
                                 n, c_in, c_mid, c_dec, s);
+      break;
+    case SEG_BWD_BF16_SPLIT:
+      err = launch_seg_bwd_split(x, dd, gy, w1, b1, w2, dx, dxp, part,
+                                 stride, G, n, c_in, c_mid, c_dec, s);
       break;
     default:
       err = dispatch_seg_bwd<T>(x, dd, gy, w1, b1, w2, dx, part, stride, G,
@@ -2814,44 +3756,62 @@ extern "C" {
 // axes with its channel axes swapped; b1 float32.  part: float32 scratch
 // of G slots `stride` floats apart (a multiple of 4, at least slot_len),
 // 16-byte aligned; out: float32 [slot_len] in the Slot layout above,
-// 16-byte aligned.  c_in and c_dec any count from 1 to MAX_CH = 128; T
-// within the dd conv's envelope (tstack.cu, conv_ring_kernel), else
-// cudaErrorInvalidValue before any launch.
+// 16-byte aligned; dxp: float32 scratch of probav_blk_bwd_scratch's
+// floats, 16-byte aligned (null where that is 0).  c_in and c_dec any
+// count from 1 to MAX_CH = 128; T within the dd conv's envelope (tstack.cu,
+// conv_ring_kernel), else cudaErrorInvalidValue before any launch.
 int probav_blk_bwd(int dtype, const void* gy, const void* x, const void* d,
                    const void* wflip, const void* w1, const void* b1,
                    const void* w2, void* dd, void* dx, void* part, void* out,
-                   int G, int stride, int B, int H, int W, int Tn, int c_in,
-                   int c_mid, int c_dec, void* stream) {
+                   void* dxp, int G, int stride, int B, int H, int W, int Tn,
+                   int c_in, int c_mid, int c_dec, void* stream) {
+  const long scratch = seg_bwd_scratch(dtype, c_in, c_mid, c_dec,
+                                       (long)B * H * W * Tn);
   if (B < 1 || H < 1 || W < 1 || Tn < 1 || G < 1 || c_in < 1 ||
       c_in > probav::MAX_CH || c_dec < 1 || c_dec > probav::MAX_CH ||
       c_mid < 1 ||
-      !reduce_takes(part, out, Slot(c_in, c_mid, c_dec).len, stride))
+      !reduce_takes(part, out, Slot(c_in, c_mid, c_dec).len, stride) ||
+      (scratch > 0 && (dxp == nullptr ||
+                       reinterpret_cast<uintptr_t>(dxp) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b1f = static_cast<const float*>(b1);
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(out);
+  float* xf = static_cast<float*>(dxp);
   if (dtype == 0)
     return (int)blk_bwd<float>(0, gy, x, d, wflip, w1, b1f, w2, dd, dx, pf,
-                               of, G, stride, B, H, W, Tn, c_in, c_mid,
+                               of, xf, G, stride, B, H, W, Tn, c_in, c_mid,
                                c_dec, s);
   if (dtype == 1)
     return (int)blk_bwd<__nv_bfloat16>(1, gy, x, d, wflip, w1, b1f, w2, dd,
-                                       dx, pf, of, G, stride, B, H, W, Tn,
-                                       c_in, c_mid, c_dec, s);
+                                       dx, pf, of, xf, G, stride, B, H, W,
+                                       Tn, c_in, c_mid, c_dec, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// *out = the floats of the dxp scratch probav_blk_bwd needs at these
+// widths and n rows (0: none).
+int probav_blk_bwd_scratch(int dtype, int c_in, int c_mid, int c_dec, int n,
+                           long long* out) {
+  if (n < 0 || c_in < 1 || c_mid < 1 || c_dec < 1)
+    return (int)cudaErrorInvalidValue;
+  *out = seg_bwd_scratch(dtype, c_in, c_mid, c_dec, n);
+  return 0;
 }
 
 // The seg_bwd kernel probav_blk_bwd launches for these widths: 0 =
 // seg_bwd_kernel (CUDA cores), 1 = seg_bwd_bf16_kernel (bf16 mma), 2 =
-// seg_bwd_tf32_kernel (float32 as 3xTF32 mma).
+// seg_bwd_tf32_kernel (float32 as 3xTF32 mma), 3 = seg_bwd_split_kernel
+// then dx_sum_kernel (bf16 mma, c_mid in chunks of 256).
 int probav_seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return (int)seg_bwd_route(dtype, c_in, c_mid, c_dec);
 }
 
 // The wgrad (dWc) kernel probav_blk_bwd launches for these shapes: 0 =
 // wgrad_kernel (CUDA cores), 1 = wgrad_ring_kernel (bf16 mma), 2 =
-// wgrad_tf32_kernel (float32 as 3xTF32 mma).
+// wgrad_tf32_kernel (float32 as 3xTF32 mma), 3 = wgrad_tiles_kernel (bf16
+// mma, 32 x 32 channel tiles).
 int probav_wgrad_route(int dtype, int c_in, int c_dec, int W, int Tn) {
   return (int)wgrad_route(dtype, c_dec, c_in, W, Tn);
 }

@@ -33,9 +33,11 @@ SIGNATURES = {
     "probav_seg_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, d, x, wc, bc, out, B, H, W, T, c_dec, c_out, stream
     "probav_conv_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, gy, x, d, wflip, w1, b1, w2, dd, dx, part, out,
+    # dtype, gy, x, d, wflip, w1, b1, w2, dd, dx, part, out, dxp,
     # G, stride, B, H, W, T, c_in, c_mid, c_dec, stream
-    "probav_blk_bwd": [_I] + [_P] * 11 + [_I] * 9 + [_P],
+    "probav_blk_bwd": [_I] + [_P] * 12 + [_I] * 9 + [_P],
+    # dtype, c_in, c_mid, c_dec, n, out int64[1]
+    "probav_blk_bwd_scratch": [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)],
     # dtype, c_in, c_mid, c_dec
     "probav_seg_fwd_route": [_I] * 4,
     # dtype, c_in, c_mid, c_dec

@@ -32,10 +32,14 @@ at bf16 at every width (a kernel of its own where C, C_dec <= 32 and C_mid
 expand/decay backward (``seg_bwd_route``) runs on the tensor cores within
 the same widths: bf16 products at bf16, float32 as 3xTF32; so does its
 ``wgrad`` (dWc) at C, C_dec <= 32 where a row's halo fits shared memory
-(``wgrad_route``; at float32 rows up to the flagship's 22 x 9).  Beyond
-those widths and rows the float32 ``seg_fwd``, the ``wgrad`` and
-``blk_bwd`` run on the CUDA cores with exact float32 products (bf16
-widened).  All round where the TPU kernels round.
+(``wgrad_route``; at float32 rows up to the flagship's 22 x 9).  At bf16
+both also run on the tensor cores up to C, C_dec <= 64 (and C_mid <= 512:
+the 64-filter model's 64/512/51), the expand/decay backward with C_mid cut
+into chunks of 256 whose float32 parts of dx a second kernel sums
+(``blk_bwd_scratch``), the wgrad in 32 x 32 channel tiles.  Beyond those
+widths and rows the float32 ``seg_fwd``, the ``wgrad`` and ``blk_bwd`` run
+on the CUDA cores with exact float32 products (bf16 widened).  All round
+where the TPU kernels round.
 
 ``t_tier_refusal`` states the channel widths the kernels take, once: any C
 and C_dec from 1 to 128 (``MAX_CHANNELS``), forward and backward.  The
@@ -190,13 +194,21 @@ def seg_fwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
 # csrc/blk_bwd.cu's seg_bwd_route gives.
 SEG_BWD_ROUTES = ("seg_bwd_kernel (CUDA cores)",
                   "seg_bwd_bf16_kernel (bf16 mma)",
-                  "seg_bwd_tf32_kernel (3xTF32 mma)")
+                  "seg_bwd_tf32_kernel (3xTF32 mma)",
+                  "seg_bwd_split_kernel + dx_sum_kernel (bf16 mma, C_mid "
+                  "in chunks of 256)")
 
 
 def seg_bwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
     """The kernel that ``blk_bwd`` runs for the expand/decay backward of a
     block of these widths on the card, as its C entry chooses it (from the
-    dtype and widths alone, before any launch).  Builds the kernels."""
+    dtype and widths alone, before any launch): at C, C_dec <= 32 and
+    C_mid <= 256 ``seg_bwd_bf16_kernel`` at bf16 and 3xTF32 on the tensor
+    cores at float32; beyond, bf16 up to C, C_dec <= 64 and C_mid <= 512
+    on the tensor cores in ``seg_bwd_split_kernel`` (a block a chunk of
+    256 middle channels) and ``dx_sum_kernel`` (the chunks' parts of dx
+    plus gy, rounded once); elsewhere the CUDA cores.  Builds the
+    kernels."""
     from probav_tpu_torch.ops import _build
     code = _build.library().probav_seg_bwd_route(_DTYPE_CODE[dtype], c,
                                                  c_mid, c_dec)
@@ -206,20 +218,37 @@ def seg_bwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
 # The kernels blk_bwd's weight gradient of the conv (dWc) may launch, by
 # the code that csrc/blk_bwd.cu's wgrad_route gives.
 WGRAD_ROUTES = ("wgrad_kernel (CUDA cores)", "wgrad_ring_kernel (bf16 mma)",
-                "wgrad_tf32_kernel (3xTF32 mma)")
+                "wgrad_tf32_kernel (3xTF32 mma)",
+                "wgrad_tiles_kernel (bf16 mma, 32 x 32 channel tiles)")
 
 
 def wgrad_route(dtype, c: int, c_dec: int, w: int, t: int) -> str:
     """The kernel that ``blk_bwd`` runs for dWc of a block of C channels
     decaying to C_dec on rows of W x T positions, as its C entry chooses it
-    (from the dtype and shapes alone, before any launch): at C, C_dec <= 32
-    where the rows fit shared memory the tensor cores (bf16 up to W = 48 at
-    T = 9 or T = 19 at W = 22; float32 up to 22 x 9), elsewhere the CUDA
-    cores.  Builds the kernels."""
+    (from the dtype and shapes alone, before any launch): the tensor cores
+    where the rows fit shared memory, at C, C_dec <= 32 (bf16 up to W = 48
+    at T = 9 or T = 19 at W = 22; float32 up to 22 x 9) and at bf16 up to
+    C, C_dec <= 64 in ``wgrad_tiles_kernel`` (32 x 32 channel tiles over the
+    grid, staged by producer warps; rows up to 22 x 9 at 64/51);
+    elsewhere the CUDA cores.  Builds the kernels."""
     from probav_tpu_torch.ops import _build
     code = _build.library().probav_wgrad_route(_DTYPE_CODE[dtype], c, c_dec,
                                                w, t)
     return WGRAD_ROUTES[code]
+
+
+def blk_bwd_scratch(dtype, c: int, c_mid: int, c_dec: int, n: int) -> int:
+    """Floats of the float32 scratch ``blk_bwd`` hands its C entry at n rows
+    of these widths: the chunks' parts of dx where its seg_bwd route cuts
+    C_mid (``seg_bwd_split_kernel``), else 0.  Builds the kernels."""
+    import ctypes
+
+    from probav_tpu_torch.ops import _build
+    out = ctypes.c_longlong()
+    _build.check(_build.library().probav_blk_bwd_scratch(
+        _DTYPE_CODE[dtype], c, c_mid, c_dec, n, ctypes.byref(out)),
+        "blk_bwd scratch")
+    return out.value
 
 
 def partial_slots(device, c: int, c_dec: int) -> int:
@@ -413,12 +442,16 @@ def blk_bwd(gy, x, d, w1, b1, w2, wc):
     part = torch.empty((groups, slot_stride(slot)), dtype=torch.float32,
                        device=x.device)
     out = torch.empty(slot, dtype=torch.float32, device=x.device)
+    floats = blk_bwd_scratch(x.dtype, c, c_mid, c_dec, b * h * w * t)
+    dxp = torch.empty(floats, dtype=torch.float32, device=x.device) \
+        if floats else None
     lib = _build.library()
     err = lib.probav_blk_bwd(
         _DTYPE_CODE[x.dtype], gy.data_ptr(), x.data_ptr(), d.data_ptr(),
         wflip.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         dd.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
-        groups, part.shape[1], b, h, w, t, c, c_mid, c_dec, _stream(x))
+        dxp.data_ptr() if dxp is not None else None, groups, part.shape[1],
+        b, h, w, t, c, c_mid, c_dec, _stream(x))
     _build.check(err, "blk_bwd")
     LAUNCHES["blk_bwd"] += 1
     dwc, dw1, dw2, db1, db2, dbc = torch.split(

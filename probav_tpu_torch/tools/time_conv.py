@@ -3,7 +3,8 @@ compare two trees of the port on one card.
 
     python3 probav_tpu_torch/tools/time_conv.py [--tree ROOT] \\
         [--label NAME] [--rounds 5] [--out chiprun_out] \\
-        [--kernels conv_fwd,seg_fwd,blk_bwd,wide_bwd]
+        [--kernels conv_fwd,seg_fwd,blk_bwd,wide_bwd] \\
+        [--widths 32,256,25] [--dtypes float32,bfloat16]
 
 ``--tree`` is the root of the tree whose ``probav_tpu_torch`` is timed
 (default: the tree that holds this script), so a parent unpacked with
@@ -14,7 +15,9 @@ compare two trees of the port on one card.
 (blk_bwd and wide_bwd on the dyadic inputs of ``tools/dyadic.py``), then
 ``--rounds`` rounds of the median of 20 single CUDA-event-timed calls and
 of 20 calls queued back to back (device time, without the host's launch
-latency).  For seg_fwd also its route and, at float32, the error of its
+latency).  ``--widths C,C_MID,C_DEC`` times other widths at the same
+rows (the 64-filter model's 64,512,51), ``--dtypes`` one dtype alone.
+For seg_fwd also its route and, at float32, the error of its
 d against float64 on random-normal inputs (``rel_err_f64``).  For blk_bwd
 also the wgrad route, at float32 the error of its dWc against float64 on
 random-normal inputs (``dwc_rel_err_f64``), and its four sub-kernels
@@ -169,6 +172,7 @@ def calls(ts, wb, name, dtype, dev, g):
 
 
 def main(argv=None):
+    global C_OUT, C_MID, C_DEC
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
@@ -176,7 +180,11 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--kernels", default="conv_fwd")
+    ap.add_argument("--widths", default=f"{C_OUT},{C_MID},{C_DEC}",
+                    help="C,C_MID,C_DEC")
+    ap.add_argument("--dtypes", default="float32,bfloat16")
     opt = ap.parse_args(argv)
+    C_OUT, C_MID, C_DEC = (int(v) for v in opt.widths.split(","))
     kernels = opt.kernels.split(",")
     if not set(kernels) <= set(KERNELS):
         raise SystemExit(f"--kernels: a comma list of {', '.join(KERNELS)}")
@@ -198,7 +206,7 @@ def main(argv=None):
     result = dict(label=opt.label, tree=opt.tree, card=card,
                   shape=list(SHAPE), c_dec=C_DEC, c_out=C_OUT, c_mid=C_MID)
     for name in kernels:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, k) for k in opt.dtypes.split(",")):
             dn = str(dtype).split(".")[1]
             call, plain, tol, lib = calls(ts, wb, name, dtype, dev, g)
             got, ref = call(), plain()

@@ -284,12 +284,26 @@ _PARTS = {"seg_fwd_kernel": ("seg_fwd", None),
           "wgrad_kernel": ("blk_bwd", "wgrad"),
           "wgrad_ring_kernel": ("blk_bwd", "wgrad"),
           "wgrad_tf32_kernel": ("blk_bwd", "wgrad"),
+          "wgrad_tiles_kernel": ("blk_bwd", "wgrad"),
           "seg_bwd_bf16_kernel": ("blk_bwd", "seg_bwd"),
           "seg_bwd_tf32_kernel": ("blk_bwd", "seg_bwd"),
+          "seg_bwd_split_kernel": ("blk_bwd", "seg_bwd"),
+          "dx_sum_kernel": ("blk_bwd", "seg_bwd"),
           "wide_bwd_bf16_kernel": ("wide_bwd", "wide"),
           "wide_bwd_tf32_kernel": ("wide_bwd", "wide"),
           # blk_bwd's or wide_bwd's last launch: read_trace decides.
           "reduce_partials_kernel": (None, "reduce")}
+
+
+# Kernels that finish a part another kernel of it launched (dx_sum_kernel
+# sums seg_bwd_split_kernel's parts of dx): their time counts to the part,
+# their launches do not, so that a part has one launch a blk_bwd.
+_TAILS = ("dx_sum_kernel",)
+
+
+def is_tail(name: str) -> bool:
+    """Whether a profiled kernel name is a part's tail (``_TAILS``)."""
+    return any(m.group(1) in _TAILS for m in _NAME.finditer(name))
 
 
 def hand_kernel(name: str):
@@ -467,7 +481,7 @@ def read_trace(events, steps):
             else:
                 h = hand[kernel]
                 slot = h["parts"][part] if part else h
-            slot["launches"] += 1
+            slot["launches"] += 0 if is_tail(name) else 1
             slot["ms"] += ms
             slot["names"].add(name)
             continue

@@ -24,6 +24,9 @@ from probav_tpu_torch.tools.dyadic import (blk_bwd_inputs, shift_table_inputs,
 from probav_tpu_torch.tools.time_conv import dwc_float64, seg_fwd_f64
 from reduce_plan import plan as reduce_plan
 from shift_plan import launch_plan
+from test_torch_wgrad_layout import wgrad_ring_smem
+from test_torch_wgrad_tiles_layout import wgrad_tiles_smem
+from test_torch_wgrad_tf32_layout import wgrad_tf32_smem
 
 torch.set_num_threads(1)
 
@@ -43,6 +46,37 @@ def params(c, cmid, cdec, seed=3, device="cpu", dtype=torch.float32):
 def max_rel(got, ref):
     got, ref = got.float().cpu(), ref.float().cpu()
     return float((got - ref).abs().max() / ref.abs().max())
+
+
+def blk_bwd_routes(dtype, shape, c, cmid, cdec):
+    """(seg_bwd route, wgrad route) that blk_bwd's C entry must give for
+    rows of shape [B, H, W, T] at these widths: the flagship's tensor-core
+    kernels at C, C_dec <= 32 (and C_mid <= 256 for seg_bwd); at bf16 up to
+    C, C_dec <= 64 (C_mid <= 512) seg_bwd_split_kernel and
+    wgrad_tiles_kernel; the wgrads where their rows fit 232,448 bytes;
+    elsewhere the CUDA cores."""
+    bf = dtype == torch.bfloat16
+    w, t = shape[2], shape[3]
+    if c <= 32 and cdec <= 32 and cmid <= 256:
+        seg = 1 if bf else 2
+    else:
+        seg = 3 if bf and max(c, cdec) <= 64 and cmid <= 512 else 0
+    if bf and max(c, cdec) <= 32:
+        wgrad = 1 if wgrad_ring_smem(w, t, cdec, c) <= 232_448 else 0
+    elif bf and max(c, cdec) <= 64:
+        wgrad = 3 if wgrad_tiles_smem(w, t, cdec, c) <= 232_448 else 0
+    elif not bf and max(c, cdec) <= 32 and wgrad_tf32_smem(w, t) <= 232_448:
+        wgrad = 2
+    else:
+        wgrad = 0
+    return ts.SEG_BWD_ROUTES[seg], ts.WGRAD_ROUTES[wgrad]
+
+
+def assert_blk_bwd_routes(dtype, shape, c, cmid, cdec):
+    assert (ts.seg_bwd_route(dtype, c, cmid, cdec),
+            ts.wgrad_route(dtype, c, cdec, shape[2], shape[3])) == \
+        blk_bwd_routes(dtype, shape, c, cmid, cdec), (dtype, shape, c, cmid,
+                                                      cdec)
 
 
 def test_cpu_tensors_take_the_plain_path_uncounted():
@@ -151,7 +185,10 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol, shape, c, cmid, cdec):
     48-, 72- and 128-filter widths (C_mid = 8 C, C_dec = 0.8 C; seg_fwd
     in bf16 stages C_mid in chunks at 128/1024, the conv's outputs beyond
     64 take a second tile, in float32 at T = 19 tiles of 32), and a C that
-    is no multiple of 32 with 128 decay channels."""
+    is no multiple of 32 with 128 decay channels.  The backward's routes
+    at the same widths and rows are those ``blk_bwd_routes`` gives (at bf16
+    the 64- and 48-filter widths on the tensor cores)."""
+    assert_blk_bwd_routes(dtype, shape, c, cmid, cdec)
     w1, b1, w2, b2, wc, bc = params(c, cmid, cdec, device=cuda, dtype=dtype)
     x = torch.randn(*shape, c, device=cuda).to(dtype)
     x2 = x.reshape(-1, c)
@@ -226,7 +263,7 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
                                s) != 0
     stride = ts.slot_stride(27 * 108 * 136 + 136 * CMID + CMID * 108 + CMID
                             + 108 + 136)
-    assert lib.probav_blk_bwd(0, *[p] * 11, 1, stride, 1, 2, 3, 5, 136, CMID,
+    assert lib.probav_blk_bwd(0, *[p] * 12, 1, stride, 1, 2, 3, 5, 136, CMID,
                               108, s) != 0
     stride = ts.slot_stride(136 * CMID + CMID * 108 + CMID + 108)
     assert lib.probav_wide_bwd(0, *[p] * 8, 1, stride, n, 136, CMID, 108,
@@ -435,7 +472,10 @@ def blk_bwd_tolerances(dtype):
 def test_blk_bwd_matches_plain_on_card(cuda, dtype, shape, c, cmid, cdec):
     """Beyond 64 channels the CUDA-core kernels at both dtypes, dWc in
     tiles of 64 x 64 channels, and at W = 48 (128/1024/102) in runs of
-    columns."""
+    columns; at bf16 the 64- and 48-filter widths take
+    seg_bwd_split_kernel and wgrad_tiles_kernel, at float32 the CUDA
+    cores (``blk_bwd_routes``)."""
+    assert_blk_bwd_routes(dtype, shape, c, cmid, cdec)
     gy, x, d, w1, b1, w2, wc = blk_bwd_inputs(shape, c, cmid, cdec, seed=5,
                                               device=cuda, dtype=dtype)
     before = ts.LAUNCHES["blk_bwd"]
@@ -485,16 +525,28 @@ def test_f32_blk_bwd_seg_bwd_routes_match_plain_on_card(cuda, shape, c, cmid,
     ((3, 7, 6, 5), 24, 200, 19, "seg_bwd_bf16_kernel"),
     ((2, 22, 22, 9), 32, 256, 32, "seg_bwd_bf16_kernel"),
     ((1, 3, 5, 7), 32, 256, 25, "seg_bwd_bf16_kernel"),
-    ((3, 7, 6, 5), 33, 256, 25, "seg_bwd_kernel")],
-    ids=["flagship_b128", "c8", "cmid200", "cdec32", "rows105", "c33"])
+    ((3, 7, 6, 5), 33, 256, 25, "seg_bwd_split_kernel"),
+    ((128, 22, 22, 9), 64, 512, 51, "seg_bwd_split_kernel"),
+    ((3, 7, 6, 5), 48, 384, 38, "seg_bwd_split_kernel"),
+    ((3, 7, 6, 5), 36, 300, 64, "seg_bwd_split_kernel"),
+    ((2, 3, 6, 5), 64, 512, 51, "seg_bwd_split_kernel"),
+    ((3, 7, 6, 5), 65, 256, 25, "seg_bwd_kernel"),
+    ((3, 7, 6, 5), 64, 520, 51, "seg_bwd_kernel")],
+    ids=["flagship_b128", "c8", "cmid200", "cdec32", "rows105", "c33",
+         "c64_b128", "c48", "c36_cdec64", "bh_below_g_c64", "c65",
+         "cmid520"])
 def test_bf16_blk_bwd_seg_bwd_routes_match_plain_on_card(cuda, shape, c, cmid,
                                                          cdec, route):
     """bf16 within the tensor cores' widths takes seg_bwd_bf16_kernel: the
     flagship at batch 128, 8/64/6 (two warps' middle channels real, six
     warps' all padding), c_mid 200 (a warp's channels cut short), c_dec 32
-    (dd rows of 64 bytes), 105 rows (less than a tile); 33 channels take
-    the CUDA-core seg_bwd.  All match plain on the dyadic inputs to the
-    bf16 tolerances, and two calls agree bit for bit."""
+    (dd rows of 64 bytes), 105 rows (less than a tile); beyond, up to C,
+    C_dec <= 64 and C_mid <= 512, seg_bwd_split_kernel: 33 channels, the
+    64-filter widths at batch 128 and on 180 rows (three tiles for 264
+    slots), the 48-filter widths (a second chunk half padding), 36/300/64
+    (x copied by elements, 64 decay channels); 65 channels and C_mid 520
+    take the CUDA-core seg_bwd.  All match plain on the dyadic inputs to
+    the bf16 tolerances, and two calls agree bit for bit."""
     assert ts.seg_bwd_route(torch.bfloat16, c, cmid, cdec).startswith(route)
     args = blk_bwd_inputs(shape, c, cmid, cdec, seed=9, device=cuda,
                           dtype=torch.bfloat16)
@@ -511,23 +563,31 @@ def test_bf16_blk_bwd_seg_bwd_routes_match_plain_on_card(cuda, shape, c, cmid,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,c,cmid,cdec,route", [
-    ((128, 22, 22, 9), 32, 256, 25, "wgrad_ring_kernel"),
-    ((3, 7, 6, 5), 8, 64, 6, "wgrad_ring_kernel"),
-    ((2, 4, 48, 9), 32, 256, 25, "wgrad_ring_kernel"),
-    ((2, 5, 22, 19), 32, 256, 25, "wgrad_ring_kernel"),
-    ((2, 3, 6, 5), 32, 256, 25, "wgrad_ring_kernel"),
-    ((2, 22, 22, 9), 32, 256, 32, "wgrad_ring_kernel"),
-    ((3, 7, 6, 5), 33, 256, 25, "wgrad_kernel")],
+    ((128, 22, 22, 9), 32, 256, 25, "wgrad_ring_kernel (bf16 mma)"),
+    ((3, 7, 6, 5), 8, 64, 6, "wgrad_ring_kernel (bf16 mma)"),
+    ((2, 4, 48, 9), 32, 256, 25, "wgrad_ring_kernel (bf16 mma)"),
+    ((2, 5, 22, 19), 32, 256, 25, "wgrad_ring_kernel (bf16 mma)"),
+    ((2, 3, 6, 5), 32, 256, 25, "wgrad_ring_kernel (bf16 mma)"),
+    ((2, 22, 22, 9), 32, 256, 32, "wgrad_ring_kernel (bf16 mma)"),
+    ((3, 7, 6, 5), 33, 256, 25, "wgrad_tiles_kernel"),
+    ((128, 22, 22, 9), 64, 512, 51, "wgrad_tiles_kernel"),
+    ((2, 4, 22, 9), 48, 384, 38, "wgrad_tiles_kernel"),
+    ((2, 3, 6, 5), 64, 512, 51, "wgrad_tiles_kernel"),
+    ((2, 2, 48, 9), 64, 512, 51, "wgrad_kernel"),
+    ((3, 7, 6, 5), 65, 256, 25, "wgrad_kernel")],
     ids=["flagship_b128", "small", "w48", "t19", "bh_below_g", "cdec32",
-         "c33"])
+         "c33", "c64_b128", "c48", "bh_below_g_c64", "c64_w48", "c65"])
 def test_bf16_blk_bwd_wgrad_routes_match_plain_on_card(cuda, shape, c, cmid,
                                                        cdec, route):
     """bf16 dWc at C, C_dec <= 32 takes the tensor-core wgrad: the
     flagship at batch 128, 8/64/6, W = 48 and T = 19 (the largest layouts
     it holds), B*H = 6 items for the partial slots' 264 or more blocks
-    (every slot written), c_dec = c_out = 32; 33 channels take the
-    CUDA-core wgrad.  All match plain on the dyadic inputs to the bf16
-    tolerances, and two calls agree bit for bit."""
+    (every slot written), c_dec = c_out = 32; up to 64 channels
+    wgrad_tiles_kernel: 33 channels, the 64-filter widths at batch 128 and
+    on 6 items, the 48-filter widths; W = 48 at 64/51 (rows beyond its
+    layout) and 65 channels take the CUDA-core wgrad.  All match plain on the
+    dyadic inputs to the bf16 tolerances, and two calls agree bit for
+    bit."""
     assert ts.wgrad_route(torch.bfloat16, c, cdec, shape[2],
                           shape[3]).startswith(route)
     args = blk_bwd_inputs(shape, c, cmid, cdec, seed=8, device=cuda,
@@ -1109,7 +1169,10 @@ def test_blk_bwd_and_wide_bwd_are_bitwise_deterministic_on_card(
     """Two calls of each give the same bits in every output, on random
     normal inputs (on dyadic ones any order of summation is exact): the
     partial slots are written by fixed blocks and summed in a fixed order,
-    with no atomics.  At 128 channels G is one slot an SM."""
+    with no atomics.  At 128 channels G is one slot an SM.  At 64/512/51
+    bf16 that holds for the split seg_bwd (dx's float32 parts summed in
+    chunk order) and wgrad_tiles_kernel."""
+    assert_blk_bwd_routes(dtype, shape, c, cmid, cdec)
     r = np.random.default_rng(c)
     mk = lambda *sz: torch.from_numpy(
         r.normal(size=sz).astype(np.float32)).to(cuda, dtype)

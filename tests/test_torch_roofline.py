@@ -183,6 +183,11 @@ def test_hand_kernel_files_each_name():
     assert rf.hand_kernel("void at::native::reduce_kernel<512, 1, "
                           "at::native::ReduceOp<float>>(float*)") is None
     assert rf.hand_kernel("sm90_xmma_dgrad_implicit_gemm_bf16") is None
+    for name, part in (("wgrad_tiles_kernel", "wgrad"),
+                       ("seg_bwd_split_kernel", "seg_bwd"),
+                       ("dx_sum_kernel<true>", "seg_bwd")):
+        assert rf.hand_kernel(NS + name + ARGS) == ("blk_bwd", part), name
+        assert rf.is_tail(NS + name + ARGS) == name.startswith("dx_sum")
     assert rf.blk_bwd_part(NAMES[5][0]) == "reduce"
     assert rf.t_kernel_of(NAMES[1][0]) == "conv_fwd"
     assert rf.t_kernel_of(NAMES[2][0]) == "blk_bwd"
@@ -293,6 +298,26 @@ def test_trace_reader_files_the_reduce_under_wide_bwd_in_a_flat_step():
     assert {p: q["launches_per_step"] for p, q in w["parts"].items()} == \
         {"wide": 12, "reduce": 12}
     assert w["ms_per_launch"] == pytest.approx(0.385)
+
+
+def test_trace_reader_counts_a_split_seg_bwd_once_a_block():
+    """bf16 blk_bwd at 64/512/51 launches two kernels for its seg_bwd part,
+    seg_bwd_split_kernel and dx_sum_kernel: the part has one launch a
+    blk_bwd and the time of both, and blk_bwd's launches stay 12."""
+    parts = (("conv_ring_kernel<__nv_bfloat16, 64, 8, 1, 2, false>", 1745),
+             ("wgrad_tiles_kernel", 433), ("seg_bwd_split_kernel", 900),
+             ("dx_sum_kernel<true>", 190), ("reduce_partials_kernel", 56))
+    events = [dict(ph="X", cat="kernel", name=NS + name + ARGS, pid=0, tid=7,
+                   ts=1e4 * i + j, dur=float(dur), args={})
+              for i in range(12) for j, (name, dur) in enumerate(parts)]
+    rep = rf.roofline(rf.read_trace(events, 1), rf.step_costs(
+        rf.step_shapes(Config.from_file(CFG), filters=64), "bfloat16"))
+    k = rep["kernels"]["blk_bwd"]
+    assert k["launches_per_step"] == 12
+    assert {p: q["launches_per_step"] for p, q in k["parts"].items()} == \
+        {p: 12 for p in rf.BLK_BWD_PARTS}
+    assert k["parts"]["seg_bwd"]["ms_per_launch"] == pytest.approx(1.09)
+    assert k["ms_per_launch"] == pytest.approx(3.324)
 
 
 def test_a_share_above_the_limit_raises_naming_the_kernel():
