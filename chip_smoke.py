@@ -31,16 +31,17 @@ Phases, each printing its result:
    kernel its C entry routes each width to: the tensor-core seg_bwd at the
    flagship, seg_bwd_bf16_kernel at bf16 and the 3xTF32
    seg_bwd_tf32_kernel at float32; at 64/512/51 (and the width phase's
-   48/384/38) seg_bwd_split_kernel with dx_sum_kernel at bf16, the
-   CUDA-core one at float32; the tensor-core wgrad from 1 to 32 channels
-   where its rows fit, at bf16 up to 64 in 32 x 32 channel tiles
-   (wgrad_tiles_kernel); the
-   flagship must take both on the tensor cores at both dtypes, 64/512/51
-   and 48/384/38 at bf16, and float32 there and every dtype at 72 and 128
-   filters the CUDA cores; at bf16 64/512/51 on the train step's 128
-   patches also blk_bwd's outputs against plain, each part's device ms
-   back to back beside its bound, and cuDNN's weight gradient of the same
-   d and gy back to back beside the wgrad part; wide_bwd's
+   48/384/38) seg_bwd_split_kernel with dx_sum_kernel at bf16 and the
+   3xTF32 seg_bwd_tf32_split_kernel with dx_sum_kernel at float32;
+   the tensor-core wgrad from 1 to 32 channels where its rows fit, up to
+   64 in 32 x 32 channel tiles (wgrad_tiles_kernel at bf16, the 3xTF32
+   wgrad_tf32_tiles_kernel at float32); the flagship must take both on
+   the tensor cores at both dtypes, 64/512/51 and 48/384/38 the tiled and
+   split ones at both dtypes, and every dtype at 72 and 128 filters the
+   CUDA cores; at 64/512/51 on the train step's 128 patches, bf16 and
+   float32 (TF32 off), also blk_bwd's outputs against plain, each part's
+   device ms back to back beside its bound, and cuDNN's weight gradient
+   of the same d and gy back to back beside the wgrad part; wide_bwd's
    log names its route: wide_bwd_bf16_kernel and the 3xTF32
    wide_bwd_tf32_kernel, which the bf16 and the float32 flagship must
    take, and seg_bwd_kernel on the CUDA cores, which both dtypes at
@@ -169,8 +170,9 @@ Phases, each printing its result:
    0.9411 model's 64/512/51 (tools/geom_sweep.run_width) at float32 and
    bf16 on 128 patches, its gradients held to the plain chain as in the
    stack gradient phase (6), its time, bound and routes logged; then warm
-   bf16 train steps of that model at batch 128, "t" (12 launches of each
-   stack kernel a step) and "off" (none), median of 3 each;
+   bf16 and float32 train steps of that model at batch 128, "t" (12
+   launches of each stack kernel a step) and "off" (none), median of 3
+   each;
 10. train, the other losses and models: the train CLI on the flagship cfg
    (float32, "t" stack, batch 128) with loss=sobel_l1_mix and with
    loss=l1msssim (12 launches of each stack kernel per step, a falling
@@ -337,9 +339,9 @@ CONV_ENVELOPE = (("W=48", (16, 22, 48, 9), CDEC, C),
 # CLI_FILTERS.
 WIDTHS = ((48, 384, 38), (72, 576, 57), (128, 1024, 102))
 WIDTH_PATCHES, WIDE_FILTERS, WIDE_BATCH, CLI_FILTERS = 16, 128, 32, 48
-# Single-call timings of the width phase's backward kernels: 5 a kernel,
-# cut from 10 to pay for the bf16 64-filter parts and steps.
-WIDTH_REPS = 5
+# Single-call timings of the width phase's backward kernels: 3 a kernel,
+# cut from 10 to pay for the 64-filter parts and steps at both dtypes.
+WIDTH_REPS = 3
 
 
 def log(msg):
@@ -418,15 +420,18 @@ def wide_cuda_core_route(dtype, c, cmid, cdec):
 
 def wide_blk_bwd_routes(dtype, c, cmid, cdec):
     """Beyond 32/256/32 blk_bwd's seg_bwd and wgrad take the tensor cores
-    at bf16 up to C, C_dec <= 64 and C_mid <= 512 (seg_bwd_split_kernel
-    with dx_sum_kernel; wgrad_tiles_kernel, 32 x 32 channel tiles), and
-    the CUDA cores at float32 and beyond; raises otherwise."""
+    up to C, C_dec <= 64 and C_mid <= 512 at both dtypes (bf16:
+    seg_bwd_split_kernel with dx_sum_kernel, wgrad_tiles_kernel; float32:
+    seg_bwd_tf32_split_kernel with dx_sum_kernel,
+    wgrad_tf32_tiles_kernel; the wgrads in 32 x 32 channel tiles), and the
+    CUDA cores beyond; raises otherwise."""
     import torch
 
     from probav_tpu_torch.ops import tstack as ts
-    mma = dtype == torch.bfloat16 and max(c, cdec) <= 64 and cmid <= 512
-    want = (ts.SEG_BWD_ROUTES[3 if mma else 0],
-            ts.WGRAD_ROUTES[3 if mma else 0])
+    code = 3 if dtype == torch.bfloat16 else 4
+    mma = max(c, cdec) <= 64 and cmid <= 512
+    want = (ts.SEG_BWD_ROUTES[code if mma else 0],
+            ts.WGRAD_ROUTES[code if mma else 0])
     got = (ts.seg_bwd_route(dtype, c, cmid, cdec),
            ts.wgrad_route(dtype, c, cdec, HW, T))
     if got != want:
@@ -435,18 +440,23 @@ def wide_blk_bwd_routes(dtype, c, cmid, cdec):
 
 
 # blk_bwd's parts at the 64-filter model's widths on the train step's
-# rows: (part, the kernel its trace must name, the kernel it replaced).
-WIDE_PARTS = (("seg_bwd", "seg_bwd_split_kernel", "seg_bwd_kernel"),
-              ("wgrad", "wgrad_tiles_kernel", "wgrad_kernel"))
+# rows, by dtype: (part, the kernel its trace must name, the kernel it
+# replaced).
+WIDE_PARTS = {
+    "bfloat16": (("seg_bwd", "seg_bwd_split_kernel", "seg_bwd_kernel"),
+                 ("wgrad", "wgrad_tiles_kernel", "wgrad_kernel")),
+    "float32": (("seg_bwd", "seg_bwd_tf32_split_kernel", "seg_bwd_kernel"),
+                ("wgrad", "wgrad_tf32_tiles_kernel", "wgrad_kernel"))}
 
 
-def wide_blk_bwd_parts(torch, ts, dev, card):
-    """bf16 blk_bwd at 64/512/51 on N_PATCH patches (the 64-filter train
-    step's rows): its seven outputs on dyadic inputs against plain, then
-    the device ms of each part from a profiler trace of 10 calls back to
-    back beside its bound, the whole call back to back, and cuDNN's weight
-    gradient of the same d and gy back to back (the library call that
-    computes the wgrad part)."""
+def wide_blk_bwd_parts(torch, ts, dev, card, dn):
+    """blk_bwd in dtype ``dn`` at 64/512/51 on N_PATCH patches (the
+    64-filter train step's rows): its seven outputs on dyadic inputs
+    against plain, then the device ms of each part from a profiler trace
+    of 10 calls back to back beside its bound, the whole call back to
+    back, and cuDNN's weight gradient of the same d and gy back to back
+    (the library call that computes the wgrad part; TF32 off at
+    float32)."""
     from probav_tpu_torch.tools.dyadic import blk_bwd_inputs
     from probav_tpu_torch.tools.time_conv import library_calls, profile_parts
 
@@ -454,26 +464,26 @@ def wide_blk_bwd_parts(torch, ts, dev, card):
     n = N_PATCH * HW * HW * T
     shape = f"N={n}, {c}/{cmid}/{cdec}"
     args = blk_bwd_inputs((N_PATCH, HW, HW, T), c, cmid, cdec, seed=12,
-                          device=dev, dtype=torch.bfloat16)
-    tol_of = lambda k: BWD_TOL["bfloat16"] if k == "dx" else BWD_GRAD_TOL
-    errs = check_outputs(f"blk_bwd bfloat16 [{shape}]", BWD_NAMES,
+                          device=dev, dtype=getattr(torch, dn))
+    tol_of = lambda k: BWD_TOL[dn] if k == "dx" else BWD_GRAD_TOL
+    errs = check_outputs(f"blk_bwd {dn} [{shape}]", BWD_NAMES,
                          ts.blk_bwd(*args), ts.blk_bwd_plain(*args), tol_of)
     parts = profile_parts(lambda: ts.blk_bwd(*args))
-    costs = blk_bwd_part_costs(n, c, cmid, cdec, "bfloat16",
+    costs = blk_bwd_part_costs(n, c, cmid, cdec, dn,
                                ts.partial_slots(dev, c, cdec))
     kb, lib = back_to_back(torch, lambda: ts.blk_bwd(*args),
                            library_calls(*args)["wgrad"])
     msg = []
-    for part, kernel, before in WIDE_PARTS:
+    for part, kernel, before in WIDE_PARTS[dn]:
         ms, names = parts[part]
         if not any(kernel in k for k in names):
-            raise AssertionError(f"blk_bwd {shape} bf16 {part}: kernels "
+            raise AssertionError(f"blk_bwd {shape} {dn} {part}: kernels "
                                  f"{names}, expected {kernel}")
         cost = costs[part]
         msg.append(f"{part} ({kernel}, was {before}) {ms:.4f} ms, bound "
                    f"{cost['bound_ms']:.4f} ms by {cost['bound_by']}, share "
                    f"{cost['bound_ms'] / ms:.3f}")
-    log(f"kernel blk_bwd bfloat16 [{shape}]: max|diff| " + ", ".join(
+    log(f"kernel blk_bwd {dn} [{shape}]: max|diff| " + ", ".join(
         f"{k} {e:.3e}" for k, e in zip(BWD_NAMES, errs)) + "; parts back to "
         "back, device time a call: " + "; ".join(msg) + "; " + "; ".join(
             f"{p} {ms:.4f} ms" for p, (ms, _) in parts.items()
@@ -816,8 +826,7 @@ def phase_kernels(torch, ts, dev, card):
         wide_seg_route(dn, 64, 512, 51)
         wide_cuda_core_route(dtype, 64, 512, 51)
         wide_blk_bwd_routes(dtype, 64, 512, 51)
-        if dn == "bfloat16":
-            wide_blk_bwd_parts(torch, ts, dev, card)
+        wide_blk_bwd_parts(torch, ts, dev, card, dn)
         for label, shape, cd, co in CONV_ENVELOPE:
             g = torch.Generator(device=dev).manual_seed(11)
             rn = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=dev)
@@ -2532,7 +2541,7 @@ ROOFLINE_STEPS = (
 ROOFLINE_PARTS = {"blk_bwd": {"dd conv": 12, "wgrad": 12, "seg_bwd": 12,
                               "reduce": 12},
                   "wide_bwd": {"wide": 12, "reduce": 12}}
-ROOFLINE_TOP, ROOFLINE_FILTERS, ROOFLINE_REPS = 5, 64, 3
+ROOFLINE_TOP, ROOFLINE_FILTERS, ROOFLINE_REPS = 5, 64, 2
 ROOFLINE_WIDE_STEPS = 3
 
 
@@ -2585,8 +2594,8 @@ def phase_roofline(torch, ts, dev, card):
         del row
         torch.cuda.empty_cache()
 
-    # Warm bf16 train steps of the ROOFLINE_FILTERS model, the "t" kernels
-    # and the "off" tier's cuDNN autograd, on one batch.
+    # Warm bf16 and float32 train steps of the ROOFLINE_FILTERS model, the
+    # "t" kernels and the "off" tier's cuDNN autograd, on one batch.
     from probav_tpu_torch.tools.profile_train import (make_trainer,
                                                       synthetic_batch,
                                                       warm_step_rates)
@@ -2595,9 +2604,10 @@ def phase_roofline(torch, ts, dev, card):
                   for a in synthetic_batch(cfg.batch_size, seed=2))
     steps = ROOFLINE_WIDE_STEPS
     with tempfile.TemporaryDirectory() as tmp:
-        for tier in ("t", "off"):
-            tr = make_trainer(cfg, "bfloat16", tier, dev,
-                              os.path.join(tmp, tier))
+        for dn, tier in (("bfloat16", "t"), ("bfloat16", "off"),
+                         ("float32", "t"), ("float32", "off")):
+            tr = make_trainer(cfg, dn, tier, dev,
+                              os.path.join(tmp, dn + tier))
             reset_launches()
             ms = [1e3 * cfg.batch_size / r
                   for r in warm_step_rates(tr, batch, steps)]
@@ -2609,10 +2619,10 @@ def phase_roofline(torch, ts, dev, card):
             del tr
             torch.cuda.empty_cache()
             if got != want:
-                raise AssertionError(f"bf16 {tier} step at {ROOFLINE_FILTERS}"
-                                     f" filters: launches {got}, expected "
-                                     f"{want}")
-            log(f"warm train step bf16 {tier} at {c}/{cmid}/{cdec} "
+                raise AssertionError(f"{dn} {tier} step at "
+                                     f"{ROOFLINE_FILTERS} filters: launches "
+                                     f"{got}, expected {want}")
+            log(f"warm train step {dn} {tier} at {c}/{cmid}/{cdec} "
                 f"({ROOFLINE_FILTERS} filters), batch {cfg.batch_size}: "
                 f"median of {steps} {statistics.median(ms):.1f} ms (min "
                 f"{min(ms):.1f}, max {max(ms):.1f}); launches {got} [{card}]")

@@ -42,28 +42,29 @@
 // m16n8k8); so does the wgrad where its rows fit shared memory
 // (wgrad_route: bf16 wgrad_ring_kernel, ldmatrix.trans on channels-last
 // halo rows staged by cp.async; float32 wgrad_tf32_kernel, 3xTF32 on halo
-// rows copied straight into a ring of four slots).  At bf16
-// both run on the tensor cores up to c_in, c_dec <= 64 as well (the
-// 64-filter model's 64/512/51, the 48-filter model's 48/384/38): seg_bwd,
-// to c_mid <= 512, as seg_bwd_split_kernel, c_mid cut into chunks of 256
-// over the grid, each block writing its chunk's float32 part of dx, then
-// dx_sum_kernel (the parts and gy summed, dx rounded once); the wgrad as
-// wgrad_tiles_kernel, 32 x 32 channel tiles over the grid, staged by
-// producer warps of their own.  float32
-// beyond 32/256/32, bf16 beyond 64 channels (up to 128/1024/102) and the
-// wgrad on larger rows run on the CUDA cores (wgrad_kernel,
-// seg_bwd_kernel: bf16 data widened to float32, whose products of bf16
-// values are exact), so every width from 1 to MAX_CH = 128 channels has a
-// kernel.
+// rows copied straight into a ring of four slots).  Both also run on the
+// tensor cores up to c_in, c_dec <= 64 at both dtypes (the 64-filter
+// model's 64/512/51, the 48-filter model's 48/384/38): seg_bwd, to c_mid
+// <= 512, with c_mid cut into chunks over the grid, each block writing its
+// chunk's float32 part of dx, then dx_sum_kernel, which sums the parts and
+// gy (dx rounded once): bf16 as seg_bwd_split_kernel (chunks of 256),
+// float32 as seg_bwd_tf32_split_kernel (3xTF32, chunks of 128); the wgrad
+// in 32 x 32 channel tiles over the grid, bf16 as wgrad_tiles_kernel,
+// staged by producer warps of their own, float32 as
+// wgrad_tf32_tiles_kernel, wgrad_tf32_kernel's layout a tile.  Beyond 64
+// channels (up to 128/1024/102) and the wgrad on larger rows run on the
+// CUDA cores (wgrad_kernel, seg_bwd_kernel: bf16 data widened to float32,
+// whose products of bf16 values are exact), so every width from 1 to
+// MAX_CH = 128 channels has a kernel.
 //
 // Reductions across blocks: kernels 2 and 3 run a persistent grid of G
 // blocks; each block owns one float32 slot of the partial buffer and sums
 // into it over all its tiles, in registers written once at the end (the
 // wgrad kernels, seg_bwd_bf16, seg_bwd_tf32) or in the slot itself
-// (seg_bwd), with no atomics.  The channel-tiled wgrad and the split
-// seg_bwd run a few blocks a slot (its tiles, its chunks of c_mid, then
-// dx_sum_kernel for dbc), each writing a disjoint part of it, so every
-// entry still has one writer.  Slots lie `stride` floats apart, a
+// (seg_bwd), with no atomics.  The channel-tiled wgrads and the split
+// seg_bwds run a few blocks a slot (its tiles, its chunks of c_mid, then
+// the dx sum for dbc), each writing a disjoint part of it, so every entry
+// still has one writer.  Slots lie `stride` floats apart, a
 // multiple of 32 at least the slot's length (128-byte aligned rows, so the
 // reduce reads them as float4).  Kernel 4 sums the G slots in a fixed
 // order with no atomics, so a run is deterministic, as the per-tile
@@ -2163,22 +2164,49 @@ seg_bwd_split_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// dx = bf16(sum over the chunks of dxp + gy) and dbc = sum of gy, after
-// seg_bwd_split_kernel: block b of G sums the rows [b per, (b + 1) per),
-// thread t the four channels 4 (t % 16) .. of rows t / 16 + 16 k, and
-// writes dbc into slot b; the chunks added in order, then gy, in float32.
-// VEC: c_in a multiple of 4 and gy, dx 8-byte aligned (four bf16 a load).
-// Memory-bound: chunks x N x ldp x 4 bytes of parts and N x c_in x 2 of gy
-// read, N x c_in x 2 of dx written; unrolled so that each thread keeps
-// several rows' loads in flight.
+// dx = T(sum over the chunks of dxp + gy) and dbc = sum of gy, after
+// seg_bwd_split_kernel (T bf16) or seg_bwd_tf32_split_kernel (T float):
+// block b of G sums the rows [b per, (b + 1) per), thread t the four
+// channels 4 (t % 16) .. of rows t / 16 + 16 k, and writes dbc into slot
+// b; the chunks added in order, then gy, in float32, dx rounded once.
+// VEC: c_in a multiple of 4 and gy, dx aligned to four elements (one load
+// or store of four).  Memory-bound: chunks x N x ldp x 4 bytes of parts
+// and N x c_in elements of gy read, N x c_in of dx written; unrolled so
+// that each thread keeps several rows' loads in flight.
 constexpr int DXS_THREADS = 256;
 
-template <bool VEC>
+// Four elements of gy as float32, and four float32 sums stored as dx.
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      float (&g)[4]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&w.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&w.y));
+  g[0] = a.x; g[1] = a.y; g[2] = b.x; g[3] = b.y;
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&g)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  g[0] = v.x; g[1] = v.y; g[2] = v.z; g[3] = v.w;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                       const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(probav::pack_bf16(v[0], v[1]), probav::pack_bf16(v[2], v[3]));
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(DXS_THREADS)
 dx_sum_kernel(const float* __restrict__ dxp, int chunks, int ldp,
-              const __nv_bfloat16* __restrict__ gy,
-              __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
-              long slot_len, long bc, int n, int c_in) {
+              const T* __restrict__ gy, T* __restrict__ dx,
+              float* __restrict__ part, long slot_len, long bc, int n,
+              int c_in) {
   __shared__ float red[DXS_THREADS / 16][64];
   const int tid = threadIdx.x, c = 4 * (tid % 16), rl = tid / 16;
   const long per = ((long)n + gridDim.x - 1) / gridDim.x;
@@ -2197,22 +2225,21 @@ dx_sum_kernel(const float* __restrict__ dxp, int chunks, int ldp,
       }
       const long e = r * c_in + c;
       if constexpr (VEC) {
-        const uint2 gw = *reinterpret_cast<const uint2*>(gy + e);
-        const float2 g01 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&gw.x));
-        const float2 g23 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&gw.y));
-        acc[0] += g01.x; acc[1] += g01.y; acc[2] += g23.x; acc[3] += g23.y;
-        *reinterpret_cast<uint2*>(dx + e) =
-            make_uint2(probav::pack_bf16(v[0] + g01.x, v[1] + g01.y),
-                       probav::pack_bf16(v[2] + g23.x, v[3] + g23.y));
+        float g[4];
+        load4(gy + e, g);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[u] += g[u];
+          v[u] += g[u];
+        }
+        store4(dx + e, v);
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
           if (c + u < c_in) {
-            const float gv = __bfloat162float(gy[e + u]);
+            const float gv = to_f(gy[e + u]);
             acc[u] += gv;
-            dx[e + u] = __float2bfloat16_rn(v[u] + gv);
+            dx[e + u] = from_f<T>(v[u] + gv);
           }
       }
     }
@@ -2225,6 +2252,21 @@ dx_sum_kernel(const float* __restrict__ dxp, int chunks, int ldp,
     for (int l = 0; l < DXS_THREADS / 16; ++l) sum += red[l][tid];
     part[blockIdx.x * slot_len + bc + tid] = sum;
   }
+}
+
+// dx_sum_kernel over G blocks, VEC where c_in and the pointers allow.
+template <typename T>
+cudaError_t launch_dx_sum(const float* dxp, int chunks, int ldp, const T* gy,
+                          T* dx, float* part, long slot_len, int G, int n,
+                          int c_in, long bc, cudaStream_t s) {
+  const uintptr_t align = 4 * sizeof(T);
+  const bool vec = c_in % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(gy) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % align == 0;
+  auto sum = vec ? dx_sum_kernel<T, true> : dx_sum_kernel<T, false>;
+  sum<<<G, DXS_THREADS, 0, s>>>(dxp, chunks, ldp, gy, dx, part, slot_len, bc,
+                                n, c_in);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_seg_bwd_split(const void* x, const void* dd,
@@ -2248,14 +2290,9 @@ cudaError_t launch_seg_bwd_split(const void* x, const void* dd,
       part, slot_len, chunks, n, c_in, c_mid, c_dec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const bool vec = c_in % 4 == 0 && reinterpret_cast<uintptr_t>(gy) % 8 == 0 &&
-                   reinterpret_cast<uintptr_t>(dx) % 8 == 0;
-  const long bc = Slot(c_in, c_mid, c_dec).bc;
-  auto sum = vec ? dx_sum_kernel<true> : dx_sum_kernel<false>;
-  sum<<<G, DXS_THREADS, 0, s>>>(dxp, chunks, ldp, static_cast<const B16*>(gy),
-                                static_cast<B16*>(dx), part, slot_len, bc, n,
-                                c_in);
-  return cudaGetLastError();
+  return launch_dx_sum(dxp, chunks, ldp, static_cast<const B16*>(gy),
+                       static_cast<B16*>(dx), part, slot_len, G, n, c_in,
+                       Slot(c_in, c_mid, c_dec).bc, s);
 }
 
 // ------------------------------------------------------------------------ //
@@ -2676,6 +2713,9 @@ cudaError_t launch_wide_bwd_tf32(const void* x, const void* w1,
 // wgrad_tf32_kernel.  Per (b, h) row of gy, dWc[tap] += d_shifted^T gy as  //
 // mma.sync m16n8k8 with M = 32 channels c, N = 32 outputs o and K = the    //
 // row's W*T real positions of gy, rounded up to 8 (gy is zero past them). //
+// Up to 64 (the 64-filter model's 51 -> 64, the 48-filter model's         //
+// 38 -> 48): wgrad_tf32_tiles_kernel, the same body on 32 x 32 channel     //
+// tiles over the grid.                                                    //
 // ------------------------------------------------------------------------ //
 //
 // - Fragments of 32-bit words, no transposition.  A TF32 fragment word is
@@ -2731,6 +2771,27 @@ cudaError_t launch_wide_bwd_tf32(const void* x, const void* w1,
 // its mma it takes 76% of its time, without the split 79%; the rest is
 // the loads of each k-step's chain and their latency, with three warps a
 // scheduler to hide them.
+//
+// The tiles (wgrad_tf32_tiles_kernel, c_dec or c_out beyond 32, up to 64).
+// Block s * tiles + t takes channel tile t (32 c's from c0 by 32 o's from
+// o0; 2 x 2 at 64/51) of the items of slot s, the items cut into G runs
+// as above; a slot's tiles are adjacent, so they run together and read
+// each row of d and gy from L2 once it is in, and each writes its tile of
+// dWc in its slot: every entry one writer.  A tile is the layout above at
+// 32 channels (channels past the tile's zero, as past c_dec there), so its
+// shared memory is wgrad_tf32_smem's and it fits where the flagship's does
+// (rows up to 22 x 9).  The rows' copies stay with the multiplying warps:
+// lane c of warp w copies channel c0 + c of positions w, w + 12, ... by
+// 4-byte cp.async (a row of 51 floats is not 16-byte aligned): ~17 copy
+// instructions a warp for each row of d and of gy an item (198 positions
+// over 12 warps) against its 75 k-steps of 18 mma, so no producer warps
+// (they paid at bf16, whose m16n8k16 products take six times fewer mma
+// instructions for the same work).  Bound at N = 557,568, 51 -> 64: 98.3
+// GFLOP, three
+// TF32 products each, 0.596 ms at the TF32 peak (1.467 ms at the CUDA
+// cores' 67 TFLOP/s), against 257 MB of d and gy read (0.077 ms):
+// operations.  It issues 64 x 64 products a position of the 51 x 64
+// needed.
 
 constexpr int WGT_WARPS = 12;
 constexpr int WGT_CS = 40;     // floats of a halo cell of d
@@ -2744,10 +2805,15 @@ size_t wgrad_tf32_smem(int W, int Tn) {
          sizeof(int) * npk;
 }
 
-__global__ void __launch_bounds__(WGT_WARPS * 32, 1)
-wgrad_tf32_kernel(const float* __restrict__ d, const float* __restrict__ gy,
-                  float* __restrict__ part, long slot_len, int B, int H,
-                  int W, int Tn, int c_dec, int c_out) {
+// The body of wgrad_tf32_kernel (TILES false: one block a slot, every
+// channel, c_dec, c_out <= 32) and of wgrad_tf32_tiles_kernel (TILES true,
+// c_dec, c_out <= 64: block s * tiles + t takes the 32 x 32 channel tile t,
+// from c0 by o0, of slot s's items, and writes that tile of dWc in slot s).
+template <bool TILES>
+__device__ __forceinline__ void wgrad_tf32_body(
+    const float* __restrict__ d, const float* __restrict__ gy,
+    float* __restrict__ part, long slot_len, int B, int H, int W, int Tn,
+    int c_dec, int c_out) {
   extern __shared__ __align__(16) float smem[];
   const int WT = W * Tn, npk = (WT + 7) / 8 * 8;
   const int WS = (Tn + 2) * WGT_CS + WGT_WPAD;   // a w-row of cells
@@ -2759,6 +2825,19 @@ wgrad_tf32_kernel(const float* __restrict__ d, const float* __restrict__ gy,
   const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, q = lane % 4;
   const int dh = warp / 4, mi = warp % 2, np = (warp / 2) % 2;
+  // TILES: this block's slot, the slots, and its tile's channels c0 .. c0 +
+  // cw - 1 of d and o0 .. o0 + ow - 1 of gy.
+  int slot = 0, nslots = 1, c0 = 0, o0 = 0, cw = 0, ow = 0;
+  if constexpr (TILES) {
+    const int tc = (c_dec + 31) / 32, tiles = tc * ((c_out + 31) / 32);
+    const int tile = (int)(blockIdx.x % tiles);
+    c0 = 32 * (tile % tc);
+    o0 = 32 * (tile / tc);
+    cw = min(32, c_dec - c0);
+    ow = min(32, c_out - o0);
+    slot = (int)(blockIdx.x / tiles);
+    nslots = (int)(gridDim.x / tiles);
+  }
 
   // Zeros everywhere the copies never write; the centre cell of each gy
   // position (position 0's past the row, where gy is zero).
@@ -2772,18 +2851,35 @@ wgrad_tf32_kernel(const float* __restrict__ d, const float* __restrict__ gy,
 
   const bool gvec = c_out % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(gy) % 16 == 0;
-  // Global row r of d into ring slot r % 4, position p at its cell.
+  // Global row r of d into ring slot r % 4, position p at its cell (TILES:
+  // the tile's channels, lane c of warp w at positions w, w + 12, ...).
   auto copy_d = [&](long r) {
     float* dst = slots + (int)(r % 4) * slot_f;
+    if constexpr (TILES) {
+      const float* src = d + r * WT * c_dec + c0;
+      if (lane < cw)
+        for (int p = warp; p < WT; p += WGT_WARPS)
+          probav::cp_async4_zfill(dst + prow[p] + lane, src + p * c_dec + lane,
+                                  true);
+      return;
+    }
     const float* src = d + r * WT * c_dec;
     for (int e = tid; e < WT * c_dec; e += nthr)
       probav::cp_async4_zfill(dst + prow[e / c_dec] + e % c_dec, src + e,
                               true);
   };
   // Row `item` of gy into gy slot buf, channel o of position p at o ^ 8 (p
-  // % 4).
+  // % 4) (TILES: the tile's outputs, 4-byte copies as for d).
   auto copy_g = [&](long item, int buf) {
     float* dst = gsl + buf * npk * 32;
+    if constexpr (TILES) {
+      const float* src = gy + item * WT * c_out + o0;
+      if (lane < ow)
+        for (int p = warp; p < WT; p += WGT_WARPS)
+          probav::cp_async4_zfill(dst + p * 32 + (lane ^ ((p & 3) << 3)),
+                                  src + p * c_out + lane, true);
+      return;
+    }
     const float* src = gy + item * WT * c_out;
     if (gvec) {
       const int c4 = c_out / 4;
@@ -2802,8 +2898,9 @@ wgrad_tf32_kernel(const float* __restrict__ d, const float* __restrict__ gy,
   };
 
   const long items = (long)B * H;
-  const long per = (items + gridDim.x - 1) / gridDim.x;
-  const long i0 = min(items, (long)blockIdx.x * per);
+  const long per = TILES ? (items + nslots - 1) / nslots
+                         : (items + gridDim.x - 1) / gridDim.x;
+  const long i0 = min(items, (long)(TILES ? slot : blockIdx.x) * per);
   const long i1 = min(items, i0 + per);
   if (i0 < i1) {   // the first item's rows i0 - 1 .. i0 + 1 and its gy
     for (long r = max(i0 - 1, 0L); r <= min(i0 + 1, items - 1); ++r)
@@ -2887,7 +2984,7 @@ wgrad_tf32_kernel(const float* __restrict__ d, const float* __restrict__ gy,
     }
   }
 
-  float* out = part + blockIdx.x * slot_len;
+  float* out = part + (TILES ? slot : blockIdx.x) * slot_len;
 #pragma unroll
   for (int dw = 0; dw < 3; ++dw)
 #pragma unroll
@@ -2899,9 +2996,29 @@ wgrad_tf32_kernel(const float* __restrict__ d, const float* __restrict__ gy,
           const int c = ach + (i < 2 ? 0 : 8);
           const int o = 16 * np + 8 * n + 2 * q + (i & 1);
           const int tap = dh * 9 + dw * 3 + dt;
-          if (c < c_dec && o < c_out)
+          if constexpr (TILES) {
+            if (c < cw && o < ow)
+              out[((long)tap * c_dec + c0 + c) * c_out + o0 + o] =
+                  acc[dw][dt][n][i];
+          } else if (c < c_dec && o < c_out) {
             out[((long)tap * c_dec + c) * c_out + o] = acc[dw][dt][n][i];
+          }
         }
+}
+
+__global__ void __launch_bounds__(WGT_WARPS * 32, 1)
+wgrad_tf32_kernel(const float* __restrict__ d, const float* __restrict__ gy,
+                  float* __restrict__ part, long slot_len, int B, int H,
+                  int W, int Tn, int c_dec, int c_out) {
+  wgrad_tf32_body<false>(d, gy, part, slot_len, B, H, W, Tn, c_dec, c_out);
+}
+
+__global__ void __launch_bounds__(WGT_WARPS * 32, 1)
+wgrad_tf32_tiles_kernel(const float* __restrict__ d,
+                        const float* __restrict__ gy, float* __restrict__ part,
+                        long slot_len, int B, int H, int W, int Tn, int c_dec,
+                        int c_out) {
+  wgrad_tf32_body<true>(d, gy, part, slot_len, B, H, W, Tn, c_dec, c_out);
 }
 
 cudaError_t launch_wgrad_tf32(const void* d, const void* gy, float* part,
@@ -2918,13 +3035,32 @@ cudaError_t launch_wgrad_tf32(const void* d, const void* gy, float* part,
   return cudaGetLastError();
 }
 
+cudaError_t launch_wgrad_tf32_tiles(const void* d, const void* gy,
+                                    float* part, long slot_len, int G, int B,
+                                    int H, int W, int Tn, int c_dec,
+                                    int c_out, cudaStream_t s) {
+  const size_t smem = wgrad_tf32_smem(W, Tn);
+  auto kern = wgrad_tf32_tiles_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (c_dec + 31) / 32 * ((c_out + 31) / 32);
+  kern<<<G * tiles, WGT_WARPS * 32, smem, s>>>(
+      static_cast<const float*>(d), static_cast<const float*>(gy), part,
+      slot_len, B, H, W, Tn, c_dec, c_out);
+  return cudaGetLastError();
+}
+
 // Which wgrad blk_bwd runs, from the dtype and shapes alone, on the tensor
 // cores where the kernel's layout fits shared memory: bf16 at c_dec, c_out
 // <= 32 on wgrad_ring_kernel, up to 64 on wgrad_tiles_kernel (32 x 32
 // channel tiles over the grid), float32 at c_dec, c_out <= 32 on
-// wgrad_tf32_kernel; elsewhere wgrad_kernel on the CUDA cores.
+// wgrad_tf32_kernel, up to 64 on wgrad_tf32_tiles_kernel (its 32 x 32
+// channel tiles over the grid, the same layout); elsewhere wgrad_kernel on
+// the CUDA cores.
 enum WgradRoute { WGRAD_CUDA_CORES = 0, WGRAD_BF16_RING = 1,
-                  WGRAD_TF32_RING = 2, WGRAD_BF16_TILES = 3 };
+                  WGRAD_TF32_RING = 2, WGRAD_BF16_TILES = 3,
+                  WGRAD_TF32_TILES = 4 };
 
 WgradRoute wgrad_route(int dtype, int c_dec, int c_out, int W, int Tn) {
   const size_t optin = (size_t)probav::optin_smem();
@@ -2936,34 +3072,416 @@ WgradRoute wgrad_route(int dtype, int c_dec, int c_out, int W, int Tn) {
                    wgrad_tiles_smem(W, Tn, c_dec, c_out) <= optin
                ? WGRAD_BF16_TILES : WGRAD_CUDA_CORES;
   }
-  if (c_dec > 32 || c_out > 32) return WGRAD_CUDA_CORES;
-  return wgrad_tf32_smem(W, Tn) <= optin ? WGRAD_TF32_RING
-                                         : WGRAD_CUDA_CORES;
+  if (c_dec > 64 || c_out > 64 || wgrad_tf32_smem(W, Tn) > optin)
+    return WGRAD_CUDA_CORES;
+  return c_dec <= 32 && c_out <= 32 ? WGRAD_TF32_RING : WGRAD_TF32_TILES;
+}
+
+// ------------------------------------------------------------------------ //
+// seg_bwd, float32 on the tensor cores as 3xTF32 beyond the flagship's      //
+// widths, up to c_in, c_dec <= 64 and c_mid <= 512 (the 0.9411 model's     //
+// 64/512/51, the 48-filter model's 48/384/38): seg_bwd_tf32_split_kernel, //
+// then dx_sum_kernel<float>.  Together they compute what                 //
+// seg_bwd_kernel<float, ..., false> computes, into the same slot layout,   //
+// with no rounding point.                                                  //
+// ------------------------------------------------------------------------ //
+//
+// - Why a split.  seg_bwd_tf32_kernel keeps W1 and W2 whole in shared
+//   memory and every middle channel j of a row in one block: 225,280 B at
+//   32/256, where float32 W1 alone is 131 KB at 64/512.  So, as in
+//   seg_bwd_split_kernel, C_mid is cut into chunks over the grid: block b
+//   of G x chunks takes chunk b % chunks (STS_JC = 128 j: four at 512,
+//   three at 384) of the 64-row tiles of slot b / chunks (a slot's chunks
+//   adjacent, so they read x and dd from L2 but once from memory), sums its
+//   chunk's dW1, dW2 and db1 over those rows, and writes dx's part from its
+//   chunk, dz W1^T over 128 j, as float32 rows of dxp[chunk][n][ldp].
+//   dx_sum_kernel adds the chunks' parts in order and gy, and sums gy
+//   into dbc.
+// - Products taken transposed, as in seg_bwd_split_kernel: warp w of 8
+//   owns j = 16 w .. 16 w + 15 of the chunk over every row of a tile; per
+//   8 rows z^T = W1^T x^T and W2 dd^T come out of the mma as 16 j x 8 row C
+//   tiles over K = 64 channels (eight k-steps), and dz^T = relu'(z) (W2
+//   dd), h^T = relu(z) are the A fragments of dW1^T += dz^T x and dW2 +=
+//   h^T dd (K = the 8 rows, eight 8-channel n-tiles) in registers: a TF32
+//   C tile's columns 2q, 2q + 1 (rows) are fed as A's columns q, q + 4,
+//   and the B rows of x and dd are read in that order (the order of k in a
+//   dot product is free).  The weights' A fragments of W1^T and W2 are
+//   staged once a block in fragment order (a lane's four words adjacent:
+//   one 16-byte load a k-step) and split at each load; x^T and dd^T are
+//   read as B words from the [row][68] tiles (conflict-free: 68 = 4 mod
+//   32) and split.  A pass takes 32 rows: z^T and W2 dd^T of four n-tiles
+//   (32 registers) live while their products and the weight gradients run.
+// - Phase C, dx's part: dz^T goes to shared memory ([j][row], stride 72,
+//   float2 stores of C word pairs, conflict-free); after a barrier warp w
+//   computes rows 16 (w % 4) .. + 15 by channels 32 (w / 4) .. + 31 over
+//   the chunk's 128 j (A = dz from dz^T, B = W1^T from a third plane staged
+//   once in B-fragment order, a lane's two words adjacent) and stores them
+//   as float2.
+// - Rounding: none (float32 blk_bwd has no rounding point); the tensor
+//   cores sum with truncation, so each tile's weight-gradient products go
+//   to fresh sums, added in float32 to the running sums (registers across
+//   the block's tiles, written once to its slot); z and W2 dd are complete
+//   sums of one tile, and dx's part is summed over one chunk.  No atomics:
+//   every entry of a slot has one writer (dWc the wgrad's, dbc
+//   dx_sum_kernel's).
+// - Staging: 64-row tiles of x and dd, double-buffered by cp.async
+//   (copy_rows: 16-byte copies where a row is a multiple of 4 floats, else
+//   4-byte ones: dd's 51 channels), zeros past n; the tiles' columns from
+//   c_in and c_dec on are zeroed once.  Two barriers a tile: the tile staged
+//   (and the last phase C done with dz^T), and before phase C.
+// - Sums: db1 from dz^T's C words a lane, db2 from dd's B words (warp w
+//   those of row group w), reduced over lanes and warps in a fixed order;
+//   the chunk-0 block writes db2.  Rows past n are zero in x and dd, so
+//   they add nothing (h there is relu(b1), against dd = 0); their dx parts
+//   are not stored.
+//
+// What bounds it on an H100 at the 64-filter model's train step (N =
+// 557,568, 64/512/51): 2 N c_mid (3 c_in + 2 c_dec) = 167.9 GFLOP, three
+// TF32 products each, 1.018 ms at the 494.7 TFLOP/s TF32 peak (2.506 ms at
+// the CUDA cores' 67 TFLOP/s), against 542 MB of x, dd, gy read and dx
+// written (0.162 ms): operations.  It issues products at c_dec padded to
+// 64.  The split adds dx's float32 parts, written and read once each: 2 x
+// 4 x N x 64 x 4 = 1.14 GB (0.341 ms at 3.35 TB/s).  One block of 8 warps
+// an SM: 207,360 bytes of shared memory (three weight planes of 128 x 64
+// floats, b1, two each of the x and dd tiles [64][68], dz^T [128][72], the
+// db2 sums).
+
+constexpr int STS_WARPS = 8;     // each owns STS_JC / STS_WARPS = 16 j
+constexpr int STS_ROWS = 64;     // rows per tile
+constexpr int STS_PASS = 4;      // 8-row n-tiles a pass of the products
+constexpr int STS_JC = 128;      // middle channels a block: its chunk
+constexpr int STS_CH = 64;       // c_in, c_dec it takes (zero-padded)
+constexpr int STS_XS = STS_CH + 4;     // x / dd tile row stride (floats)
+constexpr int STS_ZS = STS_ROWS + 8;   // dz^T [j][row] row stride
+constexpr int STS_PLANE = STS_JC * STS_CH;   // floats of a weight plane
+
+int seg_bwd_tf32_split_chunks(int c_mid) {
+  return (c_mid + STS_JC - 1) / STS_JC;
+}
+
+size_t seg_bwd_tf32_split_smem() {
+  return sizeof(float) * ((size_t)3 * STS_PLANE + STS_JC +
+                          4 * STS_ROWS * STS_XS + STS_JC * STS_ZS +
+                          STS_WARPS * STS_CH);
+}
+
+__global__ void __launch_bounds__(STS_WARPS * 32, 1)
+seg_bwd_tf32_split_kernel(const float* __restrict__ x,
+                          const float* __restrict__ dd,
+                          const float* __restrict__ w1,
+                          const float* __restrict__ b1,
+                          const float* __restrict__ w2,
+                          float* __restrict__ dxp, int ldp,
+                          float* __restrict__ part, long slot_len,
+                          int chunks, int n, int c_in, int c_mid,
+                          int c_dec) {
+  constexpr int ROWS = STS_ROWS, XS = STS_XS, ZS = STS_ZS, JC = STS_JC;
+  constexpr int KS = STS_CH / 8;               // k-steps over the channels
+  static_assert(JC == 16 * STS_WARPS, "16 j a warp");
+  static_assert(ROWS == 8 * STS_WARPS, "db2: a row group a warp");
+  static_assert(ROWS % (8 * STS_PASS) == 0, "whole passes a tile");
+  extern __shared__ __align__(16) float smem[];
+  float* wa1 = smem;                   // [W][KS][32][4]  W1^T A words
+  float* wa2 = wa1 + STS_PLANE;        // [W][KS][32][4]  W2 A words
+  float* wb1 = wa2 + STS_PLANE;        // [JC/8][8][32][2]  W1^T B words
+  float* b1s = wb1 + STS_PLANE;        // [JC]
+  float* xb = b1s + JC;                // [2][ROWS][XS]  x tiles
+  float* db = xb + 2 * ROWS * XS;      // [2][ROWS][XS]  dd tiles
+  float* zt = db + 2 * ROWS * XS;      // [JC][ZS]  dz^T of a tile
+  float* red = zt + JC * ZS;           // [W][64]  db2 sums
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int chunk = (int)(blockIdx.x % chunks);
+  const int slot_i = (int)(blockIdx.x / chunks);
+  const int G = (int)(gridDim.x / chunks);   // slots: row-tile strides
+  const int j0 = chunk * JC;                 // the chunk's first j
+  const int J0 = 16 * warp;                  // this warp's j in the chunk
+
+  // The chunk's weights, zero-padded to JC x 64 (padded z, dz and h are
+  // 0), in fragment order: wa1/wa2 word i of lane (g, q), warp w, k-step
+  // k is W1[c][j] / W2[j][c] at j = J0 + g + 8 (i & 1), c = 8 k + q + 4 (i
+  // >> 1); wb1 word u of lane (g, q), j-step s, c-tile t is W1[c][j] at c =
+  // 8 t + g, j = 8 s + q + 4 u.
+  auto w1_at = [&](int c, int j) {
+    return c < c_in && j0 + j < c_mid ? w1[(long)c * c_mid + j0 + j] : 0.f;
+  };
+  for (int e = tid; e < STS_PLANE; e += blockDim.x) {
+    const int i = e % 4, l = (e / 4) % 32, k = (e / 128) % KS, w = e / 128 / KS;
+    const int j = 16 * w + l / 4 + 8 * (i & 1), c = 8 * k + l % 4 + 4 * (i >> 1);
+    wa1[e] = w1_at(c, j);
+    wa2[e] = j0 + j < c_mid && c < c_dec ? w2[(long)(j0 + j) * c_dec + c]
+                                         : 0.f;
+    const int u = e % 2, lb = (e / 2) % 32, t = (e / 64) % 8, s = e / 512;
+    wb1[e] = w1_at(8 * t + lb / 4, 8 * s + lb % 4 + 4 * u);
+  }
+  for (int j = tid; j < JC; j += blockDim.x)
+    b1s[j] = j0 + j < c_mid ? b1[j0 + j] : 0.f;
+  for (int e = tid; e < 4 * ROWS * XS; e += blockDim.x) xb[e] = 0.f;
+  __syncthreads();   // the zeros land before any copy into the tiles
+
+  const bool xvec = c_in % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool dvec = c_dec % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(dd) % 16 == 0;
+  const long tiles = ((long)n + ROWS - 1) / ROWS;
+  auto stage = [&](long tile, int buf) {
+    const long row0 = tile * ROWS;
+    const int nrows = (int)min((long)ROWS, (long)n - row0);
+    copy_rows<ROWS, XS>(xb + buf * ROWS * XS, x + row0 * c_in, nrows, c_in,
+                        xvec);
+    copy_rows<ROWS, XS>(db + buf * ROWS * XS, dd + row0 * c_dec, nrows, c_dec,
+                        dvec);
+    probav::cp_async_commit();
+  };
+
+  const float bias0 = b1s[J0 + g], bias1 = b1s[J0 + g + 8];
+  float acc1[8][4], acc2[8][4];   // dW1^T (j, c), dW2 (j, c) running sums
+#pragma unroll
+  for (int ct = 0; ct < 8; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc1[ct][i] = acc2[ct][i] = 0.f;
+  float db1a[2] = {}, db2a[8] = {};
+
+  const float4* wa1v = reinterpret_cast<const float4*>(wa1) + warp * KS * 32 +
+                       lane;
+  const float4* wa2v = reinterpret_cast<const float4*>(wa2) + warp * KS * 32 +
+                       lane;
+  const int pr0 = 16 * (warp % 4);      // phase C: this warp's rows
+  const int ct0 = 4 * (warp / 4);       // and 8-column tiles of dx
+  const float2* wbv = reinterpret_cast<const float2*>(wb1) + ct0 * 32 + lane;
+  float* dxc_dst = dxp + (long)chunk * n * ldp;
+  if (slot_i < tiles) stage(slot_i, 0);
+  int buf = 0;
+  for (long tile = slot_i; tile < tiles; tile += G, buf ^= 1) {
+    // The other buffer was last read before the previous tile's second
+    // barrier.
+    if (tile + G < tiles) stage(tile + G, buf ^ 1);
+    else probav::cp_async_commit();
+    probav::cp_async_wait_group<1>();
+    __syncthreads();   // this tile staged; the last phase C done with dz^T
+    const float* xt = xb + buf * ROWS * XS;
+    const float* dt = db + buf * ROWS * XS;
+    float f1[8][4], f2[8][4];   // this tile's dW1^T, dW2 products
+#pragma unroll
+    for (int ct = 0; ct < 8; ++ct)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f1[ct][i] = f2[ct][i] = 0.f;
+
+#pragma unroll 1
+    for (int r0 = 0; r0 < ROWS; r0 += 8 * STS_PASS) {
+      // z^T and W2 dd^T of rows r0 .. r0 + 8 PASS - 1: C tile nt holds j =
+      // J0 + g (+ 8) by rows r0 + 8 nt + 2q (+ 1).
+      float z[STS_PASS][4], gg[STS_PASS][4];
+#pragma unroll
+      for (int nt = 0; nt < STS_PASS; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) z[nt][i] = gg[nt][i] = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < KS; ++k) {
+        FragA a1, a2;
+        const float4 u = wa1v[k * 32], v = wa2v[k * 32];
+        split_a(a1, u.x, u.y, u.z, u.w);
+        split_a(a2, v.x, v.y, v.z, v.w);
+        FragB bx[STS_PASS], bd[STS_PASS];
+#pragma unroll
+        for (int nt = 0; nt < STS_PASS; ++nt) {   // x^T, dd^T: (c q, row g)
+          const int o = (r0 + 8 * nt + g) * XS + 8 * k + q;
+          split_b(bx[nt], xt[o], xt[o + 4]);
+          split_b(bd[nt], dt[o], dt[o + 4]);
+        }
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int nt = 0; nt < STS_PASS; ++nt) {
+            mma_term(z[nt], a1, bx[nt], term);
+            mma_term(gg[nt], a2, bd[nt], term);
+          }
+      }
+#pragma unroll
+      for (int nt = 0; nt < STS_PASS; ++nt) {
+        const int rb = r0 + 8 * nt;     // the n-tile's first row
+        float dz[4], h[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float zz = z[nt][i] + (i < 2 ? bias0 : bias1);
+          dz[i] = zz > 0.f ? gg[nt][i] : 0.f;
+          h[i] = fmaxf(zz, 0.f);
+        }
+        db1a[0] += dz[0] + dz[1];
+        db1a[1] += dz[2] + dz[3];
+        *reinterpret_cast<float2*>(zt + (J0 + g) * ZS + rb + 2 * q) =
+            make_float2(dz[0], dz[1]);
+        *reinterpret_cast<float2*>(zt + (J0 + g + 8) * ZS + rb + 2 * q) =
+            make_float2(dz[2], dz[3]);
+        // C words (j g, rows 2q, 2q + 1; j g + 8, ...) as A words (j, k q)
+        // and (j, k q + 4): k q is row 2q, k q + 4 row 2q + 1.
+        FragA az, ah;
+        split_a(az, dz[0], dz[2], dz[1], dz[3]);
+        split_a(ah, h[0], h[2], h[1], h[3]);
+        const float on = rb == 8 * warp ? 1.f : 0.f;   // db2: row group w
+#pragma unroll
+        for (int cp = 0; cp < 4; ++cp) {
+          FragB bx[2], bd[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {   // x, dd: (row 2q, 2q + 1; c g)
+            const int o = (rb + 2 * q) * XS + 8 * (2 * cp + u) + g;
+            split_b(bx[u], xt[o], xt[o + XS]);
+            split_b(bd[u], dt[o], dt[o + XS]);
+            db2a[2 * cp + u] = fmaf(on, dt[o] + dt[o + XS],
+                                    db2a[2 * cp + u]);
+          }
+#pragma unroll
+          for (int term = 0; term < 3; ++term)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              mma_term(f1[2 * cp + u], az, bx[u], term);
+              mma_term(f2[2 * cp + u], ah, bd[u], term);
+            }
+        }
+      }
+    }
+#pragma unroll
+    for (int ct = 0; ct < 8; ++ct)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc1[ct][i] += f1[ct][i];
+        acc2[ct][i] += f2[ct][i];
+      }
+    __syncthreads();   // dz^T of the tile complete
+
+    // Phase C: dx's part from this chunk for rows pr0 .. pr0 + 15 and this
+    // warp's four c-tiles, over the chunk's 128 j, 8 a k-step.
+    float dxc[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      dxc[t][0] = dxc[t][1] = dxc[t][2] = dxc[t][3] = 0.f;
+#pragma unroll 2
+    for (int s = 0; s < JC / 8; ++s) {
+      const float* Z = zt + (8 * s + q) * ZS + pr0 + g;   // (row g, j q)
+      FragA a;
+      split_a(a, Z[0], Z[8], Z[4 * ZS], Z[4 * ZS + 8]);
+      FragB b[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float2 w = wbv[(8 * s + t) * 32];
+        split_b(b[t], w.x, w.y);
+      }
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) mma_term(dxc[t], a, b[t], term);
+    }
+    const long row0 = tile * ROWS;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long row = row0 + pr0 + g + 8 * hh;
+      if (row >= n) continue;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int c = 8 * (ct0 + t) + 2 * q;
+        if (c < ldp)
+          *reinterpret_cast<float2*>(dxc_dst + row * ldp + c) =
+              make_float2(dxc[t][2 * hh], dxc[t][2 * hh + 1]);
+      }
+    }
+  }
+  probav::cp_async_wait_all();
+
+  // This block's part of its slot: dW1 [c][j0..], dW2 [j0..][c], db1
+  // [j0..], and from the chunk-0 block db2.
+  const Slot sl(c_in, c_mid, c_dec);
+  float* slot = part + slot_i * slot_len;
+#pragma unroll
+  for (int ct = 0; ct < 8; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = j0 + J0 + g + 8 * (i / 2);
+      const int c = 8 * ct + 2 * q + (i & 1);
+      if (j >= c_mid) continue;
+      if (c < c_in) slot[sl.w1 + (long)c * c_mid + j] = acc1[ct][i];
+      if (c < c_dec) slot[sl.w2 + (long)j * c_dec + c] = acc2[ct][i];
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    // db1: lanes q hold rows 2q, 2q + 1 (mod 8) of j; summed in order.
+    float v = db1a[hh];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    const int j = j0 + J0 + g + 8 * hh;
+    if (q == 0 && j < c_mid) slot[sl.b1 + j] = v;
+  }
+  if (chunk == 0) {
+#pragma unroll
+    for (int ct = 0; ct < 8; ++ct) {   // db2 of this warp's row group
+      float v = db2a[ct];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (q == 0) red[warp * STS_CH + 8 * ct + g] = v;
+    }
+    __syncthreads();
+    if (tid < c_dec) {
+      float sum = 0.f;
+      for (int w = 0; w < STS_WARPS; ++w) sum += red[w * STS_CH + tid];
+      slot[sl.b2 + tid] = sum;
+    }
+  }
+}
+
+cudaError_t launch_seg_bwd_tf32_split(const void* x, const void* dd,
+                                      const void* gy, const void* w1,
+                                      const float* b1, const void* w2,
+                                      void* dx, float* dxp, float* part,
+                                      long slot_len, int G, int n, int c_in,
+                                      int c_mid, int c_dec, cudaStream_t s) {
+  if (dxp == nullptr) return cudaErrorInvalidValue;
+  const int chunks = seg_bwd_tf32_split_chunks(c_mid);
+  const int ldp = seg_bwd_split_ldp(c_in);
+  const size_t smem = seg_bwd_tf32_split_smem();
+  auto kern = seg_bwd_tf32_split_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<G * chunks, STS_WARPS * 32, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dd),
+      static_cast<const float*>(w1), b1, static_cast<const float*>(w2), dxp,
+      ldp, part, slot_len, chunks, n, c_in, c_mid, c_dec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dx_sum(dxp, chunks, ldp, static_cast<const float*>(gy),
+                       static_cast<float*>(dx), part, slot_len, G, n, c_in,
+                       Slot(c_in, c_mid, c_dec).bc, s);
 }
 
 // Which seg_bwd blk_bwd runs, from the dtype and widths alone: the tensor
 // cores where their tiles cover the widths: at c_in, c_dec <= 32 and c_mid
 // <= 256 bf16 on seg_bwd_bf16_kernel and float32 on seg_bwd_tf32_kernel;
-// beyond, bf16 up to c_in, c_dec <= 64 and c_mid <= 512 on
-// seg_bwd_split_kernel and dx_sum_kernel; elsewhere seg_bwd_kernel on the
-// CUDA cores.
+// beyond, up to c_in, c_dec <= 64 and c_mid <= 512, bf16 on
+// seg_bwd_split_kernel and dx_sum_kernel and float32 on
+// seg_bwd_tf32_split_kernel and dx_sum_kernel; elsewhere seg_bwd_kernel
+// on the CUDA cores.
 enum SegBwdRoute { SEG_BWD_CUDA_CORES = 0, SEG_BWD_BF16_MMA = 1,
-                   SEG_BWD_TF32_MMA = 2, SEG_BWD_BF16_SPLIT = 3 };
+                   SEG_BWD_TF32_MMA = 2, SEG_BWD_BF16_SPLIT = 3,
+                   SEG_BWD_TF32_SPLIT = 4 };
 
 SegBwdRoute seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   if (c_in <= 32 && c_dec <= 32 && c_mid <= 256)
     return dtype == 1 ? SEG_BWD_BF16_MMA : SEG_BWD_TF32_MMA;
-  if (dtype == 1 && c_in <= SBS_CH && c_dec <= SBS_CH && c_mid <= 2 * SBS_JC)
-    return SEG_BWD_BF16_SPLIT;
+  if (c_in <= SBS_CH && c_dec <= SBS_CH && c_mid <= 2 * SBS_JC)
+    return dtype == 1 ? SEG_BWD_BF16_SPLIT : SEG_BWD_TF32_SPLIT;
   return SEG_BWD_CUDA_CORES;
 }
 
 // Floats of dx's float32 parts blk_bwd needs at n rows (the caller's
 // scratch dxp), 0 where its seg_bwd route keeps none.
 long seg_bwd_scratch(int dtype, int c_in, int c_mid, int c_dec, long n) {
-  if (seg_bwd_route(dtype, c_in, c_mid, c_dec) != SEG_BWD_BF16_SPLIT)
-    return 0;
-  return (long)seg_bwd_split_chunks(c_mid) * n * seg_bwd_split_ldp(c_in);
+  switch (seg_bwd_route(dtype, c_in, c_mid, c_dec)) {
+    case SEG_BWD_BF16_SPLIT:
+      return (long)seg_bwd_split_chunks(c_mid) * n * seg_bwd_split_ldp(c_in);
+    case SEG_BWD_TF32_SPLIT:
+      return (long)seg_bwd_tf32_split_chunks(c_mid) * n *
+             seg_bwd_split_ldp(c_in);
+    default:
+      return 0;
+  }
 }
 
 // ------------------------------------------------------------------------ //
@@ -3693,6 +4211,10 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
       err = launch_wgrad_tf32(d, gy, part, stride, G, B, H, W, Tn, c_dec,
                               c_in, s);
       break;
+    case WGRAD_TF32_TILES:
+      err = launch_wgrad_tf32_tiles(d, gy, part, stride, G, B, H, W, Tn,
+                                    c_dec, c_in, s);
+      break;
     default:
       err = dispatch_wgrad<T>(d, gy, part, stride, G, B, H, W, Tn, c_dec,
                               c_in, s);
@@ -3710,6 +4232,10 @@ cudaError_t blk_bwd(int dtype, const void* gy, const void* x, const void* d,
     case SEG_BWD_BF16_SPLIT:
       err = launch_seg_bwd_split(x, dd, gy, w1, b1, w2, dx, dxp, part,
                                  stride, G, n, c_in, c_mid, c_dec, s);
+      break;
+    case SEG_BWD_TF32_SPLIT:
+      err = launch_seg_bwd_tf32_split(x, dd, gy, w1, b1, w2, dx, dxp, part,
+                                      stride, G, n, c_in, c_mid, c_dec, s);
       break;
     default:
       err = dispatch_seg_bwd<T>(x, dd, gy, w1, b1, w2, dx, part, stride, G,
@@ -3803,7 +4329,9 @@ int probav_blk_bwd_scratch(int dtype, int c_in, int c_mid, int c_dec, int n,
 // The seg_bwd kernel probav_blk_bwd launches for these widths: 0 =
 // seg_bwd_kernel (CUDA cores), 1 = seg_bwd_bf16_kernel (bf16 mma), 2 =
 // seg_bwd_tf32_kernel (float32 as 3xTF32 mma), 3 = seg_bwd_split_kernel
-// then dx_sum_kernel (bf16 mma, c_mid in chunks of 256).
+// then dx_sum_kernel (bf16 mma, c_mid in chunks of 256), 4 =
+// seg_bwd_tf32_split_kernel then dx_sum_kernel (float32 as 3xTF32 mma,
+// c_mid in chunks of 128).
 int probav_seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return (int)seg_bwd_route(dtype, c_in, c_mid, c_dec);
 }
@@ -3811,7 +4339,8 @@ int probav_seg_bwd_route(int dtype, int c_in, int c_mid, int c_dec) {
 // The wgrad (dWc) kernel probav_blk_bwd launches for these shapes: 0 =
 // wgrad_kernel (CUDA cores), 1 = wgrad_ring_kernel (bf16 mma), 2 =
 // wgrad_tf32_kernel (float32 as 3xTF32 mma), 3 = wgrad_tiles_kernel (bf16
-// mma, 32 x 32 channel tiles).
+// mma, 32 x 32 channel tiles), 4 = wgrad_tf32_tiles_kernel (float32 as
+// 3xTF32 mma, 32 x 32 channel tiles).
 int probav_wgrad_route(int dtype, int c_in, int c_dec, int W, int Tn) {
   return (int)wgrad_route(dtype, c_dec, c_in, W, Tn);
 }

@@ -32,14 +32,14 @@ at bf16 at every width (a kernel of its own where C, C_dec <= 32 and C_mid
 expand/decay backward (``seg_bwd_route``) runs on the tensor cores within
 the same widths: bf16 products at bf16, float32 as 3xTF32; so does its
 ``wgrad`` (dWc) at C, C_dec <= 32 where a row's halo fits shared memory
-(``wgrad_route``; at float32 rows up to the flagship's 22 x 9).  At bf16
-both also run on the tensor cores up to C, C_dec <= 64 (and C_mid <= 512:
-the 64-filter model's 64/512/51), the expand/decay backward with C_mid cut
-into chunks of 256 whose float32 parts of dx a second kernel sums
-(``blk_bwd_scratch``), the wgrad in 32 x 32 channel tiles.  Beyond those
-widths and rows the float32 ``seg_fwd``, the ``wgrad`` and ``blk_bwd`` run
-on the CUDA cores with exact float32 products (bf16 widened).  All round
-where the TPU kernels round.
+(``wgrad_route``; at float32 rows up to the flagship's 22 x 9).  Both also
+run on the tensor cores at both dtypes up to C, C_dec <= 64 (and C_mid <=
+512: the 64-filter model's 64/512/51), the expand/decay backward with C_mid
+cut into chunks (256 at bf16, 128 at float32) whose float32 parts of dx a
+second kernel sums (``blk_bwd_scratch``), the wgrad in 32 x 32 channel
+tiles.  Beyond those widths and rows the float32 ``seg_fwd``, the
+``wgrad`` and ``blk_bwd`` run on the CUDA cores with exact float32 products
+(bf16 widened).  All round where the TPU kernels round.
 
 ``t_tier_refusal`` states the channel widths the kernels take, once: any C
 and C_dec from 1 to 128 (``MAX_CHANNELS``), forward and backward.  The
@@ -196,7 +196,9 @@ SEG_BWD_ROUTES = ("seg_bwd_kernel (CUDA cores)",
                   "seg_bwd_bf16_kernel (bf16 mma)",
                   "seg_bwd_tf32_kernel (3xTF32 mma)",
                   "seg_bwd_split_kernel + dx_sum_kernel (bf16 mma, C_mid "
-                  "in chunks of 256)")
+                  "in chunks of 256)",
+                  "seg_bwd_tf32_split_kernel + dx_sum_kernel (3xTF32 mma, "
+                  "C_mid in chunks of 128)")
 
 
 def seg_bwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
@@ -204,11 +206,13 @@ def seg_bwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
     block of these widths on the card, as its C entry chooses it (from the
     dtype and widths alone, before any launch): at C, C_dec <= 32 and
     C_mid <= 256 ``seg_bwd_bf16_kernel`` at bf16 and 3xTF32 on the tensor
-    cores at float32; beyond, bf16 up to C, C_dec <= 64 and C_mid <= 512
-    on the tensor cores in ``seg_bwd_split_kernel`` (a block a chunk of
-    256 middle channels) and ``dx_sum_kernel`` (the chunks' parts of dx
-    plus gy, rounded once); elsewhere the CUDA cores.  Builds the
-    kernels."""
+    cores at float32; beyond, up to C, C_dec <= 64 and C_mid <= 512, on
+    the tensor cores with C_mid cut into chunks over the grid, whose
+    parts of dx a second kernel sums with gy: bf16 in
+    ``seg_bwd_split_kernel`` (chunks of 256) and ``dx_sum_kernel`` (dx
+    rounded once), float32 as 3xTF32 in ``seg_bwd_tf32_split_kernel``
+    (chunks of 128) and ``dx_sum_kernel``; elsewhere the CUDA cores.
+    Builds the kernels."""
     from probav_tpu_torch.ops import _build
     code = _build.library().probav_seg_bwd_route(_DTYPE_CODE[dtype], c,
                                                  c_mid, c_dec)
@@ -219,7 +223,9 @@ def seg_bwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
 # the code that csrc/blk_bwd.cu's wgrad_route gives.
 WGRAD_ROUTES = ("wgrad_kernel (CUDA cores)", "wgrad_ring_kernel (bf16 mma)",
                 "wgrad_tf32_kernel (3xTF32 mma)",
-                "wgrad_tiles_kernel (bf16 mma, 32 x 32 channel tiles)")
+                "wgrad_tiles_kernel (bf16 mma, 32 x 32 channel tiles)",
+                "wgrad_tf32_tiles_kernel (3xTF32 mma, 32 x 32 channel "
+                "tiles)")
 
 
 def wgrad_route(dtype, c: int, c_dec: int, w: int, t: int) -> str:
@@ -227,10 +233,11 @@ def wgrad_route(dtype, c: int, c_dec: int, w: int, t: int) -> str:
     decaying to C_dec on rows of W x T positions, as its C entry chooses it
     (from the dtype and shapes alone, before any launch): the tensor cores
     where the rows fit shared memory, at C, C_dec <= 32 (bf16 up to W = 48
-    at T = 9 or T = 19 at W = 22; float32 up to 22 x 9) and at bf16 up to
-    C, C_dec <= 64 in ``wgrad_tiles_kernel`` (32 x 32 channel tiles over the
-    grid, staged by producer warps; rows up to 22 x 9 at 64/51);
-    elsewhere the CUDA cores.  Builds the kernels."""
+    at T = 9 or T = 19 at W = 22; float32 up to 22 x 9) and up to C, C_dec
+    <= 64 in 32 x 32 channel tiles over the grid (bf16
+    ``wgrad_tiles_kernel``, staged by producer warps, float32
+    ``wgrad_tf32_tiles_kernel``; rows up to 22 x 9 at 64/51); elsewhere the
+    CUDA cores.  Builds the kernels."""
     from probav_tpu_torch.ops import _build
     code = _build.library().probav_wgrad_route(_DTYPE_CODE[dtype], c, c_dec,
                                                w, t)
@@ -240,7 +247,8 @@ def wgrad_route(dtype, c: int, c_dec: int, w: int, t: int) -> str:
 def blk_bwd_scratch(dtype, c: int, c_mid: int, c_dec: int, n: int) -> int:
     """Floats of the float32 scratch ``blk_bwd`` hands its C entry at n rows
     of these widths: the chunks' parts of dx where its seg_bwd route cuts
-    C_mid (``seg_bwd_split_kernel``), else 0.  Builds the kernels."""
+    C_mid (``seg_bwd_split_kernel``, ``seg_bwd_tf32_split_kernel``), else
+    0.  Builds the kernels."""
     import ctypes
 
     from probav_tpu_torch.ops import _build

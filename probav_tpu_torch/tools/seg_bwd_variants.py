@@ -1,25 +1,32 @@
 """Variants of ``seg_bwd_bf16_kernel`` (the bf16 expand/decay backward of
 ``blk_bwd`` on the tensor cores), of ``wide_bwd_bf16_kernel`` (the bf16
-``wide_bwd``) or of ``wide_bwd_tf32_kernel`` (the float32 ``wide_bwd``),
-timed side by side on one card.
+``wide_bwd``), of ``wide_bwd_tf32_kernel`` (the float32 ``wide_bwd``) or
+of ``seg_bwd_tf32_split_kernel`` with ``dx_sum_kernel`` (the float32
+expand/decay backward at the 64-filter model's widths), timed side by
+side on one card.
 
     python3 probav_tpu_torch/tools/seg_bwd_variants.py \\
-        [--section seg_bwd|wide|wide_tf32] [--variants a,b] [--rounds 5] \\
-        [--out DIR]
+        [--section seg_bwd|wide|wide_tf32|tf32_split] [--variants a,b] \\
+        [--rounds 5] [--out DIR]
 
 Each variant is the kernel's section of ``csrc/blk_bwd.cu`` (``SECTIONS``:
 for ``seg_bwd``, the default, from ``constexpr int SBB_WARPS`` to the
 float32 seg_bwd; for ``wide`` from ``constexpr int WBB_WARPS`` to
 ``wide_bwd_route``; for ``wide_tf32`` from ``constexpr int SBT_ROWS`` to
-the float32 wgrad) with the text substitutions of its table
-(``VARIANTS``, ``WIDE_VARIANTS`` or ``WIDE_TF32_VARIANTS``; ``kernel`` is
-the section as it is), in a namespace of its own; all are compiled into
-one library by nvcc (``wgrad_variants.compile_variants``, with ptxas's
-register and spill report) and launched at the flagship's shape (N =
-557,568 rows, 32/256/25) into the G partial slots that blk_bwd or
-wide_bwd gives them, on inputs and weights in the section's dtype (bf16,
-float32 for ``wide_tf32``) on the dyadic grids of ``tools/dyadic.py``
-(numpy seed 12): x, dd, gy for seg_bwd, x, dy for the wide sections.  For
+the float32 wgrad; for ``tf32_split`` from ``constexpr int STS_WARPS`` to
+``seg_bwd_route``) with the text substitutions of its table
+(``VARIANTS``, ``WIDE_VARIANTS``, ``WIDE_TF32_VARIANTS`` or
+``TF32_SPLIT_VARIANTS``; ``kernel`` is the section as it is), in a
+namespace of its own; all are compiled into one library by nvcc
+(``wgrad_variants.compile_variants``, with ptxas's register and spill
+report; ``tf32_split`` with the pieces of the bf16 split section it
+calls) and launched at the train step's rows (N = 557,568), at the
+flagship's widths (32/256/25; ``tf32_split`` at 64/512/51, with the
+scratch of dx's parts that blk_bwd gives it), into the G partial slots
+that blk_bwd or wide_bwd gives them, on inputs and weights in the
+section's dtype (bf16, float32 for ``wide_tf32`` and ``tf32_split``) on
+the dyadic grids of ``tools/dyadic.py`` (numpy seed 12): x, dd, gy for
+the seg_bwd sections, x, dy for the wide sections.  For
 each: its registers and spilled bytes, the ms per launch of 20 launches
 back to back (CUDA events) in ``--rounds`` rounds taken in turn across
 the variants, and the largest error over max|ref| of its dx and of its
@@ -269,6 +276,120 @@ WIDE_TF32_VARIANTS = {
                     "for (int kk = 0; kk < 0; ++kk)"),),
 }
 
+# The float32 split seg_bwd's dx part stores, replaced in the cluster
+# variant (each chunk's part to its own block's shared memory; the
+# cluster's parts summed in rank order with gy by rows split over the
+# ranks, dbc from gy, through distributed shared memory).
+_DXP_STORE = r"""    const long row0 = tile \* ROWS;
+#pragma unroll
+    for \(int hh = 0; hh < 2; \+\+hh\) \{
+      const long row = row0 \+ pr0 \+ g \+ 8 \* hh;
+      if \(row >= n\) continue;.*?
+  probav::cp_async_wait_all\(\);
+"""
+_CLUSTER_STORE = """    const long row0 = tile * ROWS;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        *reinterpret_cast<float2*>(dxs + (pr0 + g + 8 * hh) * 72 +
+                                   8 * (ct0 + t) + 2 * q) =
+            make_float2(dxc[t][2 * hh], dxc[t][2 * hh + 1]);
+    cluster.sync();   // every chunk's part of the tile in its block
+    const int nr = (int)min((long)ROWS, (long)n - row0), cc = tid % 64;
+    if (cc < c_in)
+      for (int r = chunk + chunks * (tid / 64); r < nr; r += 4 * chunks) {
+        float v = 0.f;
+        for (int k = 0; k < chunks; ++k)
+          v += cluster.map_shared_rank(dxs, k)[r * 72 + cc];
+        const long e = (row0 + r) * c_in + cc;
+        const float gv = gy[e];
+        dbca += gv;
+        dx[e] = v + gv;
+      }
+  }
+  probav::cp_async_wait_all();
+  dbs[tid] = dbca;
+  __syncthreads();
+  if (tid < 64) {
+    float v = 0.f;
+    for (int l = 0; l < 4; ++l) v += dbs[l * 64 + tid];
+    dbs[256 + tid] = v;
+  }
+  cluster.sync();   // the ranks' dbc sums; every read of dxs done
+  if (chunk == 0 && tid < c_in) {
+    float v = 0.f;
+    for (int k = 0; k < chunks; ++k)
+      v += cluster.map_shared_rank(dbs, k)[256 + tid];
+    part[slot_i * slot_len + Slot(c_in, c_mid, c_dec).bc + tid] = v;
+  }
+  cluster.sync();   // rank 0 done with the others' dbs
+"""
+_CLUSTER_LAUNCH = """  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(G * chunks);
+  cfg.blockDim = dim3(STS_WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = chunks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const float*>(x),
+                           static_cast<const float*>(dd),
+                           static_cast<const float*>(w1), b1,
+                           static_cast<const float*>(w2), dxp, ldp,
+                           static_cast<const float*>(gy),
+                           static_cast<float*>(dx), part, slot_len, chunks,
+                           n, c_in, c_mid, c_dec);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+"""
+
+# name: ((pattern, replacement), ...) applied to the float32 split
+# section (seg_bwd_tf32_split_kernel and its launcher, which runs
+# dx_sum_kernel after it).
+TF32_SPLIT_VARIANTS = {
+    "kernel": (),
+    # Passes of 16 rows (z^T and W2 dd^T of two n-tiles live) instead of
+    # 32, or the k-loops not unrolled: fewer registers, more reloads.
+    "pass2": ((r"constexpr int STS_PASS = \d+;", "constexpr int STS_PASS = 2;"),),
+    "unroll1": ((r"#pragma unroll 2", "#pragma unroll 1"),),
+    # Work removed: every mma (operands still split and kept live), the
+    # dx parts' stores, dx_sum_kernel (wrong results by design).
+    "no_mma": ((r"\bmma_term\(", "fake_mma_tf32("),),
+    "no_dxp_store": ((r"\*reinterpret_cast<float2\*>\(dxc_dst \+ row \* ldp \+ c\) =",
+                      "if (row < 0) *reinterpret_cast<float2*>(dxc_dst) ="),),
+    "no_dx_sum": ((r"  return launch_dx_sum\(dxp, .*?\);\n",
+                   "  return cudaSuccess;\n"),),
+    # A row tile's chunks as one thread-block cluster (chunks blocks, one
+    # a chunk): dx's parts summed through distributed shared memory in
+    # chunk order, dx written once, no dx_sum_kernel; two cluster barriers
+    # a tile.
+    "cluster": (
+        (r"float\* __restrict__ dxp, int ldp,",
+         "float* __restrict__ dxp, int ldp, const float* __restrict__ gy, "
+         "float* __restrict__ dx,"),
+        (r"(  float\* red = zt \+ JC \* ZS;[^\n]*\n)",
+         r"\1  float* dxs = red + STS_WARPS * STS_CH;   // [ROWS][72]\n"
+         "  float* dbs = dxs + ROWS * 72;   // [5][64]\n"
+         "  cg::cluster_group cluster = cg::this_cluster();\n"
+         "  float dbca = 0.f;\n"),
+        (r"__syncthreads\(\);   // this tile staged; the last phase C done "
+         r"with dz\^T", "cluster.sync();"),
+        (_DXP_STORE, _CLUSTER_STORE),
+        (r"STS_WARPS \* STS_CH\);\n\}",
+         "STS_WARPS * STS_CH + STS_ROWS * 72 + 5 * 64);\n}"),
+        (r"  kern<<<G \* chunks, STS_WARPS \* 32, smem, s>>>\(.*?\n\}\n",
+         _CLUSTER_LAUNCH)),
+}
+
 # Each section: where it starts and ends in blk_bwd.cu, its kernel and
 # launcher, the launcher's arguments, its variants.
 SECTIONS = {
@@ -305,6 +426,25 @@ SECTIONS = {
                              "float* part, long slot_len, int G, int n, "
                              "int c_in, int c_mid, int c_dec, int* used",
                       variants=WIDE_TF32_VARIANTS),
+    "tf32_split": dict(start="constexpr int STS_WARPS",
+                       end="// Which seg_bwd blk_bwd runs",
+                       kernel="seg_bwd_tf32_split_kernel",
+                       launcher="launch_seg_bwd_tf32_split",
+                       args="x, dd, gy, w1, b1, w2, dx, dxp, part, slot_len, "
+                            "G, n, c_in, c_mid, c_dec, s",
+                       params="const void* x, const void* dd, const void* "
+                              "gy, const void* w1, const float* b1, const "
+                              "void* w2, void* dx, float* dxp, float* part, "
+                              "long slot_len, int G, int n, int c_in, "
+                              "int c_mid, int c_dec",
+                       # what it uses of the bf16 split section, cut
+                       # from blk_bwd.cu: (start, end) of each piece
+                       prelude=(("// Floats of a row of dx's float32 parts.",
+                                 "size_t seg_bwd_split_smem()"),
+                                ("// dx = T(sum over the chunks of dxp + gy)",
+                                 "cudaError_t launch_seg_bwd_split(")),
+                       widths=(64, 512, 51), chunk=128,
+                       variants=TF32_SPLIT_VARIANTS),
 }
 
 # mma_bf16 without the instruction: its operands are still loaded and
@@ -345,8 +485,11 @@ def source(names, section="seg_bwd") -> str:
                  text.rindex("\n", 0, text.rindex("\n", 0, end)) + 1]
     usings = [ln for ln in text.splitlines()
               if ln.startswith("using probav::")]
+    prelude = ["namespace cg = cooperative_groups;"] + [
+        text[text.index(a):text.index(b)] for a, b in sec.get("prelude", ())]
     parts = [f'#include "{_build.SRC_DIR / "common.cuh"}"',
-             "#include <algorithm>", "namespace {", *usings, slot, FAKE_MMA]
+             "#include <algorithm>", "#include <cooperative_groups.h>",
+             "namespace {", *usings, slot, FAKE_MMA, *prelude]
     cases = []
     for i, name in enumerate(names):
         body = body0
@@ -397,7 +540,7 @@ def main(argv=None):
     from probav_tpu_torch.ops import tstack as ts
     from probav_tpu_torch.ops import wide_block as wb
     from probav_tpu_torch.tools.dyadic import grid
-    from probav_tpu_torch.tools.time_conv import back_to_back
+    from probav_tpu_torch.tools.tstack_roofline import back_to_back
     from probav_tpu_torch.tools.wgrad_variants import compile_variants
     if not torch.cuda.is_available():
         raise SystemExit("seg_bwd_variants needs a CUDA card")
@@ -406,7 +549,8 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     P, I = ctypes.c_void_p, ctypes.c_int
-    wide = opt.section != "seg_bwd"
+    wide = opt.section.startswith("wide")
+    c_in, c_mid, c_dec = sec.get("widths", (C, C_MID, C_DEC))
     # pointer arguments before slot_len; the wide launchers' G1 after c_dec
     npt = sec["params"].split("long slot_len")[0].count("*")
     used = ctypes.c_int(0)
@@ -415,31 +559,36 @@ def main(argv=None):
         [I] + [P] * npt + [ctypes.c_long] + [I] * 5 + [P] * wide + [P])
     dev = torch.device("cuda")
     r = np.random.default_rng(12)
-    dtype = torch.float32 if opt.section == "wide_tf32" else torch.bfloat16
+    dtype = torch.float32 if "tf32" in opt.section else torch.bfloat16
     t = lambda a: torch.from_numpy(a).to(dev, dtype)
-    x = t(grid(r, (N, C), 32, 4))
+    x = t(grid(r, (N, c_in), 32, 4))
     if wide:
-        dy = t(grid(r, (N, C_DEC), 32, 4))
+        dy = t(grid(r, (N, c_dec), 32, 4))
     else:
-        dd, gy = t(grid(r, (N, C_DEC), 32, 4)), t(grid(r, (N, C), 32, 4))
-    w1, w2 = t(grid(r, (C, C_MID), 16, 6)), t(grid(r, (C_MID, C_DEC), 8, 5))
-    b1 = torch.from_numpy(grid(r, (C_MID,), 16, 6)).to(dev)
+        dd, gy = t(grid(r, (N, c_dec), 32, 4)), t(grid(r, (N, c_in), 32, 4))
+    w1 = t(grid(r, (c_in, c_mid), 16, 6))
+    w2 = t(grid(r, (c_mid, c_dec), 8, 5))
+    b1 = torch.from_numpy(grid(r, (c_mid,), 16, 6)).to(dev)
     if wide:
         ref = wb.wide_bwd_plain(x, w1, b1, w2, dy)
         ins = (x, w1, b1, w2, dy)
     else:
         ref = ts.seg_bwd_plain(x, dd, gy, w1, b1, w2)
         ins = (x, dd, gy, w1, b1, w2)
-    groups = ts.partial_slots(dev, C, C_DEC)
-    o1, o2, ob1, ob2, obc, slot_len = slot_offsets(C, C_MID, C_DEC,
+    groups = ts.partial_slots(dev, c_in, c_dec)
+    o1, o2, ob1, ob2, obc, slot_len = slot_offsets(c_in, c_mid, c_dec,
                                                    conv=not wide)
     part = torch.empty(groups, slot_len, device=dev)
     dx = torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [a.data_ptr() for a in ins] + [dx.data_ptr(), part.data_ptr()]
+    # dx's float32 parts: the chunks of C_mid x N x c_in rounded up to 8
+    dxp = [torch.empty(-(-c_mid // sec["chunk"]) * N * -(-c_in // 8) * 8,
+                       device=dev)] if "chunk" in sec else []
+    ptrs = [a.data_ptr() for a in ins] + [dx.data_ptr()] + \
+        [a.data_ptr() for a in dxp] + [part.data_ptr()]
 
     def call(i):
-        err = lib.launch(i, *ptrs, slot_len, groups, N, C, C_MID, C_DEC,
+        err = lib.launch(i, *ptrs, slot_len, groups, N, c_in, c_mid, c_dec,
                          *[ctypes.byref(used)] * wide, stream)
         if err:
             raise RuntimeError(f"variant {names[i]}: CUDA error {err}")
@@ -449,7 +598,7 @@ def main(argv=None):
         return float((a.double() - b).abs().max() / b.abs().max())
 
     result = dict(card=card, section=opt.section, n=N,
-                  widths=[C, C_MID, C_DEC], groups=groups, variants={})
+                  widths=[c_in, c_mid, c_dec], groups=groups, variants={})
     for i, name in enumerate(names):
         dx.fill_(float("nan"))
         part.fill_(float("nan"))
@@ -457,8 +606,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         # the slots written: all G, or the wide launchers' one wave
         s = part[:used.value if wide else groups].double().sum(0)
-        got = (dx, s[o1:o2].reshape(C, C_MID), s[ob1:ob2],
-               s[o2:ob1].reshape(C_MID, C_DEC), s[ob2:obc], s[obc:])
+        got = (dx, s[o1:o2].reshape(c_in, c_mid), s[ob1:ob2],
+               s[o2:ob1].reshape(c_mid, c_dec), s[ob2:obc], s[obc:])
         if wide:   # wide_bwd_plain's order: dx, dW1, db1, dW2, db2
             got = got[:5]
         errs = [rel(a, b) for a, b in zip(got, ref)]
@@ -468,7 +617,7 @@ def main(argv=None):
     for _ in range(opt.rounds):
         for i, name in enumerate(names):
             result["variants"][name]["ms"].append(
-                back_to_back(lambda: call(i)))
+                back_to_back(torch, lambda: call(i))[0])
     for v in result["variants"].values():
         v["median_ms"] = statistics.median(v["ms"])
     line = json.dumps(result)

@@ -196,7 +196,7 @@ def main(argv=None):
         os.path.abspath(__file__)))))
     import torch
 
-    from probav_tpu_torch.tools.time_conv import back_to_back
+    from probav_tpu_torch.tools.tstack_roofline import back_to_back
     from probav_tpu_torch.tools.wgrad_variants import compile_variants
     if not torch.cuda.is_available():
         raise SystemExit("seg_fwd_variants needs a CUDA card")
@@ -232,7 +232,7 @@ def main(argv=None):
     for _ in range(opt.rounds):
         for i, name in enumerate(names):
             result["variants"][name]["ms"].append(
-                back_to_back(lambda: call(i)))
+                back_to_back(torch, lambda: call(i))[0])
     for v in result["variants"].values():
         v["median_ms"] = statistics.median(v["ms"])
     line = json.dumps(result)

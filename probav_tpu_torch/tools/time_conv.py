@@ -22,8 +22,8 @@ d against float64 on random-normal inputs (``rel_err_f64``).  For blk_bwd
 also the wgrad route, at float32 the error of its dWc against float64 on
 random-normal inputs (``dwc_rel_err_f64``), and its four sub-kernels
 (``tstack_roofline.BLK_BWD_PARTS``): the device time of each per call,
-by the kernel names of a ``torch.profiler`` trace of 10 calls back to
-back, beside its bound (``tstack_roofline.blk_bwd_part_costs``), and in
+and of each of its kernels, by the kernel names of a ``torch.profiler``
+trace of 10 calls back to back, beside its bound (``tstack_roofline.blk_bwd_part_costs``), and in
 each round the one PyTorch call that computes the dd conv and the
 dWc of the same inputs (cuDNN's conv3d dgrad and weight gradient,
 ``library_calls``), 20 calls back to back.
@@ -49,9 +49,9 @@ KERNELS = ("conv_fwd", "seg_fwd", "blk_bwd", "wide_bwd")
 
 
 def profile_parts(call, reps=10):
-    """{part: (ms per call, [kernel names])} of blk_bwd's sub-kernels
-    (``tstack_roofline.blk_bwd_part``), from a torch.profiler trace of
-    ``reps`` calls back to back."""
+    """{part: (ms per call, {kernel name: its ms per call})} of blk_bwd's
+    sub-kernels (``tstack_roofline.blk_bwd_part``), from a torch.profiler
+    trace of ``reps`` calls back to back."""
     import torch
 
     from probav_tpu_torch.tools.tstack_roofline import blk_bwd_part, kernel_ms
@@ -60,8 +60,8 @@ def profile_parts(call, reps=10):
                              need=("reduce_partials_kernel",)).items():
         part = blk_bwd_part(key)
         if part:
-            t, names = parts.get(part, (0.0, []))
-            parts[part] = (t + ms, names + [key[:120]])
+            t, names = parts.get(part, (0.0, {}))
+            parts[part] = (t + ms, {**names, key[:120]: ms})
     return parts
 
 

@@ -285,10 +285,12 @@ _PARTS = {"seg_fwd_kernel": ("seg_fwd", None),
           "wgrad_ring_kernel": ("blk_bwd", "wgrad"),
           "wgrad_tf32_kernel": ("blk_bwd", "wgrad"),
           "wgrad_tiles_kernel": ("blk_bwd", "wgrad"),
+          "wgrad_tf32_tiles_kernel": ("blk_bwd", "wgrad"),
           "seg_bwd_bf16_kernel": ("blk_bwd", "seg_bwd"),
           "seg_bwd_tf32_kernel": ("blk_bwd", "seg_bwd"),
           "seg_bwd_split_kernel": ("blk_bwd", "seg_bwd"),
           "dx_sum_kernel": ("blk_bwd", "seg_bwd"),
+          "seg_bwd_tf32_split_kernel": ("blk_bwd", "seg_bwd"),
           "wide_bwd_bf16_kernel": ("wide_bwd", "wide"),
           "wide_bwd_tf32_kernel": ("wide_bwd", "wide"),
           # blk_bwd's or wide_bwd's last launch: read_trace decides.
@@ -296,8 +298,9 @@ _PARTS = {"seg_fwd_kernel": ("seg_fwd", None),
 
 
 # Kernels that finish a part another kernel of it launched (dx_sum_kernel
-# sums seg_bwd_split_kernel's parts of dx): their time counts to the part,
-# their launches do not, so that a part has one launch a blk_bwd.
+# sums seg_bwd_split_kernel's or seg_bwd_tf32_split_kernel's parts of dx):
+# their time counts to the part, their launches do not, so that a part
+# has one launch a blk_bwd.
 _TAILS = ("dx_sum_kernel",)
 
 

@@ -183,7 +183,8 @@ def main(argv=None):
     import torch
 
     from probav_tpu_torch.ops import tstack as ts
-    from probav_tpu_torch.tools.time_conv import back_to_back, dwc_float64
+    from probav_tpu_torch.tools.time_conv import dwc_float64
+    from probav_tpu_torch.tools.tstack_roofline import back_to_back
     if not torch.cuda.is_available():
         raise SystemExit("wgrad_variants needs a CUDA card")
     card = subprocess.run(
@@ -219,7 +220,7 @@ def main(argv=None):
     for _ in range(opt.rounds):
         for i, name in enumerate(names):
             result["variants"][name]["ms"].append(
-                back_to_back(lambda: call(i)))
+                back_to_back(torch, lambda: call(i))[0])
     for v in result["variants"].values():
         v["median_ms"] = statistics.median(v["ms"])
     line = json.dumps(result)

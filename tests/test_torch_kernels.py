@@ -51,22 +51,25 @@ def max_rel(got, ref):
 def blk_bwd_routes(dtype, shape, c, cmid, cdec):
     """(seg_bwd route, wgrad route) that blk_bwd's C entry must give for
     rows of shape [B, H, W, T] at these widths: the flagship's tensor-core
-    kernels at C, C_dec <= 32 (and C_mid <= 256 for seg_bwd); at bf16 up to
-    C, C_dec <= 64 (C_mid <= 512) seg_bwd_split_kernel and
-    wgrad_tiles_kernel; the wgrads where their rows fit 232,448 bytes;
-    elsewhere the CUDA cores."""
+    kernels at C, C_dec <= 32 (and C_mid <= 256 for seg_bwd); up to C,
+    C_dec <= 64 (C_mid <= 512) seg_bwd_split_kernel and wgrad_tiles_kernel
+    at bf16, seg_bwd_tf32_split_kernel and wgrad_tf32_tiles_kernel at
+    float32; the wgrads where their rows fit 232,448 bytes; elsewhere the
+    CUDA cores."""
     bf = dtype == torch.bfloat16
     w, t = shape[2], shape[3]
     if c <= 32 and cdec <= 32 and cmid <= 256:
         seg = 1 if bf else 2
+    elif max(c, cdec) <= 64 and cmid <= 512:
+        seg = 3 if bf else 4
     else:
-        seg = 3 if bf and max(c, cdec) <= 64 and cmid <= 512 else 0
+        seg = 0
     if bf and max(c, cdec) <= 32:
         wgrad = 1 if wgrad_ring_smem(w, t, cdec, c) <= 232_448 else 0
     elif bf and max(c, cdec) <= 64:
         wgrad = 3 if wgrad_tiles_smem(w, t, cdec, c) <= 232_448 else 0
-    elif not bf and max(c, cdec) <= 32 and wgrad_tf32_smem(w, t) <= 232_448:
-        wgrad = 2
+    elif not bf and max(c, cdec) <= 64 and wgrad_tf32_smem(w, t) <= 232_448:
+        wgrad = 2 if max(c, cdec) <= 32 else 4
     else:
         wgrad = 0
     return ts.SEG_BWD_ROUTES[seg], ts.WGRAD_ROUTES[wgrad]
@@ -472,9 +475,9 @@ def blk_bwd_tolerances(dtype):
 def test_blk_bwd_matches_plain_on_card(cuda, dtype, shape, c, cmid, cdec):
     """Beyond 64 channels the CUDA-core kernels at both dtypes, dWc in
     tiles of 64 x 64 channels, and at W = 48 (128/1024/102) in runs of
-    columns; at bf16 the 64- and 48-filter widths take
-    seg_bwd_split_kernel and wgrad_tiles_kernel, at float32 the CUDA
-    cores (``blk_bwd_routes``)."""
+    columns; the 64- and 48-filter widths take seg_bwd_split_kernel and
+    wgrad_tiles_kernel at bf16, seg_bwd_tf32_split_kernel and
+    wgrad_tf32_tiles_kernel at float32 (``blk_bwd_routes``)."""
     assert_blk_bwd_routes(dtype, shape, c, cmid, cdec)
     gy, x, d, w1, b1, w2, wc = blk_bwd_inputs(shape, c, cmid, cdec, seed=5,
                                               device=cuda, dtype=dtype)
@@ -497,14 +500,27 @@ def test_blk_bwd_matches_plain_on_card(cuda, dtype, shape, c, cmid, cdec):
     ((3, 7, 6, 5), 24, 200, 19, "seg_bwd_tf32_kernel"),
     ((2, 22, 22, 9), 32, 256, 32, "seg_bwd_tf32_kernel"),
     ((1, 3, 5, 7), 32, 256, 25, "seg_bwd_tf32_kernel"),
-    ((3, 7, 6, 5), 33, 256, 25, "seg_bwd_kernel")],
-    ids=["flagship", "c8", "cmid200", "cdec32", "rows105", "c33"])
+    ((3, 7, 6, 5), 33, 256, 25, "seg_bwd_tf32_split_kernel"),
+    ((128, 22, 22, 9), 64, 512, 51, "seg_bwd_tf32_split_kernel"),
+    ((3, 7, 6, 5), 48, 384, 38, "seg_bwd_tf32_split_kernel"),
+    ((3, 7, 6, 5), 36, 300, 64, "seg_bwd_tf32_split_kernel"),
+    ((2, 3, 6, 5), 64, 512, 51, "seg_bwd_tf32_split_kernel"),
+    ((3, 7, 6, 5), 65, 256, 25, "seg_bwd_kernel"),
+    ((3, 7, 6, 5), 64, 520, 51, "seg_bwd_kernel")],
+    ids=["flagship", "c8", "cmid200", "cdec32", "rows105", "c33",
+         "c64_b128", "c48", "c36_cdec64", "bh_below_g_c64", "c65",
+         "cmid520"])
 def test_f32_blk_bwd_seg_bwd_routes_match_plain_on_card(cuda, shape, c, cmid,
                                                         cdec, route):
-    """float32 within the tensor cores' widths takes the 3xTF32 seg_bwd
-    (c_mid 200: a chunk of 64 cut short; 105 rows: less than a tile), 33
-    channels the CUDA-core one; both match plain on the dyadic inputs to
-    the float32 tolerances, and two calls agree bit for bit."""
+    """float32 within the flagship's widths takes the 3xTF32 seg_bwd (c_mid
+    200: a chunk of 64 cut short; 105 rows: less than a tile); beyond, up
+    to C, C_dec <= 64 and C_mid <= 512, seg_bwd_tf32_split_kernel: 33
+    channels, the 64-filter widths at batch 128 and on 180 rows (three
+    tiles for 264 slots), the 48-filter widths (three chunks of 128),
+    36/300/64 (x copied by 4-byte copies, a last chunk of 44 j); 65
+    channels and C_mid 520 the CUDA-core one.  All match plain on the
+    dyadic inputs to the float32 tolerances, and two calls agree bit for
+    bit."""
     assert ts.seg_bwd_route(torch.float32, c, cmid, cdec).startswith(route)
     args = blk_bwd_inputs(shape, c, cmid, cdec, seed=7, device=cuda)
     got = ts.blk_bwd(*args)
@@ -612,18 +628,27 @@ def test_bf16_blk_bwd_wgrad_routes_match_plain_on_card(cuda, shape, c, cmid,
     ((2, 3, 6, 5), 32, 256, 25, "wgrad_tf32_kernel"),
     ((2, 22, 22, 9), 32, 256, 32, "wgrad_tf32_kernel"),
     ((3, 7, 6, 5), 30, 64, 6, "wgrad_tf32_kernel"),
-    ((3, 7, 6, 5), 33, 256, 25, "wgrad_kernel")],
+    ((3, 7, 6, 5), 33, 256, 25, "wgrad_tf32_tiles_kernel"),
+    ((128, 22, 22, 9), 64, 512, 51, "wgrad_tf32_tiles_kernel"),
+    ((2, 4, 22, 9), 48, 384, 38, "wgrad_tf32_tiles_kernel"),
+    ((2, 3, 6, 5), 64, 512, 51, "wgrad_tf32_tiles_kernel"),
+    ((2, 2, 48, 9), 64, 512, 51, "wgrad_kernel"),
+    ((3, 7, 6, 5), 65, 256, 25, "wgrad_kernel")],
     ids=["flagship_b128", "small", "w48", "t19", "bh_below_g", "cdec32",
-         "c30", "c33"])
+         "c30", "c33", "c64_b128", "c48", "bh_below_g_c64", "c64_w48",
+         "c65"])
 def test_f32_blk_bwd_wgrad_routes_match_plain_on_card(cuda, shape, c, cmid,
                                                       cdec, route):
     """float32 dWc at C, C_dec <= 32 takes the 3xTF32 wgrad where its rows
     fit shared memory: the flagship at batch 128, 8/64/6, B*H = 6 items
     for the partial slots' 264 or more blocks (every slot written), c_dec
     = c_out = 32, 30 channels (4-byte copies of gy); W = 48, T = 19 (rows
-    beyond its layout) and 33 channels take the CUDA-core wgrad.  All
-    match plain on the dyadic inputs to the float32 tolerances, and two
-    calls agree bit for bit."""
+    beyond its layout) take the CUDA-core wgrad.  Up to 64 channels
+    wgrad_tf32_tiles_kernel: 33 channels, the 64-filter widths at batch 128
+    and on 6 items, the 48-filter widths; W = 48 at 64/51 (rows beyond its
+    layout) and 65 channels take the CUDA-core wgrad.  All match plain on
+    the dyadic inputs to the float32 tolerances, and two calls agree bit
+    for bit."""
     assert ts.wgrad_route(torch.float32, c, cdec, shape[2],
                           shape[3]).startswith(route)
     args = blk_bwd_inputs(shape, c, cmid, cdec, seed=8, device=cuda)
@@ -1162,16 +1187,17 @@ def test_reduce_partials_refuses_bad_slots_on_card(cuda):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape,c,cmid,cdec", [
     ((128, 22, 22, 9), 32, 256, 25), ((2, 22, 22, 9), 64, 512, 51),
-    ((3, 7, 6, 5), 128, 1024, 102)],
-    ids=["flagship_b128", "wide_b2", "c128"])
+    ((128, 22, 22, 9), 64, 512, 51), ((3, 7, 6, 5), 128, 1024, 102)],
+    ids=["flagship_b128", "wide_b2", "wide_b128", "c128"])
 def test_blk_bwd_and_wide_bwd_are_bitwise_deterministic_on_card(
         cuda, dtype, shape, c, cmid, cdec):
     """Two calls of each give the same bits in every output, on random
     normal inputs (on dyadic ones any order of summation is exact): the
     partial slots are written by fixed blocks and summed in a fixed order,
     with no atomics.  At 128 channels G is one slot an SM.  At 64/512/51
-    bf16 that holds for the split seg_bwd (dx's float32 parts summed in
-    chunk order) and wgrad_tiles_kernel."""
+    (on 2 patches and on the train step's 128) that holds for the split
+    seg_bwds (dx's float32 parts summed in chunk order) and the tiled
+    wgrads at both dtypes."""
     assert_blk_bwd_routes(dtype, shape, c, cmid, cdec)
     r = np.random.default_rng(c)
     mk = lambda *sz: torch.from_numpy(

@@ -185,7 +185,10 @@ def test_hand_kernel_files_each_name():
     assert rf.hand_kernel("sm90_xmma_dgrad_implicit_gemm_bf16") is None
     for name, part in (("wgrad_tiles_kernel", "wgrad"),
                        ("seg_bwd_split_kernel", "seg_bwd"),
-                       ("dx_sum_kernel<true>", "seg_bwd")):
+                       ("dx_sum_kernel<true>", "seg_bwd"),
+                       ("wgrad_tf32_tiles_kernel", "wgrad"),
+                       ("seg_bwd_tf32_split_kernel", "seg_bwd"),
+                       ("dx_sum_kernel<float, true>", "seg_bwd")):
         assert rf.hand_kernel(NS + name + ARGS) == ("blk_bwd", part), name
         assert rf.is_tail(NS + name + ARGS) == name.startswith("dx_sum")
     assert rf.blk_bwd_part(NAMES[5][0]) == "reduce"
@@ -318,6 +321,30 @@ def test_trace_reader_counts_a_split_seg_bwd_once_a_block():
         {p: 12 for p in rf.BLK_BWD_PARTS}
     assert k["parts"]["seg_bwd"]["ms_per_launch"] == pytest.approx(1.09)
     assert k["ms_per_launch"] == pytest.approx(3.324)
+
+
+def test_trace_reader_counts_a_float32_split_seg_bwd_once_a_block():
+    """float32 blk_bwd at 64/512/51 launches seg_bwd_tf32_split_kernel and
+    dx_sum_kernel<float> for its seg_bwd part and wgrad_tf32_tiles_kernel
+    for its wgrad: each part has one launch a blk_bwd, the seg_bwd part the
+    time of both its kernels, and blk_bwd's launches stay 12."""
+    parts = (("conv_ring_kernel<float, 64, 8, 1, 1, false>", 8940),
+             ("wgrad_tf32_tiles_kernel", 2150),
+             ("seg_bwd_tf32_split_kernel", 3550),
+             ("dx_sum_kernel<float, true>", 330),
+             ("reduce_partials_kernel", 56))
+    events = [dict(ph="X", cat="kernel", name=NS + name + ARGS, pid=0, tid=7,
+                   ts=1e5 * i + j, dur=float(dur), args={})
+              for i in range(12) for j, (name, dur) in enumerate(parts)]
+    rep = rf.roofline(rf.read_trace(events, 1), rf.step_costs(
+        rf.step_shapes(Config.from_file(CFG), filters=64), "float32"))
+    k = rep["kernels"]["blk_bwd"]
+    assert k["launches_per_step"] == 12
+    assert {p: q["launches_per_step"] for p, q in k["parts"].items()} == \
+        {p: 12 for p in rf.BLK_BWD_PARTS}
+    assert k["parts"]["seg_bwd"]["ms_per_launch"] == pytest.approx(3.88)
+    assert k["parts"]["wgrad"]["ms_per_launch"] == pytest.approx(2.15)
+    assert k["ms_per_launch"] == pytest.approx(15.026)
 
 
 def test_a_share_above_the_limit_raises_naming_the_kernel():
