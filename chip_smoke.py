@@ -22,8 +22,10 @@ Phases, each printing its result:
    that its column runs opened: rows of 48 columns at the flagship widths
    and the 64-filter widths at T = 19; seg_fwd's log names the kernel its
    C entry routes each width to (at float32 the 3xTF32 tensor-core
-   seg_fwd_tf32_kernel, which the flagship must take, and the CUDA-core
-   seg_fwd_kernel at 64/512/51 and the width phase's widths; at bf16
+   seg_fwd_tf32_kernel, which the flagship must take, the 3xTF32
+   seg_fwd_tf32_wide_kernel (C_mid in chunks), which 64/512/51 and the
+   width phase's 48/384/38 must take, and the CUDA-core seg_fwd_kernel,
+   which its 72/576/57 and 128/1024/102 must take; at bf16
    seg_fwd_bf16_kernel, which the flagship must take, and
    seg_fwd_mma_kernel, which 64/512/51 and the width phase's widths must
    take; the bound is the same whatever the route, the CUDA cores'
@@ -63,9 +65,10 @@ Phases, each printing its result:
    72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
    and bf16, against their plain versions with the kernel phase's
    tolerances (conv_fwd at 128/1024/102 also at T = 19; seg_fwd's route
-   and blk_bwd's seg_bwd and wgrad routes named), with single-call
-   times of kernel, plain version and F.conv3d; one float32 train step of
-   a 12-block 128-filter "t" model against its "off" twin at batch 32
+   and blk_bwd's seg_bwd and wgrad routes named and checked), with
+   single-call times of kernel, plain version and F.conv3d; one float32
+   train step of a 12-block 128-filter "t" model against its "off" twin
+   at batch 32
    (loss, cPSNR, every gradient leaf), a bf16 forward of that model against
    "off", and the train CLI at 48 filters in bf16 with the "t" stack
    (blk_bwd launches per step, a falling loss);
@@ -398,13 +401,19 @@ def seg_fwd_route(dn, c, cmid, cdec):
 
 def wide_seg_route(dn, c, cmid, cdec):
     """Beyond 32/256/32 bf16 seg_fwd keeps seg_fwd_mma_kernel (the
-    route of seg_fwd_bf16_kernel ends there); raises otherwise."""
+    route of seg_fwd_bf16_kernel ends there), and float32 takes
+    seg_fwd_tf32_wide_kernel up to 64/512/64, seg_fwd_kernel beyond;
+    raises otherwise."""
     from probav_tpu_torch.ops import tstack as ts
-    if dn == "bfloat16" and seg_fwd_route(dn, c, cmid, cdec) != \
-            ts.SEG_FWD_ROUTES[1]:
-        raise AssertionError(f"seg_fwd bf16 {c}/{cmid}/{cdec} route "
-                             f"{seg_fwd_route(dn, c, cmid, cdec)}, expected "
-                             f"{ts.SEG_FWD_ROUTES[1]}")
+    if dn == "bfloat16":
+        want = ts.SEG_FWD_ROUTES[1]
+    else:
+        want = ts.SEG_FWD_ROUTES[
+            4 if c <= 64 and cmid <= 512 and cdec <= 64 else 0]
+    route = seg_fwd_route(dn, c, cmid, cdec)
+    if route != want:
+        raise AssertionError(f"seg_fwd {dn} {c}/{cmid}/{cdec} route "
+                             f"{route}, expected {want}")
 
 
 def wide_cuda_core_route(dtype, c, cmid, cdec):

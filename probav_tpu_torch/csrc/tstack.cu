@@ -29,7 +29,9 @@
 //   seg_fwd_route): seg_fwd_tf32_kernel, mma.sync m16n8k8 on split
 //   operands, the expand and decay products chained in registers, float32
 //   sums (within the float32 tolerance of the JAX reference's exact
-//   products).  At wider widths it runs on the CUDA cores with exact
+//   products).  Up to c_in, c_dec <= 64 and c_mid <= 512 (the 64-filter
+//   model's 64/512/51) seg_fwd_tf32_wide_kernel does the same with C_mid
+//   staged in chunks.  At wider widths it runs on the CUDA cores with exact
 //   float32 products (seg_fwd_kernel): each thread owns one row, holds
 //   the d accumulator (and, up to 64 + 64 channels, x) in registers and
 //   makes the wide activation one channel at a time; weights are staged
@@ -468,17 +470,314 @@ cudaError_t launch_seg_fwd_tf32(const void* x, const void* w1, const void* b1,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------ //
+// seg_fwd, float32, on the tensor cores as 3xTF32 beyond the flagship's     //
+// widths, up to c_in, c_dec <= 64 and c_mid <= 512 (the 0.9411 model's     //
+// 64/512/51, the 48-filter model's 48/384/38): seg_fwd_tf32_wide_kernel.  //
+// ------------------------------------------------------------------------ //
+//
+// - Why chunks.  seg_fwd_tf32_kernel stages W1 and W2 whole; at 64/512
+//   the two planes take 266,240 B padded, beyond the 232,448 B a block may
+//   hold.  So C_mid goes in chunks of SFW_JC = 128 middle channels: a
+//   persistent block walks tiles of SFW_ROWS = 128 rows and, for each, the
+//   chunks in order; each chunk's W1 columns and W2 rows arrive by
+//   cp.async in one of two buffers while the other chunk multiplies, so
+//   the weights are read again from L2 for every tile (262,144 B a tile at
+//   64/512: 1.14 GB a launch at N = 557,568).  One barrier a chunk guards
+//   both weight buffers and, at a tile's last chunk, the other x buffer,
+//   into which the next tile's rows are staged with the next weights.
+// - Tiles: warp w of 8 owns rows 16 w .. 16 w + 15; x tiles [row][68]
+//   (copy_rows: 16-byte copies where c_in % 4 == 0 and x is 16-byte
+//   aligned, else 4; zeros past n).
+// - Expand: x's A fragments of the KS k-steps (zero from c_in on) are split
+//   once a tile and held in registers.  Per group of SFW_GROUP 8-column
+//   n-tiles of the chunk, z = x W1 as three products (hi hi, lo hi, hi lo;
+//   lo lo dropped), B words from the chunk's [c][j] plane of W1 (row stride
+//   136, 8 mod 32: conflict-free), split at each load.
+// - Decay, chained in registers as in seg_fwd_tf32_kernel: C columns 2q,
+//   2q + 1 of h = relu(z + b1) are A columns q, q + 4, and B rows q, q + 4
+//   are W2 rows j + 2q, j + 2q + 1, read from the chunk's [j][c] plane
+//   (W2's rows as they lie in memory; row stride 68, 4 mod 32:
+//   conflict-free, as are the x fragments' loads).  d (C_dec padded to
+//   8 NCT) += h W2.
+// - Sums: float32, no rounding point; the tensor cores sum with
+//   truncation, so each chunk's decay products go to fresh accumulators,
+//   added in float32 to the running d sums (b1 before the relu, b2 at the
+//   end).  Deterministic: a fixed order.
+// - Epilogue as in seg_fwd_tf32_kernel: + b2, staged in the warp's own
+//   rows of the x tile (read once, at the tile's first chunk), then the
+//   contiguous run of its rows' c_dec real columns stored; nothing past n.
+// - Shared memory: 2 x 69,632 (weight chunks) + 2 x 34,816 (x tiles) +
+//   2,304 (b1, b2): 211,200 B, one block an SM.  <KS, NCT> = <6, 5> for
+//   c_in <= 48 and c_dec <= 40, else <8, 7> up to c_dec 56, else <8, 8>
+//   (191, 212, 218 registers).  Measured against C_mid's chunks over the
+//   grid, each block staging its chunk once and writing float32 parts of
+//   d that dx_sum_kernel<float> sums (tools/seg_fwd_variants.py --section
+//   wide, grid_split): 1.41 against 1.60 ms at 64/512/51; the restaging
+//   costs 0.33 ms of the 1.41.
+//
+// What bounds it on an H100 at the 64-filter model's train step (N =
+// 557,568, 64/512/51): 2 N c_mid (c_in + c_dec) = 65.66 GFLOP, three TF32
+// products each, 0.3982 ms at the 494.7 TFLOP/s TF32 peak (0.980 ms at the
+// CUDA cores' 67 TFLOP/s), against 256 MB of x and d (0.077 ms):
+// operations.  It issues C_dec padded to 56 (1.04x the products), on
+// mma.sync, which issues near half the TF32 rate.
+
+constexpr int SFW_WARPS = 8;                   // 16 rows each
+constexpr int SFW_ROWS = 16 * SFW_WARPS;       // rows per tile
+constexpr int SFW_JC = 128;                    // middle channels per chunk
+constexpr int SFW_GROUP = 4;                   // n-tiles of z at a time
+constexpr int SFW_CH = 64;                     // c_in, c_dec it takes
+constexpr int SFW_MID = 512;                   // c_mid it takes
+constexpr int SFW_XS = SFW_CH + 4;             // x tile, W2 [j][c] stride
+constexpr int SFW_WS = SFW_JC + 8;             // W1 [c][j] stride
+constexpr int SFW_WBUF = SFW_CH * SFW_WS + SFW_JC * SFW_XS;  // a chunk
+
+size_t seg_fwd_tf32_wide_smem() {
+  return sizeof(float) * ((size_t)2 * SFW_WBUF + 2 * SFW_ROWS * SFW_XS +
+                          SFW_MID + SFW_CH);
+}
+
+template <int KS, int NCT>
+__global__ void __launch_bounds__(SFW_WARPS * 32, 1)
+seg_fwd_tf32_wide_kernel(const float* __restrict__ x,
+                         const float* __restrict__ w1,
+                         const float* __restrict__ b1,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2, float* __restrict__ d,
+                         int n, int c_in, int c_mid, int c_dec) {
+  constexpr int XS = SFW_XS, WS = SFW_WS, JC = SFW_JC, ROWS = SFW_ROWS;
+  constexpr int NG = SFW_GROUP;
+  static_assert(JC % (8 * NG) == 0, "whole groups a chunk");
+  static_assert(8 * KS <= SFW_CH && 8 * NCT <= SFW_CH, "widths");
+  extern __shared__ __align__(16) float smem[];
+  float* wb = smem;                             // [2][WBUF]  weight chunks
+  float* xb = wb + 2 * SFW_WBUF;                // [2][ROWS][XS]  x tiles
+  float* b1s = xb + 2 * ROWS * XS;              // [MID]
+  float* b2s = b1s + SFW_MID;                   // [CH]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+
+  for (int j = tid; j < SFW_MID; j += blockDim.x)
+    b1s[j] = j < c_mid ? b1[j] : 0.f;
+  if (tid < SFW_CH) b2s[tid] = tid < c_dec ? b2[tid] : 0.f;
+  // The last d n-tile reads W2's columns from c_dec on, which copy_rows
+  // never writes: zero them once in both buffers.
+  for (int e = tid; e < 2 * JC * XS; e += blockDim.x)
+    if (e % XS >= c_dec)
+      wb[e / (JC * XS) * SFW_WBUF + SFW_CH * WS + e % (JC * XS)] = 0.f;
+
+  const bool xvec = c_in % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool w1vec = c_mid % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(w1) % 16 == 0;
+  const bool w2vec = c_dec % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(w2) % 16 == 0;
+  const int nch = (c_mid + JC - 1) / JC;
+  const long tiles = ((long)n + ROWS - 1) / ROWS;
+  // Chunk ch of W1 as the [c][j] plane (zeros from c_in and c_mid on) and
+  // of W2 as the [j][c] plane (zeros from c_mid on), into buffer `buf`.
+  auto stage_w = [&](int ch, int buf) {
+    const int j0 = ch * JC;
+    float* p = wb + buf * SFW_WBUF;
+    if (w1vec) {
+      for (int e = tid; e < SFW_CH * JC / 4; e += blockDim.x) {
+        const int c = e / (JC / 4), j = 4 * (e % (JC / 4));
+        const bool in = c < c_in && j0 + j < c_mid;
+        probav::cp_async16_zfill(p + c * WS + j,
+                                 in ? w1 + (long)c * c_mid + j0 + j : w1, in);
+      }
+    } else {
+      for (int e = tid; e < SFW_CH * JC; e += blockDim.x) {
+        const int c = e / JC, j = e % JC;
+        const bool in = c < c_in && j0 + j < c_mid;
+        probav::cp_async4_zfill(p + c * WS + j,
+                                in ? w1 + (long)c * c_mid + j0 + j : w1, in);
+      }
+    }
+    copy_rows<JC, XS>(p + SFW_CH * WS, w2 + (long)j0 * c_dec,
+                      min(JC, c_mid - j0), c_dec, w2vec);
+  };
+  auto stage_x = [&](long tile, int buf) {
+    const long row0 = tile * ROWS;
+    copy_rows<ROWS, XS>(xb + buf * ROWS * XS, x + row0 * c_in,
+                        (int)min((long)ROWS, (long)n - row0), c_in, xvec);
+  };
+
+  // Item s of this block: tile blockIdx.x + (s / nch) gridDim.x, chunk
+  // s % nch.
+  const long items = blockIdx.x < tiles
+                         ? ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * nch
+                         : 0;
+  if (items > 0) {
+    stage_x(blockIdx.x, 0);
+    stage_w(0, 0);
+  }
+  cp_async_commit();
+  const int rw = warp * 16;                     // this warp's rows
+  FragA ax[KS];
+  float acc[NCT][4];
+  for (long s = 0; s < items; ++s) {
+    const long tile = blockIdx.x + s / nch * gridDim.x;
+    const int ch = (int)(s % nch), wbuf = (int)(s % 2);
+    const int xbuf = (int)(s / nch % 2);
+    cp_async_wait_all();
+    // This item's weights (and at a tile's first chunk its rows) have
+    // landed; every warp is done with the other weight buffer and, at a
+    // tile's last chunk, with the other x buffer (the previous tile's).
+    __syncthreads();
+    if (s + 1 < items) {
+      stage_w(ch + 1 < nch ? ch + 1 : 0, wbuf ^ 1);
+      if (ch + 1 == nch) stage_x(tile + gridDim.x, xbuf ^ 1);
+    }
+    cp_async_commit();
+    float* xt = xb + (xbuf * ROWS + rw) * XS;
+
+    if (ch == 0) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        const int c = k * 8 + q;
+        const float* X = xt + g * XS + c;
+        const bool lo = c < c_in, hi = c + 4 < c_in;
+        split_a(ax[k], lo ? X[0] : 0.f, lo ? X[8 * XS] : 0.f,
+                hi ? X[4] : 0.f, hi ? X[8 * XS + 4] : 0.f);
+      }
+#pragma unroll
+      for (int t = 0; t < NCT; ++t)
+        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    }
+
+    const float* w1c = wb + wbuf * SFW_WBUF;    // [CH][WS]  W1[c][j0 + j]
+    const float* w2c = w1c + SFW_CH * WS;       // [JC][XS]  W2[j0 + j][c]
+    const float* b1c = b1s + ch * JC;
+    float dc[NCT][4];
+#pragma unroll
+    for (int t = 0; t < NCT; ++t)
+      dc[t][0] = dc[t][1] = dc[t][2] = dc[t][3] = 0.f;
+#pragma unroll
+    for (int p = 0; p < JC / (8 * NG); ++p) {
+      const int jn = p * 8 * NG;
+      float z[NG][4] = {};
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        FragB bw[NG];
+#pragma unroll
+        for (int t = 0; t < NG; ++t) {
+          const float* W = w1c + (k * 8 + q) * WS + jn + t * 8 + g;
+          split_b(bw[t], W[0], W[4 * WS]);
+        }
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int t = 0; t < NG; ++t) mma_term(z[t], ax[k], bw[t], term);
+      }
+#pragma unroll
+      for (int t = 0; t < NG; ++t) {
+        const int jl = jn + t * 8 + 2 * q;      // chunk's j of C column 2q
+        const float bb0 = b1c[jl], bb1 = b1c[jl + 1];
+        FragA ah;
+        split_a(ah, fmaxf(z[t][0] + bb0, 0.f), fmaxf(z[t][2] + bb0, 0.f),
+                fmaxf(z[t][1] + bb1, 0.f), fmaxf(z[t][3] + bb1, 0.f));
+        FragB bd[NCT];
+#pragma unroll
+        for (int ct = 0; ct < NCT; ++ct) {
+          const float* W = w2c + jl * XS + ct * 8 + g;
+          split_b(bd[ct], W[0], W[XS]);
+        }
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int ct = 0; ct < NCT; ++ct) mma_term(dc[ct], ah, bd[ct], term);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NCT; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[t][i] += dc[t][i];
+
+    if (ch == nch - 1) {
+      // d = acc + b2, staged in this warp's rows of its x tile, then its
+      // c_dec real columns stored: rows r0 .. r0 + 15 are contiguous in d.
+      __syncwarp();                             // every lane's x read
+#pragma unroll
+      for (int ct = 0; ct < NCT; ++ct) {
+        const int c = ct * 8 + 2 * q;
+        const float bb0 = b2s[c], bb1 = b2s[c + 1];
+        *reinterpret_cast<float2*>(xt + g * XS + c) =
+            make_float2(acc[ct][0] + bb0, acc[ct][1] + bb1);
+        *reinterpret_cast<float2*>(xt + (g + 8) * XS + c) =
+            make_float2(acc[ct][2] + bb0, acc[ct][3] + bb1);
+      }
+      __syncwarp();
+      const long r0 = tile * ROWS + rw;
+      const int nr = (int)max(0L, min(16L, (long)n - r0));
+      float* dst = d + r0 * c_dec;
+      for (int e = lane; e < nr * c_dec; e += 32) {
+        const int r = e / c_dec, c = e % c_dec;
+        dst[e] = xt[r * XS + c];
+      }
+    }
+  }
+}
+
+template <int KS, int NCT>
+cudaError_t launch_seg_fwd_tf32_wide_as(const void* x, const void* w1,
+                                        const void* b1, const void* w2,
+                                        const void* b2, void* d, int n,
+                                        int c_in, int c_mid, int c_dec,
+                                        cudaStream_t s) {
+  const size_t smem = seg_fwd_tf32_wide_smem();
+  auto kern = seg_fwd_tf32_wide_kernel<KS, NCT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      SFW_WARPS * 32, smem);
+  if (err != cudaSuccess) return err;
+  const long tiles = ((long)n + SFW_ROWS - 1) / SFW_ROWS;
+  const long grid = std::min(tiles, (long)std::max(per_sm, 1) * sm_count());
+  kern<<<(unsigned)grid, SFW_WARPS * 32, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(d), n, c_in, c_mid,
+      c_dec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_seg_fwd_tf32_wide(const void* x, const void* w1,
+                                     const void* b1, const void* w2,
+                                     const void* b2, void* d, int n,
+                                     int c_in, int c_mid, int c_dec,
+                                     cudaStream_t s) {
+  if (c_in > SFW_CH || c_dec > SFW_CH || c_mid > SFW_MID)
+    return cudaErrorInvalidValue;
+  if (c_in <= 48 && c_dec <= 40)
+    return launch_seg_fwd_tf32_wide_as<6, 5>(x, w1, b1, w2, b2, d, n, c_in,
+                                             c_mid, c_dec, s);
+  if (c_dec <= 56)
+    return launch_seg_fwd_tf32_wide_as<8, 7>(x, w1, b1, w2, b2, d, n, c_in,
+                                             c_mid, c_dec, s);
+  return launch_seg_fwd_tf32_wide_as<8, 8>(x, w1, b1, w2, b2, d, n, c_in,
+                                           c_mid, c_dec, s);
+}
+
 // Which kernel probav_seg_fwd runs, from the dtype and widths alone: where
 // the tensor-core tiles cover the widths (c_in, c_dec <= 32, c_mid <= 256)
 // seg_fwd_bf16_kernel at bf16 and seg_fwd_tf32_kernel at float32; beyond,
-// seg_fwd_mma_kernel at bf16 and seg_fwd_kernel (CUDA cores) at float32.
+// seg_fwd_mma_kernel at bf16 and, at float32, seg_fwd_tf32_wide_kernel up
+// to c_in, c_dec <= 64 and c_mid <= 512, else seg_fwd_kernel (CUDA cores).
 enum SegFwdRoute { SEG_FWD_CUDA_CORES = 0, SEG_FWD_BF16_MMA = 1,
-                   SEG_FWD_TF32_MMA = 2, SEG_FWD_BF16_LDSM = 3 };
+                   SEG_FWD_TF32_MMA = 2, SEG_FWD_BF16_LDSM = 3,
+                   SEG_FWD_TF32_WIDE = 4 };
 
 SegFwdRoute seg_fwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   const bool tiles = c_in <= 32 && c_dec <= 32 && c_mid <= 256;
   if (dtype == 1) return tiles ? SEG_FWD_BF16_LDSM : SEG_FWD_BF16_MMA;
-  return tiles ? SEG_FWD_TF32_MMA : SEG_FWD_CUDA_CORES;
+  if (tiles) return SEG_FWD_TF32_MMA;
+  return c_in <= SFW_CH && c_dec <= SFW_CH && c_mid <= SFW_MID
+             ? SEG_FWD_TF32_WIDE
+             : SEG_FWD_CUDA_CORES;
 }
 
 // ------------------------------------------------------------------------ //
@@ -1716,7 +2015,8 @@ cudaError_t probav::conv_dispatch(int dtype, bool residual, const void* d,
 extern "C" {
 
 // dtype: 0 = float32 (tensor cores as 3xTF32 at c_in, c_dec <= 32 and
-// c_mid <= 256, else CUDA cores: seg_fwd_route), 1 = bfloat16 (tensor
+// c_mid <= 256, and up to 64 and 512 in chunks of C_mid, else CUDA cores:
+// seg_fwd_route), 1 = bfloat16 (tensor
 // cores: seg_fwd_bf16_kernel within the same widths, else
 // seg_fwd_mma_kernel).  x, w1, w2, d in that dtype; b1, b2 in float32.
 // c_in, c_dec any count from 1 to MAX_CH = 128; c_mid any positive count
@@ -1739,6 +2039,9 @@ int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
     case SEG_FWD_TF32_MMA:
       return (int)launch_seg_fwd_tf32(x, w1, b1, w2, b2, d, n, c_in, c_mid,
                                       c_dec, s);
+    case SEG_FWD_TF32_WIDE:
+      return (int)launch_seg_fwd_tf32_wide(x, w1, b1, w2, b2, d, n, c_in,
+                                           c_mid, c_dec, s);
     default:
       return (int)dispatch_seg(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec,
                                s);
@@ -1747,7 +2050,8 @@ int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
 
 // The kernel probav_seg_fwd launches for these widths: 0 = seg_fwd_kernel
 // (CUDA cores), 1 = seg_fwd_mma_kernel (bf16 mma), 2 = seg_fwd_tf32_kernel
-// (float32 as 3xTF32 mma), 3 = seg_fwd_bf16_kernel (bf16 mma, ldmatrix).
+// (float32 as 3xTF32 mma), 3 = seg_fwd_bf16_kernel (bf16 mma, ldmatrix),
+// 4 = seg_fwd_tf32_wide_kernel (float32 as 3xTF32 mma, C_mid in chunks).
 int probav_seg_fwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return (int)seg_fwd_route(dtype, c_in, c_mid, c_dec);
 }

@@ -1,19 +1,24 @@
 """Variants of the tensor-core ``seg_fwd`` kernels, timed side by side on
-one card: ``seg_fwd_tf32_kernel`` (float32, 3xTF32) and
-``seg_fwd_bf16_kernel`` (bf16).
+one card: ``seg_fwd_tf32_kernel`` (float32, 3xTF32), ``seg_fwd_bf16_kernel``
+(bf16) and ``seg_fwd_tf32_wide_kernel`` (float32 beyond the flagship's
+widths, C_mid in chunks).
 
     python3 probav_tpu_torch/tools/seg_fwd_variants.py \\
-        [--dtype float32|bfloat16] [--variants a,b] [--rounds 5] [--out DIR]
+        [--section float32|bfloat16|wide] [--variants a,b] [--rounds 5] \\
+        [--out DIR]
 
 Each variant is the kernel's section of ``csrc/tstack.cu`` (``SECTIONS``:
 from its constants to the text after its launcher) with the
-regular-expression substitutions of its dtype's table, ``VARIANTS``
-(float32) or ``BF16_VARIANTS`` (``kernel`` is the section as it is), in a
-namespace of its own; all are compiled into one library by nvcc
+regular-expression substitutions of its table, ``VARIANTS`` (float32),
+``BF16_VARIANTS`` or ``WIDE_VARIANTS`` (``kernel`` is the section as it
+is), in a namespace of its own; all are compiled into one library by nvcc
 (``wgrad_variants.compile_variants``, with ptxas's register and spill
-report) and launched at the flagship's shape (N = 557,568 rows, 32/256/25).
-float32 runs on random-normal x and weights from a torch generator (seed
-12; W1 scaled by C^-1/2, W2 by C_mid^-1/2, biases by 0.1), its error taken
+report; ``wide`` with blk_bwd.cu's ``dx_sum_kernel``, which its
+``grid_split`` variant launches) and launched at the train step's rows
+(N = 557,568): ``float32`` and ``bfloat16`` at the flagship's widths
+(32/256/25), ``wide`` at the 64-filter model's (64/512/51).  float32
+runs on random-normal x and weights from a torch generator (seed 12; W1
+scaled by C^-1/2, W2 by C_mid^-1/2, biases by 0.1), its error taken
 against float64 over max|ref|; bf16 on the dyadic inputs of
 ``tools/dyadic.seg_fwd_inputs`` (numpy seed 12), on which the kernel
 equals ``tstack.seg_fwd_plain`` bit for bit, its error taken against that
@@ -97,19 +102,134 @@ BF16_VARIANTS = {
                   "for (long tile = tiles; tile < tiles;"),),
 }
 
-# dtype: (the section's first text, the text after it, kernel, launcher,
-# variants).
+# The grid_split variant's launcher: C_mid's chunks over the grid (block b
+# takes chunk b % chunks of the row tiles of slot b / chunks, its weights
+# staged once), each chunk's d part in float32 (the last one's with b2),
+# summed in chunk order by dx_sum_kernel<float>; scratch kept across calls.
+_SPLIT_LAUNCH = """  const int nch = (c_mid + SFW_JC - 1) / SFW_JC;
+  const int ldp = (c_dec + 3) / 4 * 4;
+  const long G = std::max(1L, std::min(
+      tiles, (long)std::max(per_sm, 1) * sm_count() / nch));
+  static float* scratch = nullptr;
+  static size_t have = 0;
+  const size_t need = (size_t)n * ((size_t)ldp * (nch - 1) + c_dec) +
+                      (size_t)4 * sm_count() * c_dec;
+  if (need > have) {
+    if (scratch != nullptr) cudaFree(scratch);
+    err = cudaMalloc(&scratch, need * sizeof(float));
+    if (err != cudaSuccess) return err;
+    have = need;
+  }
+  float* dxp = scratch;                              // [nch - 1][n][ldp]
+  float* last = dxp + (size_t)(nch - 1) * n * ldp;   // [n][c_dec], + b2
+  float* red = last + (size_t)n * c_dec;             // dx_sum's column sums
+  kern<<<(unsigned)(G * nch), SFW_WARPS * 32, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), last, dxp, ldp, n, c_in, c_mid, c_dec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dx_sum(dxp, nch - 1, ldp, (const float*)last,
+                       static_cast<float*>(d), red, (long)c_dec,
+                       4 * sm_count(), n, c_dec, 0L, s);
+}"""
+
+# The row_copies variant's copies: rows [0, R) of a [*, cols] tile at src
+# into dst (row stride XS), zeros from row nrows on.
+_ROW_COPIES = """  auto copy_rows_w = [&](float* dst, const float* src, int nrows,
+                         int cols, bool vec, int R) {
+    for (int r = warp; r < R; r += SFW_WARPS) {
+      const bool in = r < nrows;
+      const float* row = in ? src + (long)r * cols : src;
+      if (vec) {
+        for (int c = 4 * lane; c < cols; c += 128)
+          probav::cp_async16_zfill(dst + r * XS + c, in ? row + c : src, in);
+      } else {
+        for (int c = lane; c < cols; c += 32)
+          probav::cp_async4_zfill(dst + r * XS + c, in ? row + c : src, in);
+      }
+    }
+  };
+"""
+
+# wide: the same form, on seg_fwd_tf32_wide_kernel's section.
+WIDE_VARIANTS = {
+    "kernel": (),
+    # Two or eight n-tiles of z at a time, not four; the chunk's groups
+    # not unrolled.
+    "group2": ((r"constexpr int SFW_GROUP = \d+;",
+                "constexpr int SFW_GROUP = 2;"),),
+    "group8": ((r"constexpr int SFW_GROUP = \d+;",
+                "constexpr int SFW_GROUP = 8;"),),
+    "unroll1": ((r"#pragma unroll(\s+for \(int p = 0)",
+                 r"#pragma unroll 1\1"),),
+    # Work removed: every mma (operands still split and kept live); the
+    # weights' restaging (chunks 0 and 1 staged once: what the copies
+    # cost; the barriers stay).
+    "no_mma": ((r"\bmma_term\(", "fake_mma_tf32("),),
+    "no_restage": ((r"stage_w\(ch \+ 1 < nch \? ch \+ 1 : 0, wbuf \^ 1\);",
+                    "if (s == 0) stage_w(1 % nch, 1);"),),
+    # W2's and x's rows copied a warp a row (a lane four columns a
+    # 16-byte copy, or one a 4-byte copy: no index divided), not by
+    # copy_rows (consecutive threads on consecutive elements).
+    "row_copies": (
+        (r"(  // Chunk ch of W1 as the \[c\]\[j\] plane)",
+         _ROW_COPIES + r"\1"),
+        (r"copy_rows<(\w+), XS>\((.*?)\);", r"copy_rows_w(\2, \1);"),),
+    # The alternative design: C_mid's chunks over the grid, no restaging,
+    # float32 d parts summed by dx_sum_kernel<float>.
+    "grid_split": (
+        (r"float\* __restrict__ d,\n",
+         "float* __restrict__ d, float* __restrict__ dxp, int ldp,\n"),
+        (r"  const long items = blockIdx\.x < tiles\n.*?: 0;\n",
+         "  const int kch = (int)(blockIdx.x % nch);\n"
+         "  const long slot0 = blockIdx.x / nch, G = gridDim.x / nch;\n"
+         "  const long items = slot0 < tiles ? (tiles - 1 - slot0) / G + 1"
+         " : 0;\n"),
+        (r"stage_x\(blockIdx\.x, 0\);\n    stage_w\(0, 0\);",
+         "stage_x(slot0, 0);\n    stage_w(kch, 0);"),
+        (r"const long tile = blockIdx\.x \+ s / nch \* gridDim\.x;\n.*?"
+         r"const int xbuf = \(int\)\(s / nch % 2\);",
+         "const long tile = slot0 + s * G;\n"
+         "    const int ch = kch, wbuf = 0, xbuf = (int)(s % 2);"),
+        (r"stage_w\(ch \+ 1 < nch \? ch \+ 1 : 0, wbuf \^ 1\);\n"
+         r"      if \(ch \+ 1 == nch\) stage_x",
+         "stage_x"),
+        (r"stage_x\(tile \+ gridDim\.x, xbuf \^ 1\)",
+         "stage_x(tile + G, xbuf ^ 1)"),
+        (r"if \(ch == 0\) \{", "if (true) {"),
+        (r"if \(ch == nch - 1\) \{", "if (true) {"),
+        (r"const float bb0 = b2s\[c\], bb1 = b2s\[c \+ 1\];",
+         "const bool lc = kch + 1 == nch;\n"
+         "        const float bb0 = lc ? b2s[c] : 0.f, "
+         "bb1 = lc ? b2s[c + 1] : 0.f;"),
+        (r"float\* dst = d \+ r0 \* c_dec;\n(.*?)dst\[e\] = ",
+         "const int ld = kch + 1 < nch ? ldp : c_dec;\n"
+         "      float* dst = (kch + 1 < nch ? dxp + (long)kch * n * ldp : d)"
+         " + r0 * ld;\n\\1dst[r * ld + c] = "),
+        (r"  const long grid = std::min\(tiles, .*?  return "
+         r"cudaGetLastError\(\);\n\}", _SPLIT_LAUNCH)),
+}
+
+# section: (its first text, the text after it, kernel, launcher, variants,
+# widths); every section's dtype is its kernel's.
 SECTIONS = {
     "float32": ("constexpr int SFT_WARPS",
-                "// Which kernel probav_seg_fwd runs", "seg_fwd_tf32_kernel",
-                "launch_seg_fwd_tf32", VARIANTS),
+                "// seg_fwd, float32, on the tensor cores as 3xTF32 beyond",
+                "seg_fwd_tf32_kernel", "launch_seg_fwd_tf32", VARIANTS,
+                (C, C_MID, C_DEC)),
     "bfloat16": ("constexpr int SFB_WARPS", "// conv_fwd: an implicit GEMM",
                  "seg_fwd_bf16_kernel", "launch_seg_fwd_bf16",
-                 BF16_VARIANTS),
+                 BF16_VARIANTS, (C, C_MID, C_DEC)),
+    "wide": ("constexpr int SFW_WARPS", "// Which kernel probav_seg_fwd runs",
+             "seg_fwd_tf32_wide_kernel", "launch_seg_fwd_tf32_wide",
+             WIDE_VARIANTS, (64, 512, 51)),
 }
 
 _USING = """
 using probav::copy_rows;
+using probav::from_f;
+using probav::to_f;
 using probav::cp_async_commit;
 using probav::cp_async_wait_all;
 using probav::FragA;
@@ -124,21 +244,27 @@ using probav::split_b;
 """
 
 
-def source(names, dtype="float32") -> str:
-    """One .cu: each variant's copy of the dtype's kernel section in
-    namespace v<i>, then an extern "C" ``launch(i, ...)``."""
+def source(names, section="float32") -> str:
+    """One .cu: each variant's copy of the section's kernel in namespace
+    v<i>, then an extern "C" ``launch(i, ...)``; ``wide`` also with
+    blk_bwd.cu's dx_sum_kernel and its launcher."""
     from probav_tpu_torch.ops import _build
     from probav_tpu_torch.tools.seg_bwd_variants import FAKE_MMA
-    start, end, _, launcher, table = SECTIONS[dtype]
+    start, end, _, launcher, table, _ = SECTIONS[section]
     text = (_build.SRC_DIR / "tstack.cu").read_text()
-    section = text[text.index(start):text.index(end)]
+    body0 = text[text.index(start):text.index(end)]
     parts = [f'#include "{_build.SRC_DIR / "common.cuh"}"',
              "#include <algorithm>", "namespace {", _USING, FAKE_MMA]
+    if section == "wide":
+        bwd = (_build.SRC_DIR / "blk_bwd.cu").read_text()
+        parts.append(bwd[bwd.index("// dx = T(sum over the chunks of dxp + "
+                                   "gy)"):
+                         bwd.index("cudaError_t launch_seg_bwd_split(")])
     cases = []
     for i, name in enumerate(names):
-        body = section
+        body = body0
         for pattern, new in table[name]:
-            body, hits = re.subn(pattern, new, body)
+            body, hits = re.subn(pattern, new, body, flags=re.S)
             if not hits:
                 raise ValueError(f"variant {name}: {pattern!r} not in the "
                                  "kernel")
@@ -154,15 +280,17 @@ def source(names, dtype="float32") -> str:
     return "\n".join(parts)
 
 
-def inputs(torch, dev, dtype):
-    """(x, w1, b1, w2, b2, reference d, error of d against it): float32
-    random-normal against float64, bf16 dyadic against the plain twin."""
-    if dtype == "float32":
+def inputs(torch, dev, section):
+    """(x, w1, b1, w2, b2, error of d against its reference) at the
+    section's widths: float32 random-normal against float64, bf16 dyadic
+    against the plain twin."""
+    c, c_mid, c_dec = SECTIONS[section][5]
+    if section != "bfloat16":
         g = torch.Generator(device=dev).manual_seed(12)
         rn = lambda *s, sc=1.0: torch.randn(s, generator=g, device=dev) * sc
-        x = rn(N, C)
-        w1, b1 = rn(C, C_MID, sc=C ** -0.5), rn(C_MID, sc=0.1)
-        w2, b2 = rn(C_MID, C_DEC, sc=C_MID ** -0.5), rn(C_DEC, sc=0.1)
+        x = rn(N, c)
+        w1, b1 = rn(c, c_mid, sc=c ** -0.5), rn(c_mid, sc=0.1)
+        w2, b2 = rn(c_mid, c_dec, sc=c_mid ** -0.5), rn(c_dec, sc=0.1)
         ref = (torch.relu(x.double() @ w1.double() + b1.double()) @
                w2.double() + b2.double())
         err = lambda d: dict(rel_err_f64=float(
@@ -183,12 +311,14 @@ def inputs(torch, dev, dtype):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--dtype", choices=tuple(SECTIONS), default="float32")
+    ap.add_argument("--section", choices=tuple(SECTIONS),
+                    default="float32")
     ap.add_argument("--variants")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out")
     opt = ap.parse_args(argv)
-    table = SECTIONS[opt.dtype][4]
+    table = SECTIONS[opt.section][4]
+    c, c_mid, c_dec = SECTIONS[opt.section][5]
     names = (opt.variants or ",".join(table)).split(",")
     if not set(names) <= set(table):
         raise SystemExit(f"--variants: a comma list of {', '.join(table)}")
@@ -206,22 +336,22 @@ def main(argv=None):
         timeout=60).stdout.strip().splitlines()[0]
     P, I = ctypes.c_void_p, ctypes.c_int
     lib, regs, spills = compile_variants(
-        source(names, opt.dtype), SECTIONS[opt.dtype][2], names,
+        source(names, opt.section), SECTIONS[opt.section][2], names,
         [I] + [P] * 6 + [I] * 4 + [P])
     dev = torch.device("cuda")
-    x, w1, b1, w2, b2, err = inputs(torch, dev, opt.dtype)
-    d = torch.empty(N, C_DEC, device=dev, dtype=x.dtype)
+    x, w1, b1, w2, b2, err = inputs(torch, dev, opt.section)
+    d = torch.empty(N, c_dec, device=dev, dtype=x.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def call(i):
         e = lib.launch(i, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                       w2.data_ptr(), b2.data_ptr(), d.data_ptr(), N, C,
-                       C_MID, C_DEC, stream)
+                       w2.data_ptr(), b2.data_ptr(), d.data_ptr(), N, c,
+                       c_mid, c_dec, stream)
         if e:
             raise RuntimeError(f"variant {names[i]}: CUDA error {e}")
 
-    result = dict(card=card, dtype=opt.dtype, n=N, widths=[C, C_MID, C_DEC],
-                  variants={})
+    result = dict(card=card, section=opt.section, n=N,
+                  widths=[c, c_mid, c_dec], variants={})
     for i, name in enumerate(names):
         d.fill_(float("nan"))
         call(i)

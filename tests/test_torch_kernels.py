@@ -325,15 +325,20 @@ def test_f32_conv_fwd_on_card_takes_views_at_any_alignment(cuda):
                          ids=["n557568", "n1", "n127", "n129", "n1000"])
 @pytest.mark.parametrize("c,cmid,cdec,route", [
     (32, 256, 25, "seg_fwd_tf32_kernel"), (7, 100, 12, "seg_fwd_tf32_kernel"),
-    (32, 257, 25, "seg_fwd_kernel"), (48, 384, 38, "seg_fwd_kernel")],
-    ids=["flagship", "c7", "cmid257", "c48"])
+    (32, 257, 25, "seg_fwd_tf32_wide_kernel"),
+    (48, 384, 38, "seg_fwd_tf32_wide_kernel"),
+    (64, 512, 51, "seg_fwd_tf32_wide_kernel"),
+    (65, 512, 51, "seg_fwd_kernel"), (64, 520, 51, "seg_fwd_kernel")],
+    ids=["flagship", "c7", "cmid257", "c48", "c64", "c65", "cmid520"])
 def test_f32_seg_fwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
                                                 route):
     """float32 seg_fwd within the tensor cores' widths (C, C_dec <= 32,
-    C_mid <= 256) takes the 3xTF32 kernel, C_mid 257 and 48 channels the
-    CUDA-core one: all within 2e-5 of max|ref| of plain, at the flagship's
-    N, one row, rows either side of a 128-row tile and a ragged count;
-    each call counted once, and two calls bit for bit equal."""
+    C_mid <= 256) takes the 3xTF32 kernel, C_mid 257 and 48 and 64
+    channels (up to C, C_dec <= 64 and C_mid <= 512) the 3xTF32 kernel
+    with C_mid in chunks, 65 channels and C_mid 520 the CUDA-core one: all
+    within 2e-5 of max|ref| of plain, at the flagship's N, one row, rows
+    either side of a 128-row tile and a ragged count; each call counted
+    once, and two calls bit for bit equal."""
     assert ts.seg_fwd_route(torch.float32, c, cmid, cdec).startswith(route)
     w1, b1, w2, b2, _, _ = params(c, cmid, cdec, seed=n % 7, device=cuda)
     x = torch.from_numpy(np.random.default_rng(n).normal(
@@ -384,23 +389,30 @@ def test_bf16_seg_fwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
 def test_seg_fwd_routes_on_card(cuda):
     """Up to 32/256/32 bf16 takes seg_fwd_bf16_kernel and float32 the
     3xTF32 kernel; beyond any of those widths bf16 takes
-    seg_fwd_mma_kernel and float32 the CUDA-core kernel."""
+    seg_fwd_mma_kernel and float32, up to 64/512/64, the 3xTF32 kernel
+    with C_mid in chunks, beyond that the CUDA-core kernel."""
     for widths in ((32, 256, 25), (1, 1, 1), (32, 256, 32), (33, 256, 25),
-                   (32, 257, 25), (32, 256, 33), (128, 1024, 102)):
+                   (32, 257, 25), (32, 256, 33), (64, 512, 64),
+                   (65, 512, 51), (64, 513, 51), (64, 512, 65),
+                   (128, 1024, 102)):
         tc = widths[0] <= 32 and widths[1] <= 256 and widths[2] <= 32
+        wide = widths[0] <= 64 and widths[1] <= 512 and widths[2] <= 64
         assert ts.seg_fwd_route(torch.bfloat16, *widths) == \
             ts.SEG_FWD_ROUTES[3 if tc else 1], widths
         assert ts.seg_fwd_route(torch.float32, *widths) == \
-            ts.SEG_FWD_ROUTES[2 if tc else 0], widths
+            ts.SEG_FWD_ROUTES[2 if tc else 4 if wide else 0], widths
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,offset", [(32, 1), (32, 4), (7, 3), (25, 2)],
-                         ids=["c32_off1", "c32_off4", "c7_off3", "c25_off2"])
+@pytest.mark.parametrize("c,offset", [(32, 1), (32, 4), (7, 3), (25, 2),
+                                      (64, 1), (64, 4), (37, 3)],
+                         ids=["c32_off1", "c32_off4", "c7_off3", "c25_off2",
+                              "c64_off1", "c64_off4", "c37_off3"])
 def test_f32_seg_fwd_on_card_takes_views_at_any_alignment(cuda, c, offset):
     """x as a contiguous view `offset` floats into a larger buffer: off
     the 16-byte grid (4-byte copies) or on it (16-byte copies where C is a
-    multiple of 4), at 1,000 rows."""
+    multiple of 4), at 1,000 rows; at C = 37 and 64 on the kernel that
+    stages C_mid in chunks."""
     n = 1000
     w1, b1, w2, b2, _, _ = params(c, 256, 25, device=cuda)
     x = torch.randn(n * c + offset, device=cuda)[offset:].view(n, c)

@@ -180,6 +180,10 @@ def test_hand_kernel_files_each_name():
                           ARGS) == ("blk_bwd", "seg_bwd")
     assert rf.hand_kernel(NS + "wide_bwd_bf16_kernel" + ARGS) == \
         ("wide_bwd", "wide")
+    for name in ("seg_fwd_kernel<64, 64>", "seg_fwd_tf32_wide_kernel<8, 7>",
+                 "seg_fwd_tf32_wide_kernel<6, 5>"):
+        assert rf.hand_kernel(NS + name + ARGS) == ("seg_fwd", None), name
+        assert not rf.is_tail(NS + name + ARGS)
     assert rf.hand_kernel("void at::native::reduce_kernel<512, 1, "
                           "at::native::ReduceOp<float>>(float*)") is None
     assert rf.hand_kernel("sm90_xmma_dgrad_implicit_gemm_bf16") is None
