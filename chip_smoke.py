@@ -26,9 +26,11 @@ Phases, each printing its result:
    seg_fwd_tf32_wide_kernel (C_mid in chunks), which 64/512/51 and the
    width phase's 48/384/38 must take, and the CUDA-core seg_fwd_kernel,
    which its 72/576/57 and 128/1024/102 must take; at bf16
-   seg_fwd_bf16_kernel, which the flagship must take, and
-   seg_fwd_mma_kernel, which 64/512/51 and the width phase's widths must
-   take; the bound is the same whatever the route, the CUDA cores'
+   seg_fwd_bf16_kernel, which the flagship must take,
+   seg_fwd_bf16_wide_kernel (the weights staged once a block), which
+   64/512/51 and the width phase's 48/384/38 must take, and
+   seg_fwd_mma_kernel, which its 72/576/57 and 128/1024/102 must take;
+   the bound is the same whatever the route, the CUDA cores'
    figure logged beside it); blk_bwd and wide_bwd are fed dyadic inputs (blk_bwd's log names the seg_bwd and the wgrad
    kernel its C entry routes each width to: the tensor-core seg_bwd at the
    flagship, seg_bwd_bf16_kernel at bf16 and the 3xTF32
@@ -65,7 +67,9 @@ Phases, each printing its result:
    72/576/57, 128/1024/102) on 16 patches of 22x22x9, float32 (TF32 off)
    and bf16, against their plain versions with the kernel phase's
    tolerances (conv_fwd at 128/1024/102 also at T = 19; seg_fwd's route
-   and blk_bwd's seg_bwd and wgrad routes named and checked), with
+   and blk_bwd's seg_bwd and wgrad routes named and checked: seg_fwd at
+   48/384/38 on the wide tensor-core kernels of both dtypes, at 72 and
+   128 filters on seg_fwd_mma_kernel and seg_fwd_kernel), with
    single-call times of kernel, plain version and F.conv3d; one float32
    train step of a 12-block 128-filter "t" model against its "off" twin
    at batch 32
@@ -400,16 +404,16 @@ def seg_fwd_route(dn, c, cmid, cdec):
 
 
 def wide_seg_route(dn, c, cmid, cdec):
-    """Beyond 32/256/32 bf16 seg_fwd keeps seg_fwd_mma_kernel (the
-    route of seg_fwd_bf16_kernel ends there), and float32 takes
-    seg_fwd_tf32_wide_kernel up to 64/512/64, seg_fwd_kernel beyond;
-    raises otherwise."""
+    """Beyond 32/256/32 (where seg_fwd_bf16_kernel's route ends), up to
+    64/512/64 bf16 seg_fwd takes seg_fwd_bf16_wide_kernel and float32
+    seg_fwd_tf32_wide_kernel; beyond, bf16 seg_fwd_mma_kernel and float32
+    seg_fwd_kernel; raises otherwise."""
     from probav_tpu_torch.ops import tstack as ts
+    wide = c <= 64 and cmid <= 512 and cdec <= 64
     if dn == "bfloat16":
-        want = ts.SEG_FWD_ROUTES[1]
+        want = ts.SEG_FWD_ROUTES[5 if wide else 1]
     else:
-        want = ts.SEG_FWD_ROUTES[
-            4 if c <= 64 and cmid <= 512 and cdec <= 64 else 0]
+        want = ts.SEG_FWD_ROUTES[4 if wide else 0]
     route = seg_fwd_route(dn, c, cmid, cdec)
     if route != want:
         raise AssertionError(f"seg_fwd {dn} {c}/{cmid}/{cdec} route "

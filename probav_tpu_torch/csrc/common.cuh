@@ -189,6 +189,27 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(smem_addr(p)));
 }
 
+// dst[j] = buf[skew + j] for j < cnt, by the lanes of one warp: skew is
+// dst's element offset in its 16-byte chunk, so buf's chunks line up with
+// dst's; whole chunks go as 16-byte stores, the span's two ends element by
+// element.
+__device__ __forceinline__ void store_span_warp(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* buf,
+                                                int skew, int cnt,
+                                                int lane) {
+  const int chunks = (skew + cnt + 7) / 8;
+  for (int i = lane; i < chunks; i += 32) {
+    const int j0 = 8 * i - skew;   // span index of the chunk's first element
+    if (j0 >= 0 && j0 + 8 <= cnt) {
+      *reinterpret_cast<uint4*>(dst + j0) =
+          *reinterpret_cast<const uint4*>(buf + 8 * i);
+    } else {
+      for (int k = 0; k < 8; ++k)
+        if (j0 + k >= 0 && j0 + k < cnt) dst[j0 + k] = buf[8 * i + k];
+    }
+  }
+}
+
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
                                           __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |

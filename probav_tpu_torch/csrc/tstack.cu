@@ -42,7 +42,9 @@
 //   Within the widths of the float32 tensor-core route it runs
 //   seg_fwd_bf16_kernel: x tiles staged by cp.async, weight fragments by
 //   ldmatrix reused over each warp's row tiles, d stored as contiguous
-//   spans; wider, seg_fwd_mma_kernel.
+//   spans.  Up to c_in, c_dec <= 64 and c_mid <= 512 (64/512/51)
+//   seg_fwd_bf16_wide_kernel does the same with all the weights staged
+//   once a block by a persistent grid; wider, seg_fwd_mma_kernel.
 //
 // Every kernel takes C and C_dec from 1 to 128 (probav::MAX_CH), in
 // 32-channel buckets of its compile-time widths (probav::by_bucket).
@@ -78,6 +80,7 @@ using probav::cp_async_wait_all;
 using probav::FragA;
 using probav::FragB;
 using probav::ldsm_x4;
+using probav::ldsm_x4_trans;
 using probav::lds32;
 using probav::mma_bf16;
 using probav::mma_term;
@@ -90,6 +93,7 @@ using probav::sm_count;
 using probav::split_a;
 using probav::split_b;
 using probav::split_tf32;
+using probav::store_span_warp;
 
 constexpr int SEG_ROWS = 256;   // rows per seg_fwd block = threads per block
 constexpr int SEG_MCH = 64;     // middle channels staged per chunk
@@ -765,19 +769,21 @@ cudaError_t launch_seg_fwd_tf32_wide(const void* x, const void* w1,
 // Which kernel probav_seg_fwd runs, from the dtype and widths alone: where
 // the tensor-core tiles cover the widths (c_in, c_dec <= 32, c_mid <= 256)
 // seg_fwd_bf16_kernel at bf16 and seg_fwd_tf32_kernel at float32; beyond,
-// seg_fwd_mma_kernel at bf16 and, at float32, seg_fwd_tf32_wide_kernel up
-// to c_in, c_dec <= 64 and c_mid <= 512, else seg_fwd_kernel (CUDA cores).
+// up to c_in, c_dec <= 64 and c_mid <= 512, seg_fwd_bf16_wide_kernel at
+// bf16 and seg_fwd_tf32_wide_kernel at float32; wider, seg_fwd_mma_kernel
+// at bf16 and seg_fwd_kernel (CUDA cores) at float32.
 enum SegFwdRoute { SEG_FWD_CUDA_CORES = 0, SEG_FWD_BF16_MMA = 1,
                    SEG_FWD_TF32_MMA = 2, SEG_FWD_BF16_LDSM = 3,
-                   SEG_FWD_TF32_WIDE = 4 };
+                   SEG_FWD_TF32_WIDE = 4, SEG_FWD_BF16_WIDE = 5 };
 
 SegFwdRoute seg_fwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   const bool tiles = c_in <= 32 && c_dec <= 32 && c_mid <= 256;
-  if (dtype == 1) return tiles ? SEG_FWD_BF16_LDSM : SEG_FWD_BF16_MMA;
-  if (tiles) return SEG_FWD_TF32_MMA;
-  return c_in <= SFW_CH && c_dec <= SFW_CH && c_mid <= SFW_MID
-             ? SEG_FWD_TF32_WIDE
-             : SEG_FWD_CUDA_CORES;
+  const bool wide = c_in <= SFW_CH && c_dec <= SFW_CH && c_mid <= SFW_MID;
+  if (dtype == 1)
+    return tiles ? SEG_FWD_BF16_LDSM
+                 : wide ? SEG_FWD_BF16_WIDE : SEG_FWD_BF16_MMA;
+  return tiles ? SEG_FWD_TF32_MMA
+               : wide ? SEG_FWD_TF32_WIDE : SEG_FWD_CUDA_CORES;
 }
 
 // ------------------------------------------------------------------------ //
@@ -1032,27 +1038,6 @@ constexpr size_t seg_fwd_bf16_smem() {
          sizeof(float) * 256;
 }
 
-// dst[j] = buf[skew + j] for j < cnt, by the lanes of one warp: skew is
-// dst's element offset in its 16-byte chunk, so buf's chunks line up with
-// dst's; whole chunks go as 16-byte stores, the span's two ends element by
-// element.
-__device__ __forceinline__ void store_span_warp(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* buf,
-                                                int skew, int cnt,
-                                                int lane) {
-  const int chunks = (skew + cnt + 7) / 8;
-  for (int i = lane; i < chunks; i += 32) {
-    const int j0 = 8 * i - skew;   // span index of the chunk's first element
-    if (j0 >= 0 && j0 + 8 <= cnt) {
-      *reinterpret_cast<uint4*>(dst + j0) =
-          *reinterpret_cast<const uint4*>(buf + 8 * i);
-    } else {
-      for (int k = 0; k < 8; ++k)
-        if (j0 + k >= 0 && j0 + k < cnt) dst[j0 + k] = buf[8 * i + k];
-    }
-  }
-}
-
 __global__ void __launch_bounds__(SFB_WARPS * 32, SFB_MINB)
 seg_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ w1,
@@ -1262,6 +1247,360 @@ cudaError_t launch_seg_fwd_bf16(const void* x, const void* w1, const void* b1,
       static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
       static_cast<__nv_bfloat16*>(d), n, c_in, c_mid, c_dec);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------ //
+// seg_fwd, bf16, designed for Hopper past the flagship's widths:           //
+// seg_fwd_bf16_wide_kernel, for c_in, c_dec <= 64 and c_mid <= 512 where   //
+// seg_fwd_bf16_kernel's tiles end (seg_fwd_route; the 64-filter model's    //
+// 64/512/51, and 48/384/38).  It replaces the TPU kernel                   //
+// pallas_tstack.py:244 seg_fwd at bf16 there, with seg_fwd_bf16_kernel's   //
+// rounding points: z = x W1 + b1 summed in float32, h = relu(z) rounded    //
+// to bf16, d = bf16(h W2 + b2) summed in float32.                          //
+// ------------------------------------------------------------------------ //
+//
+// seg_fwd_bf16_kernel scaled up; the bf16 weights fit shared memory at
+// these widths, so unlike seg_fwd_tf32_wide_kernel nothing is restaged:
+//
+// - Tiles: a persistent grid (one block an SM, the occupancy API's count
+//   times the SMs, at most the tile count) walks tiles of SFBW_ROWS = 256
+//   rows; warp w of 8 owns rows 32 w .. 32 w + 31 of each, SFBW_MT = 2 row
+//   tiles of 16.  x tiles are double-buffered as [row][72] bf16 (144-byte
+//   rows, 16 mod 128: the 8 rows of an ldmatrix fall in distinct banks);
+//   the next tile's rows arrive by 16-byte cp.async (where c_in % 8 == 0
+//   and x is 16-byte aligned, else plain copies) while this one computes,
+//   one barrier a tile guarding both buffers.  Every copy writes the 16 KS
+//   columns the fragments read, zeros from c_in on and past n: a tile's
+//   buffer also stages its d (below), so no column keeps zeros by itself.
+// - Weights staged once a block into two zeroed [64][520] planes
+//   (1,040-byte rows, 16 mod 128): W1 as it lies in memory, [k][j], by
+//   16-byte cp.async (element copies where c_mid % 8 != 0 or w1 is not
+//   16-byte aligned), and W2 transposed to [c][j] from 16-byte loads of
+//   the flat array (element loads where it is not aligned); b1, b2 in
+//   float32.  ldmatrix.x4.trans of W1 [k][j] gives the expand's B
+//   fragments, plain ldmatrix.x4 of W2 [c][j] the decay's.  (W1
+//   transposed to [j][k] as well, the flagship's layout, took 2-byte
+//   stores with 32-way bank conflicts: the weights' staging then cost
+//   ~0.025 of 0.216 ms on an H100, tools/seg_fwd_variants.py.)
+// - A step is 16 middle channels: KS ldmatrix.x4 of W1 (16 middle
+//   channels x 16 KS inputs) and NP = ceil(NT / 2) of W2 (16 NP outputs x
+//   16 middle channels), each used for both row tiles, whose x A
+//   fragments are loaded once a tile; 2 KS + NT mma a row tile.  z = x W1
+//   starts from b1 in the mma's sums; relu and the rounding to bf16 are
+//   one cvt.rn.relu.bf16x2.f32 a pair, and the two 8-column C tiles of z
+//   are the decay's A fragment (C columns 2q, 2q+1 are A columns 2q,
+//   2q+1), so h never leaves registers.  Steps go in pairs through two
+//   fragment sets, each step's loaded during the step before; steps past
+//   c_mid are not run (uniform over the block), and padded middle channels
+//   give z = h = 0.
+// - Epilogue: + b2, rounded to bf16, staged in the warp's own rows of the
+//   x tile it has read (its A fragments are in registers) as the
+//   contiguous span of its rows' c_dec columns at d's 16-byte skew, then
+//   stored by the warp as 16-byte pieces (element by element at the
+//   span's two ends); nothing past n.  The next barrier orders the span's
+//   reads before the buffer's next copy.
+//
+// - Shared memory: 2 x 66,560 (W1, W2) + 2 x 36,864 (x tiles) + 2,304
+//   (b1, b2) = 209,152 B, one block an SM; separate span buffers (32,896
+//   B more) would not fit.  Instantiated as
+//   <KS, NT> = <3, 5> (c_in <= 48, c_dec <= 40: 48/384/38), <4, 7> (c_dec
+//   <= 56: 64/512/51), <4, 8>.
+//
+// What bounds it on an H100 at 64/512/51 (N = 557,568): 2 N c_mid (c_in +
+// c_dec) = 65.66 GFLOP, 0.0664 ms at the 989 TFLOP/s bf16 peak, against
+// 128 MB of x and d (0.038 ms): operations.  mma.sync issues near half that
+// peak, and C_dec padded to 56 issues 1.04x the products.
+
+constexpr int SFBW_WARPS = 8;                        // warps per block
+constexpr int SFBW_MT = 2;                           // 16-row tiles per warp
+constexpr int SFBW_MINB = 1;                         // blocks per SM
+constexpr int SFBW_ROWS = 16 * SFBW_MT * SFBW_WARPS; // rows per tile
+constexpr int SFBW_CH = 64;                          // c_in, c_dec it takes
+constexpr int SFBW_MID = 512;                        // c_mid it takes
+constexpr int SFBW_XS = SFBW_CH + 8;                 // x tile row stride
+constexpr int SFBW_WS = SFBW_MID + 8;                // W1 [k][j], W2 [c][j]
+
+constexpr size_t seg_fwd_bf16_wide_smem() {
+  return sizeof(__nv_bfloat16) *
+             ((size_t)2 * SFBW_CH * SFBW_WS + 2 * SFBW_ROWS * SFBW_XS) +
+         sizeof(float) * (SFBW_MID + SFBW_CH);
+}
+
+// The flat [rows][cols] array src into the shared plane dst at [col][row]
+// (row stride `stride`), by the threads of the block: 16-byte loads, four
+// in flight, where src is 16-byte aligned, else (and for the last
+// rows * cols % 8 elements) one element at a time.
+__device__ __forceinline__ void stage_transposed(
+    __nv_bfloat16* __restrict__ dst, int stride,
+    const __nv_bfloat16* __restrict__ src, int rows, int cols) {
+  constexpr int U = 4;
+  const int total = rows * cols;
+  const int body = reinterpret_cast<uintptr_t>(src) % 16 == 0
+                       ? total / 8 * 8 : 0;
+  const int step = 8 * blockDim.x;
+  for (int e0 = 8 * threadIdx.x; e0 < body; e0 += U * step) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (e0 + u * step < body)
+        v[u] = *reinterpret_cast<const uint4*>(src + e0 + u * step);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * step;
+      if (e >= body) break;
+      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&v[u]);
+      int r = e / cols, c = e % cols;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        dst[c * stride + r] = ve[k];
+        if (++c == cols) c = 0, ++r;
+      }
+    }
+  }
+  for (int e = body + threadIdx.x; e < total; e += blockDim.x)
+    dst[(e % cols) * stride + e / cols] = src[e];
+}
+
+template <int KS, int NT>
+__global__ void __launch_bounds__(SFBW_WARPS * 32, SFBW_MINB)
+seg_fwd_bf16_wide_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ w1,
+                         const float* __restrict__ b1,
+                         const __nv_bfloat16* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         __nv_bfloat16* __restrict__ d, int n, int c_in,
+                         int c_mid, int c_dec) {
+  using E = __nv_bfloat16;
+  constexpr int NTH = SFBW_WARPS * 32, MT = SFBW_MT, ROWS = SFBW_ROWS;
+  constexpr int XS = SFBW_XS, WS = SFBW_WS, K = 16 * KS;
+  constexpr int NP = (NT + 1) / 2;      // ldmatrix.x4 of W2 a step
+  constexpr int NF = KS + NP;           // a step's ldmatrix.x4
+  static_assert(K <= SFBW_CH && 16 * NP <= SFBW_CH, "widths");
+  static_assert(16 * MT * XS >= 7 + 16 * MT * SFBW_CH, "a warp's d span");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* w1s = reinterpret_cast<E*>(smem_raw);   // [CH][WS]  w1[k][j] as it is
+  E* w2s = w1s + SFBW_CH * WS;               // [CH][WS]  w2[j][c] at [c][j]
+  E* xb = w2s + SFBW_CH * WS;                // [2][ROWS][XS]  x tiles, d
+  float* b1s = reinterpret_cast<float*>(xb + 2 * ROWS * XS);   // [MID]
+  float* b2s = b1s + SFBW_MID;                                 // [CH]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const E zero = __float2bfloat16_rn(0.f);
+
+  const bool xvec = c_in % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long tiles = ((long)n + ROWS - 1) / ROWS;
+  // Columns 0 .. K - 1 of the rows of tile t into buffer `buf`, zeros from
+  // c_in on and past n: 16-byte cp.async where `xvec`, else plain copies.
+  auto stage = [&](long t, int buf) {
+    const E* src = x + t * ROWS * c_in;
+    const int nr = (int)min((long)ROWS, (long)n - t * ROWS);
+    E* dst = xb + buf * ROWS * XS;
+    if (xvec) {
+      constexpr int C8 = K / 8;
+      for (int e = tid; e < ROWS * C8; e += NTH) {
+        const int r = e / C8, c = 8 * (e % C8);
+        const bool in = r < nr && c < c_in;
+        probav::cp_async16_zfill(dst + r * XS + c,
+                                 in ? src + r * c_in + c : src, in);
+      }
+      cp_async_commit();
+    } else {
+      for (int e = tid; e < ROWS * K; e += NTH) {
+        const int r = e / K, c = e % K;
+        dst[r * XS + c] = (r < nr && c < c_in) ? src[r * c_in + c] : zero;
+      }
+    }
+  };
+
+  // The first tile's rows are on their way while the weights are staged.
+  if (blockIdx.x < tiles) stage(blockIdx.x, 0);
+  {
+    uint4* p = reinterpret_cast<uint4*>(w1s);
+    for (int e = tid; e < 2 * SFBW_CH * WS / 8; e += NTH)
+      p[e] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int j = tid; j < SFBW_MID; j += NTH) b1s[j] = j < c_mid ? b1[j] : 0.f;
+  if (tid < SFBW_CH) b2s[tid] = tid < c_dec ? b2[tid] : 0.f;
+  __syncthreads();                            // the planes' zeros first
+  // W1's rows as they lie in memory: 16-byte cp.async where c_mid % 8 == 0
+  // and w1 is 16-byte aligned, else element copies.
+  if (c_mid % 8 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0) {
+    const int c8 = c_mid / 8;
+    for (int e = tid; e < c_in * c8; e += NTH) {
+      const int k = e / c8, j = 8 * (e % c8);
+      probav::cp_async16_zfill(w1s + k * WS + j, w1 + k * c_mid + j, true);
+    }
+    cp_async_commit();
+  } else {
+    for (int e = tid; e < c_in * c_mid; e += NTH)
+      w1s[e / c_mid * WS + e % c_mid] = w1[e];
+  }
+  stage_transposed(w2s, WS, w2, c_mid, c_dec);
+
+  // This lane's ldmatrix rows: x's A tiles (rows lane % 16, 16 bytes of
+  // columns from lane / 16 on); W1's B tiles by .trans, load i of a step
+  // reading matrix m = 4 i + lane / 8 (input 8 (m % 2KS) + lane % 8,
+  // middle channels from 8 (m / 2KS) on); W2's (output 8 (lane / 16) +
+  // lane % 8, middle channels from 8 ((lane / 8) % 2) on).
+  const int xoff = (lane % 8 + 8 * ((lane / 8) % 2)) * XS + 8 * (lane / 16);
+  int w1off[KS];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    const int m = 4 * i + lane / 8;
+    w1off[i] = (8 * (m % (2 * KS)) + lane % 8) * WS + 8 * (m / (2 * KS));
+  }
+  const int w2off = (8 * (lane / 16) + lane % 8) * WS + 8 * ((lane / 8) % 2);
+  const int steps = (c_mid + 15) / 16;
+  const int rw = warp * 16 * MT;              // this warp's rows of a tile
+
+  // Step s's fragments: f[i] = W1's load i, whose register r is matrix
+  // m = 4 i + r, the B of middle channels 16 s + 8 t .. + 7 at inputs
+  // 8 k8 .. + 7 (t = m / 2KS, k8 = m % 2KS); f[KS + p] = W2's of outputs
+  // 16 p .. 16 p + 15 (registers: outputs 16 p .. + 7 at middle channels
+  // 16 s .. + 7 and + 8 .. + 15, then outputs 16 p + 8 ..).
+  auto load = [&](uint32_t (&f)[NF][4], int s) {
+#pragma unroll
+    for (int i = 0; i < KS; ++i)
+      ldsm_x4_trans(f[i], w1s + 16 * s + w1off[i]);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      ldsm_x4(f[KS + p], w2s + 16 * p * WS + 16 * s + w2off);
+  };
+
+  int buf = 0;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    cp_async_wait_all();
+    // This tile's rows have landed, every warp is done with the other
+    // buffer (its x and its d spans), and (the first time) the weights
+    // are staged.
+    __syncthreads();
+    if (tile + gridDim.x < tiles) stage(tile + gridDim.x, buf ^ 1);
+    E* xt = xb + (buf * ROWS + rw) * XS;
+
+    uint32_t ax[MT][KS][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(ax[m][ks], xt + m * 16 * XS + 16 * ks + xoff);
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int ct = 0; ct < NT; ++ct)
+        acc[m][ct][0] = acc[m][ct][1] = acc[m][ct][2] = acc[m][ct][3] = 0.f;
+
+    auto step = [&](const uint32_t (&f)[NF][4], int s) {
+      const float2 bb0 = *reinterpret_cast<const float2*>(b1s + 16 * s +
+                                                           2 * q);
+      const float2 bb1 = *reinterpret_cast<const float2*>(b1s + 16 * s + 8 +
+                                                           2 * q);
+      float z[MT][2][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        z[m][0][0] = z[m][0][2] = bb0.x, z[m][0][1] = z[m][0][3] = bb0.y;
+        z[m][1][0] = z[m][1][2] = bb1.x, z[m][1][1] = z[m][1][3] = bb1.y;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+            mma_bf16(z[m][t], ax[m][ks], f[(KS * t + ks) / 2]
+                                              [2 * ((KS * t + ks) % 2)],
+                     f[(KS * t + ks) / 2][2 * ((KS * t + ks) % 2) + 1]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        // relu, rounded to bf16 before the decay (pallas_tstack.py:237-238).
+        const uint32_t ah[4] = {relu_bf16x2(z[m][0][0], z[m][0][1]),
+                                relu_bf16x2(z[m][0][2], z[m][0][3]),
+                                relu_bf16x2(z[m][1][0], z[m][1][1]),
+                                relu_bf16x2(z[m][1][2], z[m][1][3])};
+#pragma unroll
+        for (int ct = 0; ct < NT; ++ct)
+          mma_bf16(acc[m][ct], ah, f[KS + ct / 2][2 * (ct % 2)],
+                   f[KS + ct / 2][2 * (ct % 2) + 1]);
+      }
+    };
+
+    uint32_t fa[NF][4], fb[NF][4];
+    load(fa, 0);
+#pragma unroll 1
+    for (int s = 0; s < steps; s += 2) {      // uniform over the block
+      if (s + 1 < steps) load(fb, s + 1);
+      step(fa, s);
+      if (s + 1 >= steps) break;
+      if (s + 2 < steps) load(fa, s + 2);
+      step(fb, s + 1);
+    }
+
+    // d = acc + b2, rounded, staged as the span of this warp's rows (rows
+    // r0 .. r0 + 16 MT - 1 are contiguous in d) in its rows of the x tile,
+    // then stored.
+    const long r0 = tile * ROWS + rw;
+    const int nr = (int)max(0L, min((long)(16 * MT), (long)n - r0));
+    E* dst = d + r0 * c_dec;
+    const int skew = (int)((reinterpret_cast<uintptr_t>(dst) & 15) /
+                           sizeof(E));
+    __syncwarp();                             // every lane's x read
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int ct = 0; ct < NT; ++ct)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 16 * m + g + 8 * (i / 2), c = 8 * ct + 2 * q + i % 2;
+          if (c < c_dec)
+            xt[skew + r * c_dec + c] =
+                __float2bfloat16_rn(acc[m][ct][i] + b2s[c]);
+        }
+    __syncwarp();
+    store_span_warp(dst, xt, skew, nr * c_dec, lane);
+  }
+}
+
+template <int KS, int NT>
+cudaError_t launch_seg_fwd_bf16_wide_as(const void* x, const void* w1,
+                                        const void* b1, const void* w2,
+                                        const void* b2, void* d, int n,
+                                        int c_in, int c_mid, int c_dec,
+                                        cudaStream_t s) {
+  constexpr size_t smem = seg_fwd_bf16_wide_smem();
+  auto kern = seg_fwd_bf16_wide_kernel<KS, NT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      SFBW_WARPS * 32, smem);
+  if (err != cudaSuccess) return err;
+  const long tiles = ((long)n + SFBW_ROWS - 1) / SFBW_ROWS;
+  const long grid = std::min(tiles, (long)std::max(per_sm, 1) * sm_count());
+  kern<<<(unsigned)grid, SFBW_WARPS * 32, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
+      static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
+      static_cast<__nv_bfloat16*>(d), n, c_in, c_mid, c_dec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_seg_fwd_bf16_wide(const void* x, const void* w1,
+                                     const void* b1, const void* w2,
+                                     const void* b2, void* d, int n,
+                                     int c_in, int c_mid, int c_dec,
+                                     cudaStream_t s) {
+  if (c_in > SFBW_CH || c_dec > SFBW_CH || c_mid > SFBW_MID)
+    return cudaErrorInvalidValue;
+  if (c_in <= 48 && c_dec <= 40)
+    return launch_seg_fwd_bf16_wide_as<3, 5>(x, w1, b1, w2, b2, d, n, c_in,
+                                             c_mid, c_dec, s);
+  if (c_dec <= 56)
+    return launch_seg_fwd_bf16_wide_as<4, 7>(x, w1, b1, w2, b2, d, n, c_in,
+                                             c_mid, c_dec, s);
+  return launch_seg_fwd_bf16_wide_as<4, 8>(x, w1, b1, w2, b2, d, n, c_in,
+                                           c_mid, c_dec, s);
 }
 
 // conv_fwd: an implicit GEMM on the tensor cores, M = positions, N = 8*NT
@@ -2012,12 +2351,17 @@ cudaError_t probav::conv_dispatch(int dtype, bool residual, const void* d,
   return cudaErrorInvalidValue;
 }
 
+// seg_fwd_route sends both dtypes to their wide kernels up to the same
+// widths.
+static_assert(SFBW_CH == SFW_CH && SFBW_MID == SFW_MID,
+              "seg_fwd_route gives both wide kernels the same widths");
+
 extern "C" {
 
 // dtype: 0 = float32 (tensor cores as 3xTF32 at c_in, c_dec <= 32 and
 // c_mid <= 256, and up to 64 and 512 in chunks of C_mid, else CUDA cores:
-// seg_fwd_route), 1 = bfloat16 (tensor
-// cores: seg_fwd_bf16_kernel within the same widths, else
+// seg_fwd_route), 1 = bfloat16 (tensor cores: seg_fwd_bf16_kernel within
+// the same widths, seg_fwd_bf16_wide_kernel up to 64 and 512, else
 // seg_fwd_mma_kernel).  x, w1, w2, d in that dtype; b1, b2 in float32.
 // c_in, c_dec any count from 1 to MAX_CH = 128; c_mid any positive count
 // (staged in chunks).
@@ -2042,6 +2386,9 @@ int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
     case SEG_FWD_TF32_WIDE:
       return (int)launch_seg_fwd_tf32_wide(x, w1, b1, w2, b2, d, n, c_in,
                                            c_mid, c_dec, s);
+    case SEG_FWD_BF16_WIDE:
+      return (int)launch_seg_fwd_bf16_wide(x, w1, b1, w2, b2, d, n, c_in,
+                                           c_mid, c_dec, s);
     default:
       return (int)dispatch_seg(x, w1, b1, w2, b2, d, n, c_in, c_mid, c_dec,
                                s);
@@ -2051,7 +2398,9 @@ int probav_seg_fwd(int dtype, const void* x, const void* w1, const void* b1,
 // The kernel probav_seg_fwd launches for these widths: 0 = seg_fwd_kernel
 // (CUDA cores), 1 = seg_fwd_mma_kernel (bf16 mma), 2 = seg_fwd_tf32_kernel
 // (float32 as 3xTF32 mma), 3 = seg_fwd_bf16_kernel (bf16 mma, ldmatrix),
-// 4 = seg_fwd_tf32_wide_kernel (float32 as 3xTF32 mma, C_mid in chunks).
+// 4 = seg_fwd_tf32_wide_kernel (float32 as 3xTF32 mma, C_mid in chunks),
+// 5 = seg_fwd_bf16_wide_kernel (bf16 mma, ldmatrix, weights staged once a
+// block).
 int probav_seg_fwd_route(int dtype, int c_in, int c_mid, int c_dec) {
   return (int)seg_fwd_route(dtype, c_in, c_mid, c_dec);
 }

@@ -176,17 +176,20 @@ SEG_FWD_ROUTES = ("seg_fwd_kernel (CUDA cores)",
                   "seg_fwd_tf32_kernel (3xTF32 mma)",
                   "seg_fwd_bf16_kernel (bf16 mma, ldmatrix)",
                   "seg_fwd_tf32_wide_kernel (3xTF32 mma, C_mid in chunks "
-                  "of 128)")
+                  "of 128)",
+                  "seg_fwd_bf16_wide_kernel (bf16 mma, ldmatrix, weights "
+                  "staged once a block)")
 
 
 def seg_fwd_route(dtype, c: int, c_mid: int, c_dec: int) -> str:
     """The kernel that ``seg_fwd`` runs for these widths on the card, as
     its C entry chooses it (from the dtype and widths alone, before any
     launch): at C, C_dec <= 32 and C_mid <= 256 ``seg_fwd_bf16_kernel`` at
-    bf16 and 3xTF32 on the tensor cores at float32; beyond, bf16 on the
-    tensor cores in ``seg_fwd_mma_kernel`` and float32 as 3xTF32 in
-    ``seg_fwd_tf32_wide_kernel`` (C_mid staged in chunks) up to C, C_dec
-    <= 64 and C_mid <= 512, on the CUDA cores past those.  Builds the
+    bf16 and 3xTF32 on the tensor cores at float32; beyond, up to C, C_dec
+    <= 64 and C_mid <= 512, ``seg_fwd_bf16_wide_kernel`` at bf16 (the
+    weights staged once a block) and 3xTF32 in ``seg_fwd_tf32_wide_kernel``
+    at float32 (C_mid staged in chunks); past those, bf16 in
+    ``seg_fwd_mma_kernel`` and float32 on the CUDA cores.  Builds the
     kernels."""
     from probav_tpu_torch.ops import _build
     code = _build.library().probav_seg_fwd_route(_DTYPE_CODE[dtype], c,

@@ -1,24 +1,26 @@
 """Variants of the tensor-core ``seg_fwd`` kernels, timed side by side on
 one card: ``seg_fwd_tf32_kernel`` (float32, 3xTF32), ``seg_fwd_bf16_kernel``
-(bf16) and ``seg_fwd_tf32_wide_kernel`` (float32 beyond the flagship's
-widths, C_mid in chunks).
+(bf16), and beyond the flagship's widths ``seg_fwd_tf32_wide_kernel``
+(float32, C_mid in chunks) and ``seg_fwd_bf16_wide_kernel`` (bf16, the
+weights staged once a block).
 
     python3 probav_tpu_torch/tools/seg_fwd_variants.py \\
-        [--section float32|bfloat16|wide] [--variants a,b] [--rounds 5] \\
-        [--out DIR]
+        [--section float32|bfloat16|wide|bf16_wide] [--variants a,b] \\
+        [--rounds 5] [--out DIR]
 
 Each variant is the kernel's section of ``csrc/tstack.cu`` (``SECTIONS``:
 from its constants to the text after its launcher) with the
 regular-expression substitutions of its table, ``VARIANTS`` (float32),
-``BF16_VARIANTS`` or ``WIDE_VARIANTS`` (``kernel`` is the section as it
-is), in a namespace of its own; all are compiled into one library by nvcc
-(``wgrad_variants.compile_variants``, with ptxas's register and spill
-report; ``wide`` with blk_bwd.cu's ``dx_sum_kernel``, which its
-``grid_split`` variant launches) and launched at the train step's rows
-(N = 557,568): ``float32`` and ``bfloat16`` at the flagship's widths
-(32/256/25), ``wide`` at the 64-filter model's (64/512/51).  float32
-runs on random-normal x and weights from a torch generator (seed 12; W1
-scaled by C^-1/2, W2 by C_mid^-1/2, biases by 0.1), its error taken
+``BF16_VARIANTS``, ``WIDE_VARIANTS`` or ``BF16_WIDE_VARIANTS`` (``kernel``
+is the section as it is), in a namespace of its own; all are compiled
+into one library by nvcc (``wgrad_variants.compile_variants``, with
+ptxas's register and spill report; ``wide`` with blk_bwd.cu's
+``dx_sum_kernel``, which its ``grid_split`` variant launches) and
+launched at the train step's rows (N = 557,568): ``float32`` and
+``bfloat16`` at the flagship's widths (32/256/25), ``wide`` and
+``bf16_wide`` at the 64-filter model's (64/512/51).  float32 runs on
+random-normal x and weights from a torch generator (seed 12; W1 scaled
+by C^-1/2, W2 by C_mid^-1/2, biases by 0.1), its error taken
 against float64 over max|ref|; bf16 on the dyadic inputs of
 ``tools/dyadic.seg_fwd_inputs`` (numpy seed 12), on which the kernel
 equals ``tstack.seg_fwd_plain`` bit for bit, its error taken against that
@@ -211,6 +213,43 @@ WIDE_VARIANTS = {
          r"cudaGetLastError\(\);\n\}", _SPLIT_LAUNCH)),
 }
 
+# bf16_wide: the same form, on seg_fwd_bf16_wide_kernel's section.
+BF16_WIDE_VARIANTS = {
+    "kernel": (),
+    # One 16-row tile a warp (each step's weight fragments serve one), at
+    # 8, 12 or 16 warps a block (16: 128 registers a thread at most).
+    "mt1": ((r"constexpr int SFBW_MT = \d+;",
+             "constexpr int SFBW_MT = 1;"),),
+    "warps12_mt1": ((r"constexpr int SFBW_MT = \d+;",
+                     "constexpr int SFBW_MT = 1;"),) + _shape(12, 1, "SFBW"),
+    "warps16_mt1": ((r"constexpr int SFBW_MT = \d+;",
+                     "constexpr int SFBW_MT = 1;"),) + _shape(16, 1, "SFBW"),
+    # The pairs of steps unrolled 2 deep, not rolled.
+    "unroll2": ((r"#pragma unroll 1(\s+for \(int s = 0)",
+                 r"#pragma unroll 2\1"),),
+    # Phases removed: every mma (its operands still loaded and kept live),
+    # the d stores (the span still staged), x's 16-byte cp.async (plain
+    # copies instead), the weights' staging (the planes still zeroed),
+    # every tile (the block's set-up alone).
+    "no_mma": ((r"\bmma_bf16\(", "fake_mma("),),
+    "no_store": ((r"store_span_warp\(dst, xt, skew, nr \* c_dec, lane\);",
+                  "(void)dst;"),),
+    "sync_x": ((r"const bool xvec = c_in % 8 == 0 &&",
+                "const bool xvec = false &&"),),
+    "no_stage_w": ((r"  // W1's rows as they lie in memory.*?c_dec\);\n",
+                    ""),),
+    "no_tiles": ((r"for \(long tile = blockIdx.x; tile < tiles;",
+                  "for (long tile = tiles; tile < tiles;"),),
+}
+
+# Substitutions applied to every variant of a section: bf16_wide keeps the
+# one instantiation that its widths launch, <KS, NT> = <4, 7>, so that
+# ptxas's report names its registers.
+_ONLY = {"bf16_wide": (
+    (r"  if \(c_in <= 48 && c_dec <= 40\)\n.*?(  if \(c_dec <= 56\))", r"\1"),
+    (r"return launch_seg_fwd_bf16_wide_as<4, 8>\(.*?\);",
+     "return cudaErrorInvalidValue;"))}
+
 # section: (its first text, the text after it, kernel, launcher, variants,
 # widths); every section's dtype is its kernel's.
 SECTIONS = {
@@ -218,12 +257,16 @@ SECTIONS = {
                 "// seg_fwd, float32, on the tensor cores as 3xTF32 beyond",
                 "seg_fwd_tf32_kernel", "launch_seg_fwd_tf32", VARIANTS,
                 (C, C_MID, C_DEC)),
-    "bfloat16": ("constexpr int SFB_WARPS", "// conv_fwd: an implicit GEMM",
+    "bfloat16": ("constexpr int SFB_WARPS",
+                 "// seg_fwd, bf16, designed for Hopper past the flagship",
                  "seg_fwd_bf16_kernel", "launch_seg_fwd_bf16",
                  BF16_VARIANTS, (C, C_MID, C_DEC)),
     "wide": ("constexpr int SFW_WARPS", "// Which kernel probav_seg_fwd runs",
              "seg_fwd_tf32_wide_kernel", "launch_seg_fwd_tf32_wide",
              WIDE_VARIANTS, (64, 512, 51)),
+    "bf16_wide": ("constexpr int SFBW_WARPS", "// conv_fwd: an implicit GEMM",
+                  "seg_fwd_bf16_wide_kernel", "launch_seg_fwd_bf16_wide",
+                  BF16_WIDE_VARIANTS, (64, 512, 51)),
 }
 
 _USING = """
@@ -235,19 +278,22 @@ using probav::cp_async_wait_all;
 using probav::FragA;
 using probav::FragB;
 using probav::ldsm_x4;
+using probav::ldsm_x4_trans;
 using probav::mma_bf16;
 using probav::mma_term;
 using probav::relu_bf16x2;
 using probav::sm_count;
 using probav::split_a;
+using probav::store_span_warp;
 using probav::split_b;
 """
 
 
 def source(names, section="float32") -> str:
     """One .cu: each variant's copy of the section's kernel in namespace
-    v<i>, then an extern "C" ``launch(i, ...)``; ``wide`` also with
-    blk_bwd.cu's dx_sum_kernel and its launcher."""
+    v<i> (with the section's ``_ONLY`` substitutions), then an extern "C"
+    ``launch(i, ...)``; ``wide`` also with blk_bwd.cu's dx_sum_kernel and
+    its launcher."""
     from probav_tpu_torch.ops import _build
     from probav_tpu_torch.tools.seg_bwd_variants import FAKE_MMA
     start, end, _, launcher, table, _ = SECTIONS[section]
@@ -263,7 +309,7 @@ def source(names, section="float32") -> str:
     cases = []
     for i, name in enumerate(names):
         body = body0
-        for pattern, new in table[name]:
+        for pattern, new in table[name] + _ONLY.get(section, ()):
             body, hits = re.subn(pattern, new, body, flags=re.S)
             if not hits:
                 raise ValueError(f"variant {name}: {pattern!r} not in the "
@@ -285,7 +331,7 @@ def inputs(torch, dev, section):
     section's widths: float32 random-normal against float64, bf16 dyadic
     against the plain twin."""
     c, c_mid, c_dec = SECTIONS[section][5]
-    if section != "bfloat16":
+    if section in ("float32", "wide"):
         g = torch.Generator(device=dev).manual_seed(12)
         rn = lambda *s, sc=1.0: torch.randn(s, generator=g, device=dev) * sc
         x = rn(N, c)
@@ -298,7 +344,7 @@ def inputs(torch, dev, section):
         return x, w1, b1, w2, b2, err
     from probav_tpu_torch.ops import tstack as ts
     from probav_tpu_torch.tools.dyadic import seg_fwd_inputs
-    x, w1, b1, w2, b2 = seg_fwd_inputs(N, C, C_MID, C_DEC, seed=12,
+    x, w1, b1, w2, b2 = seg_fwd_inputs(N, c, c_mid, c_dec, seed=12,
                                        device=dev, dtype=torch.bfloat16)
     b1, b2 = b1.float(), b2.float()
     ref = ts.seg_fwd_plain(x, w1, b1, w2, b2)

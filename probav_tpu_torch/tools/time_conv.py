@@ -26,7 +26,9 @@ and of each of its kernels, by the kernel names of a ``torch.profiler``
 trace of 10 calls back to back, beside its bound (``tstack_roofline.blk_bwd_part_costs``), and in
 each round the one PyTorch call that computes the dd conv and the
 dWc of the same inputs (cuDNN's conv3d dgrad and weight gradient,
-``library_calls``), 20 calls back to back.
+``library_calls``), 20 calls back to back; for conv_fwd likewise
+``F.conv3d`` of the same d, weights and bias (the conv without the
+residual, as chip_smoke times it).
 Run parent, change, change, parent in one call and compare the rounds'
 spread.  Prints one JSON line and appends it to ``<out>/time_conv.jsonl``.
 Needs a CUDA card.
@@ -151,8 +153,13 @@ def calls(ts, wb, name, dtype, dev, g):
         d, x = rn(*SHAPE, C_DEC), rn(*SHAPE, C_OUT)
         wc, bc = rn(3, 3, 3, C_DEC, C_OUT, sc=(27 * C_DEC) ** -0.5), \
             rn(C_OUT, sc=0.1)
+        dcl = d.permute(0, 4, 1, 2, 3)
+        wcl = wc.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        conv3d = lambda: torch.nn.functional.conv3d(dcl, wcl, bc, padding=1)
         return (lambda: ts.conv_fwd(d, x, wc, bc),
-                lambda: ts.conv_fwd_plain(d, x, wc, bc), TOL[dn], {})
+                lambda: ts.conv_fwd_plain(d, x, wc, bc), TOL[dn],
+                {"conv3d": conv3d})
     if name == "seg_fwd":
         x = rn(SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3], C_OUT)
         w = (rn(C_OUT, C_MID, sc=C_OUT ** -0.5), rn(C_MID, sc=0.1),
@@ -220,8 +227,9 @@ def main(argv=None):
                     raise SystemExit(f"{name} {dn} output {i}: max|diff| "
                                      f"{err:.3e} > {lim:.3e}")
                 errs.append(err)
-            if lib:   # the library's dWc is the plain version's (the
-                # weight grad in the working dtype: bf16 rounds it)
+            if "wgrad" in lib:   # the library's dWc is the plain
+                # version's (the weight grad in the working dtype: bf16
+                # rounds it)
                 ref_w = ref[1].permute(4, 3, 0, 1, 2)
                 err = float((lib["wgrad"]().float() - ref_w).abs().max())
                 if not err <= 1e-2 * float(ref_w.abs().max()):

@@ -282,6 +282,7 @@ _PARTS = {"seg_fwd_kernel": ("seg_fwd", None),
           "seg_fwd_tf32_kernel": ("seg_fwd", None),
           "seg_fwd_bf16_kernel": ("seg_fwd", None),
           "seg_fwd_tf32_wide_kernel": ("seg_fwd", None),
+          "seg_fwd_bf16_wide_kernel": ("seg_fwd", None),
           "wgrad_kernel": ("blk_bwd", "wgrad"),
           "wgrad_ring_kernel": ("blk_bwd", "wgrad"),
           "wgrad_tf32_kernel": ("blk_bwd", "wgrad"),

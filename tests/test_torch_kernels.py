@@ -358,16 +358,25 @@ def test_f32_seg_fwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
                          ids=["n557568", "n1", "n127", "n129", "n1000"])
 @pytest.mark.parametrize("c,cmid,cdec,route", [
     (32, 256, 25, "seg_fwd_bf16_kernel"), (7, 100, 12, "seg_fwd_bf16_kernel"),
-    (32, 256, 32, "seg_fwd_bf16_kernel"), (32, 257, 25, "seg_fwd_mma_kernel"),
-    (48, 384, 38, "seg_fwd_mma_kernel")],
-    ids=["flagship", "c7", "cdec32", "cmid257", "c48"])
+    (32, 256, 32, "seg_fwd_bf16_kernel"),
+    (32, 257, 25, "seg_fwd_bf16_wide_kernel"),
+    (48, 384, 38, "seg_fwd_bf16_wide_kernel"),
+    (64, 512, 51, "seg_fwd_bf16_wide_kernel"),
+    (37, 300, 45, "seg_fwd_bf16_wide_kernel"),
+    (33, 100, 57, "seg_fwd_bf16_wide_kernel"),
+    (65, 512, 51, "seg_fwd_mma_kernel"), (64, 520, 51, "seg_fwd_mma_kernel")],
+    ids=["flagship", "c7", "cdec32", "cmid257", "c48", "c64", "c37", "cdec57",
+         "c65", "cmid520"])
 def test_bf16_seg_fwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
                                                  route):
     """bf16 seg_fwd within the tensor-core tiles' widths (C, C_dec <= 32,
     C_mid <= 256) takes seg_fwd_bf16_kernel (at C = 7 on plain copies of
-    x), C_mid 257 and 48 channels seg_fwd_mma_kernel: all within 2e-2 of
-    max|ref| of plain, the bf16 tolerance, at the flagship's N, one row,
-    rows either side of a 128-row tile and a ragged count (ragged 384-row
+    x); up to C, C_dec <= 64 and C_mid <= 512 seg_fwd_bf16_wide_kernel
+    (C_mid 257, the 48- and 64-filter widths, C = 37 on plain copies with
+    C_mid 300 cut inside a step, C_dec 57 on eight n-tiles); 65 channels
+    and C_mid 520 seg_fwd_mma_kernel: all within 2e-2 of max|ref| of
+    plain, the bf16 tolerance, at the flagship's N, one row, rows either
+    side of a 128-row tile and a ragged count (ragged 256- and 384-row
     tiles and warps with no row); each call counted once, and two calls
     bit for bit equal."""
     assert ts.seg_fwd_route(torch.bfloat16, c, cmid, cdec).startswith(route)
@@ -388,9 +397,10 @@ def test_bf16_seg_fwd_routes_match_plain_on_card(cuda, n, c, cmid, cdec,
 @pytest.mark.cuda
 def test_seg_fwd_routes_on_card(cuda):
     """Up to 32/256/32 bf16 takes seg_fwd_bf16_kernel and float32 the
-    3xTF32 kernel; beyond any of those widths bf16 takes
-    seg_fwd_mma_kernel and float32, up to 64/512/64, the 3xTF32 kernel
-    with C_mid in chunks, beyond that the CUDA-core kernel."""
+    3xTF32 kernel; beyond any of those widths, up to 64/512/64, bf16 takes
+    seg_fwd_bf16_wide_kernel and float32 the 3xTF32 kernel with C_mid in
+    chunks; beyond that bf16 seg_fwd_mma_kernel and float32 the CUDA-core
+    kernel."""
     for widths in ((32, 256, 25), (1, 1, 1), (32, 256, 32), (33, 256, 25),
                    (32, 257, 25), (32, 256, 33), (64, 512, 64),
                    (65, 512, 51), (64, 513, 51), (64, 512, 65),
@@ -398,7 +408,7 @@ def test_seg_fwd_routes_on_card(cuda):
         tc = widths[0] <= 32 and widths[1] <= 256 and widths[2] <= 32
         wide = widths[0] <= 64 and widths[1] <= 512 and widths[2] <= 64
         assert ts.seg_fwd_route(torch.bfloat16, *widths) == \
-            ts.SEG_FWD_ROUTES[3 if tc else 1], widths
+            ts.SEG_FWD_ROUTES[3 if tc else 5 if wide else 1], widths
         assert ts.seg_fwd_route(torch.float32, *widths) == \
             ts.SEG_FWD_ROUTES[2 if tc else 4 if wide else 0], widths
 
@@ -422,17 +432,21 @@ def test_f32_seg_fwd_on_card_takes_views_at_any_alignment(cuda, c, offset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,offset", [(32, 1), (32, 4), (32, 8), (8, 1),
-                                      (7, 3)],
+                                      (7, 3), (64, 1), (64, 8), (48, 5),
+                                      (37, 3)],
                          ids=["c32_off1", "c32_off4", "c32_off8", "c8_off1",
-                              "c7_off3"])
+                              "c7_off3", "c64_off1", "c64_off8", "c48_off5",
+                              "c37_off3"])
 def test_bf16_seg_fwd_on_card_takes_views_at_any_alignment(cuda, c, offset):
     """bf16 x as a contiguous view `offset` elements into a larger buffer:
     off the 16-byte grid (plain copies) or on it (16-byte cp.async where C
-    is a multiple of 8), at 1,000 rows, on seg_fwd_bf16_kernel."""
-    assert ts.seg_fwd_route(torch.bfloat16, c, 256, 25).startswith(
-        "seg_fwd_bf16_kernel")
+    is a multiple of 8), at 1,000 rows: on seg_fwd_bf16_kernel up to 32
+    channels (32/256/25), on seg_fwd_bf16_wide_kernel beyond (C/512/51)."""
+    cmid, cdec = (256, 25) if c <= 32 else (512, 51)
+    assert ts.seg_fwd_route(torch.bfloat16, c, cmid, cdec).startswith(
+        "seg_fwd_bf16_kernel" if c <= 32 else "seg_fwd_bf16_wide_kernel")
     n = 1000
-    w1, b1, w2, b2, _, _ = params(c, 256, 25, device=cuda,
+    w1, b1, w2, b2, _, _ = params(c, cmid, cdec, device=cuda,
                                   dtype=torch.bfloat16)
     x = torch.randn(n * c + offset, device=cuda).bfloat16()[offset:] \
         .view(n, c)

@@ -249,6 +249,17 @@ def synthetic_trace(steps, per_step, dgrad_dims):
     return ev
 
 
+@pytest.mark.parametrize("inst", ["3, 5", "4, 7", "4, 8"])
+def test_bf16_wide_seg_fwd_files_under_seg_fwd(inst):
+    """Each instantiation of seg_fwd_bf16_wide_kernel, the bf16 seg_fwd of
+    the 48- and 64-filter widths, is a seg_fwd launch, no part's tail, and
+    a kernel of the t stack."""
+    name = NS + f"seg_fwd_bf16_wide_kernel<{inst}>" + ARGS
+    assert rf.hand_kernel(name) == ("seg_fwd", None)
+    assert not rf.is_tail(name)
+    assert rf.t_kernel_of(name) == "seg_fwd"
+
+
 def test_trace_reader_files_every_launch_and_gives_the_shares():
     """Two steps of a "t" train step's launches: each filed under its
     kernel or part, 12 a step (the reduce under blk_bwd), 2 and 1 of the

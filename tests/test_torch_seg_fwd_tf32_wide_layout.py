@@ -195,8 +195,9 @@ def test_wide_mirror_matches_the_source():
     assert "return launch_seg_fwd_tf32_wide_as<6, 5>(" in src
     assert "if (c_dec <= 56)" in src
     assert "return launch_seg_fwd_tf32_wide_as<8, 7>(" in src
-    assert ("c_in <= SFW_CH && c_dec <= SFW_CH && c_mid <= SFW_MID\n"
-            "             ? SEG_FWD_TF32_WIDE") in src
+    assert ("const bool wide = c_in <= SFW_CH && c_dec <= SFW_CH && "
+            "c_mid <= SFW_MID;") in src
+    assert "wide ? SEG_FWD_TF32_WIDE : SEG_FWD_CUDA_CORES" in src
     assert "SEG_FWD_TF32_WIDE = 4" in src
     assert ts.SEG_FWD_ROUTES[4].startswith("seg_fwd_tf32_wide_kernel ")
 
